@@ -1,0 +1,317 @@
+"""Compile-once serving artifact on one torch device: ``CompiledLUTNet``.
+
+The port of ``repro.engine.engine``::
+
+    from repro_torch import engine
+    net = engine.load("model_a_l3.npz")          # on cuda; device="cpu" asks
+    out = net(codes)                             # (batch, n_out) int32
+    net.save("copy.npz")                         # readable by repro.engine
+
+An artifact runs one of three layouts, each through one hand-written
+kernel (``repro_torch.kernels``): ``"mixed"`` (fused, compiler-exact
+slabs), ``"uniform"`` (fused, row-stacked slabs) or ``"per_layer"`` (one
+kernel launch per layer); ``"reference"`` is the plain-torch oracle
+chain.  ``save`` / ``load`` use the reference's ``.npz`` artifact format
+(versions 1-3), so either package serves what the other wrote.
+
+``compile_network`` runs the layout ladder over raw ``(indices, table,
+bw_in)`` triples: uniform when the slabs fit the shared-memory budget,
+else per-layer.  The truth-table compiler (``optimize_level``) and the
+mixed rung it feeds are not ported yet; a level-3 artifact is compiled
+by the reference and loaded here.
+
+``stats`` is the reference's ``CompileStats`` record as the saved dict,
+written back verbatim.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch._device import resolve_device
+from repro_torch.checkpoint.ckpt import load_arrays, save_arrays
+from repro_torch.engine.autotune import ExecutionPlan
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.lut_lookup import DEFAULT_BLOCK_B, lut_lookup
+from repro_torch.kernels.lut_network import (LayerMeta, MixedGroupMeta,
+                                             MixedLayerMeta,
+                                             MixedNetworkSlabs, NetworkSlabs,
+                                             build_network_slabs,
+                                             lut_network, lut_network_mixed)
+from repro_torch.kernels.plan import (FUSED_SMEM_BUDGET_BYTES, FusedPlan,
+                                      fused_plan)
+
+# the reference's artifact format: format 2 carries the ExecutionPlan
+# record, format 3 lets mixed layer groups carry row-dedup offsets
+FORMAT_VERSION = 3
+ARTIFACT_KIND = "repro.engine.CompiledLUTNet"
+
+_M_BUILDS = obs.registry().counter(
+    "engine_builds_total", "CompiledLUTNet builds by chosen layout",
+    labels=("layout",))
+_M_SLAB_BUILD = obs.registry().histogram(
+    "engine_slab_build_seconds",
+    "host-side slab construction time per compile_network build")
+_M_LOADS = obs.registry().counter(
+    "engine_artifact_loads_total",
+    "CompiledLUTNet artifacts rebuilt from disk via engine.load")
+
+
+def compile_runs() -> int:
+    """Truth-table compiler runs issued by this engine: always 0 until the
+    compiler is ported (``compile_network(optimize_level=)`` raises)."""
+    return 0
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompiledLUTNet:
+    """An ahead-of-time compiled LUT network on one device, ready to serve.
+
+    Exactly one of ``slabs`` (mixed / uniform) and ``layers`` (per_layer /
+    reference: ``(idx, table, bw_in)`` with int32 tensors) is set.  ``plan``
+    is the :class:`ExecutionPlan` that chose the layout; ``layout`` and
+    ``block_b`` mirror it.
+    """
+
+    layout: str
+    n_in: int
+    n_out: int
+    block_b: int
+    plan: ExecutionPlan
+    stats: dict | None
+    device: torch.device
+    slabs: NetworkSlabs | MixedNetworkSlabs | None = None
+    layers: tuple[tuple[torch.Tensor, torch.Tensor, int], ...] | None = None
+
+    def __call__(self, codes) -> torch.Tensor:
+        """(batch, n_in) int codes -> (batch, n_out) int32 codes on
+        ``device``.
+
+        Ragged batches are padded with zero codes up to the next ``block_b``
+        multiple and sliced back, as in the reference.
+        """
+        codes = torch.as_tensor(codes, dtype=torch.int32,
+                                device=self.device).contiguous()
+        if codes.dim() != 2 or codes.shape[1] != self.n_in:
+            raise ValueError(
+                f"expected (batch, {self.n_in}) codes, got "
+                f"{tuple(codes.shape)}")
+        batch = codes.shape[0]
+        if batch == 0:
+            return torch.zeros((0, self.n_out), dtype=torch.int32,
+                               device=self.device)
+        padded = -(-batch // self.block_b) * self.block_b
+        if padded != batch:
+            codes = torch.cat([codes, codes.new_zeros(
+                (padded - batch, self.n_in))])
+        out = self._apply(codes)
+        return out[:batch] if padded != batch else out
+
+    def _apply(self, codes: torch.Tensor) -> torch.Tensor:
+        if self.layout == "mixed":
+            return lut_network_mixed(codes, self.slabs)
+        if self.layout == "uniform":
+            return lut_network(codes, self.slabs)
+        step = lut_lookup if self.layout == "per_layer" else ref.lut_lookup_ref
+        for idx, tab, bw in self.layers:
+            codes = step(codes, idx, tab, bw)
+        return codes
+
+    def kernel_builds(self) -> int:
+        """Kernel-library builds and loads in this process.
+
+        The port's counterpart of the reference's ``jit_cache_size``: the
+        library is built once, at the first forward on the card, so a
+        steady-state serving loop must not grow it.
+        """
+        return _build.builds()
+
+    def slab_breakdown(self) -> dict:
+        """Per-slab bytes of the chosen layout (the reference's
+        ``vmem_breakdown`` keys)."""
+        if self.slabs is not None:
+            return {**self.slabs.slab_breakdown(), "layout": self.layout}
+        idx = sum(i.numel() * i.element_size() for i, _, _ in self.layers)
+        tab = sum(t.numel() * t.element_size() for _, t, _ in self.layers)
+        return {"idx_slab_bytes": idx, "table_slab_bytes": tab,
+                "total_bytes": idx + tab, "packed_int8": False,
+                "layout": self.layout}
+
+    def save(self, path: str) -> str:
+        """Write the artifact as one ``.npz`` in the reference's format."""
+        meta: dict = {
+            "kind": ARTIFACT_KIND, "format": FORMAT_VERSION,
+            "layout": self.layout, "n_in": self.n_in, "n_out": self.n_out,
+            "block_b": self.block_b, "plan": self.plan.as_dict(),
+            "stats": self.stats,
+        }
+        s = self.slabs
+        if self.layout == "mixed":
+            arrays = {"idx_slab": s.idx_slab, "shift_slab": s.shift_slab,
+                      "width_slab": s.width_slab, "table_slab": s.table_slab}
+            meta["packed"] = s.packed
+            meta["out_perm"] = (None if s.out_perm is None
+                                else list(s.out_perm))
+            meta["layer_meta"] = [
+                {"n_out": m.n_out, "fan_in": m.fan_in,
+                 # 2-element groups: contiguous tables; a third element
+                 # carries the row-dedup flat offsets (format 3)
+                 "groups": [[g.n_out, g.entry_bits] if g.offs is None
+                            else [g.n_out, g.entry_bits, list(g.offs)]
+                            for g in m.groups]}
+                for m in s.meta]
+            meta["dedup_entries_saved"] = int(s.dedup_entries_saved)
+        elif self.layout == "uniform":
+            arrays = {"idx_slab": s.idx_slab, "table_slab": s.table_slab}
+            meta["packed"] = s.packed
+            meta["layer_meta"] = [list(m) for m in s.meta]
+        else:
+            arrays = {}
+            meta["bws"] = [int(bw) for _, _, bw in self.layers]
+            for li, (idx, tab, _) in enumerate(self.layers):
+                arrays[f"idx_{li}"] = idx
+                arrays[f"table_{li}"] = tab
+        return save_arrays(path, {k: v.cpu().numpy()
+                                  for k, v in arrays.items()}, meta)
+
+
+def load(path: str, device=None) -> CompiledLUTNet:
+    """Rebuild a ``CompiledLUTNet`` from an artifact of either package.
+
+    Reads formats 1-3 with no compiler run and no slab build; ``device``
+    defaults to ``cuda``.
+    """
+    dev = resolve_device(device)
+    arrays, meta = load_arrays(path)
+    if meta.get("kind") != ARTIFACT_KIND:
+        raise ValueError(
+            f"{path} is not a {ARTIFACT_KIND} artifact "
+            f"(kind={meta.get('kind')!r})")
+    if meta.get("format", 0) > FORMAT_VERSION:
+        raise ValueError(
+            f"{path} has artifact format {meta['format']}; this build "
+            f"reads <= {FORMAT_VERSION}")
+    pd = meta["plan"]
+    if "variant" in pd:
+        plan = ExecutionPlan.from_dict(pd)
+    else:
+        # format 1: the record is a bare FusedPlan
+        plan = ExecutionPlan.from_fused(
+            FusedPlan.from_dict(pd), meta["layout"], int(meta["block_b"]),
+            source="synthesized")
+    layout = meta["layout"]
+    slabs = None
+    layers = None
+    if layout == "mixed":
+        lm = tuple(
+            MixedLayerMeta(int(m["n_out"]), int(m["fan_in"]), tuple(
+                MixedGroupMeta(int(g[0]), int(g[1]),
+                               tuple(int(o) for o in g[2])
+                               if len(g) > 2 else None)
+                for g in m["groups"]))
+            for m in meta["layer_meta"])
+        out_perm = (None if meta["out_perm"] is None
+                    else tuple(int(p) for p in meta["out_perm"]))
+        slabs = MixedNetworkSlabs(
+            _tensor(arrays["idx_slab"], dev),
+            _tensor(arrays["shift_slab"], dev),
+            _tensor(arrays["width_slab"], dev),
+            _tensor(arrays["table_slab"], dev),
+            lm, out_perm, bool(meta["packed"]),
+            dedup_entries_saved=int(meta.get("dedup_entries_saved", 0)))
+    elif layout == "uniform":
+        lm = tuple(LayerMeta(*(int(v) for v in m))
+                   for m in meta["layer_meta"])
+        slabs = NetworkSlabs(_tensor(arrays["idx_slab"], dev),
+                             _tensor(arrays["table_slab"], dev),
+                             lm, bool(meta["packed"]))
+    elif layout in ("per_layer", "reference"):
+        layers = tuple(
+            (_tensor(arrays[f"idx_{li}"].astype(np.int32), dev),
+             _tensor(arrays[f"table_{li}"].astype(np.int32), dev), int(bw))
+            for li, bw in enumerate(meta["bws"]))
+    else:
+        raise ValueError(f"{path} has unknown layout {layout!r}")
+    _M_LOADS.inc()
+    return CompiledLUTNet(layout=layout, n_in=int(meta["n_in"]),
+                          n_out=int(meta["n_out"]),
+                          block_b=int(meta["block_b"]), plan=plan,
+                          stats=meta["stats"], device=dev, slabs=slabs,
+                          layers=layers)
+
+
+def _as_triples(layers) -> list[tuple[np.ndarray, np.ndarray, int]]:
+    out = []
+    for lay in layers:
+        if hasattr(lay, "indices") and hasattr(lay, "table"):
+            out.append((lay.indices, lay.table, int(lay.bw_in)))
+        else:
+            idx, tab, bw = lay
+            out.append((idx, tab, int(bw)))
+    if not out:
+        raise ValueError("compile_network needs at least one layer")
+    return out
+
+
+def compile_network(layers, *, optimize_level: int | None = None,
+                    in_features: int | None = None, fused: bool = True,
+                    use_pallas: bool = True, block_b: int = DEFAULT_BLOCK_B,
+                    budget_bytes: int = FUSED_SMEM_BUDGET_BYTES,
+                    device=None) -> CompiledLUTNet:
+    """Build a serving artifact from ``(indices, table, bw_in)`` triples.
+
+    ``layers`` may also be objects with ``indices``, ``table`` and
+    ``bw_in`` fields.  The reference's ladder without its compiler rung:
+
+    1. the fused uniform layout when its slabs fit ``budget_bytes`` and
+       ``fused`` is set;
+    2. otherwise one per-layer kernel launch per layer; ``use_pallas=False``
+       (the reference's name) pins the plain-torch reference chain.
+
+    ``in_features`` is the input bus width (default: the widest first-layer
+    index + 1); ``device`` defaults to ``cuda``.
+    """
+    if optimize_level is not None:
+        raise NotImplementedError(
+            "optimize_level needs the truth-table compiler, which is not "
+            "ported to repro_torch yet (a later slice); compile with "
+            "repro.engine.compile_network and load the saved artifact")
+    dev = resolve_device(device)
+    triples = _as_triples(layers)
+    if in_features is None:
+        in_features = int(np.max(np.asarray(triples[0][0]))) + 1
+    n_out = int(np.asarray(triples[-1][1]).shape[0])
+
+    cost = fused_plan(triples, budget_bytes)
+    if not use_pallas or not fused:
+        cost = dataclasses.replace(cost, fused=False,
+                                   reason="fused_disabled")
+    t0 = time.perf_counter()
+    if cost.fused:
+        slabs = build_network_slabs(triples, pack=cost.pack, device=dev)
+        _M_SLAB_BUILD.observe(time.perf_counter() - t0)
+        _M_BUILDS.labels(layout="uniform").inc()
+        return CompiledLUTNet(
+            layout="uniform", n_in=in_features, n_out=slabs.n_out,
+            block_b=block_b,
+            plan=ExecutionPlan.from_fused(cost, "uniform", block_b),
+            stats=None, device=dev, slabs=slabs)
+    built = tuple((_tensor(np.asarray(i, dtype=np.int32), dev),
+                   _tensor(np.asarray(t, dtype=np.int32), dev), int(b))
+                  for i, t, b in triples)
+    _M_SLAB_BUILD.observe(time.perf_counter() - t0)
+    layout = "per_layer" if use_pallas else "reference"
+    _M_BUILDS.labels(layout=layout).inc()
+    return CompiledLUTNet(
+        layout=layout, n_in=in_features, n_out=n_out, block_b=block_b,
+        plan=ExecutionPlan.from_fused(cost, layout, block_b),
+        stats=None, device=dev, layers=built)

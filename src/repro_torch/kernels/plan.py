@@ -1,0 +1,129 @@
+"""Layout costing for the fused kernels: ``FusedPlan`` and ``PlanVariant``.
+
+The port of ``repro.kernels.plan``'s costing half (the variant search,
+``enumerate_variants``, comes with the autotuner).  ``fused_plan`` says
+whether a stack takes a fused kernel: its projected slabs must fit
+:data:`FUSED_SMEM_BUDGET_BYTES` and every code must lie in the range both
+packages' fused layouts hold.  ``default_variant`` is the engine's
+heuristic ladder: mixed if eligible, else uniform if eligible, else the
+per-layer kernel.
+
+The budget is Hopper's, not the TPU's: a block may use 232 448 bytes of
+shared memory, of which the fused kernels' activation tile takes up to
+``ACT_SMEM_BYTES``; the slabs get the rest, so that a later kernel can
+stage them whole in shared memory.  The serialized field keeps the
+reference's name, ``vmem_budget_bytes``, so artifacts stay readable by
+both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.kernels.lut_lookup import DEFAULT_BLOCK_B
+from repro_torch.kernels.lut_network import (ACT_SMEM_BYTES,
+                                             estimate_mixed_slab_bytes,
+                                             estimate_slab_bytes)
+
+SMEM_PER_BLOCK_BYTES = 232_448
+FUSED_SMEM_BUDGET_BYTES = SMEM_PER_BLOCK_BYTES - ACT_SMEM_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """Why a stack will (or won't) take a fused kernel.
+
+    ``reason`` is ``"fused"`` (eligible), ``"slab_exceeds_smem_budget"``,
+    ``"codes_exceed_f32_exact_range"``, or ``"fused_disabled"`` when the
+    caller opted out (``fused=False`` / ``use_pallas=False``).  ``layout``
+    records which slab layout was costed.  ``vmem_budget_bytes`` holds the
+    budget the decision used (the name is the artifact format's).
+    """
+
+    fused: bool
+    reason: str
+    slab_bytes: int
+    vmem_budget_bytes: int
+    pack: bool
+    f32_exact: bool
+    layout: str = "uniform"
+
+    def as_dict(self) -> dict:
+        return {**dataclasses.asdict(self),
+                "headroom_bytes": self.vmem_budget_bytes - self.slab_bytes}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FusedPlan":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})
+
+
+def fused_plan(layers, budget_bytes: int = FUSED_SMEM_BUDGET_BYTES, *,
+               pack: bool | None = None) -> FusedPlan:
+    """Evaluate the fused-path gate without building slabs.
+
+    ``layers`` is the uniform ``(indices, table, bw_in)`` triple list or the
+    compiler's mixed-width layer tables (costed at their exact footprint).
+    ``pack`` forces the int8 table-slab choice when given.
+    """
+    layers = list(layers)
+    mixed = bool(layers) and hasattr(layers[0], "entry_bits")
+    estimate = estimate_mixed_slab_bytes if mixed else estimate_slab_bytes
+    est_bytes, use_pack, f32_exact = estimate(layers, pack)
+    if not f32_exact:
+        fused, reason = False, "codes_exceed_f32_exact_range"
+    elif est_bytes > budget_bytes:
+        fused, reason = False, "slab_exceeds_smem_budget"
+    else:
+        fused, reason = True, "fused"
+    return FusedPlan(fused, reason, est_bytes, budget_bytes, use_pack,
+                     f32_exact, "mixed" if mixed else "uniform")
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanVariant:
+    """One execution strategy: layout x block_b x pack, with its costing.
+
+    ``key`` is the stable identity timing tables are keyed on, e.g.
+    ``"mixed/b128/packed"``.
+    """
+
+    layout: str
+    block_b: int
+    pack: bool
+    cost: FusedPlan
+
+    @property
+    def key(self) -> str:
+        return (f"{self.layout}/b{self.block_b}/"
+                f"{'packed' if self.pack else 'unpacked'}")
+
+    def as_dict(self) -> dict:
+        return {"layout": self.layout, "block_b": self.block_b,
+                "pack": self.pack, "cost": self.cost.as_dict()}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PlanVariant":
+        return cls(layout=str(d["layout"]), block_b=int(d["block_b"]),
+                   pack=bool(d["pack"]),
+                   cost=FusedPlan.from_dict(d["cost"]))
+
+
+def default_variant(uniform_triples=None, mixed_tables=None, *,
+                    block_b: int = DEFAULT_BLOCK_B,
+                    budget_bytes: int = FUSED_SMEM_BUDGET_BYTES
+                    ) -> PlanVariant:
+    """The heuristic ladder: mixed if eligible, else uniform if eligible,
+    else per-layer — at ``block_b`` with auto pack."""
+    if mixed_tables is not None:
+        plan = fused_plan(list(mixed_tables), budget_bytes)
+        if plan.fused:
+            return PlanVariant("mixed", int(block_b), plan.pack, plan)
+    if uniform_triples is None:
+        raise ValueError("default_variant needs uniform_triples when the "
+                         "mixed lowering is absent or ineligible")
+    plan = fused_plan(list(uniform_triples), budget_bytes)
+    if plan.fused:
+        return PlanVariant("uniform", int(block_b), plan.pack, plan)
+    return PlanVariant("per_layer", int(block_b), False,
+                       dataclasses.replace(plan, fused=False))

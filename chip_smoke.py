@@ -6,10 +6,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100::
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
-csrc`` and serves fpga4hep model A (16 -> 64 -> 64 -> 64, fan-in 3, 3-bit
-codes) from the committed fixture (``tests/fixtures/torch_port``: the
-reference's level-3 artifact, the raw truth tables and the reference's
-outputs on 4096 seeded input rows).  Phases, each of which must pass:
+csrc`` (one ``nvcc`` per source, all at once), serves fpga4hep model A
+(16 -> 64 -> 64 -> 64, fan-in 3, 3-bit codes) from the committed fixture
+(``tests/fixtures/torch_port``: the reference's level-3 artifact, the raw
+truth tables and the reference's outputs on 4096 seeded input rows), then
+trains model A at full width, turns it into truth tables and serves them.
+Phases, each of which must pass:
 
 1. **kernels** — each of the three LUT kernels (mixed fused, uniform fused,
    per-layer) at model A's widths, at batches 0, 1, 16, 1000 and 4096,
@@ -29,6 +31,36 @@ outputs on 4096 seeded input rows).  Phases, each of which must pass:
    int32 operations over 33.5 TOP/s (half the 67 TFLOP/s fp32 CUDA-core
    rate: Hopper has 64 INT32 lanes per SM against 128 FP32).  No single PyTorch call computes
    these functions, so ``library_ms`` is null.
+4. **masked matmul** — ``masked_matmul_forward`` against its plain version
+   on the card: at model A's training shapes, at a ragged (130, 700, 50)
+   that crosses every tile edge and at (4096, 4096, 4096), in float32
+   (atol 1e-4, rtol 1e-5: another summation order) and bfloat16 (the
+   reference's atol 5e-2, rtol 1e-3, plus exactly one bfloat16 step of
+   the plain output: both round a float32 sum taken in another order);
+   masked-out weights of 1e9 must vanish exactly;
+   ``MaskedMatmulFn``'s gradients against autograd of the plain version.
+5. **training** — (a) the reference's init of model A carried in from
+   ``model_a_train.npz`` and trained 20 steps on the card: losses within
+   rtol 1e-3 of the reference's; (b) the reference's trained weights
+   carried in: truth tables generated on the card equal the reference's,
+   except at entries whose float64 value lies within 1e-5 steps of a
+   rounding half-way point (counted and printed); then, with every launch
+   counter at 0 (the main path of this slice): (c) 600 steps from the
+   port's own seeded init, 5 masked-matmul launches a step (3 forward,
+   2 input gradients), held-out accuracy within 2 points of the
+   reference's 600-step run; (d) ``verify_tables`` exact through the
+   masked-matmul kernel (float path) against the per-layer and the fused
+   uniform LUT kernels (table path); (e) the tables compiled and served
+   through ``ServingTier`` bit-exact, with zero builds and compiler runs
+   after warmup.
+6. **masked-matmul times** — event and profiler device time at model A's
+   widest layer (256 x 64 x 64, float32) and at 4096^3 (float32, bfloat16),
+   beside the plain version, ``torch.addmm(b, x, w * mask)`` with TF32 off
+   (``library_ms``, timed only as a yardstick) and the bound: the larger of
+   the bytes moved (x, w, mask, b read once, out written once) over
+   3.35 TB/s and the multiply-adds the mask keeps (2 M nnz(mask)) over
+   67 TFLOP/s (float32, CUDA cores) or 989 TFLOP/s (bfloat16); and 50
+   profiled training steps: host-clock time against device time per step.
 
 The next-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU, or outside a checkout,
@@ -50,7 +82,19 @@ BATCHES = (0, 1, 16, 1000, 4096)
 TIME_BATCHES = (16, 4096)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
+FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 SOURCE = "src/repro_torch/kernels/csrc/lut_kernels.cu"
+MM_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul.cu"
+# (atol, rtol, steps): float32, another summation order.  bfloat16: the
+# reference's atol 5e-2 / rtol 1e-3 plus exactly one bfloat16 step (unit in
+# the last place) of the plain output: kernel and plain version sum in
+# float32 in different orders and round to bfloat16 independently, so an
+# output near a rounding point may land one step apart (0.0625 at |y| in
+# [8, 16))
+MM_TOL = {"float32": (1e-4, 1e-5, 0), "bfloat16": (5e-2, 1e-3, 1)}
+TRAIN_STEPS = 600
+ACCURACY_POINTS = 0.02
+BOUNDARY_STEPS = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -101,6 +145,321 @@ def device_ms(fn, iters: int) -> float | None:
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
+def boundary_steps(cfg, model) -> list:
+    """Per sparse layer, (O, E): how far each truth-table entry's float64
+    value lies from a rounding half-way point of its output quantizer, in
+    quantizer steps (0.5 = on a code)."""
+    import numpy as np
+
+    from repro_torch.core.sparsity import mask_to_indices
+    cfgs = cfg.layer_cfgs()
+    out = []
+    for i, layer in enumerate(model[:len(cfgs) - 1]):
+        c, q = cfgs[i], cfgs[i + 1].in_quant
+        p, st = layer["params"], layer["bn_state"]
+        idx = mask_to_indices(layer["mask"])
+        w = (p["w"] * layer["mask"]).astype(np.float64)
+        wj = np.take_along_axis(w, idx.T, axis=0).T           # (O, fi)
+        scale = (p["bn"]["scale"].astype(np.float64)
+                 / np.sqrt(st["var"].astype(np.float64) + 1e-5))
+        bias = p["bn"]["bias"] - st["mean"].astype(np.float64) * scale
+        ids = np.arange(2 ** (c.fan_in * c.bw_in))
+        digits = (ids[:, None] >> (c.bw_in * np.arange(c.fan_in))) & (
+            2 ** c.bw_in - 1)
+        vals = digits * np.float64(np.float32(c.in_quant.step))
+        y = (vals @ wj.T + p["b"].astype(np.float64)) * scale + bias
+        u = np.clip(y, 0.0, q.max_val) / np.float64(np.float32(q.step))
+        out.append(np.abs(u - np.floor(u) - 0.5).T)
+    return out
+
+
+def mm_limit(torch, want, atol, rtol, steps):
+    """atol + rtol |want| + ``steps`` units in the last place of ``want``'s
+    dtype at |want|, elementwise, in float32."""
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.full_like(w, torch.finfo(want.dtype).eps / 2), e)
+    return atol + rtol * w.abs() + steps * ulp
+
+
+def mm_inputs(torch, dev, m, k, n, dtype, mask=None, seed=0):
+    """Seeded (x, w, mask, b) on the card in ``dtype``; ``mask`` defaults to
+    a random half of the weights."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, n), generator=g, device=dev)
+    if mask is None:
+        mask = torch.rand((k, n), generator=g, device=dev) < 0.5
+    b = torch.randn((n,), generator=g, device=dev)
+    dt = getattr(torch, dtype)
+    return [t.to(device=dev, dtype=dt) for t in (x, w, mask, b)]
+
+
+def model_a_masks():
+    """The a-priori fan-in masks of model A's layers 0 and 1 (16 -> 64 and
+    64 -> 64, fan-in 3), as the training path draws them."""
+    from repro_torch.core.sparsity import apriori_mask
+    return apriori_mask(0, 16, 64, 3), apriori_mask(1, 64, 64, 3)
+
+
+def masked_matmul_phase(torch, dev) -> dict:
+    """Phase 4: the masked-matmul kernel against its plain version."""
+    from repro_torch.kernels.masked_matmul import (MaskedMatmulFn,
+                                                   masked_matmul,
+                                                   masked_matmul_plain)
+    m0, m1 = model_a_masks()
+    cases = [(256, 16, 64, "float32", m0), (256, 64, 64, "float32", m1),
+             (130, 700, 50, "float32", None), (130, 700, 50, "bfloat16", None),
+             (4096, 4096, 4096, "float32", None),
+             (4096, 4096, 4096, "bfloat16", None)]
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (m, k, n, dtype, mask) in enumerate(cases):
+        x, w, mk, b = mm_inputs(torch, dev, m, k, n, dtype, mask, seed=i)
+        atol, rtol, steps = MM_TOL[dtype]
+        for bias in (b, None):
+            before = masked_matmul.launches
+            got = masked_matmul(x, w, mk, bias)
+            want = masked_matmul_plain(x, w, mk, bias)
+            torch.cuda.synchronize()
+            if masked_matmul.launches != before + 1:
+                fail(f"masked_matmul {m}x{k}x{n} {dtype}: kernel not launched")
+            if got.dtype != x.dtype or got.shape != (m, n):
+                fail(f"masked_matmul {m}x{k}x{n} {dtype}: gave {got.dtype} "
+                     f"{tuple(got.shape)}")
+            diff = (got.float() - want.float()).abs()
+            if bool((diff > mm_limit(torch, want, atol, rtol, steps)).any()):
+                fail(f"masked_matmul {m}x{k}x{n} {dtype}: max |kernel - "
+                     f"plain| {float(diff.max())} beyond atol {atol} rtol "
+                     f"{rtol} + {steps} {dtype} step")
+            errs[dtype] = max(errs[dtype], float(diff.max()))
+        log(f"phase 4 masked_matmul {m}x{k}x{n} {dtype}: max |kernel - plain| "
+            f"{errs[dtype]:.3g} (atol {atol}, rtol {rtol}, + {steps} step)")
+    x = torch.ones((4, 8), device=dev)
+    w = torch.full((8, 4), 1e9, device=dev)
+    mask = torch.zeros((8, 4), device=dev)
+    mask[0] = 1.0
+    if not bool((masked_matmul(x, w, mask) == 1e9).all()):
+        fail("masked_matmul: masked-out weights of 1e9 leaked into the sum")
+    x, w, mask, b = mm_inputs(torch, dev, 256, 64, 64, "float32", m1, seed=9)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    plain = [t.clone().requires_grad_() for t in (x, w, b)]
+    before = masked_matmul.launches
+    MaskedMatmulFn.apply(leaves[0], leaves[1], mask,
+                         leaves[2]).square().sum().backward()
+    masked_matmul_plain(plain[0], plain[1], mask,
+                        plain[2]).square().sum().backward()
+    torch.cuda.synchronize()
+    if masked_matmul.launches != before + 2:
+        fail("MaskedMatmulFn: expected one forward and one dx launch")
+    for name, a, p in zip(("dx", "dw", "db"), leaves, plain):
+        diff = (a.grad - p.grad).abs()
+        if bool((diff > 1e-4 + 1e-5 * p.grad.abs()).any()):
+            fail(f"MaskedMatmulFn {name}: max |kernel - plain| "
+                 f"{float(diff.max())}")
+        errs["float32"] = max(errs["float32"], float(diff.max()))
+    log("phase 4 masked_matmul: mask exact; MaskedMatmulFn dx, dw, db "
+        "within atol 1e-4 of autograd of the plain version")
+    return {"max_abs_err": errs["float32"],
+            "max_abs_err_bf16": errs["bfloat16"]}
+
+
+def training_phase(torch, dev, kernels) -> dict:
+    """Phase 5: train model A on the card, make tables, verify, serve."""
+    import numpy as np
+
+    from repro_torch import engine, serve
+    from repro_torch.configs import fpga4hep
+    from repro_torch.core import logicnet as LN
+    from repro_torch.core.train import auc_roc_ovr, train_logicnet
+    from repro_torch.data import jet_substructure_data
+    from repro_torch.kernels.lut_lookup import lut_lookup
+    from repro_torch.kernels.lut_network import lut_network
+    from repro_torch.kernels.masked_matmul import masked_matmul
+
+    with np.load(FIXTURE / "model_a_train.npz") as z:
+        fx = {k: z[k] for k in z.files}
+    cfg = fpga4hep.model_a()
+    x, y = jet_substructure_data(8000, seed=0)
+    xt, yt, xv, yv = x[:7000], y[:7000], x[7000:], y[7000:]
+
+    # (a) the reference's init, 20 steps
+    ref_losses = fx["losses"].astype(np.float64)
+    res = train_logicnet(cfg, xt, yt, xv, yv, steps=len(ref_losses), seed=0,
+                         device=dev, net=LN.from_reference(
+                             cfg, LN.reference_from_arrays(fx, "init"), device=dev))
+    rel = float(np.max(np.abs(np.asarray(res.losses) - ref_losses)
+                       / np.abs(ref_losses)))
+    if not rel <= 1e-3:
+        fail(f"20-step losses differ from the reference's by rtol {rel}")
+    log(f"phase 5a {len(ref_losses)} steps from the reference's init: losses "
+        f"within rtol {rel:.3g} of the reference's (limit 1e-3); first "
+        f"{res.losses[0]:.6f} last {res.losses[-1]:.6f}")
+
+    # (b) the reference's trained weights -> tables on the card
+    trained = LN.reference_from_arrays(fx, "trained")
+    tables = LN.generate_tables(LN.from_reference(cfg, trained, device=dev))
+    dist = boundary_steps(cfg, trained)
+    near = int(sum(int((d < BOUNDARY_STEPS).sum()) for d in dist))
+    mismatched = 0
+    for i, tt in enumerate(tables):
+        if not np.array_equal(tt.indices, fx[f"idx_{i}"]):
+            fail(f"layer {i}: fan-in indices differ from the reference's")
+        ne = tt.table != fx[f"table_{i}"]
+        if bool((ne & (dist[i] >= BOUNDARY_STEPS)).any()):
+            fail(f"layer {i}: {int(ne.sum())} table entries differ from the "
+                 f"reference's away from a rounding half-way point")
+        mismatched += int(ne.sum())
+    log(f"phase 5b tables from the reference's trained weights: "
+        f"{sum(t.table.size for t in tables)} entries, {mismatched} differ "
+        f"from the reference's; {near} entries lie within {BOUNDARY_STEPS} "
+        f"steps of a half-way point")
+
+    # (c)-(e): the main path of this slice, every launch counter at 0
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    masked_matmul.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_logicnet(cfg, xt, yt, xv, yv, steps=TRAIN_STEPS, seed=0,
+                         device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = masked_matmul.launches
+    # 3 forward + 2 input gradients a step, then the 3 sparse layers of
+    # the held-out accuracy forward
+    if train_launches != 5 * TRAIN_STEPS + 3:
+        fail(f"training launched masked_matmul {train_launches} times; "
+             f"expected {5 * TRAIN_STEPS + 3}")
+    if not np.isfinite(res.losses).all():
+        fail("training produced a non-finite loss")
+    ref_acc = float(fx["accuracy_600"])
+    if abs(res.accuracy - ref_acc) > ACCURACY_POINTS:
+        fail(f"accuracy {res.accuracy:.4f} after {TRAIN_STEPS} steps is more "
+             f"than 2 points from the reference's {ref_acc:.4f}")
+    aucs = auc_roc_ovr(res.model, xv, yv)
+    log(f"phase 5c {TRAIN_STEPS} steps from the port's own init: "
+        f"{train_s / TRAIN_STEPS * 1e3:.3f} ms/step (host clock, synchronised, "
+        f"held-out accuracy included), masked_matmul "
+        f"{train_launches} launches ({train_launches / TRAIN_STEPS:.3f}/step); "
+        f"loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f}; accuracy "
+        f"{res.accuracy:.4f} vs the reference's {ref_acc:.4f}; AUC "
+        + " ".join(f"{a * 100:.2f}" for a in aucs.values()))
+
+    tables = LN.generate_tables(res.model)
+    for fused, wrapper in ((False, lut_lookup), (True, lut_network)):
+        before = wrapper.launches
+        f_codes, t_codes = LN.verify_tables(res.model, tables, xv[:200],
+                                            fused=fused)
+        torch.cuda.synchronize()
+        if wrapper.launches == before:
+            fail(f"verify_tables fused={fused}: LUT kernel not launched")
+        if f_codes.device.type != dev.type or not torch.equal(f_codes, t_codes):
+            bad = (f_codes != t_codes).any(1).nonzero().flatten().tolist()
+            fail(f"verify_tables fused={fused}: not exact on rows {bad}")
+    log("phase 5d verify_tables on 200 held-out rows: EXACT, float path "
+        "through masked_matmul_forward, table path through "
+        "lut_layer_forward and lut_uniform_forward")
+
+    net = engine.compile_network(tables, in_features=cfg.in_features,
+                                 device=dev)
+    if net.layout != "uniform":
+        fail(f"the trained tables compiled to {net.layout}, not uniform")
+    rep = serve.run_closed_loop(net, n_clients=4, n_per_client=4, rows_min=1,
+                                rows_max=8, bw=3, seed=0)
+    st = rep.stats
+    if st["retraces_after_warmup"] or st["compiler_runs_after_warmup"]:
+        fail(f"serving the trained model: compile-once contract broken: {st}")
+    if not kernels["uniform"]["wrapper"].launches:
+        fail("serving the trained model launched no uniform kernel")
+    log(f"phase 5e trained model served: {rep.n_requests} requests "
+        f"({rep.rows} rows) bit-exact, p50={rep.p50_ms:.3f} ms "
+        f"p99={rep.p99_ms:.3f} ms, retraces={st['retraces_after_warmup']} "
+        f"compiler_runs={st['compiler_runs_after_warmup']}")
+    launches = masked_matmul.launches
+    log(f"phase 5 main path launches: masked_matmul_forward {launches}, "
+        f"lut_layer_forward {lut_lookup.launches}, lut_uniform_forward "
+        f"{lut_network.launches}")
+    return {"launches": launches, "loss_rtol_20": rel,
+            "table_mismatches": mismatched, "boundary_entries": near,
+            "train_step_ms": train_s / TRAIN_STEPS * 1e3,
+            "launches_per_step": (train_launches - 3) / TRAIN_STEPS,
+            "accuracy": res.accuracy}
+
+
+def masked_matmul_times(torch, dev, mm: dict) -> dict:
+    """Phase 6: masked-matmul times beside the plain version, the library
+    call and the bound; returns the kernel's record."""
+    from repro_torch.kernels.masked_matmul import (masked_matmul,
+                                                   masked_matmul_plain)
+    rec = {"name": "masked_matmul_forward", "route": "cuda",
+           "source": MM_SOURCE,
+           "replaces": "src/repro/kernels/masked_matmul.py:23", **mm,
+           "shape": [256, 64, 64]}
+    cases = (("", 256, 64, 64, "float32", model_a_masks()[1], 200),
+             ("_4096_f32", 4096, 4096, 4096, "float32", None, 3),
+             ("_4096_bf16", 4096, 4096, 4096, "bfloat16", None, 3))
+    for suffix, m, k, n, dtype, mask, iters in cases:
+        x, w, mk, b = mm_inputs(torch, dev, m, k, n, dtype, mask)
+        ms = cuda_ms(lambda: masked_matmul(x, w, mk, b), iters)
+        plain_ms = cuda_ms(lambda: masked_matmul_plain(x, w, mk, b), iters)
+        library_ms = cuda_ms(lambda: torch.addmm(b, x, w * mk), iters)
+        dev_ms = device_ms(lambda: masked_matmul(x, w, mk, b), iters)
+        moved = nbytes(x, w, mk, b) + m * n * x.element_size()
+        ops = 2 * m * int(mk.count_nonzero())
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FLOPS_PER_S[dtype] * 1e3
+        rec.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                    f"device_ms{suffix}": dev_ms,
+                    f"library_ms{suffix}": library_ms,
+                    f"bound_ms{suffix}": max(bytes_ms, ops_ms),
+                    f"bound_by{suffix}": ("bytes" if bytes_ms >= ops_ms
+                                          else "operations")})
+        log(f"phase 6 masked_matmul_forward {m}x{k}x{n} {dtype}: {ms:.5f} "
+            f"ms/call, device {dev_ms} ms, plain {plain_ms:.5f} ms, addmm "
+            f"{library_ms:.5f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
+            f"({moved} B, {ops} flop)")
+    return rec
+
+
+def training_profile(torch, dev, steps: int = 50) -> dict:
+    """Where a training step's time goes: host-clock time per step against
+    the device time ``torch.profiler`` records per step, all kernels and
+    the masked matmul's alone (model A, batch 256, from the port's init)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import fpga4hep
+    from repro_torch.core.train import train_logicnet
+    from repro_torch.data import jet_substructure_data
+    x, y = jet_substructure_data(8000, seed=0)
+    args = (fpga4hep.model_a(), x[:7000], y[:7000], x[7000:], y[7000:])
+    train_logicnet(*args, steps=5, seed=0, device=dev)       # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_logicnet(*args, steps=steps, seed=0, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    events = prof.key_averages()
+    total = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    mm = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+             if "masked_matmul_kernel" in e.key)
+    if not total:
+        fail("the profiler recorded no device time for training steps")
+    out = {"train_wall_ms": wall_ms,
+           "train_device_ms": total / steps / 1e3,
+           "train_mm_device_ms": mm / steps / 1e3}
+    out["train_idle_share"] = 1 - out["train_device_ms"] / wall_ms
+    if out["train_idle_share"] < 0:
+        fail(f"the profiler's device time per step "
+             f"({out['train_device_ms']} ms) exceeds the host-clock time "
+             f"({wall_ms} ms): it counts some kernel time twice")
+    log(f"phase 6 training step ({steps} steps, profiled): {wall_ms:.3f} ms "
+        f"host clock, {out['train_device_ms']:.4f} ms device "
+        f"(masked_matmul_forward {out['train_mm_device_ms']:.4f} ms), "
+        f"device idle {out['train_idle_share'] * 100:.1f} %")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -121,6 +480,9 @@ def main() -> None:
                                                  lut_network_plain)
 
     dev = torch.device("cuda")
+    # float32 products stay float32 everywhere (library yardstick included)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -272,6 +634,11 @@ def main() -> None:
         rec["library_ms"] = None
         rec["batch"] = TIME_BATCHES[0]
         records.append(rec)
+
+    mm = masked_matmul_phase(torch, dev)
+    mm.update(training_phase(torch, dev, kernels))
+    records.append(masked_matmul_times(torch, dev, mm))
+    records[-1].update(training_profile(torch, dev))
 
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

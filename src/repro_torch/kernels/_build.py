@@ -1,12 +1,14 @@
-"""Build and load the hand-written Hopper LUT kernels (``csrc/*.cu``).
+"""Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
-The CUDA source has a plain ``extern "C"`` interface, so it is compiled
-with ``nvcc`` alone into a shared library and bound with ``ctypes``:
+Every CUDA source has a plain ``extern "C"`` interface, so each is
+compiled with ``nvcc`` alone (all of them at once, one process each) and
+the objects are linked into one shared library bound with ``ctypes``:
 seconds to build, where a source that includes PyTorch's headers takes
 minutes.  The library is built at first use, never at import, into
 ``build/repro_torch_kernels/`` at the root of the checkout (``build/`` is
-listed in ``.gitignore``), under a name keyed by the source's hash, so a
-changed source is rebuilt and an unchanged one is loaded as it is.
+listed in ``.gitignore``), under a name keyed by the hash of every source
+and the flags, so a changed source is rebuilt and an unchanged set is
+loaded as it is.
 
 A failed build raises; nothing here falls back to the plain versions.
 """
@@ -22,10 +24,9 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "lut_kernels.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,7 @@ _SIGNATURES = {
     "lut_uniform_forward": (_P, _I, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I,
                             _I, _I, _P, _P),
     "lut_layer_forward": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P),
+    "masked_matmul_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -56,28 +58,55 @@ def _nvcc() -> str:
                        "toolkit on PATH or under /usr/local/cuda")
 
 
+def sources() -> list[Path]:
+    """Every CUDA source of the library, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"liblut_kernels_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc_all(cmds: list[list[str]]) -> str:
+    """Run the ``nvcc`` commands at once; raise naming the first that
+    failed, else return their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, logs):
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(logs)
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/lut_kernels.cu`` unless its library already exists."""
+    """Compile every ``csrc/*.cu`` unless their library already exists.
+
+    Each source compiles in its own ``nvcc`` process, all started
+    together; one more ``nvcc`` links the objects.
+    """
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
+    tag = f"{BUILD_DIR / out.stem}.{os.getpid()}"
+    nvcc, ptxas = _nvcc(), (["-Xptxas", "-v"] if verbose else [])
+    srcs = sources()
+    objs = [f"{tag}.{src.stem}.o" for src in srcs]
+    log = _nvcc_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)]
+                     for obj, src in zip(objs, srcs)])
+    log += _nvcc_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tag}.tmp",
+                       *objs]])
+    for obj in objs:
+        os.unlink(obj)
     if verbose:
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, out)
+        print(log, end="")
+    os.replace(f"{tag}.tmp", out)
     return out
 
 

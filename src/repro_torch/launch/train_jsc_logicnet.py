@@ -1,0 +1,109 @@
+"""The paper's flow on the FPGA4HEP task (thesis ch. 6), on one GPU:
+``python -m repro_torch.launch.train_jsc_logicnet``.
+
+Select a Table 6.1 model (A-E) and a sparsity method, train, report
+per-class AUC-ROC and accuracy, verify the truth tables exactly against
+the float path, compare the analytical LUT cost with the
+logic-minimization proxy (Table 5.2), compile the tables into a serving
+artifact and check it against the table codes::
+
+    # train model A on the card and keep its serving artifact
+    python -m repro_torch.launch.train_jsc_logicnet --model A \\
+        --method apriori --steps 600 --out /tmp/logicnet_a
+    python -m repro_torch.launch.serve --lut \\
+        --artifact /tmp/logicnet_a/logicnet_A.npz --input-bw 3
+
+    # a few steps on the CPU (plain PyTorch versions of the kernels)
+    python -m repro_torch.launch.train_jsc_logicnet --steps 5 --device cpu
+
+The truth-table compiler (``--optimize-level``) and Verilog output of
+``examples/train_jsc_logicnet.py`` wait for their modules' port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+CLASSES = ["g", "q", "W", "Z", "t"]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--model", default="A", choices=list("ABCDE"))
+    ap.add_argument("--method", default="apriori",
+                    choices=["apriori", "iterative", "momentum"])
+    ap.add_argument("--steps", type=int, default=600)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help="directory for the serving artifact "
+                    "logicnet_<model>.npz")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                    "kernels' plain PyTorch versions)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from repro_torch import engine
+    from repro_torch._device import resolve_device
+    from repro_torch.configs import fpga4hep
+    from repro_torch.core import logicnet as LN
+    from repro_torch.core.quantize import codes
+    from repro_torch.core.train import auc_roc_ovr, train_logicnet
+    from repro_torch.core.truth_table import minimized_lut_estimate
+    from repro_torch.data import jet_substructure_data
+
+    dev = resolve_device(args.device)
+    cfg = fpga4hep.MODELS[args.model]()
+    print(f"model {args.model}: HL={cfg.hidden} BW={cfg.bw} X={cfg.fan_in} "
+          f"LUTs={cfg.luts()} (total {cfg.total_luts()}) on {dev}")
+
+    x, y = jet_substructure_data(8000, seed=0)
+    xt, yt, xv, yv = x[:7000], y[:7000], x[7000:], y[7000:]
+    res = train_logicnet(cfg, xt, yt, xv, yv, method=args.method,
+                         steps=args.steps, seed=args.seed, device=dev)
+    aucs = auc_roc_ovr(res.model, xv, yv)
+    for c, name in enumerate(CLASSES):
+        print(f"  AUC-ROC[{name}] = {aucs[c] * 100:.2f}")
+    print(f"  avg AUC-ROC = {np.nanmean(list(aucs.values())) * 100:.2f}   "
+          f"accuracy = {res.accuracy:.3f}")
+
+    tables = LN.generate_tables(res.model)
+    f_codes, t_codes = LN.verify_tables(res.model, tables, xv[:200])
+    if not torch.equal(f_codes, t_codes):
+        raise SystemExit("truth-table verification failed")
+    print("truth-table functional verification: EXACT")
+
+    analytical = sum(cfg.luts()[:len(tables)])
+    minimized = sum(minimized_lut_estimate(t) for t in tables)
+    print(f"analytical LUTs {analytical} vs minimization proxy "
+          f"{minimized} ({analytical / max(minimized, 1):.2f}x reduction; "
+          "Vivado synthesis lands lower still, Table 5.2)")
+
+    net = engine.compile_network(tables, in_features=cfg.in_features,
+                                 device=dev)
+    bd = net.slab_breakdown()
+    print(f"serving artifact: layout={net.layout} "
+          f"table slab {bd['table_slab_bytes']} B "
+          f"(total {bd['total_bytes']} B)")
+    in_codes = codes(cfg.layer_cfgs()[0].in_quant,
+                     torch.as_tensor(xv[:200], device=dev))
+    if not torch.equal(net(in_codes), t_codes):
+        raise SystemExit("serving artifact verification failed")
+    print("serving artifact verification: EXACT")
+
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        apath = net.save(os.path.join(args.out,
+                                      f"logicnet_{args.model}.npz"))
+        print(f"wrote serving artifact {apath} (python -m "
+              f"repro_torch.launch.serve --lut --artifact {apath} serves it)")
+
+
+if __name__ == "__main__":
+    main()

@@ -25,8 +25,12 @@ import torch
 from torch_port_util import ARTIFACT, ROOT, SRC, random_stack
 
 from repro_torch import engine, resolve_device
+from repro_torch.configs import fpga4hep
+from repro_torch.core import logicnet as LN
+from repro_torch.core.train import train_logicnet
 from repro_torch.kernels import lut_network as P
 from repro_torch.kernels.lut_lookup import lut_lookup
+from repro_torch.kernels.masked_matmul import masked_matmul
 
 PORT = pathlib.Path(SRC) / "repro_torch"
 
@@ -92,15 +96,23 @@ def test_default_device_is_cuda():
         assert resolve_device().type == "cuda"
         assert engine.load(ARTIFACT).device.type == "cuda"
         return
+    cfg = fpga4hep.model_a()
     for call in (resolve_device, lambda: engine.load(ARTIFACT),
                  lambda: engine.compile_network(layers),
-                 lambda: P.build_network_slabs(layers)):
+                 lambda: P.build_network_slabs(layers),
+                 lambda: LN.init(cfg, torch.Generator()),
+                 lambda: train_logicnet(cfg, None, None, None, None)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--lut",
          "--artifact", ARTIFACT, "--smoke"], env=_env(),
         capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and 'device="cpu"' in proc.stderr
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train_jsc_logicnet",
+         "--steps", "1"], env=_env(), capture_output=True, text=True,
+        timeout=120)
     assert proc.returncode != 0 and 'device="cpu"' in proc.stderr
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
@@ -120,12 +132,17 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="cuda or cpu"):
         P.lut_network_mixed(torch.empty((4, 16), dtype=torch.int32,
                                         device="meta"), ms)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        masked_matmul(*(torch.empty((4, 4), device="meta")
+                        for _ in range(3)))
     launches = (lut_lookup.launches, P.lut_network.launches,
-                P.lut_network_mixed.launches)
+                P.lut_network_mixed.launches, masked_matmul.launches)
     x = torch.zeros((2, 8), dtype=torch.int32)
     assert P.lut_network(x, us).shape == (2, 6)
     assert lut_lookup(x, torch.from_numpy(idx), torch.from_numpy(tab),
                       bw).shape == (2, 6)
+    assert masked_matmul(torch.ones(2, 3), torch.ones(3, 4),
+                         torch.ones(3, 4)).shape == (2, 4)
     # the plain versions are not kernel launches
     assert launches == (lut_lookup.launches, P.lut_network.launches,
-                        P.lut_network_mixed.launches)
+                        P.lut_network_mixed.launches, masked_matmul.launches)

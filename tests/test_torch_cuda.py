@@ -2,20 +2,32 @@
 -m cuda tests/test_torch_cuda.py`` (torch and numpy only, so it runs where
 JAX is not installed).  Without a CUDA device every test here skips.
 
-Each kernel must be bit-exact (tolerance 0: integer codes) with its plain
-version on the same CUDA tensors, count one launch per call, and refuse
-tensors it cannot take.
+Each LUT kernel must be bit-exact (tolerance 0: integer codes) with its
+plain version on the same CUDA tensors, count one launch per call, and
+refuse tensors it cannot take.  The masked matmul is held to its plain
+version within float32 atol 1e-4 / rtol 1e-5 (another summation order)
+and bfloat16 atol 5e-2 / rtol 1e-3 plus exactly one bfloat16 step of the
+plain output (the reference's tolerance; the step because both round a
+float32 sum taken in another order); training on the card
+is held to the same steps on the CPU within rtol 1e-3.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from torch_port_util import ARTIFACT, codes, load_ref, random_stack
+from torch_port_util import (ARTIFACT, codes, load_ref, load_train,
+                             random_stack)
 
 from repro_torch import engine
 from repro_torch.kernels import lut_network as P
+from repro_torch.configs import fpga4hep
+from repro_torch.core import logicnet as LN
+from repro_torch.core.train import train_logicnet
+from repro_torch.data import jet_substructure_data
 from repro_torch.kernels.lut_lookup import lut_lookup, lut_lookup_plain
+from repro_torch.kernels.masked_matmul import (MaskedMatmulFn, masked_matmul,
+                                               masked_matmul_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +110,97 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(dev):
     us = P.build_network_slabs([(idx, tab, bw)], device="cpu")
     with pytest.raises(ValueError, match="slabs on"):
         P.lut_network(x, us)
+
+
+
+def _mm_inputs(dev, m, k, n, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x, w, b = (rng.standard_normal(s).astype(np.float32)
+               for s in ((m, k), (k, n), (n,)))
+    mask = (rng.random((k, n)) < 0.4).astype(np.float32)
+    return [t.to(dtype) for t in _on(dev, x, w, mask, b)]
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 16, 64), (256, 64, 64),
+                                   (130, 700, 50), (1, 1, 1), (65, 129, 63)])
+@pytest.mark.parametrize("dtype,atol,rtol,steps",
+                         [(torch.float32, 1e-4, 1e-5, 0),
+                          (torch.bfloat16, 5e-2, 1e-3, 1)])
+def test_masked_matmul_matches_plain(dev, m, k, n, dtype, atol, rtol, steps):
+    x, w, mask, b = _mm_inputs(dev, m, k, n, dtype, seed=m + k + n)
+    for bias in (b, None):
+        before = masked_matmul.launches
+        got = masked_matmul(x, w, mask, bias)
+        torch.cuda.synchronize()
+        assert masked_matmul.launches == before + 1
+        assert got.dtype == dtype and got.shape == (m, n)
+        want = masked_matmul_plain(x, w, mask, bias).float()
+        # ``steps`` units in the last place of the output dtype at |want|
+        _, e = torch.frexp(want)
+        ulp = torch.ldexp(torch.full_like(want, torch.finfo(dtype).eps / 2),
+                          e)
+        diff = (got.float() - want).abs()
+        limit = atol + rtol * want.abs() + steps * ulp
+        assert (diff <= limit).all(), float((diff - limit).max())
+
+
+def test_masked_matmul_mask_is_exact(dev):
+    x = torch.ones((4, 8), device=dev)
+    w = torch.full((8, 4), 1e9, device=dev)
+    mask = torch.zeros((8, 4), device=dev)
+    mask[0] = 1.0
+    assert (masked_matmul(x, w, mask) == 1e9).all()
+
+
+def test_masked_matmul_backward_launches_dx_only_when_needed(dev):
+    x, w, mask, b = _mm_inputs(dev, 256, 64, 64, torch.float32)
+    for x_grad, launches in ((False, 1), (True, 2)):
+        # fresh leaves each pass, so no gradient carries over
+        xi, wi, bi = (t.clone().requires_grad_(g)
+                      for t, g in ((x, x_grad), (w, True), (b, True)))
+        before = masked_matmul.launches
+        MaskedMatmulFn.apply(xi, wi, mask, bi).square().sum().backward()
+        torch.cuda.synchronize()
+        assert masked_matmul.launches == before + launches
+        # the gradients equal autograd of the plain version
+        xp, wp, bp = (t.clone().requires_grad_() for t in (x, w, b))
+        masked_matmul_plain(xp, wp, mask, bp).square().sum().backward()
+        pairs = [(wi, wp), (bi, bp)] + ([(xi, xp)] if x_grad else [])
+        for got, want in pairs:
+            torch.testing.assert_close(got.grad, want.grad, atol=1e-4,
+                                       rtol=1e-5)
+        assert x_grad or xi.grad is None
+
+
+def test_masked_matmul_refuses_what_the_kernel_cannot_take(dev):
+    x, w, mask, b = _mm_inputs(dev, 8, 6, 4, torch.float32)
+    with pytest.raises(TypeError, match="dtype"):
+        masked_matmul(x, w.bfloat16(), mask, b)
+    with pytest.raises(TypeError, match="dtype"):
+        masked_matmul(x.double(), w.double(), mask.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        masked_matmul(x, w.T.contiguous().T, mask, b)
+    with pytest.raises(ValueError, match="expected"):
+        masked_matmul(x, w.cpu(), mask, b)
+    with pytest.raises(ValueError, match="chain"):
+        masked_matmul(x, w[:5].contiguous(), mask, b)
+
+
+def test_training_on_the_card_matches_the_cpu(dev):
+    """Five steps of model A from the reference-made init: the card's
+    losses equal the CPU's within rtol 1e-3, and each step launches the
+    masked matmul 5 times (3 forward, 2 input gradients)."""
+    x, y = jet_substructure_data(8000, seed=0)
+    init = LN.reference_from_arrays(load_train(), "init")
+    cfg = fpga4hep.model_a()
+    losses = {}
+    for where in ("cpu", "cuda"):
+        before = masked_matmul.launches
+        res = train_logicnet(cfg, x[:7000], y[:7000], x[7000:], y[7000:],
+                             steps=5, seed=0, device=where,
+                             net=LN.from_reference(cfg, init, device="cpu"))
+        losses[where] = res.losses
+        if where == "cuda":
+            # 5 per step, then 3 for the held-out accuracy forward
+            assert masked_matmul.launches - before == 5 * 5 + 3
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)

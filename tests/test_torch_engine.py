@@ -21,7 +21,8 @@ import pytest
 import torch
 
 from torch_port_util import (ARTIFACT, ROOT, codes, load_ref,  # noqa: F401
-                             one_torch_thread, random_stack, ref_triples)
+                             load_train, one_torch_thread, random_stack,
+                             ref_triples)
 
 from repro import compile as C
 from repro import engine as jengine
@@ -281,3 +282,14 @@ def test_fixture_matches_fresh_reference_generation(tmp_path):
     uni = engine.compile_network(ref_triples(fresh), block_b=16,
                                  device="cpu")
     np.testing.assert_array_equal(_port_out(uni, x), fresh["out_uniform"])
+
+
+def test_train_fixture_matches_fresh_reference_generation():
+    """Regenerate the training fixture with the reference: the committed
+    ``model_a_train.npz`` equals it array for array."""
+    fresh = _fixture_tool().build_train()
+    committed = load_train()
+    assert fresh.keys() == committed.keys()
+    for k in committed:
+        assert fresh[k].dtype == committed[k].dtype, k
+        np.testing.assert_array_equal(fresh[k], committed[k], err_msg=k)

@@ -1,0 +1,131 @@
+"""The port's masked matmul against the reference's Pallas kernel.
+
+``masked_matmul`` runs its plain version on CPU tensors; here it runs
+beside ``repro.kernels.masked_matmul.masked_matmul_pallas`` in interpret
+mode on the same seeded numpy inputs.  Tolerances: float32 atol 1e-5
+(products summed in another order), bfloat16 atol 5e-2 and rtol 1e-3 (the
+reference's own, ``tests/test_kernels.py``).  ``MaskedMatmulFn``'s
+gradients are held against ``jax.grad`` of the reference expression
+(atol 1e-5) and checked by ``torch.autograd.gradcheck`` in float64.  The
+CUDA kernel itself runs only on the card (``chip_smoke.py``,
+``tests/test_torch_cuda.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_util import one_torch_thread  # noqa: F401
+
+from repro.kernels.masked_matmul import masked_matmul_pallas
+from repro_torch.kernels.masked_matmul import (MaskedMatmulFn, masked_matmul,
+                                               masked_matmul_plain)
+
+_DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
+           "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
+
+
+def _inputs(m, k, n, seed, density=0.4):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    mask = (rng.random((k, n)) < density).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    return x, w, mask, b
+
+
+def _both(arrays, dtype):
+    jdt, tdt, _ = _DTYPES[dtype]
+    return ([jnp.asarray(a).astype(jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+@pytest.mark.parametrize("m,k,n,blocks", [
+    (8, 16, 8, 32), (33, 70, 19, 32), (128, 256, 64, 32), (130, 100, 50, 32),
+    (130, 700, 50, None),       # default (128, 128, 512) blocks: a K tail
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas(m, k, n, blocks, dtype):
+    (jx, jw, jm, jb), (tx, tw, tm, tb) = _both(_inputs(m, k, n, m * n),
+                                               dtype)
+    kw = {} if blocks is None else dict(block_m=blocks, block_n=blocks,
+                                        block_k=blocks)
+    want = masked_matmul_pallas(jx, jw, jm, jb, interpret=True, **kw)
+    got = masked_matmul(tx, tw, tm, tb)
+    assert got.dtype == tx.dtype and got.shape == (m, n)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=_DTYPES[dtype][2], rtol=1e-3)
+
+
+def test_no_bias_matches_pallas():
+    (jx, jw, jm, _), (tx, tw, tm, _) = _both(_inputs(33, 70, 19, 3),
+                                             "float32")
+    want = masked_matmul_pallas(jx, jw, jm, block_m=32, block_n=32,
+                                block_k=32, interpret=True)
+    np.testing.assert_allclose(masked_matmul(tx, tw, tm).numpy(),
+                               np.asarray(want), atol=1e-5, rtol=1e-3)
+
+
+def test_mask_is_exact():
+    """Masked-out weights of 1e9 contribute nothing, in both packages."""
+    x = np.ones((4, 8), np.float32)
+    w = np.full((8, 4), 1e9, np.float32)
+    mask = np.zeros((8, 4), np.float32)
+    mask[0] = 1.0
+    got = masked_matmul(*(torch.from_numpy(a) for a in (x, w, mask)))
+    want = masked_matmul_pallas(jnp.asarray(x), jnp.asarray(w),
+                                jnp.asarray(mask), interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got == 1e9).all()
+
+
+def test_cpu_tensors_launch_nothing():
+    before = masked_matmul.launches
+    x, w, mask, b = (torch.from_numpy(a) for a in _inputs(5, 6, 7, 0))
+    out = masked_matmul(x, w, mask, b)
+    assert torch.equal(out, masked_matmul_plain(x, w, mask, b))
+    assert masked_matmul.launches == before
+
+
+def test_gradients_match_jax_grad():
+    """dx, dw and db of ``sum(cot * (x @ (w*mask) + b))`` against JAX."""
+    x, w, mask, b = _inputs(33, 70, 19, 7)
+    cot = np.random.default_rng(8).standard_normal((33, 19)).astype(
+        np.float32)
+
+    def ref(x, w, b):
+        return jnp.sum((jnp.dot(x, w * mask) + b) * cot)
+
+    want = jax.grad(ref, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                            jnp.asarray(b))
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    out = MaskedMatmulFn.apply(tx, tw, torch.from_numpy(mask), tb)
+    (out * torch.from_numpy(cot)).sum().backward()
+    for got, exp in zip((tx.grad, tw.grad, tb.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=1e-5,
+                                   rtol=1e-5)
+    # masked-out weights get exactly zero gradient
+    assert (tw.grad[mask == 0] == 0).all()
+
+
+def test_only_needed_gradients_are_computed():
+    x, w, mask, b = (torch.from_numpy(a) for a in _inputs(6, 5, 4, 1))
+    w.requires_grad_()
+    MaskedMatmulFn.apply(x, w, mask, b).sum().backward()
+    assert w.grad is not None and x.grad is None and b.grad is None
+    # without a bias argument the function takes three inputs
+    x.requires_grad_()
+    MaskedMatmulFn.apply(x, w, mask).sum().backward()
+    assert x.grad is not None
+
+
+def test_gradcheck_float64():
+    rng = np.random.default_rng(2)
+    x, w, b = (torch.from_numpy(rng.standard_normal(s)).requires_grad_()
+               for s in ((5, 7), (7, 3), (3,)))
+    mask = torch.from_numpy((rng.random((7, 3)) < 0.5).astype(np.float64))
+    assert torch.autograd.gradcheck(
+        lambda x, w, b: MaskedMatmulFn.apply(x, w, mask, b), (x, w, b))

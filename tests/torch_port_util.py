@@ -14,6 +14,7 @@ SRC = os.path.join(ROOT, "src")
 FIXTURE_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_port")
 ARTIFACT = os.path.join(FIXTURE_DIR, "model_a_l3.npz")
 REF = os.path.join(FIXTURE_DIR, "model_a_ref.npz")
+TRAIN = os.path.join(FIXTURE_DIR, "model_a_train.npz")
 
 
 @pytest.fixture(autouse=True)
@@ -85,3 +86,8 @@ def load_ref():
 def ref_triples(ref):
     return [(ref[f"idx_{i}"], ref[f"table_{i}"], int(ref["bws"][i]))
             for i in range(len(ref["bws"]))]
+
+
+def load_train():
+    with np.load(TRAIN) as z:
+        return {k: z[k] for k in z.files}

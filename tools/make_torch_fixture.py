@@ -14,7 +14,17 @@ compared with, from fixed seeds:
   triples, 4096 seeded input codes in ``[0, 8)`` (row 0 all 0, row 1
   all 7), and the reference outputs of the mixed (level-3), uniform
   (``compile_network(triples)``) and per-layer
-  (``compile_network(triples, fused=False)``) artifacts on those codes.
+  (``compile_network(triples, fused=False)``) artifacts on those codes;
+* ``model_a_train.npz`` (compressed) — the training flow on
+  ``jet_substructure_data(8000, 0)`` (rows ``[:7000]`` train, ``[7000:]``
+  held out): model A's ``LN.init(cfg, PRNGKey(0), mask_seed=0)``
+  (``init.<layer>.<leaf>``), the losses (``losses``) and final model
+  (``trained.<layer>.<leaf>``) of ``train_logicnet(apriori, steps=20,
+  batch=256, lr=1e-2, seed=0)``, its ``generate_tables``
+  (``table_<i>`` / ``idx_<i>``), ``verify_tables``' float-path codes on
+  the first 200 held-out rows (``verify_codes``), and the held-out
+  accuracy of a 600-step run (``accuracy_600``).  Models are stored as
+  ``repro_torch.core.logicnet.reference_to_arrays`` flattens them.
 
 Run from the repo root (JAX on the CPU runs the Pallas kernels in
 interpret mode)::
@@ -38,6 +48,10 @@ FIXTURE_DIR = os.path.join(
     "tests", "fixtures", "torch_port")
 ARTIFACT_NAME = "model_a_l3.npz"
 REF_NAME = "model_a_ref.npz"
+TRAIN_NAME = "model_a_train.npz"
+TRAIN_STEPS = 20
+LONG_STEPS = 600
+N_VERIFY = 200
 BLOCK_B = 16
 N_CODES = 4096
 CODES_SEED = 0
@@ -95,20 +109,55 @@ def build():
     return mixed, ref
 
 
-def write(directory: str = FIXTURE_DIR) -> tuple[str, str]:
+def build_train() -> dict[str, np.ndarray]:
+    """The training-flow arrays of ``model_a_train.npz``, nothing written."""
+    import jax
+
+    from repro.configs import fpga4hep
+    from repro.core import logicnet as LN
+    from repro.core.train import train_logicnet
+    from repro.data import jet_substructure_data
+    from repro_torch.core.logicnet import reference_to_arrays
+
+    cfg = fpga4hep.model_a()
+    x, y = jet_substructure_data(8000, seed=0)
+    xt, yt, xv, yv = x[:7000], y[:7000], x[7000:], y[7000:]
+    out = reference_to_arrays(LN.init(cfg, jax.random.PRNGKey(0),
+                                      mask_seed=0), "init")
+    res = train_logicnet(cfg, xt, yt, xv, yv, method="apriori",
+                         steps=TRAIN_STEPS, batch=256, lr=1e-2, seed=0)
+    out["losses"] = np.asarray(res.losses, np.float32)
+    out.update(reference_to_arrays(res.model, "trained"))
+    tables = LN.generate_tables(cfg, res.model)
+    for i, tt in enumerate(tables):
+        out[f"table_{i}"] = np.asarray(tt.table, np.int32)
+        out[f"idx_{i}"] = np.asarray(tt.indices, np.int32)
+    f_codes, t_codes = LN.verify_tables(cfg, res.model, tables,
+                                        xv[:N_VERIFY])
+    assert (np.asarray(f_codes) == np.asarray(t_codes)).all()
+    out["verify_codes"] = np.asarray(f_codes, np.int32)
+    long = train_logicnet(cfg, xt, yt, xv, yv, method="apriori",
+                          steps=LONG_STEPS, batch=256, lr=1e-2, seed=0)
+    out["accuracy_600"] = np.asarray(long.accuracy, np.float32)
+    return out
+
+
+def write(directory: str = FIXTURE_DIR) -> tuple[str, str, str]:
     os.makedirs(directory, exist_ok=True)
     mixed, ref = build()
     art = mixed.save(os.path.join(directory, ARTIFACT_NAME))
     ref_path = os.path.join(directory, REF_NAME)
     np.savez_compressed(ref_path, **ref)
-    return art, ref_path
+    train_path = os.path.join(directory, TRAIN_NAME)
+    np.savez_compressed(train_path, **build_train())
+    return art, ref_path, train_path
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--out", default=FIXTURE_DIR,
-                    help="directory to write the two .npz files into")
+                    help="directory to write the three .npz files into")
     args = ap.parse_args()
     for path in write(args.out):
         print(f"{path}: {os.path.getsize(path)} B")

@@ -62,6 +62,43 @@ Phases, each of which must pass:
    67 TFLOP/s (float32, CUDA cores) or 989 TFLOP/s (bfloat16); and 50
    profiled training steps: host-clock time against device time per step.
 
+7. **flash attention** — ``flash_attention_forward`` against its plain
+   version on the card: the reference tests' cases (MHA, GQA, MQA, ragged
+   250, causal and not, windows 16 / 64 / 1024, bfloat16), a ragged
+   S = 1000, window 1024 at qwen3-1.7b's head shape and the qwen3-1.7b
+   prefill shape (4, 16, 2048, 128) with Hkv 8 in float32 (atol 1e-5,
+   rtol 1e-5: another summation order) and bfloat16 (the reference's atol
+   3e-2 plus exactly one bfloat16 step of the plain output).
+8. **smoke LMs against the reference** — the qwen3-1.7b and gemma3-27b
+   smoke configs with the reference's params (``lm_smoke.npz``): prefill
+   logits through the kernel, teacher-forced decode logits and, at float32
+   compute, the tokens of every request of the serve loop, against the
+   reference's (float32 atol 1e-4 / rtol 1e-4, bfloat16 0.05, tokens
+   equal).
+9. **qwen3-1.7b at full width, the main path of this slice** — every launch
+   counter at 0, the port's seeded init (28 layers, d_model 2048, Hq 16,
+   Hkv 8, head_dim 128, vocab 151 936, bfloat16 compute): (a) prefill of
+   4 prompts x 2048 tokens through ``make_prefill_step``, exactly 28 flash
+   launches, finite logits; (b) 2 prompts of 64 tokens fed one at a time
+   through ``decode_step``, last logits against prefill's: at float32
+   compute (a float32 cache, the same weights) within atol 1e-4 / rtol
+   1e-4, and at bfloat16 compute the same top-1 tokens and the reference's
+   atol 0.05 / rtol 0.05 on all but 1e-4 of the logits (28 layers of
+   bfloat16 rounding in two summation orders move a logit by about 0.012
+   on average and past 0.05 at 10 of 303 872); (c) ``serve_lm.serve`` at
+   the CLI defaults (12 requests, 4 slots, 24 new tokens, cache 128):
+   every request served.
+10. **flash times** — at (4, 16, 2048, 128) and (1, 16, 32768, 128)
+    (one layer of the prefill_32k cell's sequence), bfloat16, causal,
+    Hkv 8: event time (device time a launch from the prefill's profile)
+    beside the plain version,
+    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    (``library_ms``, a yardstick the port never calls) and the bound, the
+    larger of q, k, v and out moved once over 3.35 TB/s and 4 B Hq D per
+    unmasked (q, k) pair over 989 TFLOP/s; and for the path, a prefill's
+    host-clock time against its profiled device time (the kernel's share,
+    the idle share) and decode's ms per step and tokens per second.
+
 The next-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU, or outside a checkout,
 it exits non-zero before printing either.
@@ -85,6 +122,15 @@ INT32_OPS_PER_S = 33.5e12
 FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 SOURCE = "src/repro_torch/kernels/csrc/lut_kernels.cu"
 MM_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul.cu"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+# flash attention: (atol, rtol, steps) as MM_TOL; float32 differs from the
+# plain version in summation order only, bfloat16 takes the reference's
+# atol 3e-2 plus one bfloat16 step of the plain output
+FA_TOL = {"float32": (1e-5, 1e-5, 0), "bfloat16": (3e-2, 0.0, 1)}
+LM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.05, 0.05)}
+FULL_ARCH = "qwen3-1.7b"
+PREFILL_SHAPE = (4, 2048)       # the prefill_32k cell cut to B 4 x S 2048
+LONG_SEQ = 32768
 # (atol, rtol, steps): float32, another summation order.  bfloat16: the
 # reference's atol 5e-2 / rtol 1e-3 plus exactly one bfloat16 step (unit in
 # the last place) of the plain output: kernel and plain version sum in
@@ -129,20 +175,58 @@ def cuda_ms(fn, iters: int, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def profiled(fn, iters: int) -> tuple[float, dict]:
+    """(host-clock ms per call, {kernel: device ms per call}) over ``iters``
+    calls of ``fn`` under ``torch.profiler``.
+
+    A first traced round of ``iters`` calls is discarded (the schedule's
+    warm-up): launches made right after tracing starts can go unrecorded,
+    which dropped one of three 4096^3 masked-matmul launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / iters * 1e3
+            prof.step()
+    by_name: dict[str, float] = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0)
+        if t > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + t / iters / 1e3
+    return wall, by_name
+
+
 def device_ms(fn, iters: int) -> float | None:
     """Device time per call of every kernel ``fn`` launches, from the
     profiler's CUDA activity (None when the profiler records none)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages())
-    return total_us / iters / 1e3 if total_us > 0 else None
+    return sum(profiled(fn, iters)[1].values()) or None
+
+
+def profile_split(torch, fn, iters: int) -> tuple:
+    """(host ms per call, device ms per call, {kernel: device ms per call})
+    over ``iters`` calls of ``fn``; fails when the profiler records no
+    device time or more device time than host-clock time."""
+    wall, by_name = profiled(fn, iters)
+    total = sum(by_name.values())
+    if not total:
+        fail("the profiler recorded no device time")
+    if total > wall:
+        fail(f"the profiler's device time per call ({total} ms) exceeds the "
+             f"host-clock time ({wall} ms): it counts some kernel time twice")
+    return wall, total, by_name
+
+
+def top_kernels(by_name: dict, n: int = 6) -> str:
+    return "; ".join(f"{k[:60]} {v:.4f}" for k, v in
+                     sorted(by_name.items(), key=lambda kv: -kv[1])[:n])
 
 
 def boundary_steps(cfg, model) -> list:
@@ -425,39 +509,361 @@ def training_profile(torch, dev, steps: int = 50) -> dict:
     """Where a training step's time goes: host-clock time per step against
     the device time ``torch.profiler`` records per step, all kernels and
     the masked matmul's alone (model A, batch 256, from the port's init)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import fpga4hep
     from repro_torch.core.train import train_logicnet
     from repro_torch.data import jet_substructure_data
     x, y = jet_substructure_data(8000, seed=0)
     args = (fpga4hep.model_a(), x[:7000], y[:7000], x[7000:], y[7000:])
-    train_logicnet(*args, steps=5, seed=0, device=dev)       # warm up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_logicnet(*args, steps=steps, seed=0, device=dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    events = prof.key_averages()
-    total = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
-    mm = sum(getattr(e, "self_device_time_total", 0.0) for e in events
-             if "masked_matmul_kernel" in e.key)
-    if not total:
-        fail("the profiler recorded no device time for training steps")
-    out = {"train_wall_ms": wall_ms,
-           "train_device_ms": total / steps / 1e3,
-           "train_mm_device_ms": mm / steps / 1e3}
-    out["train_idle_share"] = 1 - out["train_device_ms"] / wall_ms
-    if out["train_idle_share"] < 0:
-        fail(f"the profiler's device time per step "
-             f"({out['train_device_ms']} ms) exceeds the host-clock time "
-             f"({wall_ms} ms): it counts some kernel time twice")
-    log(f"phase 6 training step ({steps} steps, profiled): {wall_ms:.3f} ms "
-        f"host clock, {out['train_device_ms']:.4f} ms device "
+    wall, total, by_name = profile_split(
+        torch, lambda: train_logicnet(*args, steps=steps, seed=0,
+                                      device=dev), 1)
+    mm = sum(t for n, t in by_name.items() if "masked_matmul_kernel" in n)
+    out = {"train_wall_ms": wall / steps,
+           "train_device_ms": total / steps,
+           "train_mm_device_ms": mm / steps}
+    out["train_idle_share"] = 1 - total / wall
+    log(f"phase 6 training step ({steps} steps, profiled): "
+        f"{out['train_wall_ms']:.3f} ms host clock, "
+        f"{out['train_device_ms']:.4f} ms device "
         f"(masked_matmul_forward {out['train_mm_device_ms']:.4f} ms), "
         f"device idle {out['train_idle_share'] * 100:.1f} %")
     return out
+
+
+def flash_inputs(torch, dev, b, hq, hkv, s, d, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return [torch.randn(shape, generator=g, device=dev).to(dt)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def flash_phase(torch, dev) -> dict:
+    """Phase 7: the flash-attention kernel against its plain version."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    cases = [((b, hq, hkv, s, d), dt, dict(causal=c))
+             for b, hq, hkv, s, d in ((1, 2, 2, 64, 16), (2, 4, 2, 96, 32),
+                                      (1, 8, 1, 128, 16), (2, 4, 4, 250, 8))
+             for c in (True, False) for dt in ("float32", "bfloat16")]
+    cases += [((1, 2, 2, 128, 16), "float32", dict(causal=True, window=w))
+              for w in (16, 64, 1024)]
+    cases += [((1, 2, 2, 64, 32), "bfloat16", dict(causal=True)),
+              ((1, 4, 2, 1000, 64), "float32", dict(causal=True)),
+              ((2, 16, 1, 512, 128), "bfloat16", dict(causal=True)),
+              ((1, 16, 8, 1000, 128), "float32", dict(causal=False)),
+              ((1, 16, 8, 2048, 128), "bfloat16",
+               dict(causal=True, window=1024)),
+              ((4, 16, 8, 2048, 128), "float32", dict(causal=True)),
+              ((4, 16, 8, 2048, 128), "bfloat16", dict(causal=True))]
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (shape, dtype, kw) in enumerate(cases):
+        q, k, v = flash_inputs(torch, dev, *shape, dtype, seed=i)
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if flash_attention.launches != before + 1:
+            fail(f"flash_attention {shape} {dtype}: kernel not launched")
+        if got.dtype != q.dtype or got.shape != q.shape:
+            fail(f"flash_attention {shape} {dtype}: gave {got.dtype} "
+                 f"{tuple(got.shape)}")
+        atol, rtol, steps = FA_TOL[dtype]
+        diff = (got.float() - want.float()).abs()
+        if not bool(torch.isfinite(got).all()) or bool(
+                (diff > mm_limit(torch, want, atol, rtol, steps)).any()):
+            fail(f"flash_attention {shape} {dtype} {kw}: max |kernel - "
+                 f"plain| {float(diff.max())} beyond atol {atol} rtol {rtol} "
+                 f"+ {steps} {dtype} step")
+        err = float(diff.max())
+        errs[dtype] = max(errs[dtype], err)
+        log(f"phase 7 flash_attention (B, Hq, Hkv, S, D) {shape} {dtype} "
+            f"{kw}: max |kernel - plain| {err:.3g}")
+    log(f"phase 7 flash_attention: {len(cases)} cases within tolerance; "
+        f"largest difference float32 {errs['float32']:.3g}, bfloat16 "
+        f"{errs['bfloat16']:.3g}")
+    return {"max_abs_err": errs["float32"],
+            "max_abs_err_bf16": errs["bfloat16"]}
+
+
+def lm_check(name, got, want, dtype) -> float:
+    import numpy as np
+    got = got.float().cpu().numpy()
+    atol, rtol = LM_TOL[dtype]
+    diff = np.abs(got - want)
+    if got.shape != want.shape or not np.isfinite(got).all() or bool(
+            (diff > atol + rtol * np.abs(want)).any()):
+        fail(f"{name}: {got.shape} vs {want.shape}, max |port - reference| "
+             f"{float(diff.max())} beyond atol {atol} rtol {rtol}")
+    return float(diff.max())
+
+
+def lm_smoke_phase(torch, dev) -> dict:
+    """Phase 8: the smoke LMs with the reference's params against the
+    reference's outputs (``lm_smoke.npz``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import model as M
+
+    with np.load(FIXTURE / "lm_smoke.npz") as z:
+        fx = {k: z[k] for k in z.files}
+    out = {}
+    for arch in ("qwen3-1.7b", "gemma3-27b"):
+        pre = f"{arch}.params."
+        arrays = {k[len(pre):]: v for k, v in fx.items()
+                  if k.startswith(pre)}
+        tokens = torch.from_numpy(fx[f"{arch}.tokens"]).to(dev)
+        for cd in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_smoke_config(arch),
+                                      compute_dtype=cd)
+            model = M.from_reference(cfg, arrays, device=dev)
+            before = flash_attention.launches
+            logits = M.forward(model, {"tokens": tokens})
+            torch.cuda.synchronize()
+            if flash_attention.launches - before != cfg.n_layers:
+                fail(f"{arch} {cd} prefill launched flash_attention "
+                     f"{flash_attention.launches - before} times, not "
+                     f"{cfg.n_layers}")
+            e_pre = lm_check(f"{arch} {cd} prefill", logits,
+                             fx[f"{arch}.{cd}.prefill"], cd)
+            want = fx[f"{arch}.{cd}.decode"]
+            cache = {k: v.to(getattr(torch, cd)) for k, v in
+                     M.init_cache(cfg, 2, want.shape[1], device=dev).items()}
+            steps = []
+            for t in range(want.shape[1]):
+                lg, cache = M.decode_step(
+                    model, cache, tokens[:, t:t + 1],
+                    torch.full((2,), t, dtype=torch.int32, device=dev))
+                steps.append(lg[:, 0])
+            e_dec = lm_check(f"{arch} {cd} decode", torch.stack(steps, 1),
+                             want, cd)
+            msg = ""
+            if cd == "float32":
+                res = serve_lm.serve(cfg, model, requests=5, slots=2,
+                                     max_new=6, cache_len=64)
+                ids = [r["id"] for r in res.done]
+                toks = [r["out"] for r in res.done]
+                if (ids != fx[f"{arch}.{cd}.serve_ids"].tolist()
+                        or toks != fx[f"{arch}.{cd}.serve_out"].tolist()):
+                    fail(f"{arch} serve tokens differ from the reference's: "
+                         f"{list(zip(ids, toks))}")
+                msg = f"; serve: {len(ids)} requests, tokens equal"
+            out[f"{arch}.{cd}"] = max(e_pre, e_dec)
+            log(f"phase 8 {arch} {cd}: prefill max |port - reference| "
+                f"{e_pre:.3g}, decode {e_dec:.3g} (atol/rtol "
+                f"{LM_TOL[cd][0]}){msg}")
+    return out
+
+
+def lm_main_path(torch, dev, kernels) -> dict:
+    """Phase 9: qwen3-1.7b at full width, every launch counter at 0."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.masked_matmul import masked_matmul
+    from repro_torch.launch import serve_lm, steps
+    from repro_torch.models import model as M
+
+    cfg = get_config(FULL_ARCH)
+    t0 = time.perf_counter()
+    model = steps.init_params(cfg, seed=0, device=dev)
+    model.compute_params()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 9 {FULL_ARCH}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, Hq {cfg.n_heads}, Hkv {cfg.n_kv_heads}, head_dim "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab}: {n_params} parameters "
+        f"drawn and cast to {cfg.compute_dtype} in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    masked_matmul.launches = 0
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+
+    # (a) prefill of 4 x 2048 tokens
+    b, s = PREFILL_SHAPE
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    prefill = steps.make_prefill_step(cfg)
+    t0 = time.perf_counter()
+    logits = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    a_launches = flash_attention.launches
+    if a_launches != cfg.n_layers:
+        fail(f"prefill launched flash_attention {a_launches} times, not "
+             f"{cfg.n_layers}")
+    if logits.shape != (b, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"prefill logits {tuple(logits.shape)} not finite or not "
+             f"({b}, {cfg.vocab})")
+    log(f"phase 9a prefill {b} x {s} tokens: flash_attention launched "
+        f"{a_launches} times (one per layer), logits {tuple(logits.shape)} "
+        f"finite, first call {first_ms:.1f} ms (host clock, synchronised)")
+
+    # (b) decode one token at a time against prefill: at float32 compute
+    # with a float32 cache (the same weights; only the summation order
+    # differs) and at the config's bfloat16 compute, where 28 layers of
+    # bfloat16 rounding in two summation orders (GEMM against GEMV shapes)
+    # move a logit by about 0.012 on average: the reference's 0.05 contract
+    # (a 2-layer smoke model's) must hold for all but 1e-4 of the logits,
+    # and every row's top-1 token must agree
+    d_tokens = tokens[:2, :64].contiguous()
+    f32 = M.LM(dataclasses.replace(cfg, compute_dtype="float32"),
+               {"embed": dict(model.embed), "final_norm": model.final_norm,
+                "layers": [layer.tree() for layer in model.layers]})
+    diffs = {}
+    for name, m in (("float32", f32), ("bfloat16", model)):
+        want = steps.make_prefill_step(m.cfg)(m, {"tokens": d_tokens}).float()
+        cache = M.init_cache(cfg, 2, 64, device=dev)
+        if name == "float32":
+            cache = {k: v.float() for k, v in cache.items()}
+        decode = steps.make_decode_step(m.cfg)
+        for t in range(64):
+            got, cache = decode(m, cache, d_tokens[:, t:t + 1],
+                                torch.full((2,), t, dtype=torch.int32,
+                                           device=dev))
+        diff = (got.float() - want).abs()
+        tol = 1e-4 if name == "float32" else 0.05
+        over = int((diff > tol + tol * want.abs()).sum())
+        top1 = got.argmax(-1).tolist(), want.argmax(-1).tolist()
+        diffs[name] = float(diff.max())
+        p999 = float(diff.flatten().kthvalue(int(diff.numel() * 0.999))[0])
+        log(f"phase 9b {name} compute: 2 prompts x 64 tokens decoded one at "
+            f"a time: last logits within {diffs[name]:.5f} of prefill's "
+            f"(mean {float(diff.mean()):.5f}, 99.9th percentile "
+            f"{p999:.5f}; {over} of {diff.numel()} beyond atol {tol} + rtol "
+            f"{tol}); top-1 tokens {top1[0]} vs {top1[1]}")
+        allowed = 0 if name == "float32" else diff.numel() * 1e-4
+        if over > allowed or top1[0] != top1[1]:
+            fail(f"{name} compute: decode's last logits differ from "
+                 f"prefill's by up to {diffs[name]}: {over} of "
+                 f"{diff.numel()} beyond atol {tol} + rtol {tol} "
+                 f"(allowed {allowed:.0f}), top-1 {top1}")
+    del f32, cache
+
+    # (c) the server at the CLI defaults
+    res = serve_lm.serve(cfg, model)
+    if len(res.done) != 12 or any(len(r["out"]) != 24 for r in res.done):
+        fail(f"served {len(res.done)} of 12 requests")
+    step_ms = res.seconds / res.steps * 1e3
+    log(f"phase 9c served {len(res.done)} requests, {res.tokens} tokens in "
+        f"{res.steps} decode steps: {step_ms:.3f} ms/step (host clock, "
+        f"synchronised every step), {res.tokens / res.seconds:.1f} "
+        f"tokens/s, occupancy {res.occupancy:.2f}")
+    launches = flash_attention.launches
+    log(f"phase 9 main path launches: flash_attention_forward {launches} "
+        f"({cfg.n_layers} per prefill, {launches // cfg.n_layers} "
+        f"prefills), masked_matmul_forward "
+        f"{masked_matmul.launches}, LUT kernels "
+        f"{sum(k['wrapper'].launches for k in kernels.values())}")
+    return {"model": model, "cfg": cfg, "tokens": tokens,
+            "launches": launches, "prefill_first_ms": first_ms,
+            "decode_step_ms": step_ms,
+            "decode_tokens_per_s": res.tokens / res.seconds,
+            "decode_vs_prefill_max_abs": diffs["bfloat16"],
+            "decode_vs_prefill_max_abs_f32": diffs["float32"]}
+
+
+def sdpa(q, k, v):
+    """``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    held to its fused backends, so it never builds the (S x S) scores."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+
+def path_times(torch, dev, path: dict) -> dict:
+    """Phase 10, the path: a prefill's host-clock time against its
+    profiled device time, and a decode step's."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    model, cfg, tokens = path["model"], path["cfg"], path["tokens"]
+    prefill = steps.make_prefill_step(cfg)
+    wall, total, by_name = profile_split(
+        torch, lambda: prefill(model, {"tokens": tokens}), 3)
+    fa = sum(t for n, t in by_name.items() if "flash_attention" in n)
+    # the same shape as the kernel's timing at PREFILL_SHAPE, one layer
+    rec = {"device_ms": fa / cfg.n_layers,
+           "prefill_wall_ms": wall, "prefill_device_ms": total,
+           "prefill_flash_device_ms": fa, "prefill_flash_share": fa / total,
+           "prefill_idle_share": 1 - total / wall}
+    log(f"phase 10 prefill {PREFILL_SHAPE[0]} x {PREFILL_SHAPE[1]} "
+        f"(profiled, 3 calls): {wall:.2f} ms host clock, {total:.2f} ms "
+        f"device, flash_attention_forward {fa:.2f} ms "
+        f"({fa / total * 100:.1f} % of device time), device idle "
+        f"{(1 - total / wall) * 100:.1f} %; top kernels (ms/call): "
+        f"{top_kernels(by_name)}")
+
+    cache = M.init_cache(cfg, 4, 128, device=dev)
+    tok = tokens[:, :1].contiguous()
+    pos = torch.zeros((4,), dtype=torch.int32, device=dev)
+    decode = steps.make_decode_step(cfg)
+    wall, total, by_name = profile_split(
+        torch, lambda: decode(model, cache, tok, pos)[0].argmax(-1).cpu(),
+        20)
+    rec.update({"decode_wall_ms": wall, "decode_device_ms": total,
+                "decode_idle_share": 1 - total / wall,
+                "decode_step_ms": path["decode_step_ms"],
+                "decode_tokens_per_s": path["decode_tokens_per_s"]})
+    log(f"phase 10 decode step, 4 slots, cache 128 (profiled, 20 steps): "
+        f"{wall:.3f} ms host clock, {total:.3f} ms device, device idle "
+        f"{(1 - total / wall) * 100:.1f} %; top kernels (ms/step): "
+        f"{top_kernels(by_name)}")
+    return rec
+
+
+def flash_times(torch, dev) -> dict:
+    """Phase 10, the kernel: event times beside its bound, the plain
+    version and SDPA, at the prefill shape and at one layer of a 32k
+    sequence.  Its device time comes from the prefill's profile
+    (``path_times``): back to back, the profiler recorded only some of
+    its launches even after a warm-up round."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    rec = {}
+    for suffix, (b, s), iters, reps in (("", PREFILL_SHAPE, 5, 7),
+                                        ("_32k", (1, LONG_SEQ), 1, 3)):
+        q, k, v = flash_inputs(torch, dev, b, 16, 8, s, 128, "bfloat16")
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters,
+                     reps)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v,
+                                                         causal=True),
+                           iters, reps)
+        library_ms = cuda_ms(lambda: sdpa(q, k, v), iters, reps)
+        moved = nbytes(q, k, v) + q.numel() * q.element_size()
+        pairs = s * (s + 1) // 2
+        ops = 4 * b * 16 * 128 * pairs
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FLOPS_PER_S["bfloat16"] * 1e3
+        rec.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                    f"library_ms{suffix}": library_ms,
+                    f"bound_ms{suffix}": max(bytes_ms, ops_ms),
+                    f"bound_by{suffix}": ("bytes" if bytes_ms >= ops_ms
+                                          else "operations"),
+                    f"shape{suffix}": [b, 16, 8, s, 128]})
+        log(f"phase 10 flash_attention_forward (B, Hq, Hkv, S, D) "
+            f"({b}, 16, 8, {s}, 128) bfloat16 causal: {ms:.4f} ms/call, "
+            f"plain {plain_ms:.4f} ms, SDPA "
+            f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.5f} ms "
+            f"({moved} B, {ops} flop: {ops / ms / 1e9:.1f} TFLOP/s "
+            f"achieved)")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> None:
@@ -480,9 +886,11 @@ def main() -> None:
                                                  lut_network_plain)
 
     dev = torch.device("cuda")
-    # float32 products stay float32 everywhere (library yardstick included)
+    # float32 products stay float32 everywhere (library yardstick included),
+    # and bfloat16 products sum in float32 to the end, as the reference's do
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -639,6 +1047,22 @@ def main() -> None:
     mm.update(training_phase(torch, dev, kernels))
     records.append(masked_matmul_times(torch, dev, mm))
     records[-1].update(training_profile(torch, dev))
+
+    fa = flash_phase(torch, dev)
+    fa["lm_smoke_max_abs"] = lm_smoke_phase(torch, dev)
+    path = lm_main_path(torch, dev, kernels)
+    fa_rec = {"name": "flash_attention_forward", "route": "cuda",
+              "source": FA_SOURCE,
+              "replaces": "src/repro/kernels/flash_attention.py:30",
+              "launches": path["launches"], **fa}
+    fa_rec.update(path_times(torch, dev, path))
+    fa_rec.update({k: path[k] for k in ("prefill_first_ms",
+                                        "decode_vs_prefill_max_abs",
+                                        "decode_vs_prefill_max_abs_f32")})
+    del path
+    torch.cuda.empty_cache()
+    fa_rec.update(flash_times(torch, dev))
+    records.append(fa_rec)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

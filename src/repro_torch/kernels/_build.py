@@ -30,9 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of every entry point: pointers and the stream as c_void_p, sizes
-# as c_int (an unset argtype would pass a Python int as a 32-bit int and cut
-# the pointer)
+# as c_int, scales as c_float (an unset argtype would pass a Python int as a
+# 32-bit int and cut the pointer)
 _SIGNATURES = {
     "lut_mixed_forward": (_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P,
                           _I, _I, _I, _P, _P),
@@ -40,6 +41,8 @@ _SIGNATURES = {
                             _I, _I, _P, _P),
     "lut_layer_forward": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P),
     "masked_matmul_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "flash_attention_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _I, _P),
 }
 
 _lock = threading.Lock()

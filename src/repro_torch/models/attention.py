@@ -1,0 +1,156 @@
+"""GQA attention: prefill through the flash-attention kernel, cached decode.
+
+The port's counterpart of ``repro.models.attention`` for decoder-only
+models: ``attn_init``, ``_project_qkv``, ``_chunked_attention``,
+``attn_apply`` and ``attn_decode``.  The reference computes prefill
+attention with its pure-XLA ``_chunked_attention``, the same function its
+Pallas ``flash_attention`` kernel computes; here ``attn_apply`` calls the
+port's counterpart of that kernel (``repro_torch.kernels.flash_attention``),
+which launches ``flash_attention_forward`` on the card.  Decode attends one
+query per row against the KV cache with ``_chunked_attention`` in plain
+torch, as the reference does in XLA.
+
+Supports qk-norm (qwen3) and sliding windows with gemma3's per-layer
+local/global mix (window 0 = global).  M-RoPE and cross-attention
+(``cross_attn_apply``, ``cross_memory``) wait for their families.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.config import ModelCfg
+from repro_torch.models.layers import (apply_rope, init_rms, normal_init,
+                                       rms_norm)
+
+NEG_INF = -1e30
+
+
+def attn_init(gen: torch.Generator, cfg: ModelCfg,
+              dtype=torch.float32) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    s = 1.0 / d ** 0.5
+    p = {"wq": normal_init((d, cfg.n_heads, hd), s, gen, dtype),
+         "wk": normal_init((d, cfg.n_kv_heads, hd), s, gen, dtype),
+         "wv": normal_init((d, cfg.n_kv_heads, hd), s, gen, dtype),
+         "wo": normal_init((cfg.n_heads, hd, d), s, gen, dtype)}
+    if cfg.qk_norm:
+        p["q_norm"] = init_rms(hd, gen.device)
+        p["k_norm"] = init_rms(hd, gen.device)
+    return p
+
+
+def _project_qkv(p: dict, cfg: ModelCfg, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """x (B, S, D) -> q (B, S, Hq, hd), k and v (B, S, Hkv, hd)."""
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    k = torch.einsum("bsd,dhe->bshe", x, p["wk"])
+    v = torch.einsum("bsd,dhe->bshe", x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q_offset, window: int, causal: bool, chunk: int,
+                       kv_len_valid=None) -> torch.Tensor:
+    """Online softmax over KV chunks, in float32; output in q's dtype.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).  ``window`` 0 = global.
+    ``q_offset`` and ``kv_len_valid`` (valid cache slots; None = all) may be
+    0-d tensors.  As in the reference, where ``chunk`` does not divide
+    ``Skv`` the last chunk's slice is clamped to end at ``Skv`` (XLA's
+    ``dynamic_slice``) while its key positions are not.
+    """
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / d ** 0.5
+    qf = (q.float() * scale).reshape(b, sq, hkv, group, d)
+    chunk = min(chunk, skv)
+    n_chunks = -(-skv // chunk)
+    dev = q.device
+    qpos = q_offset + torch.arange(sq, device=dev)
+    acc = torch.zeros((b, hkv, group, sq, d), dtype=torch.float32, device=dev)
+    m = torch.full((b, hkv, group, sq), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, hkv, group, sq), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        off = ci * chunk
+        start = min(off, skv - chunk)
+        kc = k[:, start:start + chunk].float()
+        vc = v[:, start:start + chunk].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc)        # (B,Hkv,G,Sq,C)
+        kpos = off + torch.arange(chunk, device=dev)
+        mask = torch.ones((sq, chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        if kv_len_valid is not None:
+            mask &= kpos[None, :] < kv_len_valid
+        else:
+            mask &= kpos[None, :] < skv
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vc)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    return out.to(q.dtype)
+
+
+def attn_apply(p: dict, cfg: ModelCfg, x: torch.Tensor,
+               positions: torch.Tensor, window: int = 0,
+               causal: bool = True) -> torch.Tensor:
+    """Full-sequence (prefill) attention through the flash kernel.
+
+    The model holds heads as (B, S, H, D); the kernel takes (B, H, S, D),
+    so q, k and v are transposed into contiguous copies and the output
+    back.  The layer's window 0 (global) is the kernel's ``window=None``.
+    """
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    out = flash_attention(q.transpose(1, 2).contiguous(),
+                          k.transpose(1, 2).contiguous(),
+                          v.transpose(1, 2).contiguous(), causal=causal,
+                          window=window if window > 0 else None)
+    return torch.einsum("bshe,hed->bsd", out.transpose(1, 2), p["wo"])
+
+
+def attn_decode(p: dict, cfg: ModelCfg, x: torch.Tensor,
+                cache_k: torch.Tensor, cache_v: torch.Tensor,
+                pos: torch.Tensor, window: int = 0):
+    """One-token decode against a KV cache; returns (out, cache_k, cache_v).
+
+    x: (B, 1, D); cache_{k,v}: (B, S_cache, Hkv, hd), written in place (the
+    reference returns new arrays); pos: (B,) integer, tokens already in
+    the cache.  RoPE and the ``onehot`` write use each row's own position;
+    ``dus`` writes every row at ``pos[0]`` (clamped into the cache, as XLA's
+    ``dynamic_update_slice``); the attention mask of every row uses
+    ``pos[0]``, as in the reference.
+    """
+    q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None])
+    s_cache = cache_k.shape[1]
+    if cfg.cache_update == "dus":
+        start = pos[0].clamp(0, s_cache - 1).reshape(1).long()
+        cache_k.index_copy_(1, start, k_new.to(cache_k.dtype))
+        cache_v.index_copy_(1, start, v_new.to(cache_v.dtype))
+    else:
+        # the one-hot blend: a row whose position lies outside the cache
+        # writes nothing
+        hit = (torch.arange(s_cache, device=pos.device)[None, :]
+               == pos[:, None])[:, :, None, None]
+        cache_k.copy_(torch.where(hit, k_new.to(cache_k.dtype), cache_k))
+        cache_v.copy_(torch.where(hit, v_new.to(cache_v.dtype), cache_v))
+    out = _chunked_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                             q_offset=pos[0], window=window, causal=True,
+                             chunk=cfg.attn_chunk, kv_len_valid=pos[0] + 1)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"]), cache_k, cache_v

@@ -25,12 +25,15 @@ import torch
 from torch_port_util import ARTIFACT, ROOT, SRC, random_stack
 
 from repro_torch import engine, resolve_device
-from repro_torch.configs import fpga4hep
+from repro_torch.configs import fpga4hep, get_smoke_config
 from repro_torch.core import logicnet as LN
 from repro_torch.core.train import train_logicnet
 from repro_torch.kernels import lut_network as P
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lut_lookup import lut_lookup
 from repro_torch.kernels.masked_matmul import masked_matmul
+from repro_torch.launch import steps
+from repro_torch.models import model as M
 
 PORT = pathlib.Path(SRC) / "repro_torch"
 
@@ -114,6 +117,16 @@ def test_default_device_is_cuda():
          "--steps", "1"], env=_env(), capture_output=True, text=True,
         timeout=120)
     assert proc.returncode != 0 and 'device="cpu"' in proc.stderr
+    cfg = get_smoke_config("qwen3-1.7b")
+    for call in (lambda: steps.init_params(cfg),
+                 lambda: M.init_cache(cfg, 1, 8)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
+         "qwen3-1.7b", "--requests", "1"], env=_env(), capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode != 0 and 'device="cpu"' in proc.stderr
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
 
@@ -135,14 +148,21 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="cuda or cpu"):
         masked_matmul(*(torch.empty((4, 4), device="meta")
                         for _ in range(3)))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(*(torch.empty((1, 2, 4, 8), device="meta")
+                          for _ in range(3)))
     launches = (lut_lookup.launches, P.lut_network.launches,
-                P.lut_network_mixed.launches, masked_matmul.launches)
+                P.lut_network_mixed.launches, masked_matmul.launches,
+                flash_attention.launches)
     x = torch.zeros((2, 8), dtype=torch.int32)
     assert P.lut_network(x, us).shape == (2, 6)
     assert lut_lookup(x, torch.from_numpy(idx), torch.from_numpy(tab),
                       bw).shape == (2, 6)
     assert masked_matmul(torch.ones(2, 3), torch.ones(3, 4),
                          torch.ones(3, 4)).shape == (2, 4)
+    assert flash_attention(*(torch.ones(1, 2, 4, 8)
+                             for _ in range(3))).shape == (1, 2, 4, 8)
     # the plain versions are not kernel launches
     assert launches == (lut_lookup.launches, P.lut_network.launches,
-                        P.lut_network_mixed.launches, masked_matmul.launches)
+                        P.lut_network_mixed.launches, masked_matmul.launches,
+                        flash_attention.launches)

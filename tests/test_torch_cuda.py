@@ -9,7 +9,11 @@ version within float32 atol 1e-4 / rtol 1e-5 (another summation order)
 and bfloat16 atol 5e-2 / rtol 1e-3 plus exactly one bfloat16 step of the
 plain output (the reference's tolerance; the step because both round a
 float32 sum taken in another order); training on the card
-is held to the same steps on the CPU within rtol 1e-3.
+is held to the same steps on the CPU within rtol 1e-3.  The flash-attention
+kernel is held to its plain version within float32 atol 1e-5 / rtol 1e-5
+(the same float32 arithmetic in another summation order) and bfloat16
+atol 3e-2 (the reference's) plus exactly one bfloat16 step of the plain
+output.
 """
 
 import numpy as np
@@ -25,6 +29,8 @@ from repro_torch.configs import fpga4hep
 from repro_torch.core import logicnet as LN
 from repro_torch.core.train import train_logicnet
 from repro_torch.data import jet_substructure_data
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.lut_lookup import lut_lookup, lut_lookup_plain
 from repro_torch.kernels.masked_matmul import (MaskedMatmulFn, masked_matmul,
                                                masked_matmul_plain)
@@ -204,3 +210,75 @@ def test_training_on_the_card_matches_the_cpu(dev):
             # 5 per step, then 3 for the held-out accuracy forward
             assert masked_matmul.launches - before == 5 * 5 + 3
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+
+
+FLASH_TOL = {torch.float32: (1e-5, 1e-5, 0), torch.bfloat16: (3e-2, 0.0, 1)}
+
+
+def _qkv(dev, b, hq, hkv, s, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device=dev, dtype=dtype)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def _flash_check(q, k, v, **kw):
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, **kw).float()
+    atol, rtol, steps = FLASH_TOL[q.dtype]
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.full_like(want, torch.finfo(q.dtype).eps / 2), e)
+    diff = (got.float() - want).abs()
+    limit = atol + rtol * want.abs() + steps * ulp
+    assert (diff <= limit).all(), float((diff - limit).max())
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (1, 2, 2, 64, 16), (2, 4, 2, 96, 32), (1, 8, 1, 128, 16),
+    (2, 4, 4, 250, 8), (1, 4, 2, 65, 16), (1, 2, 1, 1000, 64),
+    (1, 4, 2, 300, 256), (1, 2, 2, 70, 6)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(dev, b, hq, hkv, s, d, causal, dtype):
+    _flash_check(*_qkv(dev, b, hq, hkv, s, d, dtype, seed=s + d),
+                 causal=causal)
+
+
+@pytest.mark.parametrize("window,causal,shape", [
+    (16, True, (1, 2, 2, 128, 16)), (64, True, (1, 2, 2, 128, 16)),
+    (1024, True, (1, 2, 2, 128, 16)), (1024, True, (1, 16, 8, 2048, 128)),
+    (100, False, (1, 4, 2, 300, 32)), (1, True, (1, 2, 1, 130, 16))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_window_matches_plain(dev, window, causal, shape,
+                                              dtype):
+    _flash_check(*_qkv(dev, *shape, dtype, seed=window), causal=causal,
+                 window=window)
+
+
+def test_flash_attention_scale_is_used(dev):
+    _flash_check(*_qkv(dev, 2, 4, 2, 80, 32, torch.float32), causal=True,
+                 scale=0.05)
+
+
+def test_flash_attention_refuses_what_the_kernel_cannot_take(dev):
+    q, k, v = _qkv(dev, 1, 4, 2, 16, 8, torch.float32)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="expected"):
+        flash_attention(q[0], k[0], v[0])
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        flash_attention(q[:, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="expected"):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(*_qkv(dev, 1, 2, 2, 8, 260, torch.float32))
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, window=0)

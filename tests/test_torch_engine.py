@@ -10,7 +10,10 @@ Contracts, all integer and so bit-exact (tolerance 0):
   layout for model A's raw tables;
 * **model A end to end** — the committed fixture equals a fresh
   regeneration by the reference, and the port serves the fresh artifact
-  and raw tables with the reference's outputs.
+  and raw tables with the reference's outputs;
+* **the LM fixture** — ``lm_smoke.npz`` (the reference's smoke-config
+  params and outputs that the card's check compares with) equals a fresh
+  regeneration, array for array.
 """
 
 import importlib.util
@@ -289,6 +292,20 @@ def test_train_fixture_matches_fresh_reference_generation():
     ``model_a_train.npz`` equals it array for array."""
     fresh = _fixture_tool().build_train()
     committed = load_train()
+    assert fresh.keys() == committed.keys()
+    for k in committed:
+        assert fresh[k].dtype == committed[k].dtype, k
+        np.testing.assert_array_equal(fresh[k], committed[k], err_msg=k)
+
+
+def test_lm_fixture_matches_fresh_reference_generation():
+    """Regenerate the LM fixture with the reference: the committed
+    ``lm_smoke.npz`` equals it array for array."""
+    tool = _fixture_tool()
+    fresh = tool.build_lm()
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                              tool.LM_NAME)) as z:
+        committed = {k: z[k] for k in z.files}
     assert fresh.keys() == committed.keys()
     for k in committed:
         assert fresh[k].dtype == committed[k].dtype, k

@@ -24,14 +24,27 @@ compared with, from fixed seeds:
   (``table_<i>`` / ``idx_<i>``), ``verify_tables``' float-path codes on
   the first 200 held-out rows (``verify_codes``), and the held-out
   accuracy of a 600-step run (``accuracy_600``).  Models are stored as
-  ``repro_torch.core.logicnet.reference_to_arrays`` flattens them.
+  ``repro_torch.core.logicnet.reference_to_arrays`` flattens them;
+* ``lm_smoke.npz`` (compressed) — for the qwen3-1.7b and gemma3-27b smoke
+  configs (``<arch>.`` prefix): the reference's ``init_params`` at
+  PRNGKey(0) flattened with dotted names (``params.<name>``, as
+  ``repro_torch.models.model.from_reference`` takes them), seeded tokens
+  ``(2, 64)``, and at float32 and bfloat16 compute (``<dtype>.`` prefix):
+  ``forward`` logits on all 64 positions (``prefill``), teacher-forced
+  ``decode_step`` logits over the first 12 tokens into a 12-slot cache
+  held in the compute dtype (``decode``; ``init_cache``'s bfloat16 cache
+  would round k and v to bfloat16 at float32 compute too, and one float32
+  rounding step there may move a value by one bfloat16 step), and the
+  tokens of every request of the decode loop of ``examples/serve_lm.py``
+  run with ``--requests 5 --slots 2 --max-new 6 --cache-len 64``
+  (``serve_ids`` in finishing order, ``serve_out`` their tokens).
 
 Run from the repo root (JAX on the CPU runs the Pallas kernels in
 interpret mode)::
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/make_torch_fixture.py
 
-``tests/test_torch_engine.py`` regenerates both in memory and asserts
+``tests/test_torch_engine.py`` regenerates each in memory and asserts
 they equal the committed files, so the fixture cannot drift from the
 reference.
 """
@@ -49,6 +62,12 @@ FIXTURE_DIR = os.path.join(
 ARTIFACT_NAME = "model_a_l3.npz"
 REF_NAME = "model_a_ref.npz"
 TRAIN_NAME = "model_a_train.npz"
+LM_NAME = "lm_smoke.npz"
+LM_ARCHS = ("qwen3-1.7b", "gemma3-27b")
+LM_DTYPES = ("float32", "bfloat16")
+LM_SEQ = 64            # a multiple of both smoke configs' attn_chunk
+LM_DECODE = 12
+LM_SERVE = {"requests": 5, "slots": 2, "max_new": 6, "cache_len": 64}
 TRAIN_STEPS = 20
 LONG_STEPS = 600
 N_VERIFY = 200
@@ -142,7 +161,130 @@ def build_train() -> dict[str, np.ndarray]:
     return out
 
 
-def write(directory: str = FIXTURE_DIR) -> tuple[str, str, str]:
+def flatten_params(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """A reference parameter pytree as numpy arrays with dotted names."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_params(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def unflatten_params(arrays: dict[str, np.ndarray]) -> dict:
+    """The inverse of :func:`flatten_params`: a nested dict of arrays."""
+    tree: dict = {}
+    for name, a in arrays.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = a
+    return tree
+
+
+def reference_serve(cfg, params, requests: int, slots: int, max_new: int,
+                    cache_len: int) -> list[dict]:
+    """The decode loop of ``examples/serve_lm.py`` (its ``main`` after the
+    config and params), returning the finished requests in order."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.launch.steps import make_decode_step
+    from repro.models import model as M
+
+    decode = jax.jit(make_decode_step(cfg))
+    rng = np.random.default_rng(0)
+    queue = [{"id": i,
+              "prompt": rng.integers(1, cfg.vocab,
+                                     rng.integers(4, 12)).tolist()}
+             for i in range(requests)]
+    done: list[dict] = []
+    cache = M.init_cache(cfg, slots, cache_len)
+    pos = jnp.zeros((slots,), jnp.int32)
+    cur_tok = jnp.zeros((slots, 1), jnp.int32)
+    active: list[dict | None] = [None] * slots
+
+    def admit():
+        nonlocal pos, cur_tok
+        for s in range(slots):
+            if active[s] is None and queue:
+                req = queue.pop(0)
+                active[s] = {"id": req["id"], "prompt": req["prompt"],
+                             "fed": 0, "out": []}
+                pos = pos.at[s].set(0)
+                cur_tok = cur_tok.at[s, 0].set(req["prompt"][0])
+                active[s]["fed"] = 1
+
+    admit()
+    while any(s is not None for s in active):
+        logits, cache = decode(params, cache, cur_tok, pos)
+        next_ids = np.asarray(jnp.argmax(logits, axis=-1))
+        pos = pos + 1
+        for s in range(slots):
+            req = active[s]
+            if req is None:
+                continue
+            if req["fed"] < len(req["prompt"]):
+                cur_tok = cur_tok.at[s, 0].set(req["prompt"][req["fed"]])
+                req["fed"] += 1
+                continue
+            req["out"].append(int(next_ids[s]))
+            cur_tok = cur_tok.at[s, 0].set(int(next_ids[s]))
+            if (len(req["out"]) >= max_new
+                    or int(pos[s]) >= cache_len - 1):
+                done.append(req)
+                active[s] = None
+        admit()
+    return done
+
+
+def build_lm() -> dict[str, np.ndarray]:
+    """The arrays of ``lm_smoke.npz``, nothing written."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config
+    from repro.models import model as M
+
+    out = {}
+    for arch in LM_ARCHS:
+        base = get_smoke_config(arch)
+        params = M.init_params(base, jax.random.PRNGKey(0))
+        for name, a in flatten_params(params).items():
+            out[f"{arch}.params.{name}"] = a
+        tokens = np.random.default_rng(1).integers(
+            0, base.vocab, (2, LM_SEQ)).astype(np.int32)
+        out[f"{arch}.tokens"] = tokens
+        for cd in LM_DTYPES:
+            cfg = dataclasses.replace(base, compute_dtype=cd)
+            fwd = jax.jit(lambda p, t, cfg=cfg: M.forward(
+                p, cfg, {"tokens": t})[0])
+            out[f"{arch}.{cd}.prefill"] = np.asarray(fwd(params, tokens),
+                                                     np.float32)
+            dec = jax.jit(lambda p, c, t, pos, cfg=cfg: M.decode_step(
+                p, cfg, c, t, pos))
+            cache = jax.tree.map(lambda a, cd=cd: a.astype(cd),
+                                 M.init_cache(cfg, 2, LM_DECODE))
+            steps = []
+            for t in range(LM_DECODE):
+                logits, cache = dec(params, cache, tokens[:, t:t + 1],
+                                    jnp.full((2,), t, jnp.int32))
+                steps.append(np.asarray(logits[:, 0], np.float32))
+            out[f"{arch}.{cd}.decode"] = np.stack(steps, axis=1)
+            done = reference_serve(cfg, params, **LM_SERVE)
+            # every request ends after max_new tokens at these flags
+            out[f"{arch}.{cd}.serve_ids"] = np.asarray(
+                [r["id"] for r in done], np.int32)
+            out[f"{arch}.{cd}.serve_out"] = np.asarray(
+                [r["out"] for r in done], np.int32)
+    return out
+
+
+def write(directory: str = FIXTURE_DIR) -> tuple[str, str, str, str]:
     os.makedirs(directory, exist_ok=True)
     mixed, ref = build()
     art = mixed.save(os.path.join(directory, ARTIFACT_NAME))
@@ -150,14 +292,16 @@ def write(directory: str = FIXTURE_DIR) -> tuple[str, str, str]:
     np.savez_compressed(ref_path, **ref)
     train_path = os.path.join(directory, TRAIN_NAME)
     np.savez_compressed(train_path, **build_train())
-    return art, ref_path, train_path
+    lm_path = os.path.join(directory, LM_NAME)
+    np.savez_compressed(lm_path, **build_lm())
+    return art, ref_path, train_path, lm_path
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--out", default=FIXTURE_DIR,
-                    help="directory to write the three .npz files into")
+                    help="directory to write the four .npz files into")
     args = ap.parse_args()
     for path in write(args.out):
         print(f"{path}: {os.path.getsize(path)} B")

@@ -31,13 +31,18 @@ Phases, each of which must pass:
    int32 operations over 33.5 TOP/s (half the 67 TFLOP/s fp32 CUDA-core
    rate: Hopper has 64 INT32 lanes per SM against 128 FP32).  No single PyTorch call computes
    these functions, so ``library_ms`` is null.
-4. **masked matmul** — ``masked_matmul_forward`` against its plain version
-   on the card: at model A's training shapes, at a ragged (130, 700, 50)
-   that crosses every tile edge and at (4096, 4096, 4096), in float32
-   (atol 1e-4, rtol 1e-5: another summation order) and bfloat16 (the
-   reference's atol 5e-2, rtol 1e-3, plus exactly one bfloat16 step of
-   the plain output: both round a float32 sum taken in another order);
-   masked-out weights of 1e9 must vanish exactly;
+4. **masked matmul** — both routes of ``masked_matmul_forward`` against
+   the plain version on the card, each case asserting its route from
+   ``masked_matmul.launches_by_route``: the SIMT kernel at model A's
+   training shapes, at a ragged (130, 700, 50) and at 4096^3 in float32
+   (atol 1e-4, rtol 1e-5: another summation order) and at (130, 700, 50)
+   in bfloat16 (K, N not multiples of 8); the tensor-core (wgmma) kernel
+   in bfloat16 at (256, 64, 64), at (130, 712, 56), (300, 64, 136) and
+   (1000, 4104, 4096), ragged against its 256 x 128 x 64 tiles, and at
+   4096^3 (the reference's atol 5e-2, rtol 1e-3, plus exactly one
+   bfloat16 step of the plain output: both round a float32 sum taken in
+   another order); masked-out weights of 1e9 must vanish exactly on both
+   routes (bfloat16: bit-equal to the call with those weights zeroed);
    ``MaskedMatmulFn``'s gradients against autograd of the plain version.
 5. **training** — (a) the reference's init of model A carried in from
    ``model_a_train.npz`` and trained 20 steps on the card: losses within
@@ -54,7 +59,9 @@ Phases, each of which must pass:
    through ``ServingTier`` bit-exact, with zero builds and compiler runs
    after warmup.
 6. **masked-matmul times** — event and profiler device time at model A's
-   widest layer (256 x 64 x 64, float32) and at 4096^3 (float32, bfloat16),
+   widest layer (256 x 64 x 64, float32, SIMT) and at 4096^3 (float32 on
+   the SIMT route, bfloat16 on the wgmma route, beside the SIMT kernel
+   called directly on the same bfloat16 inputs: the earlier design),
    beside the plain version, ``torch.addmm(b, x, w * mask)`` with TF32 off
    (``library_ms``, timed only as a yardstick) and the bound: the larger of
    the bytes moved (x, w, mask, b read once, out written once) over
@@ -62,13 +69,25 @@ Phases, each of which must pass:
    67 TFLOP/s (float32, CUDA cores) or 989 TFLOP/s (bfloat16); and 50
    profiled training steps: host-clock time against device time per step.
 
-7. **flash attention** — ``flash_attention_forward`` against its plain
-   version on the card: the reference tests' cases (MHA, GQA, MQA, ragged
-   250, causal and not, windows 16 / 64 / 1024, bfloat16), a ragged
-   S = 1000, window 1024 at qwen3-1.7b's head shape and the qwen3-1.7b
-   prefill shape (4, 16, 2048, 128) with Hkv 8 in float32 (atol 1e-5,
-   rtol 1e-5: another summation order) and bfloat16 (the reference's atol
-   3e-2 plus exactly one bfloat16 step of the plain output).
+7. **flash attention** — both routes of ``flash_attention_forward``
+   against the plain version on the card, each case asserting its route
+   from ``flash_attention.launches_by_route`` (float32 and bfloat16 with
+   D % 8 != 0: SIMT; bfloat16 with D % 8 == 0: wgmma): the reference
+   tests' cases (MHA, GQA, MQA, ragged 250, causal and not, windows 16 /
+   64 / 1024, bfloat16), a ragged S = 1000, window 1024 at qwen3-1.7b's
+   head shape and the qwen3-1.7b prefill shape (4, 16, 2048, 128) with
+   Hkv 8, and for the wgmma route a grid of GQA groups 1, 2 and 8, D 16,
+   64, 128 and 256, S 65, 250 and 1000, causal and not, and windows 16,
+   64 and 1024; in float32 (atol 1e-5, rtol 1e-5: another summation
+   order) and bfloat16 (the reference's atol 3e-2 plus exactly one
+   bfloat16 step of the plain output); on the wgmma route also a second
+   gate beside it, 1e-3 plus two bfloat16 steps of the plain output,
+   elementwise, and a case at (1, 16, 32768, 128); at the prefill shape
+   and at 32768 the gate's readings (largest difference over its limit,
+   RMS ratio) of the kernel, of the kernel with P rounded to bfloat16 and
+   of a stale-stage control (the plain version with one K/V tile replaced
+   by the one two tiles before it), failing unless the gate rejects that
+   control.
 8. **smoke LMs against the reference** — the qwen3-1.7b and gemma3-27b
    smoke configs with the reference's params (``lm_smoke.npz``): prefill
    logits through the kernel, teacher-forced decode logits and, at float32
@@ -79,19 +98,23 @@ Phases, each of which must pass:
    counter at 0, the port's seeded init (28 layers, d_model 2048, Hq 16,
    Hkv 8, head_dim 128, vocab 151 936, bfloat16 compute): (a) prefill of
    4 prompts x 2048 tokens through ``make_prefill_step``, exactly 28 flash
-   launches, finite logits; (b) 2 prompts of 64 tokens fed one at a time
-   through ``decode_step``, last logits against prefill's: at float32
-   compute (a float32 cache, the same weights) within atol 1e-4 / rtol
-   1e-4, and at bfloat16 compute the same top-1 tokens and the reference's
-   atol 0.05 / rtol 0.05 on all but 1e-4 of the logits (28 layers of
-   bfloat16 rounding in two summation orders move a logit by about 0.012
-   on average and past 0.05 at 10 of 303 872); (c) ``serve_lm.serve`` at
+   launches, all on the wgmma route, finite logits; (b) 2 prompts of 64
+   tokens fed one at a time through ``decode_step``, last logits against
+   prefill's: at float32 compute (a float32 cache, the same weights)
+   within atol 1e-4 / rtol 1e-4, and at bfloat16 compute the same top-1
+   tokens and the reference's atol 0.05 / rtol 0.05 on all but 1e-4 of
+   the logits (28 layers of bfloat16 rounding in two summation orders
+   move a logit by about 0.012 on average and past 0.05 at 21 of
+   303 872); (c) ``serve_lm.serve`` at
    the CLI defaults (12 requests, 4 slots, 24 new tokens, cache 128):
    every request served.
 10. **flash times** — at (4, 16, 2048, 128) and (1, 16, 32768, 128)
     (one layer of the prefill_32k cell's sequence), bfloat16, causal,
-    Hkv 8: event time (device time a launch from the prefill's profile)
-    beside the plain version,
+    Hkv 8: event time and profiled device time back to back (and a
+    launch's device time inside the prefill's profile) beside the SIMT
+    kernel called directly on the same inputs (the earlier design) and the
+    wgmma kernel with P rounded to bfloat16 (what the hi + lo split
+    costs), the plain version,
     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
     (``library_ms``, a yardstick the port never calls) and the bound, the
     larger of q, k, v and out moved once over 3.35 TB/s and 4 B Hq D per
@@ -122,11 +145,21 @@ INT32_OPS_PER_S = 33.5e12
 FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 SOURCE = "src/repro_torch/kernels/csrc/lut_kernels.cu"
 MM_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul.cu"
+MM_WGMMA_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul_wgmma.cu"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_WGMMA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 # flash attention: (atol, rtol, steps) as MM_TOL; float32 differs from the
 # plain version in summation order only, bfloat16 takes the reference's
 # atol 3e-2 plus one bfloat16 step of the plain output
 FA_TOL = {"float32": (1e-5, 1e-5, 0), "bfloat16": (3e-2, 0.0, 1)}
+# the wgmma route's second gate, beside FA_TOL, as (atol, rtol, steps):
+# kernel and plain version differ in summation order and by P's hi + lo
+# split (about 2^-17 of P), far below one bfloat16 step, so two steps of
+# the plain output plus 1e-3 (outputs near zero).  At S 2048 an output
+# is about 0.04, so FA_TOL's 3e-2 would pass a kernel that reads one
+# stale K/V stage of sixteen (late rows move by about 5e-3): phase 7
+# checks that this gate rejects such a control
+FA_GATE = (1e-3, 0.0, 2)
 LM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.05, 0.05)}
 FULL_ARCH = "qwen3-1.7b"
 PREFILL_SHAPE = (4, 2048)       # the prefill_32k cell cut to B 4 x S 2048
@@ -156,6 +189,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def reset_counts(wrapper) -> None:
+    """Set a kernel wrapper's launch count and its per-route counts to 0."""
+    wrapper.launches = 0
+    for route in wrapper.launches_by_route:
+        wrapper.launches_by_route[route] = 0
+
+
 def cuda_ms(fn, iters: int, reps: int = 7) -> float:
     """Median over ``reps`` of CUDA-event time per call over ``iters``."""
     import torch
@@ -181,7 +221,10 @@ def profiled(fn, iters: int) -> tuple[float, dict]:
 
     A first traced round of ``iters`` calls is discarded (the schedule's
     warm-up): launches made right after tracing starts can go unrecorded,
-    which dropped one of three 4096^3 masked-matmul launches."""
+    which dropped one of three 4096^3 masked-matmul launches.  Records can
+    still be lost (one of five flash launches at (4, 16, 2048, 128), all
+    three at S 32768): a single kernel's time comes from
+    :func:`device_ms`, which takes only complete traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
@@ -204,10 +247,50 @@ def profiled(fn, iters: int) -> tuple[float, dict]:
     return wall, by_name
 
 
-def device_ms(fn, iters: int) -> float | None:
-    """Device time per call of every kernel ``fn`` launches, from the
-    profiler's CUDA activity (None when the profiler records none)."""
-    return sum(profiled(fn, iters)[1].values()) or None
+def device_ms(fn, iters: int, launches: int = 1,
+              tries: int = 5) -> float | None:
+    """Device time per call of ``fn``, which launches ``launches`` kernels a
+    call, from a trace of ``iters`` calls between a call before them and a
+    call after them, each 20 ms apart on the host.  The kernel records fall
+    into runs split by device-side gaps of 10 ms or more; the longest run
+    is the measured calls'.  The profiler can lose records (one a trace of
+    masked-matmul launches, most flash launches of a window after a large
+    trace), so a trace counts only when that run holds exactly ``iters *
+    launches`` records (the calls around it take what a trace loses at its
+    start and end); another is taken otherwise, up to ``tries`` times, then
+    None (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+        records = sorted((e.time_range for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and not e.is_user_annotation),
+                         key=lambda r: r.start)
+        runs = [[]]
+        for r in records:
+            if runs[-1] and r.start - runs[-1][-1].end >= 1e4:
+                runs.append([])
+            runs[-1].append(r)
+        measured = max(runs, key=len)
+        if len(measured) == iters * launches:
+            return sum(r.elapsed_us() for r in measured) / 1e3 / iters
+        log(f"profiler kept {len(records)} kernel records of "
+            f"{(iters + 2) * launches}, in runs of "
+            f"{[len(r) for r in runs]}; tracing again")
+    return None
 
 
 def profile_split(torch, fn, iters: int) -> tuple:
@@ -292,21 +375,33 @@ def masked_matmul_phase(torch, dev) -> dict:
                                                    masked_matmul,
                                                    masked_matmul_plain)
     m0, m1 = model_a_masks()
-    cases = [(256, 16, 64, "float32", m0), (256, 64, 64, "float32", m1),
-             (130, 700, 50, "float32", None), (130, 700, 50, "bfloat16", None),
-             (4096, 4096, 4096, "float32", None),
-             (4096, 4096, 4096, "bfloat16", None)]
+    # (M, K, N, dtype, mask, route): bfloat16 with K and N multiples of 8
+    # runs the tensor-core kernel, ragged against its 256 x 128 x 64 tiles
+    cases = [(256, 16, 64, "float32", m0, "simt"),
+             (256, 64, 64, "float32", m1, "simt"),
+             (130, 700, 50, "float32", None, "simt"),
+             (130, 700, 50, "bfloat16", None, "simt"),
+             (256, 64, 64, "bfloat16", m1, "wgmma"),
+             (130, 712, 56, "bfloat16", None, "wgmma"),
+             (300, 64, 136, "bfloat16", None, "wgmma"),
+             (1000, 4104, 4096, "bfloat16", None, "wgmma"),
+             (4096, 4096, 4096, "float32", None, "simt"),
+             (4096, 4096, 4096, "bfloat16", None, "wgmma")]
     errs = {"float32": 0.0, "bfloat16": 0.0}
-    for i, (m, k, n, dtype, mask) in enumerate(cases):
+    for i, (m, k, n, dtype, mask, route) in enumerate(cases):
         x, w, mk, b = mm_inputs(torch, dev, m, k, n, dtype, mask, seed=i)
         atol, rtol, steps = MM_TOL[dtype]
         for bias in (b, None):
             before = masked_matmul.launches
+            by_route = masked_matmul.launches_by_route[route]
             got = masked_matmul(x, w, mk, bias)
             want = masked_matmul_plain(x, w, mk, bias)
             torch.cuda.synchronize()
             if masked_matmul.launches != before + 1:
                 fail(f"masked_matmul {m}x{k}x{n} {dtype}: kernel not launched")
+            if masked_matmul.launches_by_route[route] != by_route + 1:
+                fail(f"masked_matmul {m}x{k}x{n} {dtype}: not launched on "
+                     f"the {route} route ({masked_matmul.launches_by_route})")
             if got.dtype != x.dtype or got.shape != (m, n):
                 fail(f"masked_matmul {m}x{k}x{n} {dtype}: gave {got.dtype} "
                      f"{tuple(got.shape)}")
@@ -316,14 +411,34 @@ def masked_matmul_phase(torch, dev) -> dict:
                      f"plain| {float(diff.max())} beyond atol {atol} rtol "
                      f"{rtol} + {steps} {dtype} step")
             errs[dtype] = max(errs[dtype], float(diff.max()))
-        log(f"phase 4 masked_matmul {m}x{k}x{n} {dtype}: max |kernel - plain| "
-            f"{errs[dtype]:.3g} (atol {atol}, rtol {rtol}, + {steps} step)")
+        log(f"phase 4 masked_matmul {m}x{k}x{n} {dtype} ({route}): max "
+            f"|kernel - plain| {errs[dtype]:.3g} (atol {atol}, rtol {rtol}, "
+            f"+ {steps} step)")
     x = torch.ones((4, 8), device=dev)
     w = torch.full((8, 4), 1e9, device=dev)
     mask = torch.zeros((8, 4), device=dev)
     mask[0] = 1.0
     if not bool((masked_matmul(x, w, mask) == 1e9).all()):
         fail("masked_matmul: masked-out weights of 1e9 leaked into the sum")
+    # bfloat16 on the tensor-core route: the mask is applied in shared
+    # memory, so an unfenced write would let wgmma read the 1e9 weights
+    x, w, mk, b = mm_inputs(torch, dev, 1000, 4104, 4096, "bfloat16", seed=7)
+    loud = torch.where(mk.bool(), w, torch.full_like(w, 1e9))
+    before = masked_matmul.launches_by_route["wgmma"]
+    got = masked_matmul(x, loud, mk, b)
+    same = masked_matmul(x, w * mk, mk, b)
+    ones = torch.ones((64, 64), dtype=torch.bfloat16, device=dev)
+    big = torch.full((64, 64), 1e9, dtype=torch.bfloat16, device=dev)
+    one_row = torch.zeros((64, 64), dtype=torch.bfloat16, device=dev)
+    one_row[0] = 1.0
+    single = masked_matmul(ones, big, one_row)
+    torch.cuda.synchronize()
+    if masked_matmul.launches_by_route["wgmma"] != before + 3:
+        fail("masked_matmul bfloat16 leak check: not on the wgmma route")
+    if not torch.equal(got, same) or not bool((single == big[0, 0]).all()):
+        fail("masked_matmul bfloat16: masked-out weights of 1e9 leaked into "
+             f"the sum (max |loud - zeroed| "
+             f"{float((got.float() - same.float()).abs().max())})")
     x, w, mask, b = mm_inputs(torch, dev, 256, 64, 64, "float32", m1, seed=9)
     leaves = [t.clone().requires_grad_() for t in (x, w, b)]
     plain = [t.clone().requires_grad_() for t in (x, w, b)]
@@ -341,8 +456,10 @@ def masked_matmul_phase(torch, dev) -> dict:
             fail(f"MaskedMatmulFn {name}: max |kernel - plain| "
                  f"{float(diff.max())}")
         errs["float32"] = max(errs["float32"], float(diff.max()))
-    log("phase 4 masked_matmul: mask exact; MaskedMatmulFn dx, dw, db "
-        "within atol 1e-4 of autograd of the plain version")
+    log("phase 4 masked_matmul: mask exact on both routes (bfloat16: "
+        "1000x4104x4096 with 1e9 weights masked out equals the zeroed call "
+        "bit for bit); MaskedMatmulFn dx, dw, db within atol 1e-4 of "
+        "autograd of the plain version")
     return {"max_abs_err": errs["float32"],
             "max_abs_err_bf16": errs["bfloat16"]}
 
@@ -401,7 +518,7 @@ def training_phase(torch, dev, kernels) -> dict:
     # (c)-(e): the main path of this slice, every launch counter at 0
     for k in kernels.values():
         k["wrapper"].launches = 0
-    masked_matmul.launches = 0
+    reset_counts(masked_matmul)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = train_logicnet(cfg, xt, yt, xv, yv, steps=TRAIN_STEPS, seed=0,
@@ -414,6 +531,9 @@ def training_phase(torch, dev, kernels) -> dict:
     if train_launches != 5 * TRAIN_STEPS + 3:
         fail(f"training launched masked_matmul {train_launches} times; "
              f"expected {5 * TRAIN_STEPS + 3}")
+    if masked_matmul.launches_by_route["simt"] != train_launches:
+        fail(f"float32 training left the SIMT route: "
+             f"{masked_matmul.launches_by_route}")
     if not np.isfinite(res.losses).all():
         fail("training produced a non-finite loss")
     ref_acc = float(fx["accuracy_600"])
@@ -460,30 +580,47 @@ def training_phase(torch, dev, kernels) -> dict:
         f"p99={rep.p99_ms:.3f} ms, retraces={st['retraces_after_warmup']} "
         f"compiler_runs={st['compiler_runs_after_warmup']}")
     launches = masked_matmul.launches
-    log(f"phase 5 main path launches: masked_matmul_forward {launches}, "
+    log(f"phase 5 main path launches: masked_matmul_forward {launches} "
+        f"(by route {masked_matmul.launches_by_route}), "
         f"lut_layer_forward {lut_lookup.launches}, lut_uniform_forward "
         f"{lut_network.launches}")
-    return {"launches": launches, "loss_rtol_20": rel,
+    return {"launches": launches,
+            "launches_by_route": dict(masked_matmul.launches_by_route),
+            "loss_rtol_20": rel,
             "table_mismatches": mismatched, "boundary_entries": near,
             "train_step_ms": train_s / TRAIN_STEPS * 1e3,
             "launches_per_step": (train_launches - 3) / TRAIN_STEPS,
             "accuracy": res.accuracy}
 
 
+def simt_masked_matmul(torch, x, w, mk, b):
+    """The SIMT kernel called directly, bypassing the route rule (and the
+    launch counts): the earlier design's time for bfloat16 beside the
+    tensor-core kernel's, in the same run."""
+    from repro_torch.kernels import masked_matmul as MM
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    MM._launch_simt(x, w, mk, b, out)
+    return out
+
+
 def masked_matmul_times(torch, dev, mm: dict) -> dict:
     """Phase 6: masked-matmul times beside the plain version, the library
     call and the bound; returns the kernel's record."""
     from repro_torch.kernels.masked_matmul import (masked_matmul,
-                                                   masked_matmul_plain)
+                                                   masked_matmul_plain,
+                                                   masked_matmul_route)
     rec = {"name": "masked_matmul_forward", "route": "cuda",
            "source": MM_SOURCE,
            "replaces": "src/repro/kernels/masked_matmul.py:23", **mm,
+           "routes": {"simt": MM_SOURCE, "wgmma": MM_WGMMA_SOURCE},
            "shape": [256, 64, 64]}
     cases = (("", 256, 64, 64, "float32", model_a_masks()[1], 200),
              ("_4096_f32", 4096, 4096, 4096, "float32", None, 3),
-             ("_4096_bf16", 4096, 4096, 4096, "bfloat16", None, 3))
+             ("_4096_bf16", 4096, 4096, 4096, "bfloat16", None, 10))
     for suffix, m, k, n, dtype, mask, iters in cases:
         x, w, mk, b = mm_inputs(torch, dev, m, k, n, dtype, mask)
+        route = masked_matmul_route(x.dtype, k, n)
         ms = cuda_ms(lambda: masked_matmul(x, w, mk, b), iters)
         plain_ms = cuda_ms(lambda: masked_matmul_plain(x, w, mk, b), iters)
         library_ms = cuda_ms(lambda: torch.addmm(b, x, w * mk), iters)
@@ -497,11 +634,19 @@ def masked_matmul_times(torch, dev, mm: dict) -> dict:
                     f"library_ms{suffix}": library_ms,
                     f"bound_ms{suffix}": max(bytes_ms, ops_ms),
                     f"bound_by{suffix}": ("bytes" if bytes_ms >= ops_ms
-                                          else "operations")})
-        log(f"phase 6 masked_matmul_forward {m}x{k}x{n} {dtype}: {ms:.5f} "
-            f"ms/call, device {dev_ms} ms, plain {plain_ms:.5f} ms, addmm "
-            f"{library_ms:.5f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
-            f"({moved} B, {ops} flop)")
+                                          else "operations"),
+                    f"dispatch{suffix}": route})
+        extra = ""
+        if route == "wgmma":
+            simt_ms = cuda_ms(lambda: simt_masked_matmul(torch, x, w, mk, b),
+                              3)
+            rec[f"simt_ms{suffix}"] = simt_ms
+            extra = f", the SIMT kernel on the same inputs {simt_ms:.5f} ms"
+        log(f"phase 6 masked_matmul_forward {m}x{k}x{n} {dtype} ({route}): "
+            f"{ms:.5f} ms/call, device {dev_ms} ms, plain {plain_ms:.5f} ms, "
+            f"addmm {library_ms:.5f} ms ({ms / library_ms:.2f}x), bound "
+            f"{max(bytes_ms, ops_ms):.6f} ms ({moved} B, {ops} flop: "
+            f"{2 * m * k * n / ms / 1e9:.1f} TFLOP/s of dense work){extra}")
     return rec
 
 
@@ -538,9 +683,10 @@ def flash_inputs(torch, dev, b, hq, hkv, s, d, dtype, seed=0):
 
 
 def flash_phase(torch, dev) -> dict:
-    """Phase 7: the flash-attention kernel against its plain version."""
+    """Phase 7: the flash-attention kernels against their plain version."""
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_attention_route)
     cases = [((b, hq, hkv, s, d), dt, dict(causal=c))
              for b, hq, hkv, s, d in ((1, 2, 2, 64, 16), (2, 4, 2, 96, 32),
                                       (1, 8, 1, 128, 16), (2, 4, 4, 250, 8))
@@ -554,16 +700,35 @@ def flash_phase(torch, dev) -> dict:
               ((1, 16, 8, 2048, 128), "bfloat16",
                dict(causal=True, window=1024)),
               ((4, 16, 8, 2048, 128), "float32", dict(causal=True)),
-              ((4, 16, 8, 2048, 128), "bfloat16", dict(causal=True))]
+              ((4, 16, 8, 2048, 128), "bfloat16", dict(causal=True)),
+              ((1, 16, 8, LONG_SEQ, 128), "bfloat16", dict(causal=True)),
+              ((1, 4, 2, 100, 12), "bfloat16", dict(causal=True))]
+    n_named = len(cases)
+    # the tensor-core route's grid: GQA groups 1, 2 and 8, D 16 to 256, S
+    # not a multiple of its 64-row and 64- or 128-key tiles, causal or not,
+    # and sliding windows
+    cases += [((1, hq, hkv, s, d), "bfloat16", dict(causal=c))
+              for hq, hkv in ((4, 4), (4, 2), (8, 1))
+              for d in (16, 64, 128, 256) for s in (65, 250, 1000)
+              for c in (True, False)]
+    cases += [((1, 4, 2, 1000, d), "bfloat16", dict(causal=c, window=w))
+              for d in (64, 128) for w in (16, 64, 1024) for c in (True, False)]
     errs = {"float32": 0.0, "bfloat16": 0.0}
+    by_route = {"simt": 0, "wgmma": 0}
+    gate_worst = 0.0
     for i, (shape, dtype, kw) in enumerate(cases):
         q, k, v = flash_inputs(torch, dev, *shape, dtype, seed=i)
+        route = flash_attention_route(q.dtype, shape[-1])
         before = flash_attention.launches
+        before_route = flash_attention.launches_by_route[route]
         got = flash_attention(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         if flash_attention.launches != before + 1:
             fail(f"flash_attention {shape} {dtype}: kernel not launched")
+        if flash_attention.launches_by_route[route] != before_route + 1:
+            fail(f"flash_attention {shape} {dtype}: not launched on the "
+                 f"{route} route ({flash_attention.launches_by_route})")
         if got.dtype != q.dtype or got.shape != q.shape:
             fail(f"flash_attention {shape} {dtype}: gave {got.dtype} "
                  f"{tuple(got.shape)}")
@@ -571,18 +736,91 @@ def flash_phase(torch, dev) -> dict:
         diff = (got.float() - want.float()).abs()
         if not bool(torch.isfinite(got).all()) or bool(
                 (diff > mm_limit(torch, want, atol, rtol, steps)).any()):
-            fail(f"flash_attention {shape} {dtype} {kw}: max |kernel - "
-                 f"plain| {float(diff.max())} beyond atol {atol} rtol {rtol} "
-                 f"+ {steps} {dtype} step")
+            fail(f"flash_attention {shape} {dtype} {kw} ({route}): max "
+                 f"|kernel - plain| {float(diff.max())} beyond atol {atol} "
+                 f"rtol {rtol} + {steps} {dtype} step")
         err = float(diff.max())
         errs[dtype] = max(errs[dtype], err)
-        log(f"phase 7 flash_attention (B, Hq, Hkv, S, D) {shape} {dtype} "
-            f"{kw}: max |kernel - plain| {err:.3g}")
-    log(f"phase 7 flash_attention: {len(cases)} cases within tolerance; "
-        f"largest difference float32 {errs['float32']:.3g}, bfloat16 "
-        f"{errs['bfloat16']:.3g}")
+        by_route[route] += 1
+        gate = ""
+        if route == "wgmma":
+            ratio, rms = gate_reading(torch, got, want)
+            if ratio > 1:
+                fail(f"flash_attention {shape} {dtype} {kw} (wgmma): "
+                     f"|kernel - plain| reaches {ratio:.3g} times the gate "
+                     f"atol {FA_GATE[0]} + {FA_GATE[2]} steps")
+            gate_worst = max(gate_worst, ratio)
+            gate = f", {ratio:.3g} of the gate, RMS ratio {rms:.3g}"
+        if i < n_named:
+            log(f"phase 7 flash_attention (B, Hq, Hkv, S, D) {shape} {dtype} "
+                f"{kw} ({route}): max |kernel - plain| {err:.3g}{gate}")
+        del q, k, v, got, want, diff
+    log(f"phase 7 flash_attention: {len(cases)} cases within tolerance "
+        f"({by_route['wgmma']} on the wgmma route, {by_route['simt']} on "
+        f"the SIMT route; the last {len(cases) - n_named}: GQA 1/2/8, D "
+        f"16-256, S 65/250/1000, windows 16/64/1024, causal or not); largest "
+        f"difference float32 {errs['float32']:.3g}, bfloat16 "
+        f"{errs['bfloat16']:.3g}; wgmma cases within {gate_worst:.3g} of "
+        f"the second gate (atol {FA_GATE[0]} + {FA_GATE[2]} bfloat16 steps)")
     return {"max_abs_err": errs["float32"],
-            "max_abs_err_bf16": errs["bfloat16"]}
+            "max_abs_err_bf16": errs["bfloat16"],
+            "gate_worst_ratio": gate_worst, **gate_controls(torch, dev)}
+
+
+def gate_reading(torch, got, want, tol=FA_GATE) -> tuple[float, float]:
+    """(largest |got - want| over the elementwise limit of ``tol``, RMS of
+    got - want over RMS of want)."""
+    diff = (got.float() - want.float()).abs()
+    ratio = float((diff / mm_limit(torch, want, *tol)).max())
+    rms = float(diff.square().mean().sqrt()
+                / want.float().square().mean().sqrt())
+    return ratio, rms
+
+
+def gate_controls(torch, dev) -> dict:
+    """Phase 7, the second gate's readings at (4, 16, 2048, 128) and
+    (1, 16, 32768, 128), bfloat16 causal, Hkv 8, each against the plain
+    version: the kernel; the kernel with P rounded to bfloat16 (the design
+    the hi + lo split replaced); and a stale-stage control, the plain
+    version on inputs whose middle 128-key K/V tile is replaced by the one
+    two tiles before it, as a kernel would compute that read a 2-stage
+    ring's slot before its refill landed.  Fails unless the gate passes
+    the kernel and rejects the stale stage."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    out = {}
+    for suffix, (b, s) in (("", PREFILL_SHAPE), ("_32k", (1, LONG_SEQ))):
+        q, k, v = flash_inputs(torch, dev, b, 16, 8, s, 128, "bfloat16")
+        want = flash_attention_plain(q, k, v, causal=True)
+        t = s // 128 // 2
+        stale = [x.clone() for x in (k, v)]
+        for x, src in zip(stale, (k, v)):
+            x[:, :, t * 128:(t + 1) * 128] = src[:, :, (t - 2) * 128:
+                                                 (t - 1) * 128]
+        got = {"kernel": flash_attention(q, k, v, causal=True),
+               "p_rounded": flash_direct(torch, q, k, v, "wgmma",
+                                         split_p=False),
+               "stale_stage": flash_attention_plain(q, *stale, causal=True)}
+        torch.cuda.synchronize()
+        read = {name: gate_reading(torch, g, want) for name, g in got.items()}
+        tol = {name: gate_reading(torch, g, want, FA_TOL["bfloat16"])[0]
+               for name, g in got.items()}
+        for name, (ratio, rms) in read.items():
+            out[f"gate_{name}{suffix}"] = [ratio, rms, tol[name]]
+        if read["kernel"][0] > 1 or read["stale_stage"][0] <= 1:
+            fail(f"flash_attention gate at ({b}, 16, 8, {s}, 128): kernel "
+                 f"{read['kernel'][0]:.3g}, stale-stage control "
+                 f"{read['stale_stage'][0]:.3g} of the limit (the kernel "
+                 f"must pass, the control fail)")
+        log(f"phase 7 second gate at (B, Hq, Hkv, S, D) ({b}, 16, 8, {s}, "
+            f"128) causal, max |x - plain| over the gate's limit, RMS "
+            f"ratio, max over FA_TOL's limit: " + "; ".join(
+                f"{name} {r:.3g} / {m:.3g} / {tol[name]:.3g}"
+                for name, (r, m) in read.items())
+            + " (the stale stage rejected)")
+        del q, k, v, want, got, stale
+        torch.cuda.empty_cache()
+    return out
 
 
 def lm_check(name, got, want, dtype) -> float:
@@ -686,8 +924,8 @@ def lm_main_path(torch, dev, kernels) -> dict:
 
     for k in kernels.values():
         k["wrapper"].launches = 0
-    masked_matmul.launches = 0
-    flash_attention.launches = 0
+    reset_counts(masked_matmul)
+    reset_counts(flash_attention)
     torch.cuda.synchronize()
 
     # (a) prefill of 4 x 2048 tokens
@@ -703,12 +941,16 @@ def lm_main_path(torch, dev, kernels) -> dict:
     if a_launches != cfg.n_layers:
         fail(f"prefill launched flash_attention {a_launches} times, not "
              f"{cfg.n_layers}")
+    if flash_attention.launches_by_route["wgmma"] != cfg.n_layers:
+        fail(f"prefill's flash launches did not all take the tensor-core "
+             f"route: {flash_attention.launches_by_route}")
     if logits.shape != (b, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
         fail(f"prefill logits {tuple(logits.shape)} not finite or not "
              f"({b}, {cfg.vocab})")
     log(f"phase 9a prefill {b} x {s} tokens: flash_attention launched "
-        f"{a_launches} times (one per layer), logits {tuple(logits.shape)} "
+        f"{a_launches} times (one per layer, all on the wgmma route), "
+        f"logits {tuple(logits.shape)} "
         f"finite, first call {first_ms:.1f} ms (host clock, synchronised)")
 
     # (b) decode one token at a time against prefill: at float32 compute
@@ -764,11 +1006,14 @@ def lm_main_path(torch, dev, kernels) -> dict:
     launches = flash_attention.launches
     log(f"phase 9 main path launches: flash_attention_forward {launches} "
         f"({cfg.n_layers} per prefill, {launches // cfg.n_layers} "
-        f"prefills), masked_matmul_forward "
+        f"prefills; by route {flash_attention.launches_by_route}), "
+        f"masked_matmul_forward "
         f"{masked_matmul.launches}, LUT kernels "
         f"{sum(k['wrapper'].launches for k in kernels.values())}")
     return {"model": model, "cfg": cfg, "tokens": tokens,
-            "launches": launches, "prefill_first_ms": first_ms,
+            "launches": launches,
+            "launches_by_route": dict(flash_attention.launches_by_route),
+            "prefill_first_ms": first_ms,
             "decode_step_ms": step_ms,
             "decode_tokens_per_s": res.tokens / res.seconds,
             "decode_vs_prefill_max_abs": diffs["bfloat16"],
@@ -797,7 +1042,7 @@ def path_times(torch, dev, path: dict) -> dict:
         torch, lambda: prefill(model, {"tokens": tokens}), 3)
     fa = sum(t for n, t in by_name.items() if "flash_attention" in n)
     # the same shape as the kernel's timing at PREFILL_SHAPE, one layer
-    rec = {"device_ms": fa / cfg.n_layers,
+    rec = {"device_ms_in_prefill": fa / cfg.n_layers,
            "prefill_wall_ms": wall, "prefill_device_ms": total,
            "prefill_flash_device_ms": fa, "prefill_flash_share": fa / total,
            "prefill_idle_share": 1 - total / wall}
@@ -826,12 +1071,29 @@ def path_times(torch, dev, path: dict) -> dict:
     return rec
 
 
+def flash_direct(torch, q, k, v, route: str, split_p: bool = True):
+    """One kernel of ``route`` called directly on bfloat16, causal,
+    bypassing the route rule (and the launch counts): the SIMT kernel is
+    the earlier design; the wgmma kernel with ``split_p=False`` rounds P
+    to bfloat16 (one P V product), the design the hi + lo split replaced.
+    Both are timed beside the kernel in the same run."""
+    from repro_torch.kernels import flash_attention as FA
+    b, hq, s, d = q.shape
+    if route == "simt":
+        out = torch.empty_like(q)
+        FA._launch_simt(q, k, v, out, True, None, 1.0 / d ** 0.5)
+    else:
+        out = torch.empty((b, s, hq, d), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+        FA._launch_wgmma(q, k, v, out, True, None, 1.0 / d ** 0.5,
+                         split_p=split_p)
+    return out
+
+
 def flash_times(torch, dev) -> dict:
-    """Phase 10, the kernel: event times beside its bound, the plain
-    version and SDPA, at the prefill shape and at one layer of a 32k
-    sequence.  Its device time comes from the prefill's profile
-    (``path_times``): back to back, the profiler recorded only some of
-    its launches even after a warm-up round."""
+    """Phase 10, the kernel: event and device times beside its bound, the
+    plain version, SDPA and the earlier SIMT design, at the prefill shape
+    and at one layer of a 32k sequence."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     rec = {}
@@ -840,27 +1102,39 @@ def flash_times(torch, dev) -> dict:
         q, k, v = flash_inputs(torch, dev, b, 16, 8, s, 128, "bfloat16")
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters,
                      reps)
+        rounded_ms = cuda_ms(lambda: flash_direct(torch, q, k, v, "wgmma",
+                                                  split_p=False), iters, reps)
+        dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=True),
+                           5)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v,
                                                          causal=True),
                            iters, reps)
         library_ms = cuda_ms(lambda: sdpa(q, k, v), iters, reps)
+        simt_ms = cuda_ms(lambda: flash_direct(torch, q, k, v, "simt"), 1,
+                          3)
         moved = nbytes(q, k, v) + q.numel() * q.element_size()
         pairs = s * (s + 1) // 2
         ops = 4 * b * 16 * 128 * pairs
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FLOPS_PER_S["bfloat16"] * 1e3
-        rec.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+        rec.update({f"ms{suffix}": ms, f"device_ms{suffix}": dev_ms,
+                    f"plain_ms{suffix}": plain_ms,
                     f"library_ms{suffix}": library_ms,
+                    f"simt_ms{suffix}": simt_ms,
+                    f"p_rounded_ms{suffix}": rounded_ms,
                     f"bound_ms{suffix}": max(bytes_ms, ops_ms),
                     f"bound_by{suffix}": ("bytes" if bytes_ms >= ops_ms
                                           else "operations"),
                     f"shape{suffix}": [b, 16, 8, s, 128]})
         log(f"phase 10 flash_attention_forward (B, Hq, Hkv, S, D) "
-            f"({b}, 16, 8, {s}, 128) bfloat16 causal: {ms:.4f} ms/call, "
-            f"plain {plain_ms:.4f} ms, SDPA "
-            f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.5f} ms "
-            f"({moved} B, {ops} flop: {ops / ms / 1e9:.1f} TFLOP/s "
-            f"achieved)")
+            f"({b}, 16, 8, {s}, 128) bfloat16 causal (wgmma): {ms:.4f} "
+            f"ms/call, device {dev_ms} ms (back to back), plain "
+            f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
+            f"({ms / library_ms:.2f}x), the SIMT kernel {simt_ms:.4f} ms, "
+            f"P rounded (one P V product) {rounded_ms:.4f} ms (the split "
+            f"costs {(ms / rounded_ms - 1) * 100:.1f} %), "
+            f"bound {max(bytes_ms, ops_ms):.5f} ms ({moved} B, {ops} flop: "
+            f"{ops / ms / 1e9:.1f} TFLOP/s achieved)")
         del q, k, v
         torch.cuda.empty_cache()
     return rec
@@ -941,7 +1215,7 @@ def main() -> None:
                               s_mixed.perm),
             # per neuron element: mask, shift, add; per code: bound, address
             ops_per_row=sum(m.n_out * (3 * m.fan_in + 2)
-                            for m in s_mixed.meta)),
+                            for m in s_mixed.meta), per_call=1),
         "uniform": dict(
             name="lut_uniform_forward", wrapper=lut_network,
             kernel=lambda c: lut_network(c, s_uniform),
@@ -950,7 +1224,7 @@ def main() -> None:
             slab_bytes=nbytes(s_uniform.idx_slab, s_uniform.table_slab,
                               s_uniform.layer_meta, s_uniform.perm),
             ops_per_row=sum(m.n_out * (2 * m.fan_in + 2)
-                            for m in s_uniform.meta)),
+                            for m in s_uniform.meta), per_call=1),
         "per_layer": dict(
             name="lut_layer_forward", wrapper=lut_lookup,
             kernel=per_layer_kernel, plain=per_layer_plain,
@@ -958,7 +1232,8 @@ def main() -> None:
             slab_bytes=sum(nbytes(i, t)
                            for i, t, _ in nets["per_layer"].layers),
             ops_per_row=sum(i.shape[0] * (2 * i.shape[1] + 2)
-                            for i, _, _ in nets["per_layer"].layers)),
+                            for i, _, _ in nets["per_layer"].layers),
+            per_call=len(nets["per_layer"].layers)),
     }
     n_in, n_out = codes_all.shape[1], nets["mixed"].n_out
 
@@ -1026,7 +1301,8 @@ def main() -> None:
             iters = 200 if b <= 16 else 50
             ms = cuda_ms(lambda: k["kernel"](codes), iters)
             plain_ms = cuda_ms(lambda: k["plain"](codes), iters)
-            dev_ms = device_ms(lambda: k["kernel"](codes), iters)
+            dev_ms = device_ms(lambda: k["kernel"](codes), iters,
+                               k["per_call"])
             moved = b * (n_in + n_out) * 4 + k["slab_bytes"]
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             ops_ms = b * k["ops_per_row"] / INT32_OPS_PER_S * 1e3
@@ -1052,9 +1328,11 @@ def main() -> None:
     fa["lm_smoke_max_abs"] = lm_smoke_phase(torch, dev)
     path = lm_main_path(torch, dev, kernels)
     fa_rec = {"name": "flash_attention_forward", "route": "cuda",
-              "source": FA_SOURCE,
+              "source": FA_WGMMA_SOURCE,
               "replaces": "src/repro/kernels/flash_attention.py:30",
-              "launches": path["launches"], **fa}
+              "launches": path["launches"],
+              "launches_by_route": path["launches_by_route"],
+              "routes": {"simt": FA_SOURCE, "wgmma": FA_WGMMA_SOURCE}, **fa}
     fa_rec.update(path_times(torch, dev, path))
     fa_rec.update({k: path[k] for k in ("prefill_first_ms",
                                         "decode_vs_prefill_max_abs",

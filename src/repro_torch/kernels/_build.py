@@ -41,8 +41,11 @@ _SIGNATURES = {
                             _I, _I, _P, _P),
     "lut_layer_forward": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P),
     "masked_matmul_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "masked_matmul_wgmma_forward": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "flash_attention_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _I, _P),
+    "flash_attention_wgmma_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()
@@ -67,8 +70,10 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
+    """The library's path, keyed by the flags and every source and header
+    (``csrc/*.cu`` and ``csrc/*.cuh``), so a changed header rebuilds it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in [*sources(), *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 

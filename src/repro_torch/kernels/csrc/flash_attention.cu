@@ -13,15 +13,16 @@
 // and all arithmetic is float32, as the Pallas kernel casts its tiles; out
 // is rounded to the inputs' dtype once, after the final division.
 //
-// Where it runs: the attention of every prefill layer of the LM zoo
-// (repro_torch.models.attention.attn_apply).  At qwen3-1.7b's prefill
+// Where it runs: the attention of every float32 prefill layer of the LM
+// zoo (repro_torch.models.attention.attn_apply).  At qwen3-1.7b's prefill
 // shape, (4, 16, 2048, 128) bf16 causal with Hkv 8, a call does about
 // 69 GFLOP (4 B Hq D per unmasked (q, k) pair) and moves about 100 MB, so
 // it is bound by operations: 0.07 ms at the 989 TFLOP/s bf16 tensor-core
 // rate against 0.03 ms for the bytes.  This kernel runs its products in
 // float32 on CUDA cores (67 TFLOP/s peak), so it cannot come near that
-// bound; tensor cores (mma.sync or wgmma on bf16 tiles) change the
-// rounding and are later work.
+// bound.  The wrapper sends bfloat16 with head_dim % 8 == 0 to the
+// tensor-core kernel of flash_attention_wgmma.cu instead; float32 (and
+// any other bfloat16 head_dim) runs here.
 //
 // Design.  The TPU kernel's sequential KV grid axis, which carried
 // (acc, m, l) in VMEM scratch from one grid step to the next, becomes a
@@ -51,6 +52,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -275,11 +278,11 @@ template <typename T, int NG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int batch, int n_heads, int n_kv_heads, int seq, int dim,
                    int causal, int window, float scale, cudaStream_t stream) {
+  static int smem_done[hopper::kMaxDevices] = {};
   const int dp = (dim + 3) & ~3;
   const int smem = smem_floats(dp) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, NG>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = hopper::allow_dynamic_smem(flash_attention_kernel<T, NG>,
+                                               smem, smem_done);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kBlockQ - 1) / kBlockQ, n_heads, batch);
   flash_attention_kernel<T, NG><<<grid, kThreads, smem, stream>>>(

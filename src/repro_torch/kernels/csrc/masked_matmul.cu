@@ -28,7 +28,9 @@
 // fan-in indices, and adding the exact zeros of the masked-out weights
 // changes nothing.  The TPU kernel padded to (128, 128, 512) MXU blocks;
 // here small tiles keep enough blocks in flight for the small training
-// shapes.  Tensor cores (wgmma) and TMA are later work.
+// shapes.  The wrapper sends bfloat16 with K and N multiples of 8 to the
+// tensor-core kernel of masked_matmul_wgmma.cu instead; float32 (and any
+// other bfloat16 shape) runs here.
 //
 // The entry returns cudaGetLastError() after its launch; it launches on the
 // stream it is given, allocates nothing and does not synchronise.

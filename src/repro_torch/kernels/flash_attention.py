@@ -8,14 +8,32 @@ keys at or before the query; ``window`` (None, or at least 1) keeps only
 the last ``window`` keys of each query.  Arithmetic is float32 and the
 output has q's dtype.
 
-On CUDA tensors it launches ``flash_attention_forward``
-(``csrc/flash_attention.cu``), which replaces the Pallas
-``repro.kernels.flash_attention.flash_attention_pallas``; on CPU tensors
-it runs :func:`flash_attention_plain`, the dense masked softmax of
-``repro.kernels.ref.flash_attention_ref`` in plain torch.
+On CUDA tensors it launches one of two kernels that replace the Pallas
+``repro.kernels.flash_attention.flash_attention_pallas``, chosen by
+:func:`flash_attention_route`:
+
+* ``"wgmma"``: bfloat16 with ``D % 8 == 0`` runs
+  ``flash_attention_wgmma_forward`` (``csrc/flash_attention_wgmma.cu``) on
+  the tensor cores, P split into two bfloat16 halves (hi + lo) for the
+  P V product, so P keeps its float32 precision.  It reads
+  q, k and v through their strides (any (B, H, S, D) view whose last
+  dimension is contiguous, such as the transpose of the LM's (B, S, H, D)
+  projections) and writes a (B, S, Hq, D) buffer whose (B, Hq, S, D) view
+  it returns;
+* ``"simt"``: float32, and bfloat16 of any other D, runs
+  ``flash_attention_forward`` (``csrc/flash_attention.cu``) on CUDA cores
+  in float32, on contiguous copies.
+
+``flash_attention.launches`` counts every launch and
+``flash_attention.launches_by_route`` each route's.  A failed build or
+launch raises; no route falls back to the other or to the plain version.
+On CPU tensors it runs :func:`flash_attention_plain`, the dense masked
+softmax of ``repro.kernels.ref.flash_attention_ref`` in plain torch.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -25,6 +43,33 @@ from repro_torch.kernels.lut_lookup import stream_of
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DIM = 256
 _MAX_GRID_YZ = 65535
+_TMA_ALIGN = 16
+
+
+def flash_attention_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel a CUDA call launches: ``"wgmma"`` for bfloat16 with
+    ``head_dim % 8 == 0`` (up to 256), else ``"simt"``."""
+    if dtype == torch.bfloat16 and head_dim % 8 == 0 and \
+            1 <= head_dim <= _MAX_DIM:
+        return "wgmma"
+    return "simt"
+
+
+def _tma_view(t: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
+    """``t`` (B, H, S, D) with its (batch, head, seq) strides as TMA takes
+    them: 16-byte aligned start and strides, or else a contiguous copy.  A
+    dimension of size 1 is never stepped, so it gets its contiguous
+    stride."""
+    b, h, s, d = t.shape
+    natural = (h * s * d, s * d, d)
+    strides = [st if n > 1 else nat for st, n, nat in
+               zip(t.stride()[:3], t.shape[:3], natural)]
+    if t.data_ptr() % _TMA_ALIGN or any(st % 8 for st in strides):
+        return t.contiguous() if not t.is_contiguous() else t.clone(), \
+            list(natural)
+    return t, strides
+
+
 # Largest (B, Hq, rows, S) float32 score block the plain version holds at
 # once (1 GiB); it takes the query rows in blocks of that size, each row's
 # softmax whole.
@@ -79,14 +124,51 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _launch_simt(q, k, v, out, causal: bool, window: int | None,
+                 scale: float) -> None:
+    """``flash_attention_forward`` on checked operands (contiguous copies of
+    q, k and v), into the contiguous ``out``."""
+    b, hq, s, d = q.shape
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    with torch.cuda.device(q.device):
+        err = _build.library().flash_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            k.shape[1], s, d, int(causal), window or 0, float(scale),
+            _DTYPE_CODES[q.dtype], stream_of(q.device))
+    _build.check(err, "flash_attention_forward")
+
+
+def _launch_wgmma(q, k, v, out, causal: bool, window: int | None,
+                  scale: float, split_p: bool = True) -> None:
+    """``flash_attention_wgmma_forward`` on checked bfloat16 operands with
+    ``D % 8 == 0``, into ``out`` through its strides (``out`` 16-byte
+    aligned, its last dimension contiguous).  ``split_p=False`` runs the
+    kernel with P rounded to bfloat16 (one P V product; built for
+    64 < D <= 128 with Hq / Hkv >= 2 only): a yardstick for what the
+    hi + lo split costs, never taken by :func:`flash_attention`."""
+    b, hq, s, d = q.shape
+    views = [_tma_view(t) for t in (q, k, v)]
+    strides = [st for _, sts in views for st in sts] + list(out.stride()[:3])
+    q, k, v = (t for t, _ in views)
+    with torch.cuda.device(q.device):
+        err = _build.library().flash_attention_wgmma_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            (ctypes.c_longlong * 12)(*strides), b, hq, k.shape[1], s, d,
+            int(causal), window or 0, int(split_p), float(scale),
+            stream_of(q.device))
+    _build.check(err, "flash_attention_wgmma_forward")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """q (B, Hq, S, D); k, v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype.
 
-    CUDA tensors launch the kernel (``launches`` counts those launches):
-    float32 or bfloat16, one dtype and one device for all three,
-    contiguous, ``D <= 256``.  CPU tensors run :func:`flash_attention_plain`.
+    CUDA tensors launch the kernel :func:`flash_attention_route` names
+    (``launches`` counts every launch, ``launches_by_route`` each route's):
+    float32 or bfloat16, one dtype and one device for all three, the last
+    dimension contiguous, ``D <= 256``.  CPU tensors run
+    :func:`flash_attention_plain`.
     """
     dev = q.device
     if dev.type == "cpu":
@@ -101,8 +183,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.dtype not in _DTYPE_CODES or t.dtype != q.dtype:
             raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes "
                             f"one of {tuple(_DTYPE_CODES)} for q, k and v")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"{name} must be contiguous in its last "
+                             f"dimension")
     b, hq, s, d = q.shape
     if d > _MAX_DIM or d < 1:
         raise ValueError(f"head_dim {d} is outside the kernel's 1..{_MAX_DIM}")
@@ -111,18 +194,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"({_MAX_GRID_YZ})")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    out = torch.empty_like(q)
+    route = flash_attention_route(q.dtype, d)
+    if route == "wgmma":
+        out = torch.empty((b, s, hq, d), dtype=q.dtype,
+                          device=dev).transpose(1, 2)
+    else:
+        out = torch.empty((b, hq, s, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.flash_attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            k.shape[1], s, d, int(causal), window or 0, float(scale),
-            _DTYPE_CODES[q.dtype], stream_of(dev))
-    _build.check(err, "flash_attention_forward")
+    (_launch_wgmma if route == "wgmma" else _launch_simt)(
+        q, k, v, out, causal, window, scale)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"simt": 0, "wgmma": 0}

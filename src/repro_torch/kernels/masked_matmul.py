@@ -2,9 +2,22 @@
 
 ``masked_matmul(x, w, mask, b)`` computes ``x (M, K) @ (w * mask) (K, N) +
 b (N,)`` with a float32 accumulator, output in ``x``'s dtype.  On CUDA
-tensors it launches ``masked_matmul_forward`` (``csrc/masked_matmul.cu``),
-which replaces the Pallas ``repro.kernels.masked_matmul.masked_matmul_pallas``;
-on CPU tensors it runs :func:`masked_matmul_plain`, the same function in
+tensors it launches one of two kernels that replace the Pallas
+``repro.kernels.masked_matmul.masked_matmul_pallas``, chosen by
+:func:`masked_matmul_route`:
+
+* ``"wgmma"``: bfloat16 with K and N multiples of 8 (TMA's 16-byte
+  strides) runs ``masked_matmul_wgmma_forward``
+  (``csrc/masked_matmul_wgmma.cu``) on the tensor cores;
+* ``"simt"``: float32, and bfloat16 of any other K or N, runs
+  ``masked_matmul_forward`` (``csrc/masked_matmul.cu``) on CUDA cores.
+  Float32 stays there: one ``fmaf`` accumulator per output in ascending k,
+  which keeps ``verify_tables`` exact.
+
+``masked_matmul.launches`` counts every launch and
+``masked_matmul.launches_by_route`` each route's.  A failed build or
+launch raises; no route falls back to the other or to the plain version.
+On CPU tensors it runs :func:`masked_matmul_plain`, the same function in
 plain torch.
 
 :class:`MaskedMatmulFn` is its autograd function: the forward and the
@@ -23,7 +36,18 @@ from repro_torch.kernels.lut_lookup import require, stream_of
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_N = 64
+_WGMMA_TILE = (256, 128)
 _MAX_GRID_Y = 65535
+_MAX_GRID_X = 2 ** 31 - 1
+_TMA_ALIGN = 16
+
+
+def masked_matmul_route(dtype: torch.dtype, k: int, n: int) -> str:
+    """Which kernel a CUDA call of these operands launches: ``"wgmma"`` for
+    bfloat16 with K >= 1 and K, N multiples of 8, else ``"simt"``."""
+    if dtype == torch.bfloat16 and k >= 1 and k % 8 == 0 and n % 8 == 0:
+        return "wgmma"
+    return "simt"
 
 
 def masked_matmul_plain(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
@@ -37,11 +61,39 @@ def masked_matmul_plain(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _launch_simt(x, w, mask, b, out) -> None:
+    """``masked_matmul_forward`` on checked operands, into ``out``."""
+    (m_dim, k_dim), n_dim = x.shape, w.shape[1]
+    with torch.cuda.device(x.device):
+        err = _build.library().masked_matmul_forward(
+            x.data_ptr(), w.data_ptr(), mask.data_ptr(),
+            None if b is None else b.data_ptr(), m_dim, n_dim, k_dim,
+            _DTYPE_CODES[x.dtype], out.data_ptr(), stream_of(x.device))
+    _build.check(err, "masked_matmul_forward")
+
+
+def _launch_wgmma(x, w, mask, b, out) -> None:
+    """``masked_matmul_wgmma_forward`` on checked bfloat16 operands whose K
+    and N are multiples of 8, into ``out``."""
+    (m_dim, k_dim), n_dim = x.shape, w.shape[1]
+    # TMA reads from 16-byte aligned addresses: a view that starts
+    # elsewhere is copied once
+    x, w, mask = (t if t.data_ptr() % _TMA_ALIGN == 0 else t.clone()
+                  for t in (x, w, mask))
+    with torch.cuda.device(x.device):
+        err = _build.library().masked_matmul_wgmma_forward(
+            x.data_ptr(), w.data_ptr(), mask.data_ptr(),
+            None if b is None else b.data_ptr(), m_dim, n_dim, k_dim,
+            out.data_ptr(), stream_of(x.device))
+    _build.check(err, "masked_matmul_wgmma_forward")
+
+
 def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
                   b: torch.Tensor | None = None) -> torch.Tensor:
     """``x (M, K) @ (w * mask) (K, N) + b (N,) -> (M, N)``.
 
-    CUDA tensors launch the kernel (``launches`` counts those launches):
+    CUDA tensors launch the kernel :func:`masked_matmul_route` names
+    (``launches`` counts every launch, ``launches_by_route`` each route's):
     float32 or bfloat16, one dtype for all operands, contiguous.  CPU
     tensors run :func:`masked_matmul_plain`.
     """
@@ -66,24 +118,25 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
                          f"{tuple(mask.shape)} do not chain")
     if b is not None and b.shape != (n_dim,):
         raise ValueError(f"b has shape {tuple(b.shape)}; expected ({n_dim},)")
-    if -(-n_dim // _TILE_N) > _MAX_GRID_Y:
+    route = masked_matmul_route(x.dtype, k_dim, n_dim)
+    if route == "simt" and -(-n_dim // _TILE_N) > _MAX_GRID_Y:
         raise ValueError(f"N = {n_dim} exceeds the kernel's grid "
                          f"({_MAX_GRID_Y} tiles of {_TILE_N})")
+    if route == "wgmma" and (-(-m_dim // _WGMMA_TILE[0])
+                             * -(-n_dim // _WGMMA_TILE[1])) > _MAX_GRID_X:
+        raise ValueError(f"({m_dim}, {n_dim}) exceeds the kernel's grid "
+                         f"({_MAX_GRID_X} tiles of {_WGMMA_TILE})")
     out = torch.empty((m_dim, n_dim), dtype=x.dtype, device=dev)
     if m_dim == 0 or n_dim == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.masked_matmul_forward(
-            x.data_ptr(), w.data_ptr(), mask.data_ptr(),
-            None if b is None else b.data_ptr(), m_dim, n_dim, k_dim,
-            _DTYPE_CODES[x.dtype], out.data_ptr(), stream_of(dev))
-    _build.check(err, "masked_matmul_forward")
+    (_launch_wgmma if route == "wgmma" else _launch_simt)(x, w, mask, b, out)
     masked_matmul.launches += 1
+    masked_matmul.launches_by_route[route] += 1
     return out
 
 
 masked_matmul.launches = 0
+masked_matmul.launches_by_route = {"simt": 0, "wgmma": 0}
 
 
 class MaskedMatmulFn(torch.autograd.Function):

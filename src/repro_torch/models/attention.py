@@ -113,14 +113,15 @@ def attn_apply(p: dict, cfg: ModelCfg, x: torch.Tensor,
                causal: bool = True) -> torch.Tensor:
     """Full-sequence (prefill) attention through the flash kernel.
 
-    The model holds heads as (B, S, H, D); the kernel takes (B, H, S, D),
-    so q, k and v are transposed into contiguous copies and the output
-    back.  The layer's window 0 (global) is the kernel's ``window=None``.
+    The model holds heads as (B, S, H, D); the kernel takes (B, H, S, D)
+    views, so q, k and v go in as transposed views, without copies, and the
+    bfloat16 kernel writes its output straight into a (B, S, H, D) buffer
+    (``out.transpose(1, 2)`` below is then that buffer).  The layer's
+    window 0 (global) is the kernel's ``window=None``.
     """
     q, k, v = _project_qkv(p, cfg, x, positions)
-    out = flash_attention(q.transpose(1, 2).contiguous(),
-                          k.transpose(1, 2).contiguous(),
-                          v.transpose(1, 2).contiguous(), causal=causal,
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal,
                           window=window if window > 0 else None)
     return torch.einsum("bshe,hed->bsd", out.transpose(1, 2), p["wo"])
 

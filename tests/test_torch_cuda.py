@@ -13,7 +13,12 @@ is held to the same steps on the CPU within rtol 1e-3.  The flash-attention
 kernel is held to its plain version within float32 atol 1e-5 / rtol 1e-5
 (the same float32 arithmetic in another summation order) and bfloat16
 atol 3e-2 (the reference's) plus exactly one bfloat16 step of the plain
-output.
+output.  Both kernels have two routes, the SIMT kernels and the
+tensor-core (wgmma) kernels; each case asserts which route ran from the
+wrappers' ``launches_by_route`` counters, at the same tolerances.  The
+tensor-core flash route is also held to a second gate beside that one,
+1e-3 plus two bfloat16 steps of the plain output, tight enough to reject
+a stale K/V stage.
 """
 
 import numpy as np
@@ -30,10 +35,12 @@ from repro_torch.core import logicnet as LN
 from repro_torch.core.train import train_logicnet
 from repro_torch.data import jet_substructure_data
 from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 flash_attention_route)
 from repro_torch.kernels.lut_lookup import lut_lookup, lut_lookup_plain
 from repro_torch.kernels.masked_matmul import (MaskedMatmulFn, masked_matmul,
-                                               masked_matmul_plain)
+                                               masked_matmul_plain,
+                                               masked_matmul_route)
 
 pytestmark = pytest.mark.cuda
 
@@ -150,6 +157,64 @@ def test_masked_matmul_matches_plain(dev, m, k, n, dtype, atol, rtol, steps):
         assert (diff <= limit).all(), float((diff - limit).max())
 
 
+def _mm_check(x, w, mask, b, atol, rtol, steps):
+    """One launch, on the route the rule names, within the tolerance."""
+    m, k = x.shape
+    n = w.shape[1]
+    route = masked_matmul_route(x.dtype, k, n)
+    before = dict(masked_matmul.launches_by_route)
+    got = masked_matmul(x, w, mask, b)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches_by_route[route] == before[route] + 1
+    assert sum(masked_matmul.launches_by_route.values()) == \
+        sum(before.values()) + 1
+    assert got.dtype == x.dtype and got.shape == (m, n)
+    want = masked_matmul_plain(x, w, mask, b).float()
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.full_like(want, torch.finfo(x.dtype).eps / 2), e)
+    diff = (got.float() - want).abs()
+    limit = atol + rtol * want.abs() + steps * ulp
+    assert (diff <= limit).all(), float((diff - limit).max())
+    return got, route
+
+
+@pytest.mark.parametrize("m,k,n,route", [
+    (130, 712, 56, "wgmma"), (1000, 4104, 4096, "wgmma"),
+    (256, 16, 64, "wgmma"), (1, 8, 8, "wgmma"), (129, 64, 136, "wgmma"),
+    (257, 64, 136, "wgmma"), (300, 64, 136, "wgmma"),
+    (130, 700, 50, "simt"), (64, 60, 64, "simt"), (64, 64, 60, "simt")])
+def test_masked_matmul_bf16_routes(dev, m, k, n, route):
+    """bfloat16 with K and N multiples of 8 runs the tensor-core kernel,
+    ragged against its 256 x 128 x 64 tiles; any other bfloat16 shape the
+    SIMT kernel; both within the bfloat16 tolerance, with and without b."""
+    x, w, mask, b = _mm_inputs(dev, m, k, n, torch.bfloat16, seed=m + k)
+    for bias in (b, None):
+        _, ran = _mm_check(x, w, mask, bias, 5e-2, 1e-3, 1)
+        assert ran == route
+
+
+def test_masked_matmul_float32_stays_simt(dev):
+    x, w, mask, b = _mm_inputs(dev, 256, 64, 64, torch.float32)
+    _, ran = _mm_check(x, w, mask, b, 1e-4, 1e-5, 0)
+    assert ran == "simt"
+
+
+def test_masked_matmul_bf16_mask_is_exact(dev):
+    """Masked-out weights of 1e9 vanish exactly on the tensor-core route:
+    the result equals, bit for bit, the same call with those weights
+    zeroed (the mask is applied in shared memory before wgmma reads it)."""
+    x, w, mask, b = _mm_inputs(dev, 200, 256, 192, torch.bfloat16, seed=3)
+    loud = torch.where(mask.bool(), w, torch.full_like(w, 1e9))
+    got, ran = _mm_check(x, loud, mask, b, 5e-2, 1e-3, 1)
+    assert ran == "wgmma"
+    assert torch.equal(got, masked_matmul(x, w * mask, mask, b))
+    ones = torch.ones((64, 64), dtype=torch.bfloat16, device=dev)
+    big = torch.full((64, 64), 1e9, dtype=torch.bfloat16, device=dev)
+    m1 = torch.zeros((64, 64), dtype=torch.bfloat16, device=dev)
+    m1[0] = 1.0
+    assert (masked_matmul(ones, big, m1) == big[0, 0]).all()
+
+
 def test_masked_matmul_mask_is_exact(dev):
     x = torch.ones((4, 8), device=dev)
     w = torch.full((8, 4), 1e9, device=dev)
@@ -213,6 +278,11 @@ def test_training_on_the_card_matches_the_cpu(dev):
 
 
 FLASH_TOL = {torch.float32: (1e-5, 1e-5, 0), torch.bfloat16: (3e-2, 0.0, 1)}
+# the tensor-core route's second gate, beside FLASH_TOL: 1e-3 plus two
+# bfloat16 steps of the plain output, elementwise (kernel and plain version
+# differ far below one step; FLASH_TOL's 3e-2 is about an output's size at
+# S 2048, so alone it would pass a kernel that reads a stale K/V stage)
+FLASH_GATE = (1e-3, 0.0, 2)
 
 
 def _qkv(dev, b, hq, hkv, s, d, dtype, seed=0):
@@ -222,19 +292,27 @@ def _qkv(dev, b, hq, hkv, s, d, dtype, seed=0):
             for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
 
 
+def _flash_limit(want, dtype, atol, rtol, steps):
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.full_like(want, torch.finfo(dtype).eps / 2), e)
+    return atol + rtol * want.abs() + steps * ulp
+
+
 def _flash_check(q, k, v, **kw):
+    """One launch within FLASH_TOL and, on the tensor-core route, within
+    FLASH_GATE."""
     before = flash_attention.launches
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
     want = flash_attention_plain(q, k, v, **kw).float()
-    atol, rtol, steps = FLASH_TOL[q.dtype]
-    _, e = torch.frexp(want)
-    ulp = torch.ldexp(torch.full_like(want, torch.finfo(q.dtype).eps / 2), e)
     diff = (got.float() - want).abs()
-    limit = atol + rtol * want.abs() + steps * ulp
+    limit = _flash_limit(want, q.dtype, *FLASH_TOL[q.dtype])
     assert (diff <= limit).all(), float((diff - limit).max())
+    if flash_attention_route(q.dtype, q.shape[-1]) == "wgmma":
+        gate = _flash_limit(want, q.dtype, *FLASH_GATE)
+        assert (diff <= gate).all(), float((diff - gate).max())
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d", [
@@ -257,6 +335,80 @@ def test_flash_attention_window_matches_plain(dev, window, causal, shape,
                                               dtype):
     _flash_check(*_qkv(dev, *shape, dtype, seed=window), causal=causal,
                  window=window)
+
+
+def _flash_route_check(q, k, v, **kw):
+    route = flash_attention_route(q.dtype, q.shape[-1])
+    before = dict(flash_attention.launches_by_route)
+    _flash_check(q, k, v, **kw)
+    assert flash_attention.launches_by_route[route] == before[route] + 1
+    return route
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (1, 2, 2, 65, 64), (2, 4, 2, 250, 128), (1, 8, 1, 1000, 16),
+    (1, 4, 4, 130, 256), (1, 16, 2, 300, 128), (2, 6, 2, 200, 64),
+    (1, 2, 1, 1000, 128), (1, 4, 2, 64, 8), (4, 16, 8, 2048, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_tensor_core_route(dev, b, hq, hkv, s, d,
+                                                causal):
+    """bfloat16 with D % 8 == 0 runs the wgmma kernel: GQA groups 1, 2, 3
+    and 8, D 8 to 256, S not a multiple of its tiles, and qwen3-1.7b's
+    prefill shape, at the unchanged tolerance and the second gate."""
+    q, k, v = _qkv(dev, b, hq, hkv, s, d, torch.bfloat16, seed=s + d + hq)
+    assert _flash_route_check(q, k, v, causal=causal) == "wgmma"
+
+
+@pytest.mark.parametrize("window", [16, 64, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 4, 2, 1000, 128), (1, 2, 2, 250, 64),
+                                   (1, 8, 1, 300, 256)])
+def test_flash_attention_bf16_windows(dev, window, causal, shape):
+    q, k, v = _qkv(dev, *shape, torch.bfloat16, seed=window)
+    assert _flash_route_check(q, k, v, causal=causal,
+                              window=window) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.float32, 128, "simt"), (torch.bfloat16, 12, "simt"),
+    (torch.bfloat16, 6, "simt"), (torch.bfloat16, 8, "wgmma")])
+def test_flash_attention_routes(dev, dtype, d, route):
+    q, k, v = _qkv(dev, 1, 4, 2, 100, d, dtype, seed=d)
+    assert _flash_route_check(q, k, v, causal=True) == route
+
+
+def test_flash_attention_gate_rejects_a_stale_stage(dev):
+    """FLASH_GATE tells a kernel that read a stale K/V stage from a sound
+    one: the plain version on inputs whose middle 128-key tile is the one
+    two tiles before it (a 2-stage ring's slot read before its refill)
+    fails the gate; the kernel passes it."""
+    q, k, v = _qkv(dev, 1, 16, 8, 2048, 128, torch.bfloat16, seed=11)
+    want = flash_attention_plain(q, k, v, causal=True).float()
+    stale = [t.clone() for t in (k, v)]
+    for t, src in zip(stale, (k, v)):
+        t[:, :, 1024:1152] = src[:, :, 768:896]
+    diff = (flash_attention_plain(q, *stale, causal=True).float()
+            - want).abs()
+    assert (diff > _flash_limit(want, q.dtype, *FLASH_GATE)).any()
+    _flash_check(q, k, v, causal=True)
+
+
+def test_flash_attention_reads_strided_views(dev):
+    """The (B, H, S, D) transpose of a (B, S, H, D) tensor goes in without a
+    copy and gives, bit for bit, what its contiguous copy gives; the output
+    is the (B, H, S, D) view of a (B, S, H, D) buffer."""
+    rng = np.random.default_rng(5)
+    b, s, hq, hkv, d = 2, 300, 8, 4, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(device=dev, dtype=torch.bfloat16).transpose(1, 2)
+               for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.transpose(1, 2).is_contiguous()
+    _flash_check(q, k, v, causal=True)
 
 
 def test_flash_attention_scale_is_used(dev):

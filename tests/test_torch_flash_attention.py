@@ -8,6 +8,10 @@ the port kernel's 64-row tiles.  The same seeded numpy inputs go to both.
 Tolerances are the reference tests': float32 atol 2e-5 / rtol 1e-4 (the
 Pallas kernel's online softmax against a dense softmax: another summation
 order), bfloat16 atol 3e-2 (both round a float32 result to bfloat16).
+The rule that picks the CUDA kernel (``flash_attention_route``) and the
+strides the tensor-core route hands to TMA are checked as pure functions;
+strided (B, H, S, D) views, as the LM passes them, give exactly what
+contiguous copies give.
 """
 
 import jax.numpy as jnp
@@ -18,8 +22,9 @@ import torch
 from torch_port_util import one_torch_thread  # noqa: F401
 
 from repro.kernels.flash_attention import flash_attention_pallas
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (_tma_view, flash_attention,
+                                                 flash_attention_plain,
+                                                 flash_attention_route)
 
 F32_TOL = {"atol": 2e-5, "rtol": 1e-4}
 
@@ -116,3 +121,59 @@ def test_wrapper_refuses_devices_it_cannot_run_on():
     meta = torch.empty((1, 2, 8, 4), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention(meta, meta, meta)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 8, "wgmma"),
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 200, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 12, "simt"),
+    (torch.bfloat16, 6, "simt"), (torch.bfloat16, 264, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 8, "simt"),
+    (torch.float16, 128, "simt")])
+def test_route_rule(dtype, d, route):
+    """bfloat16 with D % 8 == 0 (up to 256) goes to the tensor-core kernel;
+    float32 and every other head_dim to the SIMT kernel."""
+    assert flash_attention_route(dtype, d) == route
+
+
+def test_tma_view_keeps_strided_views_and_fixes_size_one_dims():
+    """The transpose of a (B, S, H, D) tensor is handed to TMA as it is,
+    with its (batch, head, seq) strides; a dimension of size 1 gets its
+    contiguous stride (it is never stepped); a stride TMA cannot take (not
+    a multiple of 16 bytes) gets a contiguous copy."""
+    t = torch.zeros((2, 300, 8, 128), dtype=torch.bfloat16).transpose(1, 2)
+    view, strides = _tma_view(t)
+    assert view is t and strides == [300 * 8 * 128, 128, 8 * 128]
+    one = torch.zeros((1, 16, 4, 8), dtype=torch.bfloat16).transpose(1, 2)
+    assert _tma_view(one)[1] == [4 * 16 * 8, 8, 4 * 8]
+    odd = torch.zeros((2, 5, 3, 12), dtype=torch.bfloat16)[..., :8]
+    view, strides = _tma_view(odd.transpose(1, 2))
+    assert view.is_contiguous() and strides == [3 * 5 * 8, 5 * 8, 8]
+    torch.testing.assert_close(view, odd.transpose(1, 2), atol=0, rtol=0)
+
+
+def test_route_counters_exist_and_cpu_counts_nothing():
+    before = dict(flash_attention.launches_by_route)
+    assert set(before) == {"simt", "wgmma"}
+    arrays = [torch.from_numpy(a).bfloat16()
+              for a in _qkv(1, 2, 2, 16, 8, seed=2)]
+    flash_attention(*arrays)
+    assert flash_attention.launches_by_route == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 24])
+def test_plain_on_strided_views_matches_contiguous(dtype, window):
+    """q, k and v as the (B, H, S, D) transposes of (B, S, H, D) tensors
+    (what ``attn_apply`` passes) give exactly what contiguous copies give,
+    through the plain version and the wrapper on the CPU."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(dtype).transpose(1, 2)
+               for shape in ((2, 70, 4, 16), (2, 70, 2, 16), (2, 70, 2, 16)))
+    assert not q.is_contiguous()
+    want = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True, window=window)
+    for fn in (flash_attention_plain, flash_attention):
+        torch.testing.assert_close(fn(q, k, v, causal=True, window=window),
+                                   want, atol=0, rtol=0)

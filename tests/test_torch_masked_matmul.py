@@ -7,8 +7,10 @@ mode on the same seeded numpy inputs.  Tolerances: float32 atol 1e-5
 reference's own, ``tests/test_kernels.py``).  ``MaskedMatmulFn``'s
 gradients are held against ``jax.grad`` of the reference expression
 (atol 1e-5) and checked by ``torch.autograd.gradcheck`` in float64.  The
-CUDA kernel itself runs only on the card (``chip_smoke.py``,
-``tests/test_torch_cuda.py``).
+CUDA kernels themselves run only on the card (``chip_smoke.py``,
+``tests/test_torch_cuda.py``); here the rule that picks one of them
+(``masked_matmul_route``) is checked as a pure function, and the plain
+version on strided views against contiguous copies (exactly equal).
 """
 
 import jax
@@ -21,7 +23,8 @@ from torch_port_util import one_torch_thread  # noqa: F401
 
 from repro.kernels.masked_matmul import masked_matmul_pallas
 from repro_torch.kernels.masked_matmul import (MaskedMatmulFn, masked_matmul,
-                                               masked_matmul_plain)
+                                               masked_matmul_plain,
+                                               masked_matmul_route)
 
 _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
@@ -129,3 +132,43 @@ def test_gradcheck_float64():
     mask = torch.from_numpy((rng.random((7, 3)) < 0.5).astype(np.float64))
     assert torch.autograd.gradcheck(
         lambda x, w, b: MaskedMatmulFn.apply(x, w, mask, b), (x, w, b))
+
+
+@pytest.mark.parametrize("dtype,k,n,route", [
+    (torch.bfloat16, 4096, 4096, "wgmma"), (torch.bfloat16, 712, 56, "wgmma"),
+    (torch.bfloat16, 8, 8, "wgmma"), (torch.bfloat16, 16, 64, "wgmma"),
+    (torch.bfloat16, 700, 56, "simt"), (torch.bfloat16, 712, 50, "simt"),
+    (torch.bfloat16, 1, 1, "simt"), (torch.bfloat16, 0, 8, "simt"),
+    (torch.float32, 4096, 4096, "simt"), (torch.float32, 64, 64, "simt"),
+    (torch.float16, 64, 64, "simt")])
+def test_route_rule(dtype, k, n, route):
+    """bfloat16 with K >= 1 and K, N multiples of 8 (TMA's 16-byte strides)
+    goes to the tensor-core kernel; float32 and every other shape to the
+    SIMT kernel (M never matters)."""
+    assert masked_matmul_route(dtype, k, n) == route
+
+
+def test_route_counters_exist_and_cpu_counts_nothing():
+    before = dict(masked_matmul.launches_by_route)
+    assert set(before) == {"simt", "wgmma"}
+    x, w, mask, b = (torch.from_numpy(a).bfloat16()
+                     for a in _inputs(16, 64, 64, 4))
+    masked_matmul(x, w, mask, b)
+    assert masked_matmul.launches_by_route == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_on_strided_views_matches_contiguous(dtype):
+    """x, w and mask as transposed and sliced views give exactly what their
+    contiguous copies give."""
+    x, w, mask, b = (torch.from_numpy(a).to(dtype)
+                     for a in _inputs(40, 72, 48, 6))
+    xv = x.t().contiguous().t()                  # column-major x
+    wv = torch.cat([w, w], 1)[:, ::2]            # every other column
+    mv = mask.t().contiguous().t()
+    assert not (xv.is_contiguous() or wv.is_contiguous()
+                or mv.is_contiguous())
+    want = masked_matmul_plain(xv.contiguous(), wv.contiguous(),
+                               mv.contiguous(), b)
+    torch.testing.assert_close(masked_matmul_plain(xv, wv, mv, b), want,
+                               atol=0, rtol=0)

@@ -31,19 +31,27 @@ Phases, each of which must pass:
    int32 operations over 33.5 TOP/s (half the 67 TFLOP/s fp32 CUDA-core
    rate: Hopper has 64 INT32 lanes per SM against 128 FP32).  No single PyTorch call computes
    these functions, so ``library_ms`` is null.
-4. **masked matmul** — both routes of ``masked_matmul_forward`` against
-   the plain version on the card, each case asserting its route from
-   ``masked_matmul.launches_by_route``: the SIMT kernel at model A's
-   training shapes, at a ragged (130, 700, 50) and at 4096^3 in float32
-   (atol 1e-4, rtol 1e-5: another summation order) and at (130, 700, 50)
-   in bfloat16 (K, N not multiples of 8); the tensor-core (wgmma) kernel
+4. **masked matmul** — the three routes of ``masked_matmul`` against the
+   plain version on the card, each case asserting its route from
+   ``masked_matmul.launches_by_route``: float32 on the ffma kernel at
+   model A's training shapes (its two masks), an input gradient at model
+   A's widths with w and mask read as (N, K), ragged (130, 700, 50), (1,
+   1, 1) and (129, 65, 127) (also read as (N, K)), K = 70 (not a multiple
+   of 4) and 4096^3 (both reads), each also equal bit for bit to the first
+   design, ``masked_matmul_forward``, on the same inputs (atol 1e-4,
+   rtol 1e-5 against the plain version: another summation order); the SIMT
+   kernel at (130, 700, 50) in bfloat16 (K, N not multiples of 8); the
+   tensor-core (wgmma) kernel
    in bfloat16 at (256, 64, 64), at (130, 712, 56), (300, 64, 136) and
    (1000, 4104, 4096), ragged against its 256 x 128 x 64 tiles, and at
    4096^3 (the reference's atol 5e-2, rtol 1e-3, plus exactly one
    bfloat16 step of the plain output: both round a float32 sum taken in
-   another order); masked-out weights of 1e9 must vanish exactly on both
-   routes (bfloat16: bit-equal to the call with those weights zeroed);
-   ``MaskedMatmulFn``'s gradients against autograd of the plain version.
+   another order); masked-out weights of 1e9 must vanish exactly on every
+   route (bit-equal to the call with those weights zeroed: float32 on both
+   ffma tiles and both reads, bfloat16 on wgmma);
+   ``MaskedMatmulFn``'s gradients against autograd of the plain version,
+   its float32 dx made without a transposed copy of w or mask and equal
+   bit for bit to the first design on the copies.
 5. **training** — (a) the reference's init of model A carried in from
    ``model_a_train.npz`` and trained 20 steps on the card: losses within
    rtol 1e-3 of the reference's; (b) the reference's trained weights
@@ -52,22 +60,25 @@ Phases, each of which must pass:
    rounding half-way point (counted and printed); then, with every launch
    counter at 0 (the main path of this slice): (c) 600 steps from the
    port's own seeded init, 5 masked-matmul launches a step (3 forward,
-   2 input gradients), held-out accuracy within 2 points of the
-   reference's 600-step run; (d) ``verify_tables`` exact through the
-   masked-matmul kernel (float path) against the per-layer and the fused
-   uniform LUT kernels (table path); (e) the tables compiled and served
-   through ``ServingTier`` bit-exact, with zero builds and compiler runs
-   after warmup.
+   2 input gradients), every one on the ffma route, held-out accuracy
+   within 2 points of the reference's 600-step run; (d) ``verify_tables``
+   exact through the masked-matmul kernel (float path) against the
+   per-layer and the fused uniform LUT kernels (table path); (e) the
+   tables compiled and served through ``ServingTier`` bit-exact, with zero
+   builds and compiler runs after warmup.
 6. **masked-matmul times** — event and profiler device time at model A's
-   widest layer (256 x 64 x 64, float32, SIMT) and at 4096^3 (float32 on
-   the SIMT route, bfloat16 on the wgmma route, beside the SIMT kernel
-   called directly on the same bfloat16 inputs: the earlier design),
-   beside the plain version, ``torch.addmm(b, x, w * mask)`` with TF32 off
+   widest layer (256 x 64 x 64, float32, ffma) and at 4096^3 (float32 on
+   the ffma route, bfloat16 on the wgmma route), each beside the SIMT
+   kernel called directly on the same inputs (the earlier design; its
+   device time too in float32), the plain version,
+   ``torch.addmm(b, x, w * mask)`` with TF32 off
    (``library_ms``, timed only as a yardstick) and the bound: the larger of
    the bytes moved (x, w, mask, b read once, out written once) over
    3.35 TB/s and the multiply-adds the mask keeps (2 M nnz(mask)) over
    67 TFLOP/s (float32, CUDA cores) or 989 TFLOP/s (bfloat16); and 50
-   profiled training steps: host-clock time against device time per step.
+   profiled training steps: host-clock time against device time per step,
+   the masked matmul's device time and launches, kernels and copy kernels
+   a step.
 
 7. **flash attention** — both routes of ``flash_attention_forward``
    against the plain version on the card, each case asserting its route
@@ -120,7 +131,13 @@ Phases, each of which must pass:
     larger of q, k, v and out moved once over 3.35 TB/s and 4 B Hq D per
     unmasked (q, k) pair over 989 TFLOP/s; and for the path, a prefill's
     host-clock time against its profiled device time (the kernel's share,
-    the idle share) and decode's ms per step and tokens per second.
+    the idle share) and decode's ms per step and tokens per second; and
+    the float32 route (the SIMT kernel, phase 9b's float32 prefill) at
+    (4, 16, 2048, 128) causal, Hkv 8: event and device time beside the
+    plain version, SDPA with ``enable_gqa`` on the same float32 tensors
+    (its math backend: no fused backend takes float32 GQA), SDPA's
+    memory-efficient backend on K and V expanded to 16 heads, and the
+    bound at 67 TFLOP/s.
 
 The next-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU, or outside a checkout,
@@ -146,6 +163,7 @@ FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 SOURCE = "src/repro_torch/kernels/csrc/lut_kernels.cu"
 MM_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul.cu"
 MM_WGMMA_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul_wgmma.cu"
+MM_FFMA_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul_ffma.cu"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_WGMMA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 # flash attention: (atol, rtol, steps) as MM_TOL; float32 differs from the
@@ -215,9 +233,10 @@ def cuda_ms(fn, iters: int, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def profiled(fn, iters: int) -> tuple[float, dict]:
-    """(host-clock ms per call, {kernel: device ms per call}) over ``iters``
-    calls of ``fn`` under ``torch.profiler``.
+def profiled(fn, iters: int) -> tuple[float, dict, dict]:
+    """(host-clock ms per call, {kernel: device ms per call}, {kernel:
+    launches per call}) over ``iters`` calls of ``fn`` under
+    ``torch.profiler``.
 
     A first traced round of ``iters`` calls is discarded (the schedule's
     warm-up): launches made right after tracing starts can go unrecorded,
@@ -240,11 +259,13 @@ def profiled(fn, iters: int) -> tuple[float, dict]:
             wall = (time.perf_counter() - t0) / iters * 1e3
             prof.step()
     by_name: dict[str, float] = {}
+    counts: dict[str, float] = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0.0)
         if t > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + t / iters / 1e3
-    return wall, by_name
+            counts[e.key] = counts.get(e.key, 0.0) + e.count / iters
+    return wall, by_name, counts
 
 
 def device_ms(fn, iters: int, launches: int = 1,
@@ -294,17 +315,18 @@ def device_ms(fn, iters: int, launches: int = 1,
 
 
 def profile_split(torch, fn, iters: int) -> tuple:
-    """(host ms per call, device ms per call, {kernel: device ms per call})
-    over ``iters`` calls of ``fn``; fails when the profiler records no
-    device time or more device time than host-clock time."""
-    wall, by_name = profiled(fn, iters)
+    """(host ms per call, device ms per call, {kernel: device ms per call},
+    {kernel: launches per call}) over ``iters`` calls of ``fn``; fails when
+    the profiler records no device time or more device time than
+    host-clock time."""
+    wall, by_name, counts = profiled(fn, iters)
     total = sum(by_name.values())
     if not total:
         fail("the profiler recorded no device time")
     if total > wall:
         fail(f"the profiler's device time per call ({total} ms) exceeds the "
              f"host-clock time ({wall} ms): it counts some kernel time twice")
-    return wall, total, by_name
+    return wall, total, by_name, counts
 
 
 def top_kernels(by_name: dict, n: int = 6) -> str:
@@ -369,33 +391,52 @@ def model_a_masks():
     return apriori_mask(0, 16, 64, 3), apriori_mask(1, 64, 64, 3)
 
 
+def bits(t):
+    """A float32 tensor's bits, for equality bit for bit."""
+    import torch
+    return t.contiguous().view(torch.int32)
+
+
 def masked_matmul_phase(torch, dev) -> dict:
-    """Phase 4: the masked-matmul kernel against its plain version."""
+    """Phase 4: the masked-matmul kernels against their plain version, and
+    the float32 (ffma) kernel against the first design bit for bit."""
     from repro_torch.kernels.masked_matmul import (MaskedMatmulFn,
                                                    masked_matmul,
                                                    masked_matmul_plain)
     m0, m1 = model_a_masks()
-    # (M, K, N, dtype, mask, route): bfloat16 with K and N multiples of 8
-    # runs the tensor-core kernel, ragged against its 256 x 128 x 64 tiles
-    cases = [(256, 16, 64, "float32", m0, "simt"),
-             (256, 64, 64, "float32", m1, "simt"),
-             (130, 700, 50, "float32", None, "simt"),
-             (130, 700, 50, "bfloat16", None, "simt"),
-             (256, 64, 64, "bfloat16", m1, "wgmma"),
-             (130, 712, 56, "bfloat16", None, "wgmma"),
-             (300, 64, 136, "bfloat16", None, "wgmma"),
-             (1000, 4104, 4096, "bfloat16", None, "wgmma"),
-             (4096, 4096, 4096, "float32", None, "simt"),
-             (4096, 4096, 4096, "bfloat16", None, "wgmma")]
+    # (M, K, N, dtype, mask, route, transposed): float32 runs the ffma
+    # kernel, transposed reads w and mask as (N, K) (the input gradient);
+    # bfloat16 with K and N multiples of 8 runs the tensor-core kernel,
+    # ragged against its 256 x 128 x 64 tiles
+    cases = [(256, 16, 64, "float32", m0, "ffma", False),
+             (256, 64, 64, "float32", m1, "ffma", False),
+             (256, 64, 64, "float32", m1.t().contiguous(), "ffma", True),
+             (130, 700, 50, "float32", None, "ffma", False),
+             (1, 1, 1, "float32", None, "ffma", False),
+             (129, 65, 127, "float32", None, "ffma", False),
+             (129, 65, 127, "float32", None, "ffma", True),
+             (256, 70, 64, "float32", None, "ffma", False),
+             (130, 700, 50, "bfloat16", None, "simt", False),
+             (256, 64, 64, "bfloat16", m1, "wgmma", False),
+             (130, 712, 56, "bfloat16", None, "wgmma", False),
+             (300, 64, 136, "bfloat16", None, "wgmma", False),
+             (1000, 4104, 4096, "bfloat16", None, "wgmma", False),
+             (4096, 4096, 4096, "float32", None, "ffma", False),
+             (4096, 4096, 4096, "float32", None, "ffma", True),
+             (4096, 4096, 4096, "bfloat16", None, "wgmma", False)]
     errs = {"float32": 0.0, "bfloat16": 0.0}
-    for i, (m, k, n, dtype, mask, route) in enumerate(cases):
+    bit_cases = 0
+    for i, (m, k, n, dtype, mask, route, tr) in enumerate(cases):
         x, w, mk, b = mm_inputs(torch, dev, m, k, n, dtype, mask, seed=i)
+        ops = (w.t().contiguous(), mk.t().contiguous()) if tr else (w, mk)
         atol, rtol, steps = MM_TOL[dtype]
         for bias in (b, None):
             before = masked_matmul.launches
             by_route = masked_matmul.launches_by_route[route]
-            got = masked_matmul(x, w, mk, bias)
-            want = masked_matmul_plain(x, w, mk, bias)
+            got = masked_matmul(x, *ops, bias, transposed=tr)
+            want = masked_matmul_plain(x, *ops, bias, transposed=tr)
+            first = (simt_masked_matmul(torch, x, w, mk, bias)
+                     if route == "ffma" else None)
             torch.cuda.synchronize()
             if masked_matmul.launches != before + 1:
                 fail(f"masked_matmul {m}x{k}x{n} {dtype}: kernel not launched")
@@ -410,16 +451,38 @@ def masked_matmul_phase(torch, dev) -> dict:
                 fail(f"masked_matmul {m}x{k}x{n} {dtype}: max |kernel - "
                      f"plain| {float(diff.max())} beyond atol {atol} rtol "
                      f"{rtol} + {steps} {dtype} step")
+            if first is not None and not torch.equal(bits(got), bits(first)):
+                fail(f"masked_matmul {m}x{k}x{n} float32 (transposed {tr}): "
+                     f"the ffma kernel differs from masked_matmul_forward "
+                     f"at {int((bits(got) != bits(first)).sum())} outputs")
+            bit_cases += first is not None
             errs[dtype] = max(errs[dtype], float(diff.max()))
-        log(f"phase 4 masked_matmul {m}x{k}x{n} {dtype} ({route}): max "
-            f"|kernel - plain| {errs[dtype]:.3g} (atol {atol}, rtol {rtol}, "
-            f"+ {steps} step)")
+        log(f"phase 4 masked_matmul {m}x{k}x{n} {dtype} ({route}"
+            f"{', w and mask read as (N, K)' if tr else ''}): max |kernel - "
+            f"plain| {errs[dtype]:.3g} (atol {atol}, rtol {rtol}, + {steps} "
+            f"step){'; bit for bit masked_matmul_forward' * (route == 'ffma')}")
     x = torch.ones((4, 8), device=dev)
     w = torch.full((8, 4), 1e9, device=dev)
     mask = torch.zeros((8, 4), device=dev)
     mask[0] = 1.0
+    before = masked_matmul.launches_by_route["ffma"]
     if not bool((masked_matmul(x, w, mask) == 1e9).all()):
         fail("masked_matmul: masked-out weights of 1e9 leaked into the sum")
+    # float32 on both tiles of the ffma route, both reads: the mask is
+    # multiplied into w on the way into shared memory
+    for m, k, n in ((256, 64, 64), (2048, 1024, 4096)):
+        x, w, mk, b = mm_inputs(torch, dev, m, k, n, "float32", seed=8)
+        loud = torch.where(mk.bool(), w, torch.full_like(w, 1e9))
+        same = bits(masked_matmul(x, w * mk, mk, b))
+        for got in (masked_matmul(x, loud, mk, b),
+                    masked_matmul(x, loud.t().contiguous(),
+                                  mk.t().contiguous(), b, transposed=True)):
+            if not torch.equal(bits(got), same):
+                fail(f"masked_matmul float32 {m}x{k}x{n}: masked-out weights "
+                     f"of 1e9 leaked into the sum")
+    torch.cuda.synchronize()
+    if masked_matmul.launches_by_route["ffma"] != before + 7:
+        fail("masked_matmul float32 leak check: not on the ffma route")
     # bfloat16 on the tensor-core route: the mask is applied in shared
     # memory, so an unfenced write would let wgmma read the 1e9 weights
     x, w, mk, b = mm_inputs(torch, dev, 1000, 4104, 4096, "bfloat16", seed=7)
@@ -442,26 +505,53 @@ def masked_matmul_phase(torch, dev) -> dict:
     x, w, mask, b = mm_inputs(torch, dev, 256, 64, 64, "float32", m1, seed=9)
     leaves = [t.clone().requires_grad_() for t in (x, w, b)]
     plain = [t.clone().requires_grad_() for t in (x, w, b)]
-    before = masked_matmul.launches
-    MaskedMatmulFn.apply(leaves[0], leaves[1], mask,
-                         leaves[2]).square().sum().backward()
+    before = masked_matmul.launches_by_route["ffma"]
+    copies = []
+    contiguous = torch.Tensor.contiguous
+
+    def watched(t, *args, **kwargs):
+        # a .contiguous() that copies: what the input gradient must not do
+        if not t.is_contiguous():
+            copies.append(tuple(t.shape))
+        return contiguous(t, *args, **kwargs)
+
+    y = MaskedMatmulFn.apply(leaves[0], leaves[1], mask, leaves[2])
+    torch.Tensor.contiguous = watched
+    try:
+        y.square().sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        torch.Tensor.contiguous = contiguous
     masked_matmul_plain(plain[0], plain[1], mask,
                         plain[2]).square().sum().backward()
+    dy = 2 * y.detach()     # d sum(y^2) / dy, exact
+    copied = simt_masked_matmul(torch, dy, w.t().contiguous(),
+                                mask.t().contiguous(), None)
     torch.cuda.synchronize()
-    if masked_matmul.launches != before + 2:
-        fail("MaskedMatmulFn: expected one forward and one dx launch")
+    if masked_matmul.launches_by_route["ffma"] != before + 2:
+        fail("MaskedMatmulFn: expected one forward and one dx launch on the "
+             "ffma route")
+    if copies:
+        fail(f"MaskedMatmulFn float32 backward made transposed copies of "
+             f"{copies}")
+    if not torch.equal(bits(leaves[0].grad), bits(copied)):
+        fail("MaskedMatmulFn dx through the transposed read differs from the "
+             "copy-based dx (masked_matmul_forward on w^T, mask^T)")
     for name, a, p in zip(("dx", "dw", "db"), leaves, plain):
         diff = (a.grad - p.grad).abs()
         if bool((diff > 1e-4 + 1e-5 * p.grad.abs()).any()):
             fail(f"MaskedMatmulFn {name}: max |kernel - plain| "
                  f"{float(diff.max())}")
         errs["float32"] = max(errs["float32"], float(diff.max()))
-    log("phase 4 masked_matmul: mask exact on both routes (bfloat16: "
-        "1000x4104x4096 with 1e9 weights masked out equals the zeroed call "
-        "bit for bit); MaskedMatmulFn dx, dw, db within atol 1e-4 of "
-        "autograd of the plain version")
+    log(f"phase 4 masked_matmul: ffma bit for bit masked_matmul_forward in "
+        f"{bit_cases} calls; mask exact on every route (1e9 weights masked "
+        f"out equal the zeroed call bit for bit: float32 at 256x64x64 and "
+        f"2048x1024x4096, both reads; bfloat16 at 1000x4104x4096); "
+        f"MaskedMatmulFn dx, dw, db within atol 1e-4 of autograd of the plain "
+        f"version, dx read w and mask as (N, K) (no transposed copy) and "
+        f"equals the copy-based dx bit for bit")
     return {"max_abs_err": errs["float32"],
-            "max_abs_err_bf16": errs["bfloat16"]}
+            "max_abs_err_bf16": errs["bfloat16"], "ffma_bit_cases": bit_cases}
 
 
 def training_phase(torch, dev, kernels) -> dict:
@@ -531,8 +621,8 @@ def training_phase(torch, dev, kernels) -> dict:
     if train_launches != 5 * TRAIN_STEPS + 3:
         fail(f"training launched masked_matmul {train_launches} times; "
              f"expected {5 * TRAIN_STEPS + 3}")
-    if masked_matmul.launches_by_route["simt"] != train_launches:
-        fail(f"float32 training left the SIMT route: "
+    if masked_matmul.launches_by_route["ffma"] != train_launches:
+        fail(f"float32 training left the ffma route: "
              f"{masked_matmul.launches_by_route}")
     if not np.isfinite(res.losses).all():
         fail("training produced a non-finite loss")
@@ -561,7 +651,7 @@ def training_phase(torch, dev, kernels) -> dict:
             bad = (f_codes != t_codes).any(1).nonzero().flatten().tolist()
             fail(f"verify_tables fused={fused}: not exact on rows {bad}")
     log("phase 5d verify_tables on 200 held-out rows: EXACT, float path "
-        "through masked_matmul_forward, table path through "
+        "through masked_matmul_ffma_forward, table path through "
         "lut_layer_forward and lut_uniform_forward")
 
     net = engine.compile_network(tables, in_features=cfg.in_features,
@@ -580,7 +670,7 @@ def training_phase(torch, dev, kernels) -> dict:
         f"p99={rep.p99_ms:.3f} ms, retraces={st['retraces_after_warmup']} "
         f"compiler_runs={st['compiler_runs_after_warmup']}")
     launches = masked_matmul.launches
-    log(f"phase 5 main path launches: masked_matmul_forward {launches} "
+    log(f"phase 5 main path launches: masked_matmul {launches} "
         f"(by route {masked_matmul.launches_by_route}), "
         f"lut_layer_forward {lut_lookup.launches}, lut_uniform_forward "
         f"{lut_network.launches}")
@@ -595,8 +685,9 @@ def training_phase(torch, dev, kernels) -> dict:
 
 def simt_masked_matmul(torch, x, w, mk, b):
     """The SIMT kernel called directly, bypassing the route rule (and the
-    launch counts): the earlier design's time for bfloat16 beside the
-    tensor-core kernel's, in the same run."""
+    launch counts): the earlier design, timed beside the tensor-core kernel
+    (bfloat16) and the ffma kernel (float32) in the same run, and the
+    float32 order oracle the ffma kernel must equal bit for bit."""
     from repro_torch.kernels import masked_matmul as MM
     out = torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype,
                       device=x.device)
@@ -610,10 +701,11 @@ def masked_matmul_times(torch, dev, mm: dict) -> dict:
     from repro_torch.kernels.masked_matmul import (masked_matmul,
                                                    masked_matmul_plain,
                                                    masked_matmul_route)
-    rec = {"name": "masked_matmul_forward", "route": "cuda",
-           "source": MM_SOURCE,
+    rec = {"name": "masked_matmul_ffma_forward", "route": "cuda",
+           "source": MM_FFMA_SOURCE,
            "replaces": "src/repro/kernels/masked_matmul.py:23", **mm,
-           "routes": {"simt": MM_SOURCE, "wgmma": MM_WGMMA_SOURCE},
+           "routes": {"ffma": MM_FFMA_SOURCE, "simt": MM_SOURCE,
+                      "wgmma": MM_WGMMA_SOURCE},
            "shape": [256, 64, 64]}
     cases = (("", 256, 64, 64, "float32", model_a_masks()[1], 200),
              ("_4096_f32", 4096, 4096, 4096, "float32", None, 3),
@@ -636,13 +728,18 @@ def masked_matmul_times(torch, dev, mm: dict) -> dict:
                     f"bound_by{suffix}": ("bytes" if bytes_ms >= ops_ms
                                           else "operations"),
                     f"dispatch{suffix}": route})
-        extra = ""
-        if route == "wgmma":
-            simt_ms = cuda_ms(lambda: simt_masked_matmul(torch, x, w, mk, b),
-                              3)
-            rec[f"simt_ms{suffix}"] = simt_ms
-            extra = f", the SIMT kernel on the same inputs {simt_ms:.5f} ms"
-        log(f"phase 6 masked_matmul_forward {m}x{k}x{n} {dtype} ({route}): "
+        # the earlier design on the same inputs: event time, and for
+        # float32 (the main path's dtype) its device time too
+        simt_ms = cuda_ms(lambda: simt_masked_matmul(torch, x, w, mk, b),
+                          min(iters, 3) if route == "wgmma" else iters)
+        rec[f"simt_ms{suffix}"] = simt_ms
+        extra = f", the SIMT kernel on the same inputs {simt_ms:.5f} ms"
+        if route == "ffma":
+            simt_dev = device_ms(lambda: simt_masked_matmul(torch, x, w, mk,
+                                                            b), iters)
+            rec[f"simt_device_ms{suffix}"] = simt_dev
+            extra += f" (device {simt_dev} ms)"
+        log(f"phase 6 masked_matmul {m}x{k}x{n} {dtype} ({route}): "
             f"{ms:.5f} ms/call, device {dev_ms} ms, plain {plain_ms:.5f} ms, "
             f"addmm {library_ms:.5f} ms ({ms / library_ms:.2f}x), bound "
             f"{max(bytes_ms, ops_ms):.6f} ms ({moved} B, {ops} flop: "
@@ -659,19 +756,28 @@ def training_profile(torch, dev, steps: int = 50) -> dict:
     from repro_torch.data import jet_substructure_data
     x, y = jet_substructure_data(8000, seed=0)
     args = (fpga4hep.model_a(), x[:7000], y[:7000], x[7000:], y[7000:])
-    wall, total, by_name = profile_split(
+    wall, total, by_name, counts = profile_split(
         torch, lambda: train_logicnet(*args, steps=steps, seed=0,
                                       device=dev), 1)
-    mm = sum(t for n, t in by_name.items() if "masked_matmul_kernel" in n)
+    # every masked-matmul kernel (masked_matmul_ffma_kernel on float32)
+    mm = sum(t for n, t in by_name.items() if "masked_matmul" in n)
+    copies = sum(c for n, c in counts.items() if "copy" in n.lower())
     out = {"train_wall_ms": wall / steps,
            "train_device_ms": total / steps,
-           "train_mm_device_ms": mm / steps}
+           "train_mm_device_ms": mm / steps,
+           "train_kernels_per_step": sum(counts.values()) / steps,
+           "train_mm_kernels_per_step": sum(
+               c for n, c in counts.items() if "masked_matmul" in n) / steps,
+           "train_copy_kernels_per_step": copies / steps}
     out["train_idle_share"] = 1 - total / wall
     log(f"phase 6 training step ({steps} steps, profiled): "
         f"{out['train_wall_ms']:.3f} ms host clock, "
         f"{out['train_device_ms']:.4f} ms device "
-        f"(masked_matmul_forward {out['train_mm_device_ms']:.4f} ms), "
-        f"device idle {out['train_idle_share'] * 100:.1f} %")
+        f"(masked matmul {out['train_mm_device_ms']:.4f} ms in "
+        f"{out['train_mm_kernels_per_step']:.2f} launches), device idle "
+        f"{out['train_idle_share'] * 100:.1f} %; "
+        f"{out['train_kernels_per_step']:.2f} kernels a step, of which "
+        f"{out['train_copy_kernels_per_step']:.2f} copies")
     return out
 
 
@@ -1038,7 +1144,7 @@ def path_times(torch, dev, path: dict) -> dict:
     from repro_torch.models import model as M
     model, cfg, tokens = path["model"], path["cfg"], path["tokens"]
     prefill = steps.make_prefill_step(cfg)
-    wall, total, by_name = profile_split(
+    wall, total, by_name, _ = profile_split(
         torch, lambda: prefill(model, {"tokens": tokens}), 3)
     fa = sum(t for n, t in by_name.items() if "flash_attention" in n)
     # the same shape as the kernel's timing at PREFILL_SHAPE, one layer
@@ -1057,7 +1163,7 @@ def path_times(torch, dev, path: dict) -> dict:
     tok = tokens[:, :1].contiguous()
     pos = torch.zeros((4,), dtype=torch.int32, device=dev)
     decode = steps.make_decode_step(cfg)
-    wall, total, by_name = profile_split(
+    wall, total, by_name, _ = profile_split(
         torch, lambda: decode(model, cache, tok, pos)[0].argmax(-1).cpu(),
         20)
     rec.update({"decode_wall_ms": wall, "decode_device_ms": total,
@@ -1137,7 +1243,57 @@ def flash_times(torch, dev) -> dict:
             f"{ops / ms / 1e9:.1f} TFLOP/s achieved)")
         del q, k, v
         torch.cuda.empty_cache()
+    rec.update(flash_f32_times(torch, dev))
     return rec
+
+
+def flash_f32_times(torch, dev) -> dict:
+    """Phase 10, the float32 route (the SIMT kernel, which phase 9b's
+    float32 prefill runs): at the prefill shape, event and device time
+    beside the plain version, SDPA on the same float32 tensors and the
+    bound at the float32 CUDA-core rate.  SDPA's GQA runs only in its math
+    backend for float32 (its flash backend takes no float32), so the fused
+    memory-efficient backend is also timed, on K and V expanded to Hq heads
+    outside the timed call."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain,
+                                                     flash_attention_route)
+    b, s = PREFILL_SHAPE
+    q, k, v = flash_inputs(torch, dev, b, 16, 8, s, 128, "float32")
+    route = flash_attention_route(q.dtype, 128)
+    if route != "simt":
+        fail(f"float32 flash attention routes to {route}, not simt")
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 3, 5)
+    dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=True), 3)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
+                       1, 3)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 3, 5)
+    ke, ve = (t.repeat_interleave(2, dim=1) for t in (k, v))
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        fused_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True), 3, 5)
+    moved = nbytes(q, k, v) + q.numel() * q.element_size()
+    ops = 4 * b * 16 * 128 * (s * (s + 1) // 2)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FLOPS_PER_S["float32"] * 1e3
+    log(f"phase 10 flash_attention_forward (B, Hq, Hkv, S, D) ({b}, 16, 8, "
+        f"{s}, 128) float32 causal ({route}): {ms:.4f} ms/call, device "
+        f"{dev_ms} ms (back to back), plain {plain_ms:.4f} ms, SDPA "
+        f"(enable_gqa, math backend) {library_ms:.4f} ms ({ms / library_ms:.2f}"
+        f"x), SDPA memory-efficient on K, V expanded {fused_ms:.4f} ms "
+        f"({ms / fused_ms:.2f}x), bound {max(bytes_ms, ops_ms):.5f} ms "
+        f"({moved} B, {ops} flop at 67 TFLOP/s: {ops / ms / 1e9:.1f} "
+        f"TFLOP/s achieved)")
+    return {"ms_f32": ms, "device_ms_f32": dev_ms, "plain_ms_f32": plain_ms,
+            "library_ms_f32": library_ms,
+            "library_efficient_ms_f32": fused_ms,
+            "bound_ms_f32": max(bytes_ms, ops_ms),
+            "bound_by_f32": "bytes" if bytes_ms >= ops_ms else "operations",
+            "shape_f32": [b, 16, 8, s, 128]}
 
 
 def main() -> None:

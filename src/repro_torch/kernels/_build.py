@@ -42,6 +42,8 @@ _SIGNATURES = {
     "lut_layer_forward": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P),
     "masked_matmul_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "masked_matmul_wgmma_forward": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "masked_matmul_ffma_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                   _P),
     "flash_attention_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _I, _P),
     "flash_attention_wgmma_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -14,7 +14,10 @@ kernel is held to its plain version within float32 atol 1e-5 / rtol 1e-5
 (the same float32 arithmetic in another summation order) and bfloat16
 atol 3e-2 (the reference's) plus exactly one bfloat16 step of the plain
 output.  Both kernels have two routes, the SIMT kernels and the
-tensor-core (wgmma) kernels; each case asserts which route ran from the
+tensor-core (wgmma) kernels, and the masked matmul a third for float32,
+the CUDA-core ``ffma`` kernel, whose output must also equal the first
+SIMT design's (``masked_matmul_forward``, the order oracle) bit for bit;
+each case asserts which route ran from the
 wrappers' ``launches_by_route`` counters, at the same tolerances.  The
 tensor-core flash route is also held to a second gate beside that one,
 1e-3 plus two bfloat16 steps of the plain output, tight enough to reject
@@ -30,6 +33,7 @@ from torch_port_util import (ARTIFACT, codes, load_ref, load_train,
 
 from repro_torch import engine
 from repro_torch.kernels import lut_network as P
+from repro_torch.kernels import masked_matmul as MM
 from repro_torch.configs import fpga4hep
 from repro_torch.core import logicnet as LN
 from repro_torch.core.train import train_logicnet
@@ -194,9 +198,116 @@ def test_masked_matmul_bf16_routes(dev, m, k, n, route):
 
 
 def test_masked_matmul_float32_stays_simt(dev):
+    """float32 stays on the CUDA cores (no tensor core keeps its ascending-k
+    fmaf order): the ffma route."""
     x, w, mask, b = _mm_inputs(dev, 256, 64, 64, torch.float32)
     _, ran = _mm_check(x, w, mask, b, 1e-4, 1e-5, 0)
-    assert ran == "simt"
+    assert ran == "ffma"
+
+
+def _simt_f32(x, w, mask, b):
+    """The first design, ``masked_matmul_forward``, called directly and
+    uncounted: the float32 order oracle of the ffma kernel."""
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    MM._launch_simt(x, w, mask, b, out)
+    return out
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+# around both tiles: the small one (32 x 32, K panels of 64) and the large
+# one (128 x 256, K tiles of 8; 132 or more of them), with K and N not
+# multiples of 4 (scalar loads) and ragged M, N and K edges
+FFMA_SHAPES = [(1, 1, 1), (31, 63, 33), (32, 64, 32), (33, 65, 31),
+               (256, 16, 64), (256, 64, 64), (256, 64, 16), (130, 700, 50),
+               (129, 65, 127), (64, 70, 64), (1536, 64, 2816),
+               (1537, 37, 2817), (1500, 130, 3001), (2048, 1024, 4096)]
+
+
+@pytest.mark.parametrize("m,k,n", FFMA_SHAPES)
+@pytest.mark.parametrize("transposed", [False, True])
+def test_masked_matmul_ffma_bit_identical_to_simt(dev, m, k, n, transposed):
+    """The ffma kernel, with w and mask as (K, N) or read as (N, K), equals
+    ``masked_matmul_forward`` on the same inputs bit for bit, with and
+    without b, and launches once on the ffma route."""
+    x, w, mask, b = _mm_inputs(dev, m, k, n, torch.float32, seed=m + k + n)
+    ops = ((w.t().contiguous(), mask.t().contiguous()) if transposed
+           else (w, mask))
+    for bias in (b, None):
+        want = _simt_f32(x, w, mask, bias)
+        before = dict(masked_matmul.launches_by_route)
+        got = masked_matmul(x, *ops, bias, transposed=transposed)
+        torch.cuda.synchronize()
+        assert masked_matmul.launches_by_route["ffma"] == before["ffma"] + 1
+        assert sum(masked_matmul.launches_by_route.values()) == \
+            sum(before.values()) + 1
+        assert got.shape == (m, n)
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 64, 200), (1536, 64, 2816)])
+def test_masked_matmul_ffma_unaligned_views_bit_identical(dev, m, k, n):
+    """Operands that start 4 bytes past a 16-byte boundary take the scalar
+    loads and give the same bits."""
+    x, w, mask, b = _mm_inputs(dev, m, k, n, torch.float32, seed=5)
+
+    def shifted(t):
+        v = torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    got = masked_matmul(shifted(x), shifted(w), shifted(mask), shifted(b))
+    assert torch.equal(_bits(got), _bits(_simt_f32(x, w, mask, b)))
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 64, 64), (1536, 64, 2816)])
+def test_masked_matmul_ffma_mask_is_exact(dev, m, k, n):
+    """Masked-out weights of 1e9 vanish exactly on both tiles and both
+    reads: the result equals the call with those weights zeroed."""
+    x, w, mask, b = _mm_inputs(dev, m, k, n, torch.float32, seed=6)
+    loud = torch.where(mask.bool(), w, torch.full_like(w, 1e9))
+    want = masked_matmul(x, w * mask, mask, b)
+    assert torch.equal(_bits(masked_matmul(x, loud, mask, b)), _bits(want))
+    got = masked_matmul(x, loud.t().contiguous(), mask.t().contiguous(), b,
+                        transposed=True)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_masked_matmul_dx_reads_transposed_operands(dev, monkeypatch):
+    """``MaskedMatmulFn``'s float32 dx reads w and mask as (N, K): no
+    transposed copy is made, it launches on the ffma route, and it equals
+    the copy-based dx (the first design on w^T, mask^T) bit for bit."""
+    x, w, mask, b = _mm_inputs(dev, 256, 64, 64, torch.float32)
+    dy = _on(dev, np.random.default_rng(1).standard_normal(
+        (256, 64)).astype(np.float32))[0]
+    copies = []
+    contiguous = torch.Tensor.contiguous
+
+    def watched(t, *a, **kw):
+        if not t.is_contiguous():
+            copies.append(tuple(t.shape))
+        return contiguous(t, *a, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "contiguous", watched)
+    xi = x.clone().requires_grad_()
+    before = masked_matmul.launches_by_route["ffma"]
+    MaskedMatmulFn.apply(xi, w, mask, b).backward(dy)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert copies == []
+    assert masked_matmul.launches_by_route["ffma"] == before + 2
+    want = _simt_f32(dy, w.t().contiguous(), mask.t().contiguous(), None)
+    assert torch.equal(_bits(xi.grad), _bits(want))
+
+
+def test_masked_matmul_transposed_only_on_ffma(dev):
+    x, w, mask, b = _mm_inputs(dev, 64, 64, 32, torch.bfloat16)
+    with pytest.raises(ValueError, match="ffma"):
+        masked_matmul(x, w.t().contiguous(), mask.t().contiguous(),
+                      transposed=True)
 
 
 def test_masked_matmul_bf16_mask_is_exact(dev):
@@ -267,13 +378,16 @@ def test_training_on_the_card_matches_the_cpu(dev):
     losses = {}
     for where in ("cpu", "cuda"):
         before = masked_matmul.launches
+        ffma = masked_matmul.launches_by_route["ffma"]
         res = train_logicnet(cfg, x[:7000], y[:7000], x[7000:], y[7000:],
                              steps=5, seed=0, device=where,
                              net=LN.from_reference(cfg, init, device="cpu"))
         losses[where] = res.losses
         if where == "cuda":
-            # 5 per step, then 3 for the held-out accuracy forward
+            # 5 per step, then 3 for the held-out accuracy forward, all
+            # float32 on the ffma route
             assert masked_matmul.launches - before == 5 * 5 + 3
+            assert masked_matmul.launches_by_route["ffma"] - ffma == 5 * 5 + 3
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
 
 

@@ -9,8 +9,12 @@ gradients are held against ``jax.grad`` of the reference expression
 (atol 1e-5) and checked by ``torch.autograd.gradcheck`` in float64.  The
 CUDA kernels themselves run only on the card (``chip_smoke.py``,
 ``tests/test_torch_cuda.py``); here the rule that picks one of them
-(``masked_matmul_route``) is checked as a pure function, and the plain
-version on strided views against contiguous copies (exactly equal).
+(``masked_matmul_route``) and the float32 kernel's tile rule
+(``masked_matmul_tile``, ``ffma_grid``) are checked as pure functions, the
+plain version on strided views and with the transposed-operand argument
+against contiguous or transposed copies (exactly equal), and the input
+gradient against the Pallas kernel run on the transposed operands
+(``jax.grad`` does not differentiate through ``pallas_call``).
 """
 
 import jax
@@ -22,9 +26,11 @@ import torch
 from torch_port_util import one_torch_thread  # noqa: F401
 
 from repro.kernels.masked_matmul import masked_matmul_pallas
-from repro_torch.kernels.masked_matmul import (MaskedMatmulFn, masked_matmul,
+from repro_torch.kernels.masked_matmul import (FFMA_TILES, MaskedMatmulFn,
+                                               ffma_grid, masked_matmul,
                                                masked_matmul_plain,
-                                               masked_matmul_route)
+                                               masked_matmul_route,
+                                               masked_matmul_tile)
 
 _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
@@ -139,18 +145,46 @@ def test_gradcheck_float64():
     (torch.bfloat16, 8, 8, "wgmma"), (torch.bfloat16, 16, 64, "wgmma"),
     (torch.bfloat16, 700, 56, "simt"), (torch.bfloat16, 712, 50, "simt"),
     (torch.bfloat16, 1, 1, "simt"), (torch.bfloat16, 0, 8, "simt"),
-    (torch.float32, 4096, 4096, "simt"), (torch.float32, 64, 64, "simt"),
+    (torch.float32, 4096, 4096, "ffma"), (torch.float32, 64, 64, "ffma"),
+    (torch.float32, 700, 50, "ffma"), (torch.float32, 1, 1, "ffma"),
+    (torch.float32, 65, 127, "ffma"), (torch.float32, 0, 8, "ffma"),
     (torch.float16, 64, 64, "simt")])
 def test_route_rule(dtype, k, n, route):
-    """bfloat16 with K >= 1 and K, N multiples of 8 (TMA's 16-byte strides)
-    goes to the tensor-core kernel; float32 and every other shape to the
-    SIMT kernel (M never matters)."""
+    """float32 of every shape goes to the CUDA-core ffma kernel; bfloat16
+    with K >= 1 and K, N multiples of 8 (TMA's 16-byte strides) to the
+    tensor-core kernel; every other shape to the SIMT kernel (M never
+    matters)."""
     assert masked_matmul_route(dtype, k, n) == route
+
+
+@pytest.mark.parametrize("m,k,n,tile", [
+    (256, 16, 64, "small"), (256, 64, 64, "small"),   # model A forwards
+    (256, 64, 16, "small"),                           # and input gradients
+    (130, 700, 50, "small"), (1, 1, 1, "small"), (129, 65, 127, "small"),
+    (4096, 4096, 4096, "large"), (1056, 4104, 4096, "large"),
+    (1000, 4104, 4096, "small"),                      # 8 x 16 large tiles
+    # 12 x 11 = 132 large tiles fill the card's SMs; 12 x 10 do not
+    (1536, 64, 2816, "large"), (1536, 64, 2560, "small"),
+    # past 65535 columns of 32-wide tiles only the large tile fits grid.y
+    (1, 8, 65535 * 32 + 1, "large")])
+def test_tile_rule(m, k, n, tile):
+    """The large tile where its grid fills the card's 132 SMs (4096^3: 32 x
+    16 blocks), else the small one (model A's 256 x 64 x 64: 8 x 2 blocks,
+    where the large tile would give 2)."""
+    assert masked_matmul_tile(m, k, n) == tile
+    bm, bn = FFMA_TILES[tile]
+    assert ffma_grid(m, k, n) == (-(-m // bm), -(-n // bn))
+
+
+def test_ffma_grid_refuses_past_the_grid_limit():
+    assert ffma_grid(8, 8, 65535 * 256) == (1, 65535)
+    with pytest.raises(ValueError, match="grid"):
+        ffma_grid(8, 8, 65535 * 256 + 1)
 
 
 def test_route_counters_exist_and_cpu_counts_nothing():
     before = dict(masked_matmul.launches_by_route)
-    assert set(before) == {"simt", "wgmma"}
+    assert set(before) == {"simt", "wgmma", "ffma"}
     x, w, mask, b = (torch.from_numpy(a).bfloat16()
                      for a in _inputs(16, 64, 64, 4))
     masked_matmul(x, w, mask, b)
@@ -172,3 +206,42 @@ def test_plain_on_strided_views_matches_contiguous(dtype):
                                mv.contiguous(), b)
     torch.testing.assert_close(masked_matmul_plain(xv, wv, mv, b), want,
                                atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_plain_transposed_matches_transposed_copies(dtype, with_bias):
+    """``transposed=True`` on (N, K) operands gives exactly what the plain
+    version gives on their contiguous (K, N) transposes, through the
+    wrapper as well (CPU tensors)."""
+    x, w, mask, b = (torch.from_numpy(a).to(dtype)
+                     for a in _inputs(37, 70, 45, 11))
+    wt, mt = w.t().contiguous(), mask.t().contiguous()     # (N, K)
+    b = b if with_bias else None
+    want = masked_matmul_plain(x, w, mask, b)
+    for fn in (masked_matmul_plain, masked_matmul):
+        torch.testing.assert_close(fn(x, wt, mt, b, transposed=True), want,
+                                   atol=0, rtol=0)
+
+
+def test_dx_matches_pallas_on_transposed_operands():
+    """``MaskedMatmulFn``'s dx (through the transposed read on float32)
+    against the Pallas kernel in interpret mode computing dy @ (w *
+    mask)^T from transposed copies, atol 1e-5 (another summation order),
+    and exactly against the plain version on the copies."""
+    x, w, mask, b = _inputs(33, 70, 19, 12)
+    cot = np.random.default_rng(13).standard_normal((33, 19)).astype(
+        np.float32)
+    tx = torch.from_numpy(x).requires_grad_()
+    out = MaskedMatmulFn.apply(tx, torch.from_numpy(w),
+                               torch.from_numpy(mask), torch.from_numpy(b))
+    (out * torch.from_numpy(cot)).sum().backward()
+    want = masked_matmul_pallas(jnp.asarray(cot), jnp.asarray(w.T.copy()),
+                                jnp.asarray(mask.T.copy()), block_m=32,
+                                block_n=32, block_k=32, interpret=True)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    copies = masked_matmul_plain(torch.from_numpy(cot),
+                                 torch.from_numpy(w.T.copy()),
+                                 torch.from_numpy(mask.T.copy()))
+    torch.testing.assert_close(tx.grad, copies, atol=0, rtol=0)

@@ -80,25 +80,32 @@ Phases, each of which must pass:
    the masked matmul's device time and launches, kernels and copy kernels
    a step.
 
-7. **flash attention** — both routes of ``flash_attention_forward``
+7. **flash attention** — the three routes of ``flash_attention``
    against the plain version on the card, each case asserting its route
-   from ``flash_attention.launches_by_route`` (float32 and bfloat16 with
-   D % 8 != 0: SIMT; bfloat16 with D % 8 == 0: wgmma): the reference
-   tests' cases (MHA, GQA, MQA, ragged 250, causal and not, windows 16 /
-   64 / 1024, bfloat16), a ragged S = 1000, window 1024 at qwen3-1.7b's
-   head shape and the qwen3-1.7b prefill shape (4, 16, 2048, 128) with
-   Hkv 8, and for the wgmma route a grid of GQA groups 1, 2 and 8, D 16,
-   64, 128 and 256, S 65, 250 and 1000, causal and not, and windows 16,
-   64 and 1024; in float32 (atol 1e-5, rtol 1e-5: another summation
-   order) and bfloat16 (the reference's atol 3e-2 plus exactly one
-   bfloat16 step of the plain output); on the wgmma route also a second
-   gate beside it, 1e-3 plus two bfloat16 steps of the plain output,
-   elementwise, and a case at (1, 16, 32768, 128); at the prefill shape
-   and at 32768 the gate's readings (largest difference over its limit,
-   RMS ratio) of the kernel, of the kernel with P rounded to bfloat16 and
-   of a stale-stage control (the plain version with one K/V tile replaced
-   by the one two tiles before it), failing unless the gate rejects that
-   control.
+   from ``flash_attention.launches_by_route`` (D % 8 == 0 up to 256:
+   bfloat16 on wgmma, float32 on tf32x3; any other D: SIMT): the
+   reference tests' cases (MHA, GQA, MQA, ragged 250, causal and not,
+   windows 16 / 64 / 1024, bfloat16), a ragged S = 1000, window 1024 at
+   qwen3-1.7b's head shape, D 12 and 6 on the SIMT route in both dtypes,
+   and the qwen3-1.7b prefill shape (4, 16, 2048, 128) with Hkv 8 (in
+   float32 also against the SIMT kernel on the same inputs, within the
+   same tolerance), and for both tensor-core routes a grid of GQA groups
+   1, 2 and 8, D 16 (bfloat16) or 8 (float32), 64, 128 and 256, S 65, 250
+   and 1000, causal and not, and windows 16, 64 and 1024; in float32
+   (atol 1e-5, rtol 1e-5: another summation order, and on tf32x3 three
+   TF32 products a product) and bfloat16 (the reference's atol 3e-2 plus
+   exactly one bfloat16 step of the plain output); on the wgmma route
+   also a second gate beside it, 1e-3 plus two bfloat16 steps of the
+   plain output, elementwise, and a case at (1, 16, 32768, 128); at the
+   prefill shape and at 32768 the gate's readings (largest difference
+   over its limit, RMS ratio) of the kernel, of the kernel with P rounded
+   to bfloat16 and of a stale-stage control (the plain version with one
+   K/V tile replaced by the one two tiles before it), failing unless the
+   gate rejects that control; and the inputs phase 9 gives the kernels,
+   attn_apply's transposed (B, S, H, D) views at (2, 16, 64, 128) with
+   Hkv 8 in float32 (tf32x3) and bfloat16 and at the prefill shape in
+   bfloat16, each tensor-core output checked to be a view of a
+   (B, S, H, D) buffer.
 8. **smoke LMs against the reference** — the qwen3-1.7b and gemma3-27b
    smoke configs with the reference's params (``lm_smoke.npz``): prefill
    logits through the kernel, teacher-forced decode logits and, at float32
@@ -111,8 +118,10 @@ Phases, each of which must pass:
    4 prompts x 2048 tokens through ``make_prefill_step``, exactly 28 flash
    launches, all on the wgmma route, finite logits; (b) 2 prompts of 64
    tokens fed one at a time through ``decode_step``, last logits against
-   prefill's: at float32 compute (a float32 cache, the same weights)
-   within atol 1e-4 / rtol 1e-4, and at bfloat16 compute the same top-1
+   prefill's (28 flash launches each, all on tf32x3 at float32 compute
+   and on wgmma at bfloat16): at float32 compute (a float32 cache, the
+   same weights) within atol 1e-4 / rtol 1e-4, and at bfloat16 compute the
+   same top-1
    tokens and the reference's atol 0.05 / rtol 0.05 on all but 1e-4 of
    the logits (28 layers of bfloat16 rounding in two summation orders
    move a logit by about 0.012 on average and past 0.05 at 21 of
@@ -132,12 +141,22 @@ Phases, each of which must pass:
     unmasked (q, k) pair over 989 TFLOP/s; and for the path, a prefill's
     host-clock time against its profiled device time (the kernel's share,
     the idle share) and decode's ms per step and tokens per second; and
-    the float32 route (the SIMT kernel, phase 9b's float32 prefill) at
-    (4, 16, 2048, 128) causal, Hkv 8: event and device time beside the
-    plain version, SDPA with ``enable_gqa`` on the same float32 tensors
-    (its math backend: no fused backend takes float32 GQA), SDPA's
-    memory-efficient backend on K and V expanded to 16 heads, and the
-    bound at 67 TFLOP/s.
+    the float32 route (``flash_attention_tf32_forward``, phase 9b's
+    float32 prefill) at (4, 16, 2048, 128) causal, Hkv 8: event and device
+    time in turns with SDPA's memory-efficient backend on K and V expanded
+    to 16 heads (the fused float32 yardstick, that record's
+    ``library_ms``), beside the SIMT kernel
+    called directly (the earlier design, event and device time), the plain
+    version, SDPA with ``enable_gqa`` on the same float32 tensors (its math
+    backend, ``library_math_ms``) and two bounds: the route's, its
+    operations three times over at 495 TFLOP/s (dense TF32), and the SIMT
+    route's at 67 TFLOP/s.
+
+Every device time is ``torch.profiler``'s sum of the measured calls'
+kernel records, taken only from a trace that holds all of them and, for
+device-bound calls (the flash shapes, the 4096^3 masked matmuls), reads at
+least ``DEVICE_BOUND_FLOOR`` of the CUDA-event time of the same calls
+(:func:`trace_accepted`).
 
 The next-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU, or outside a checkout,
@@ -166,6 +185,12 @@ MM_WGMMA_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul_wgmma.cu"
 MM_FFMA_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul_ffma.cu"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_WGMMA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
+FA_TF32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_tf32.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:30"
+# dense TF32 on the tensor cores; the tf32x3 route issues three TF32
+# products for each float32 product
+TF32_FLOPS_PER_S = 495e12
+TF32_PRODUCTS = 3
 # flash attention: (atol, rtol, steps) as MM_TOL; float32 differs from the
 # plain version in summation order only, bfloat16 takes the reference's
 # atol 3e-2 plus one bfloat16 step of the plain output
@@ -181,6 +206,7 @@ FA_GATE = (1e-3, 0.0, 2)
 LM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.05, 0.05)}
 FULL_ARCH = "qwen3-1.7b"
 PREFILL_SHAPE = (4, 2048)       # the prefill_32k cell cut to B 4 x S 2048
+DECODE_CHECK_SHAPE = (2, 64)    # phase 9b's prompts, decoded against prefill
 LONG_SEQ = 32768
 # (atol, rtol, steps): float32, another summation order.  bfloat16: the
 # reference's atol 5e-2 / rtol 1e-3 plus exactly one bfloat16 step (unit in
@@ -268,37 +294,84 @@ def profiled(fn, iters: int) -> tuple[float, dict, dict]:
     return wall, by_name, counts
 
 
-def device_ms(fn, iters: int, launches: int = 1,
-              tries: int = 5) -> float | None:
+# a device-bound call's CUDA events bracket little but its kernels, so a
+# profiler reading below this share of the event time of the same calls
+# has lost kernel time (a record cut short), not found host overhead
+DEVICE_BOUND_FLOOR = 0.8
+# clock cycles (about 25 ms) of torch.cuda._sleep's spin kernel, which holds
+# the stream while the host queues the measured calls: under the profiler
+# the host takes longer to issue a call than a 0.25 ms kernel runs, and
+# the events would then time the host's pace
+SPIN_CYCLES = 50_000_000
+# calls traced ahead of the measured ones, to take the records the
+# profiler drops at the start of a trace
+LEAD_CALLS = 3
+
+
+def trace_accepted(n_records: int, want: int, device_ms: float,
+                   event_ms: float, device_bound: bool) -> bool:
+    """Whether a trace's reading stands: the run of measured kernel records
+    holds exactly ``want`` records and, for calls whose time is the
+    device's (``device_bound``), the device time per call is at least
+    ``DEVICE_BOUND_FLOOR`` of the CUDA-event time per call of the same
+    calls.  A host-bound call's event time holds the card's gaps between
+    its short kernels, so only the record count applies to it."""
+    if n_records != want:
+        return False
+    return not device_bound or device_ms >= DEVICE_BOUND_FLOOR * event_ms
+
+
+def device_ms(fn, iters: int, launches: int = 1, tries: int = 5,
+              device_bound: bool = False) -> float | None:
     """Device time per call of ``fn``, which launches ``launches`` kernels a
-    call, from a trace of ``iters`` calls between a call before them and a
-    call after them, each 20 ms apart on the host.  The kernel records fall
-    into runs split by device-side gaps of 10 ms or more; the longest run
-    is the measured calls'.  The profiler can lose records (one a trace of
-    masked-matmul launches, most flash launches of a window after a large
-    trace), so a trace counts only when that run holds exactly ``iters *
-    launches`` records (the calls around it take what a trace loses at its
-    start and end); another is taken otherwise, up to ``tries`` times, then
-    None (not measured)."""
+    call, from a trace of ``iters`` calls between ``LEAD_CALLS`` calls
+    before them and one after them, each group 20 ms apart on the host.
+    The kernel records fall into runs split by device-side gaps of 10 ms
+    or more; the longest run is the measured calls'.  CUDA events around
+    the measured calls, inside the same trace, give their event time; a
+    spin kernel first holds the stream until all of them are queued, so
+    the events bracket the device's work (the spin's record is not
+    counted).  The share of event time a reading takes is logged.
+
+    The profiler can lose records (one a trace of masked-matmul launches,
+    most flash launches of a window after a large trace) or cut them short
+    (half the event time of device-bound calls, after an empty trace), so
+    a trace counts only when :func:`trace_accepted` takes it (the calls
+    around it take what a trace loses at its start and end); another is
+    taken otherwise, up to ``tries`` times, then None (not measured).  The
+    profiler drops the first records of a trace (as many as two of the
+    float32 flash kernel's), so the calls before the measured ones are
+    several.  The floor on event time holds for device-bound calls alone:
+    model A's 0.003 ms masked matmul and the per-layer LUT kernels read
+    0.67-0.78 of their event time (the card's gaps between short
+    kernels)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(0.02)
-            for _ in range(iters):
+            for _ in range(LEAD_CALLS):
                 fn()
             torch.cuda.synchronize()
             time.sleep(0.02)
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
             fn()
             torch.cuda.synchronize()
+        event_ms = start.elapsed_time(end) / iters
         records = sorted((e.time_range for e in prof.events()
                           if e.device_type == DeviceType.CUDA
-                          and not e.is_user_annotation),
+                          and not e.is_user_annotation
+                          and "spin_kernel" not in e.name),
                          key=lambda r: r.start)
         runs = [[]]
         for r in records:
@@ -306,11 +379,23 @@ def device_ms(fn, iters: int, launches: int = 1,
                 runs.append([])
             runs[-1].append(r)
         measured = max(runs, key=len)
-        if len(measured) == iters * launches:
-            return sum(r.elapsed_us() for r in measured) / 1e3 / iters
-        log(f"profiler kept {len(records)} kernel records of "
-            f"{(iters + 2) * launches}, in runs of "
-            f"{[len(r) for r in runs]}; tracing again")
+        dev = sum(r.elapsed_us() for r in measured) / 1e3 / iters
+        if trace_accepted(len(measured), iters * launches, dev, event_ms,
+                          device_bound):
+            log(f"device_ms: {dev} ms a call of device time, "
+                f"{dev / event_ms:.4f} of the CUDA-event time of the same "
+                f"calls ({'device-bound' if device_bound else 'host-bound'}"
+                f", {iters} calls of {launches} launches)")
+            return dev
+        if len(measured) != iters * launches:
+            log(f"profiler kept {len(records)} kernel records of "
+                f"{(iters + LEAD_CALLS + 1) * launches}, in runs of "
+                f"{[len(r) for r in runs]}; tracing again")
+        else:
+            log(f"profiler read {dev} ms a call of device time against "
+                f"{event_ms} ms of CUDA-event time for the same "
+                f"device-bound calls (below {DEVICE_BOUND_FLOOR} of it); "
+                f"tracing again")
     return None
 
 
@@ -707,16 +792,19 @@ def masked_matmul_times(torch, dev, mm: dict) -> dict:
            "routes": {"ffma": MM_FFMA_SOURCE, "simt": MM_SOURCE,
                       "wgmma": MM_WGMMA_SOURCE},
            "shape": [256, 64, 64]}
-    cases = (("", 256, 64, 64, "float32", model_a_masks()[1], 200),
-             ("_4096_f32", 4096, 4096, 4096, "float32", None, 3),
-             ("_4096_bf16", 4096, 4096, 4096, "bfloat16", None, 10))
-    for suffix, m, k, n, dtype, mask, iters in cases:
+    # (..., iters, device-bound): model A's layer is host-bound, the 4096^3
+    # calls device-bound
+    cases = (("", 256, 64, 64, "float32", model_a_masks()[1], 200, False),
+             ("_4096_f32", 4096, 4096, 4096, "float32", None, 3, True),
+             ("_4096_bf16", 4096, 4096, 4096, "bfloat16", None, 10, True))
+    for suffix, m, k, n, dtype, mask, iters, bound_calls in cases:
         x, w, mk, b = mm_inputs(torch, dev, m, k, n, dtype, mask)
         route = masked_matmul_route(x.dtype, k, n)
         ms = cuda_ms(lambda: masked_matmul(x, w, mk, b), iters)
         plain_ms = cuda_ms(lambda: masked_matmul_plain(x, w, mk, b), iters)
         library_ms = cuda_ms(lambda: torch.addmm(b, x, w * mk), iters)
-        dev_ms = device_ms(lambda: masked_matmul(x, w, mk, b), iters)
+        dev_ms = device_ms(lambda: masked_matmul(x, w, mk, b), iters,
+                           device_bound=bound_calls)
         moved = nbytes(x, w, mk, b) + m * n * x.element_size()
         ops = 2 * m * int(mk.count_nonzero())
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -736,7 +824,8 @@ def masked_matmul_times(torch, dev, mm: dict) -> dict:
         extra = f", the SIMT kernel on the same inputs {simt_ms:.5f} ms"
         if route == "ffma":
             simt_dev = device_ms(lambda: simt_masked_matmul(torch, x, w, mk,
-                                                            b), iters)
+                                                            b), iters,
+                                 device_bound=bound_calls)
             rec[f"simt_device_ms{suffix}"] = simt_dev
             extra += f" (device {simt_dev} ms)"
         log(f"phase 6 masked_matmul {m}x{k}x{n} {dtype} ({route}): "
@@ -781,11 +870,25 @@ def training_profile(torch, dev, steps: int = 50) -> dict:
     return out
 
 
-def flash_inputs(torch, dev, b, hq, hkv, s, d, dtype, seed=0):
+def flash_inputs(torch, dev, b, hq, hkv, s, d, dtype, seed=0, bshd=False):
+    """Seeded (B, H, S, D) q, k and v; with ``bshd`` they are transposed
+    views of (B, S, H, D) tensors, as ``attn_apply`` passes them."""
     g = torch.Generator(device=dev).manual_seed(seed)
     dt = getattr(torch, dtype)
+    if bshd:
+        return [torch.randn(shape, generator=g, device=dev).to(dt)
+                .transpose(1, 2)
+                for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
     return [torch.randn(shape, generator=g, device=dev).to(dt)
             for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def expected_flash_route(dtype: str, d: int) -> str:
+    """The route phase 7 expects: a tensor-core kernel for D % 8 == 0 up
+    to 256 (wgmma in bfloat16, tf32x3 in float32), else SIMT."""
+    if d % 8 == 0 and d <= 256:
+        return "wgmma" if dtype == "bfloat16" else "tf32x3"
+    return "simt"
 
 
 def flash_phase(torch, dev) -> dict:
@@ -808,23 +911,47 @@ def flash_phase(torch, dev) -> dict:
               ((4, 16, 8, 2048, 128), "float32", dict(causal=True)),
               ((4, 16, 8, 2048, 128), "bfloat16", dict(causal=True)),
               ((1, 16, 8, LONG_SEQ, 128), "bfloat16", dict(causal=True)),
-              ((1, 4, 2, 100, 12), "bfloat16", dict(causal=True))]
+              ((1, 4, 2, 100, 12), "bfloat16", dict(causal=True)),
+              ((1, 4, 2, 100, 12), "float32", dict(causal=True)),
+              ((1, 2, 2, 70, 6), "float32", dict(causal=False))]
+    cases = [(shape, dt, kw, False) for shape, dt, kw in cases]
+    # the main path's own inputs, attn_apply's transposed (B, S, H, D)
+    # views: phase 9b's float32 (tf32x3) and bfloat16 prefills of 2 x 64
+    # tokens and phase 9a's bfloat16 prefill
+    b, s = DECODE_CHECK_SHAPE
+    cases += [((b, 16, 8, s, 128), dt, dict(causal=True), True)
+              for dt in ("float32", "bfloat16")]
+    cases += [((PREFILL_SHAPE[0], 16, 8, PREFILL_SHAPE[1], 128), "bfloat16",
+               dict(causal=True), True)]
     n_named = len(cases)
     # the tensor-core route's grid: GQA groups 1, 2 and 8, D 16 to 256, S
     # not a multiple of its 64-row and 64- or 128-key tiles, causal or not,
     # and sliding windows
-    cases += [((1, hq, hkv, s, d), "bfloat16", dict(causal=c))
+    cases += [((1, hq, hkv, s, d), "bfloat16", dict(causal=c), False)
               for hq, hkv in ((4, 4), (4, 2), (8, 1))
               for d in (16, 64, 128, 256) for s in (65, 250, 1000)
               for c in (True, False)]
-    cases += [((1, 4, 2, 1000, d), "bfloat16", dict(causal=c, window=w))
+    cases += [((1, 4, 2, 1000, d), "bfloat16", dict(causal=c, window=w),
+               False)
+              for d in (64, 128) for w in (16, 64, 1024) for c in (True, False)]
+    # the same grid for the float32 tensor-core route (tf32x3), D 8 to 256
+    cases += [((1, hq, hkv, s, d), "float32", dict(causal=c), False)
+              for hq, hkv in ((4, 4), (4, 2), (8, 1))
+              for d in (8, 64, 128, 256) for s in (65, 250, 1000)
+              for c in (True, False)]
+    cases += [((1, 4, 2, 1000, d), "float32", dict(causal=c, window=w),
+               False)
               for d in (64, 128) for w in (16, 64, 1024) for c in (True, False)]
     errs = {"float32": 0.0, "bfloat16": 0.0}
-    by_route = {"simt": 0, "wgmma": 0}
+    route_errs = {"simt": 0.0, "wgmma": 0.0, "tf32x3": 0.0}
+    by_route = {"simt": 0, "wgmma": 0, "tf32x3": 0}
     gate_worst = 0.0
-    for i, (shape, dtype, kw) in enumerate(cases):
-        q, k, v = flash_inputs(torch, dev, *shape, dtype, seed=i)
+    for i, (shape, dtype, kw, bshd) in enumerate(cases):
+        q, k, v = flash_inputs(torch, dev, *shape, dtype, seed=i, bshd=bshd)
         route = flash_attention_route(q.dtype, shape[-1])
+        if route != expected_flash_route(dtype, shape[-1]):
+            fail(f"flash_attention {shape} {dtype}: routed to {route}, not "
+                 f"{expected_flash_route(dtype, shape[-1])}")
         before = flash_attention.launches
         before_route = flash_attention.launches_by_route[route]
         got = flash_attention(q, k, v, **kw)
@@ -838,6 +965,9 @@ def flash_phase(torch, dev) -> dict:
         if got.dtype != q.dtype or got.shape != q.shape:
             fail(f"flash_attention {shape} {dtype}: gave {got.dtype} "
                  f"{tuple(got.shape)}")
+        if route != "simt" and not got.transpose(1, 2).is_contiguous():
+            fail(f"flash_attention {shape} {dtype} ({route}): the output is "
+                 f"not a view of a (B, S, H, D) buffer")
         atol, rtol, steps = FA_TOL[dtype]
         diff = (got.float() - want.float()).abs()
         if not bool(torch.isfinite(got).all()) or bool(
@@ -847,8 +977,20 @@ def flash_phase(torch, dev) -> dict:
                  f"rtol {rtol} + {steps} {dtype} step")
         err = float(diff.max())
         errs[dtype] = max(errs[dtype], err)
+        route_errs[route] = max(route_errs[route], err)
         by_route[route] += 1
         gate = ""
+        if route == "tf32x3" and shape == (*PREFILL_SHAPE[:1], 16, 8,
+                                           PREFILL_SHAPE[1], 128):
+            # the earlier float32 design on the same inputs
+            simt = flash_direct(torch, q, k, v, "simt")
+            simt_diff = (got - simt).abs()
+            if bool((simt_diff > mm_limit(torch, simt, *FA_TOL[dtype])).any()):
+                fail(f"flash_attention {shape} float32: max |tf32x3 - SIMT| "
+                     f"{float(simt_diff.max())} beyond FA_TOL float32")
+            gate = (f", max |kernel - SIMT kernel| "
+                    f"{float(simt_diff.max()):.3g}")
+            del simt, simt_diff
         if route == "wgmma":
             ratio, rms = gate_reading(torch, got, want)
             if ratio > 1:
@@ -858,18 +1000,23 @@ def flash_phase(torch, dev) -> dict:
             gate_worst = max(gate_worst, ratio)
             gate = f", {ratio:.3g} of the gate, RMS ratio {rms:.3g}"
         if i < n_named:
+            views = ", (B, S, H, D) views" if bshd else ""
             log(f"phase 7 flash_attention (B, Hq, Hkv, S, D) {shape} {dtype} "
-                f"{kw} ({route}): max |kernel - plain| {err:.3g}{gate}")
+                f"{kw}{views} ({route}): max |kernel - plain| "
+                f"{err:.3g}{gate}")
         del q, k, v, got, want, diff
     log(f"phase 7 flash_attention: {len(cases)} cases within tolerance "
-        f"({by_route['wgmma']} on the wgmma route, {by_route['simt']} on "
-        f"the SIMT route; the last {len(cases) - n_named}: GQA 1/2/8, D "
-        f"16-256, S 65/250/1000, windows 16/64/1024, causal or not); largest "
-        f"difference float32 {errs['float32']:.3g}, bfloat16 "
-        f"{errs['bfloat16']:.3g}; wgmma cases within {gate_worst:.3g} of "
-        f"the second gate (atol {FA_GATE[0]} + {FA_GATE[2]} bfloat16 steps)")
+        f"({by_route['wgmma']} on the wgmma route, {by_route['tf32x3']} on "
+        f"the tf32x3 route, {by_route['simt']} on the SIMT route; the last "
+        f"{len(cases) - n_named}: GQA 1/2/8, D 8-256, S 65/250/1000, "
+        f"windows 16/64/1024, causal or not, in bfloat16 and float32); "
+        f"largest difference float32 {errs['float32']:.3g}, bfloat16 "
+        f"{errs['bfloat16']:.3g}, by route {route_errs}; wgmma cases within "
+        f"{gate_worst:.3g} of the second gate (atol {FA_GATE[0]} + "
+        f"{FA_GATE[2]} bfloat16 steps)")
     return {"max_abs_err": errs["float32"],
             "max_abs_err_bf16": errs["bfloat16"],
+            "max_abs_err_by_route": route_errs,
             "gate_worst_ratio": gate_worst, **gate_controls(torch, dev)}
 
 
@@ -1066,29 +1213,42 @@ def lm_main_path(torch, dev, kernels) -> dict:
     # move a logit by about 0.012 on average: the reference's 0.05 contract
     # (a 2-layer smoke model's) must hold for all but 1e-4 of the logits,
     # and every row's top-1 token must agree
-    d_tokens = tokens[:2, :64].contiguous()
+    d_tokens = tokens[:DECODE_CHECK_SHAPE[0],
+                      :DECODE_CHECK_SHAPE[1]].contiguous()
     f32 = M.LM(dataclasses.replace(cfg, compute_dtype="float32"),
                {"embed": dict(model.embed), "final_norm": model.final_norm,
                 "layers": [layer.tree() for layer in model.layers]})
     diffs = {}
     for name, m in (("float32", f32), ("bfloat16", model)):
+        before = dict(flash_attention.launches_by_route)
         want = steps.make_prefill_step(m.cfg)(m, {"tokens": d_tokens}).float()
-        cache = M.init_cache(cfg, 2, 64, device=dev)
+        route = "tf32x3" if name == "float32" else "wgmma"
+        ran = flash_attention.launches_by_route[route] - before[route]
+        if ran != cfg.n_layers or sum(
+                flash_attention.launches_by_route.values()) - sum(
+                    before.values()) != cfg.n_layers:
+            fail(f"the {name} prefill launched flash_attention {ran} times "
+                 f"on the {route} route, not all {cfg.n_layers} "
+                 f"({flash_attention.launches_by_route})")
+        cache = M.init_cache(cfg, *DECODE_CHECK_SHAPE, device=dev)
         if name == "float32":
             cache = {k: v.float() for k, v in cache.items()}
         decode = steps.make_decode_step(m.cfg)
-        for t in range(64):
+        for t in range(d_tokens.shape[1]):
             got, cache = decode(m, cache, d_tokens[:, t:t + 1],
-                                torch.full((2,), t, dtype=torch.int32,
-                                           device=dev))
+                                torch.full((d_tokens.shape[0],), t,
+                                           dtype=torch.int32, device=dev))
         diff = (got.float() - want).abs()
         tol = 1e-4 if name == "float32" else 0.05
         over = int((diff > tol + tol * want.abs()).sum())
         top1 = got.argmax(-1).tolist(), want.argmax(-1).tolist()
         diffs[name] = float(diff.max())
         p999 = float(diff.flatten().kthvalue(int(diff.numel() * 0.999))[0])
-        log(f"phase 9b {name} compute: 2 prompts x 64 tokens decoded one at "
-            f"a time: last logits within {diffs[name]:.5f} of prefill's "
+        log(f"phase 9b {name} compute: prefill's {cfg.n_layers} flash "
+            f"launches on the {route} route; {d_tokens.shape[0]} prompts x "
+            f"{d_tokens.shape[1]} tokens decoded "
+            f"one at a time: last logits within {diffs[name]:.5f} of "
+            f"prefill's "
             f"(mean {float(diff.mean()):.5f}, 99.9th percentile "
             f"{p999:.5f}; {over} of {diff.numel()} beyond atol {tol} + rtol "
             f"{tol}); top-1 tokens {top1[0]} vs {top1[1]}")
@@ -1211,7 +1371,7 @@ def flash_times(torch, dev) -> dict:
         rounded_ms = cuda_ms(lambda: flash_direct(torch, q, k, v, "wgmma",
                                                   split_p=False), iters, reps)
         dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=True),
-                           5)
+                           5, device_bound=True)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v,
                                                          causal=True),
                            iters, reps)
@@ -1243,18 +1403,24 @@ def flash_times(torch, dev) -> dict:
             f"{ops / ms / 1e9:.1f} TFLOP/s achieved)")
         del q, k, v
         torch.cuda.empty_cache()
-    rec.update(flash_f32_times(torch, dev))
     return rec
 
 
 def flash_f32_times(torch, dev) -> dict:
-    """Phase 10, the float32 route (the SIMT kernel, which phase 9b's
-    float32 prefill runs): at the prefill shape, event and device time
-    beside the plain version, SDPA on the same float32 tensors and the
-    bound at the float32 CUDA-core rate.  SDPA's GQA runs only in its math
-    backend for float32 (its flash backend takes no float32), so the fused
-    memory-efficient backend is also timed, on K and V expanded to Hq heads
-    outside the timed call."""
+    """Phase 10, the float32 route (the tf32x3 kernel, which phase 9b's
+    float32 prefill runs) at the prefill shape: event and device time beside
+    the SIMT kernel called directly on the same inputs (the earlier design,
+    also event and device time), the plain version, SDPA with
+    ``enable_gqa`` on the same float32 tensors (its math backend: no fused
+    backend takes float32 GQA), SDPA's memory-efficient backend on K and V
+    expanded to Hq heads outside the timed call (the fused float32 kernel
+    the route is measured against: three TF32 products a product, as
+    here), timed in turns with the kernel, and two bounds: the route's, its
+    operations three times over at the 495 TFLOP/s dense TF32 rate, and the
+    SIMT route's, once at the 67 TFLOP/s float32 CUDA-core rate.  Returns
+    the kernel's record, whose ``library_ms`` is the memory-efficient
+    backend's time (K and V expanded outside the timed call) and
+    ``library_math_ms`` the math backend's."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1264,36 +1430,57 @@ def flash_f32_times(torch, dev) -> dict:
     b, s = PREFILL_SHAPE
     q, k, v = flash_inputs(torch, dev, b, 16, 8, s, 128, "float32")
     route = flash_attention_route(q.dtype, 128)
-    if route != "simt":
-        fail(f"float32 flash attention routes to {route}, not simt")
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 3, 5)
-    dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=True), 3)
+    if route != "tf32x3":
+        fail(f"float32 flash attention routes to {route}, not tf32x3")
+    ke, ve = (t.repeat_interleave(2, dim=1) for t in (k, v))
+
+    def kernel():
+        return flash_attention(q, k, v, causal=True)
+
+    def efficient():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(q, ke, ve, is_causal=True)
+
+    # in turns, kernel and yardstick twice each, in one run
+    runs = {"kernel": [], "efficient": []}
+    for name in ("efficient", "kernel", "kernel", "efficient"):
+        runs[name].append(cuda_ms(kernel if name == "kernel" else efficient,
+                                  5, 7))
+    ms = statistics.mean(runs["kernel"])
+    fused_ms = statistics.mean(runs["efficient"])
+    dev_ms = device_ms(kernel, 5, device_bound=True)
+    simt_ms = cuda_ms(lambda: flash_direct(torch, q, k, v, "simt"), 3, 5)
+    simt_dev = device_ms(lambda: flash_direct(torch, q, k, v, "simt"), 3,
+                         device_bound=True)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
                        1, 3)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+    math_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 3, 5)
-    ke, ve = (t.repeat_interleave(2, dim=1) for t in (k, v))
-    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-        fused_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, ke, ve, is_causal=True), 3, 5)
     moved = nbytes(q, k, v) + q.numel() * q.element_size()
     ops = 4 * b * 16 * 128 * (s * (s + 1) // 2)
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FLOPS_PER_S["float32"] * 1e3
-    log(f"phase 10 flash_attention_forward (B, Hq, Hkv, S, D) ({b}, 16, 8, "
-        f"{s}, 128) float32 causal ({route}): {ms:.4f} ms/call, device "
-        f"{dev_ms} ms (back to back), plain {plain_ms:.4f} ms, SDPA "
-        f"(enable_gqa, math backend) {library_ms:.4f} ms ({ms / library_ms:.2f}"
-        f"x), SDPA memory-efficient on K, V expanded {fused_ms:.4f} ms "
-        f"({ms / fused_ms:.2f}x), bound {max(bytes_ms, ops_ms):.5f} ms "
-        f"({moved} B, {ops} flop at 67 TFLOP/s: {ops / ms / 1e9:.1f} "
-        f"TFLOP/s achieved)")
-    return {"ms_f32": ms, "device_ms_f32": dev_ms, "plain_ms_f32": plain_ms,
-            "library_ms_f32": library_ms,
-            "library_efficient_ms_f32": fused_ms,
-            "bound_ms_f32": max(bytes_ms, ops_ms),
-            "bound_by_f32": "bytes" if bytes_ms >= ops_ms else "operations",
-            "shape_f32": [b, 16, 8, s, 128]}
+    ops_ms = TF32_PRODUCTS * ops / TF32_FLOPS_PER_S * 1e3
+    simt_ops_ms = ops / FLOPS_PER_S["float32"] * 1e3
+    log(f"phase 10 flash_attention_tf32_forward (B, Hq, Hkv, S, D) ({b}, 16, "
+        f"8, {s}, 128) float32 causal ({route}): {ms:.4f} ms/call "
+        f"({runs['kernel']}), device {dev_ms} ms (back to back); SDPA "
+        f"memory-efficient on K, V expanded {fused_ms:.4f} ms "
+        f"({runs['efficient']}): the kernel is {ms / fused_ms:.3f}x it; the "
+        f"SIMT kernel (earlier design) {simt_ms:.4f} ms, device {simt_dev} "
+        f"ms; plain {plain_ms:.4f} ms; SDPA (enable_gqa, math backend) "
+        f"{math_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.5f} ms ({moved} "
+        f"B, {ops} flop x {TF32_PRODUCTS} at 495 TFLOP/s TF32; the SIMT "
+        f"route's {max(bytes_ms, simt_ops_ms):.5f} ms at 67 TFLOP/s): "
+        f"{ops / ms / 1e9:.1f} TFLOP/s of float32 work achieved")
+    return {"ms": ms, "ms_runs": runs["kernel"], "device_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": fused_ms,
+            "library_ms_runs": runs["efficient"],
+            "vs_library": ms / fused_ms, "library_math_ms": math_ms,
+            "simt_ms": simt_ms, "simt_device_ms": simt_dev,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "simt_bound_ms": max(bytes_ms, simt_ops_ms),
+            "shape": [b, 16, 8, s, 128]}
 
 
 def main() -> None:
@@ -1483,20 +1670,34 @@ def main() -> None:
     fa = flash_phase(torch, dev)
     fa["lm_smoke_max_abs"] = lm_smoke_phase(torch, dev)
     path = lm_main_path(torch, dev, kernels)
+    # flash attention in two records, each with its own routes' launches on
+    # the main path (the wrapper's total is launches_all_routes): the
+    # float32 tensor-core kernel (phase 9b's float32 prefill; its phase-7
+    # error, its phase-10 times), and the bfloat16 and SIMT kernels
+    by_route = path["launches_by_route"]
+    tf_rec = {"name": "flash_attention_tf32_forward", "route": "cuda",
+              "source": FA_TF32_SOURCE, "replaces": FA_REPLACES,
+              "launches": by_route["tf32x3"],
+              "max_abs_err": fa["max_abs_err_by_route"]["tf32x3"],
+              "routes": {"tf32x3": FA_TF32_SOURCE}}
     fa_rec = {"name": "flash_attention_forward", "route": "cuda",
-              "source": FA_WGMMA_SOURCE,
-              "replaces": "src/repro/kernels/flash_attention.py:30",
-              "launches": path["launches"],
-              "launches_by_route": path["launches_by_route"],
+              "source": FA_WGMMA_SOURCE, "replaces": FA_REPLACES,
+              "launches": by_route["wgmma"] + by_route["simt"],
+              "launches_all_routes": path["launches"],
+              "launches_by_route": by_route,
               "routes": {"simt": FA_SOURCE, "wgmma": FA_WGMMA_SOURCE}, **fa}
+    # the kernels' traces before the prefill's: the profiler loses most
+    # records of short traces taken after a large one
+    fa_rec.update(flash_times(torch, dev))
+    tf_rec.update(flash_f32_times(torch, dev))
     fa_rec.update(path_times(torch, dev, path))
     fa_rec.update({k: path[k] for k in ("prefill_first_ms",
                                         "decode_vs_prefill_max_abs",
                                         "decode_vs_prefill_max_abs_f32")})
     del path
     torch.cuda.empty_cache()
-    fa_rec.update(flash_times(torch, dev))
     records.append(fa_rec)
+    records.append(tf_rec)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

@@ -48,6 +48,8 @@ _SIGNATURES = {
                                 _F, _I, _P),
     "flash_attention_wgmma_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _I, _F, _P),
+    "flash_attention_tf32_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

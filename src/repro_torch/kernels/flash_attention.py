@@ -8,25 +8,30 @@ keys at or before the query; ``window`` (None, or at least 1) keeps only
 the last ``window`` keys of each query.  Arithmetic is float32 and the
 output has q's dtype.
 
-On CUDA tensors it launches one of two kernels that replace the Pallas
+On CUDA tensors it launches one of three kernels that replace the Pallas
 ``repro.kernels.flash_attention.flash_attention_pallas``, chosen by
 :func:`flash_attention_route`:
 
 * ``"wgmma"``: bfloat16 with ``D % 8 == 0`` runs
   ``flash_attention_wgmma_forward`` (``csrc/flash_attention_wgmma.cu``) on
   the tensor cores, P split into two bfloat16 halves (hi + lo) for the
-  P V product, so P keeps its float32 precision.  It reads
-  q, k and v through their strides (any (B, H, S, D) view whose last
-  dimension is contiguous, such as the transpose of the LM's (B, S, H, D)
-  projections) and writes a (B, S, Hq, D) buffer whose (B, Hq, S, D) view
-  it returns;
-* ``"simt"``: float32, and bfloat16 of any other D, runs
+  P V product, so P keeps its float32 precision;
+* ``"tf32x3"``: float32 with ``D % 8 == 0`` runs
+  ``flash_attention_tf32_forward`` (``csrc/flash_attention_tf32.cu``) on
+  the tensor cores, each product as three TF32 products on a big + small
+  split of both operands (float32-accurate);
+* ``"simt"``: any other D, float32 or bfloat16, runs
   ``flash_attention_forward`` (``csrc/flash_attention.cu``) on CUDA cores
   in float32, on contiguous copies.
 
+The two tensor-core routes read q, k and v through their strides (any
+(B, H, S, D) view whose last dimension is contiguous, such as the
+transpose of the LM's (B, S, H, D) projections) and write a (B, S, Hq, D)
+buffer whose (B, Hq, S, D) view they return.
+
 ``flash_attention.launches`` counts every launch and
 ``flash_attention.launches_by_route`` each route's.  A failed build or
-launch raises; no route falls back to the other or to the plain version.
+launch raises; no route falls back to another or to the plain version.
 On CPU tensors it runs :func:`flash_attention_plain`, the dense masked
 softmax of ``repro.kernels.ref.flash_attention_ref`` in plain torch.
 """
@@ -47,24 +52,28 @@ _TMA_ALIGN = 16
 
 
 def flash_attention_route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernel a CUDA call launches: ``"wgmma"`` for bfloat16 with
-    ``head_dim % 8 == 0`` (up to 256), else ``"simt"``."""
-    if dtype == torch.bfloat16 and head_dim % 8 == 0 and \
-            1 <= head_dim <= _MAX_DIM:
-        return "wgmma"
+    """Which kernel a CUDA call launches: for ``head_dim % 8 == 0`` (up to
+    256) ``"wgmma"`` in bfloat16 and ``"tf32x3"`` in float32, else
+    ``"simt"``."""
+    if head_dim % 8 == 0 and 1 <= head_dim <= _MAX_DIM:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "tf32x3"
     return "simt"
 
 
 def _tma_view(t: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
-    """``t`` (B, H, S, D) with its (batch, head, seq) strides as TMA takes
-    them: 16-byte aligned start and strides, or else a contiguous copy.  A
-    dimension of size 1 is never stepped, so it gets its contiguous
-    stride."""
+    """``t`` (B, H, S, D) with its (batch, head, seq) strides as TMA (and
+    ``cp.async``) take them: 16-byte aligned start and strides, or else a
+    contiguous copy.  A dimension of size 1 is never stepped, so it gets
+    its contiguous stride."""
     b, h, s, d = t.shape
     natural = (h * s * d, s * d, d)
     strides = [st if n > 1 else nat for st, n, nat in
                zip(t.stride()[:3], t.shape[:3], natural)]
-    if t.data_ptr() % _TMA_ALIGN or any(st % 8 for st in strides):
+    if t.data_ptr() % _TMA_ALIGN or any(st * t.element_size() % _TMA_ALIGN
+                                        for st in strides):
         return t.contiguous() if not t.is_contiguous() else t.clone(), \
             list(natural)
     return t, strides
@@ -159,6 +168,27 @@ def _launch_wgmma(q, k, v, out, causal: bool, window: int | None,
     _build.check(err, "flash_attention_wgmma_forward")
 
 
+def _launch_tf32(q, k, v, out, causal: bool, window: int | None,
+                 scale: float) -> None:
+    """``flash_attention_tf32_forward`` on checked float32 operands with
+    ``D % 8 == 0``, into ``out`` through its strides (``out`` 8-byte
+    aligned with even strides, its last dimension contiguous)."""
+    b, hq, s, d = q.shape
+    views = [_tma_view(t) for t in (q, k, v)]
+    strides = [st for _, sts in views for st in sts] + list(out.stride()[:3])
+    q, k, v = (t for t, _ in views)
+    with torch.cuda.device(q.device):
+        err = _build.library().flash_attention_tf32_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            (ctypes.c_longlong * 12)(*strides), b, hq, k.shape[1], s, d,
+            int(causal), window or 0, float(scale), stream_of(q.device))
+    _build.check(err, "flash_attention_tf32_forward")
+
+
+_LAUNCH = {"simt": _launch_simt, "wgmma": _launch_wgmma,
+           "tf32x3": _launch_tf32}
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
@@ -195,19 +225,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     route = flash_attention_route(q.dtype, d)
-    if route == "wgmma":
+    if route == "simt":
+        out = torch.empty((b, hq, s, d), dtype=q.dtype, device=dev)
+    else:
         out = torch.empty((b, s, hq, d), dtype=q.dtype,
                           device=dev).transpose(1, 2)
-    else:
-        out = torch.empty((b, hq, s, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    (_launch_wgmma if route == "wgmma" else _launch_simt)(
-        q, k, v, out, causal, window, scale)
+    _LAUNCH[route](q, k, v, out, causal, window, scale)
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_route = {"simt": 0, "wgmma": 0}
+flash_attention.launches_by_route = {"simt": 0, "wgmma": 0, "tf32x3": 0}

@@ -1,0 +1,82 @@
+"""``chip_smoke.py``'s rule for accepting a profiler trace, on the CPU.
+
+Importing the script runs nothing (its work is in ``main()``), so its pure
+functions can be checked here.  ``trace_accepted`` takes a trace only when
+its run of measured kernel records is complete and, for device-bound calls,
+its device time per call is at least ``DEVICE_BOUND_FLOOR`` (0.8) of the
+CUDA-event time per call of the same calls.  The figures are one H100's
+(``chip_smoke.py`` runs): float32 flash attention at (4, 16, 8, 2048, 128)
+once read 1.927 ms of device time against 3.873 ms of event time (a trace
+whose records were cut short); the complete readings of a sound run lie at
+0.935 of their event time and above (bfloat16 flash at S 32768: 10.7928
+against 11.5374 ms).
+"""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+_PATH = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+
+
+@pytest.fixture(scope="module")
+def cs():
+    spec = importlib.util.spec_from_file_location("chip_smoke_rules", _PATH)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_import_runs_nothing_and_floor_is_stated(cs):
+    assert callable(cs.main) and cs.DEVICE_BOUND_FLOOR == 0.8
+
+
+@pytest.mark.parametrize("n_records,want,device,event,bound,accepted", [
+    # float32 flash, 3 calls: half the event time, records cut short
+    (3, 3, 1.9274886666666662, 3.8729, True, False),
+    # the same calls read whole
+    (3, 3, 3.8254, 3.8342, True, True),
+    # the lowest complete device-bound reading: bfloat16 flash at S 32768
+    (5, 5, 10.7928, 11.5374, True, True),
+    # float32 masked matmul at 4096^3
+    (3, 3, 3.30765, 3.33055, True, True),
+    # exactly at the floor, and just below it
+    (5, 5, 0.8, 1.0, True, True),
+    (5, 5, 0.7999, 1.0, True, False),
+    # model A's 256 x 64 x 64 masked matmul: host-bound (the event time is
+    # the wrapper's host cost), so only the record count applies
+    (200, 200, 0.00323, 0.02389, False, True),
+    (200, 200, 0.00323, 0.02389, True, False),
+    # the same calls with the stream held by the spin kernel until all
+    # are queued: the card's gaps between 0.003 ms kernels still put the
+    # reading below the floor, so the floor is for device-bound calls
+    # alone; likewise the per-layer LUT kernels at batch 16
+    (200, 200, 0.0032799, 0.0042992, False, True),
+    (200, 200, 0.0032799, 0.0042992, True, False),
+    (600, 600, 0.0057240, 0.0085432, True, False),
+    # a record lost at either end of the run: never taken
+    (4, 5, 1.0, 1.0, False, False),
+    (4, 5, 1.0, 1.0, True, False),
+    (0, 5, 0.0, 1.0, False, False),
+    # a record too many (another kernel in the run)
+    (6, 5, 1.0, 1.0, False, False),
+])
+def test_trace_accepted(cs, n_records, want, device, event, bound, accepted):
+    assert cs.trace_accepted(n_records, want, device, event,
+                             bound) is accepted
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    ("bfloat16", 128, "wgmma"), ("bfloat16", 12, "simt"),
+    ("float32", 128, "tf32x3"), ("float32", 8, "tf32x3"),
+    ("float32", 256, "tf32x3"), ("float32", 6, "simt"),
+    ("float32", 264, "simt")])
+def test_phase7_expects_the_wrappers_route(cs, dtype, d, route):
+    """Phase 7's own statement of the route rule agrees with the
+    wrapper's."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_route
+    assert cs.expected_flash_route(dtype, d) == route
+    assert flash_attention_route(getattr(torch, dtype), d) == route

@@ -14,14 +14,16 @@ kernel is held to its plain version within float32 atol 1e-5 / rtol 1e-5
 (the same float32 arithmetic in another summation order) and bfloat16
 atol 3e-2 (the reference's) plus exactly one bfloat16 step of the plain
 output.  Both kernels have two routes, the SIMT kernels and the
-tensor-core (wgmma) kernels, and the masked matmul a third for float32,
-the CUDA-core ``ffma`` kernel, whose output must also equal the first
-SIMT design's (``masked_matmul_forward``, the order oracle) bit for bit;
-each case asserts which route ran from the
-wrappers' ``launches_by_route`` counters, at the same tolerances.  The
-tensor-core flash route is also held to a second gate beside that one,
-1e-3 plus two bfloat16 steps of the plain output, tight enough to reject
-a stale K/V stage.
+tensor-core (wgmma) kernels, and each a third for float32: the masked
+matmul's CUDA-core ``ffma`` kernel, whose output must also equal the first
+SIMT design's (``masked_matmul_forward``, the order oracle) bit for bit,
+and flash attention's ``tf32x3`` kernel (three TF32 tensor-core products
+a product, held to the float32 tolerance above and, at qwen3-1.7b's
+prefill shape, to the SIMT kernel on the same inputs); each case asserts
+which route ran from the wrappers' ``launches_by_route`` counters, at the
+same tolerances.  The bfloat16 tensor-core flash route is also held to a
+second gate beside that one, 1e-3 plus two bfloat16 steps of the plain
+output, tight enough to reject a stale K/V stage.
 """
 
 import numpy as np
@@ -32,6 +34,7 @@ from torch_port_util import (ARTIFACT, codes, load_ref, load_train,
                              random_stack)
 
 from repro_torch import engine
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import lut_network as P
 from repro_torch.kernels import masked_matmul as MM
 from repro_torch.configs import fpga4hep
@@ -483,8 +486,48 @@ def test_flash_attention_bf16_windows(dev, window, causal, shape):
                               window=window) == "wgmma"
 
 
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (1, hq, hkv, s, d) for hq, hkv in ((4, 4), (4, 2), (8, 1))
+    for d in (8, 64, 128, 256) for s in (65, 250, 1000)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_tensor_core_route(dev, b, hq, hkv, s, d,
+                                               causal):
+    """float32 with D % 8 == 0 runs the tf32x3 kernel: GQA groups 1, 2 and
+    8, D 8 to 256, S not a multiple of its tiles, within FLASH_TOL's
+    float32 atol 1e-5 / rtol 1e-5."""
+    q, k, v = _qkv(dev, b, hq, hkv, s, d, torch.float32, seed=s + d + hq)
+    assert _flash_route_check(q, k, v, causal=causal) == "tf32x3"
+
+
+@pytest.mark.parametrize("window", [16, 64, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 4, 2, 1000, 128), (1, 2, 2, 250, 64),
+                                   (1, 8, 1, 300, 256)])
+def test_flash_attention_f32_windows(dev, window, causal, shape):
+    q, k, v = _qkv(dev, *shape, torch.float32, seed=window)
+    assert _flash_route_check(q, k, v, causal=causal,
+                              window=window) == "tf32x3"
+
+
+def test_flash_attention_tf32_matches_simt_at_prefill_shape(dev):
+    """At qwen3-1.7b's prefill shape (4, 16, 8, 2048, 128) causal the tf32x3
+    route agrees with the SIMT kernel (the earlier float32 design) on the
+    same inputs within FLASH_TOL's float32 tolerance, and with the plain
+    version."""
+    q, k, v = _qkv(dev, 4, 16, 8, 2048, 128, torch.float32, seed=3)
+    assert _flash_route_check(q, k, v, causal=True) == "tf32x3"
+    got = flash_attention(q, k, v, causal=True)
+    simt = torch.empty_like(q)
+    FA._launch_simt(q, k, v, simt, True, None, 1.0 / 128 ** 0.5)
+    torch.cuda.synchronize()
+    limit = _flash_limit(simt, q.dtype, *FLASH_TOL[q.dtype])
+    diff = (got - simt).abs()
+    assert (diff <= limit).all(), float((diff - limit).max())
+
+
 @pytest.mark.parametrize("dtype,d,route", [
-    (torch.float32, 128, "simt"), (torch.bfloat16, 12, "simt"),
+    (torch.float32, 128, "tf32x3"), (torch.float32, 8, "tf32x3"),
+    (torch.float32, 6, "simt"), (torch.bfloat16, 12, "simt"),
     (torch.bfloat16, 6, "simt"), (torch.bfloat16, 8, "wgmma")])
 def test_flash_attention_routes(dev, dtype, d, route):
     q, k, v = _qkv(dev, 1, 4, 2, 100, d, dtype, seed=d)
@@ -507,16 +550,31 @@ def test_flash_attention_gate_rejects_a_stale_stage(dev):
     _flash_check(q, k, v, causal=True)
 
 
-def test_flash_attention_reads_strided_views(dev):
+@pytest.mark.parametrize("b,s,hq,hkv", [(2, 300, 8, 4), (2, 64, 16, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_reads_strided_views(dev, dtype, b, s, hq, hkv,
+                                             monkeypatch):
     """The (B, H, S, D) transpose of a (B, S, H, D) tensor goes in without a
     copy and gives, bit for bit, what its contiguous copy gives; the output
-    is the (B, H, S, D) view of a (B, S, H, D) buffer."""
+    is the (B, H, S, D) view of a (B, S, H, D) buffer (both tensor-core
+    routes).  (2, 64, 16, 8) is qwen3-1.7b's decode-check prefill."""
     rng = np.random.default_rng(5)
-    b, s, hq, hkv, d = 2, 300, 8, 4, 128
+    d = 128
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-               .to(device=dev, dtype=torch.bfloat16).transpose(1, 2)
+               .to(device=dev, dtype=dtype).transpose(1, 2)
                for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    copies = []
+    for name in ("contiguous", "clone"):
+        method = getattr(torch.Tensor, name)
+
+        def watched(t, *a, _method=method, _name=name, **kw):
+            copies.append((_name, tuple(t.shape)))
+            return _method(t, *a, **kw)
+
+        monkeypatch.setattr(torch.Tensor, name, watched)
     got = flash_attention(q, k, v, causal=True)
+    monkeypatch.undo()
+    assert copies == []
     want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=True)
     torch.cuda.synchronize()

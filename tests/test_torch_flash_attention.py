@@ -9,9 +9,13 @@ Tolerances are the reference tests': float32 atol 2e-5 / rtol 1e-4 (the
 Pallas kernel's online softmax against a dense softmax: another summation
 order), bfloat16 atol 3e-2 (both round a float32 result to bfloat16).
 The rule that picks the CUDA kernel (``flash_attention_route``) and the
-strides the tensor-core route hands to TMA are checked as pure functions;
-strided (B, H, S, D) views, as the LM passes them, give exactly what
-contiguous copies give.
+strides the tensor-core routes hand to TMA and ``cp.async`` are checked as
+pure functions; strided (B, H, S, D) views, as the LM passes them, give
+exactly what contiguous copies give.  A plain-torch emulation of the
+float32 tensor-core route's arithmetic (each product as three TF32
+products on a big + small split of both operands) stays within the
+card's float32 tolerance of the plain version, where one TF32 product
+does not.
 """
 
 import jax.numpy as jnp
@@ -128,11 +132,13 @@ def test_wrapper_refuses_devices_it_cannot_run_on():
     (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 200, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 12, "simt"),
     (torch.bfloat16, 6, "simt"), (torch.bfloat16, 264, "simt"),
-    (torch.float32, 128, "simt"), (torch.float32, 8, "simt"),
+    (torch.float32, 128, "tf32x3"), (torch.float32, 8, "tf32x3"),
+    (torch.float32, 6, "simt"), (torch.float32, 264, "simt"),
     (torch.float16, 128, "simt")])
 def test_route_rule(dtype, d, route):
-    """bfloat16 with D % 8 == 0 (up to 256) goes to the tensor-core kernel;
-    float32 and every other head_dim to the SIMT kernel."""
+    """D % 8 == 0 (up to 256) goes to a tensor-core kernel, bfloat16 to
+    wgmma and float32 to tf32x3; every other head_dim to the SIMT
+    kernel."""
     assert flash_attention_route(dtype, d) == route
 
 
@@ -150,11 +156,18 @@ def test_tma_view_keeps_strided_views_and_fixes_size_one_dims():
     view, strides = _tma_view(odd.transpose(1, 2))
     assert view.is_contiguous() and strides == [3 * 5 * 8, 5 * 8, 8]
     torch.testing.assert_close(view, odd.transpose(1, 2), atol=0, rtol=0)
+    # float32: 16-byte strides are multiples of 4 elements
+    f32 = torch.zeros((2, 300, 8, 128)).transpose(1, 2)
+    view, strides = _tma_view(f32)
+    assert view is f32 and strides == [300 * 8 * 128, 128, 8 * 128]
+    odd = torch.zeros((2, 5, 3, 10))[..., :8].transpose(1, 2)
+    view, strides = _tma_view(odd)
+    assert view.is_contiguous() and strides == [3 * 5 * 8, 5 * 8, 8]
 
 
 def test_route_counters_exist_and_cpu_counts_nothing():
     before = dict(flash_attention.launches_by_route)
-    assert set(before) == {"simt", "wgmma"}
+    assert set(before) == {"simt", "wgmma", "tf32x3"}
     arrays = [torch.from_numpy(a).bfloat16()
               for a in _qkv(1, 2, 2, 16, 8, seed=2)]
     flash_attention(*arrays)
@@ -177,3 +190,89 @@ def test_plain_on_strided_views_matches_contiguous(dtype, window):
     for fn in (flash_attention_plain, flash_attention):
         torch.testing.assert_close(fn(q, k, v, causal=True, window=window),
                                    want, atol=0, rtol=0)
+
+
+# FA_TOL["float32"] of chip_smoke.py and FLASH_TOL of test_torch_cuda.py:
+# the float32 routes on the card against the plain version
+CARD_F32_TOL = (1e-5, 1e-5)
+
+
+def _tf32(x: torch.Tensor, rounding: str = "rna") -> torch.Tensor:
+    """x as a TF32 value (10 mantissa bits): ``"rna"`` to nearest, ties away
+    from zero (the ``cvt.rna`` rule on the float32 bits, as the kernel
+    rounds big), ``"toward_zero"`` its top 19 bits (what ``mma`` reads of
+    an operand that is not TF32, as the kernel passes small)."""
+    bits = x.view(torch.int32)
+    if rounding == "rna":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, products, small="toward_zero"):
+    """einsum ``eq`` of float32 a and b as the tensor cores take it: one
+    TF32 product, or three on big + small splits (small_a big_b +
+    big_a small_b + big_a big_b, the small x small term dropped), small =
+    x - big rounded by ``small``."""
+    ab, bb = _tf32(a), _tf32(b)
+    if products == 1:
+        return torch.einsum(eq, ab, bb)
+    a_s, b_s = _tf32(a - ab, small), _tf32(b - bb, small)
+    return (torch.einsum(eq, a_s, bb) + torch.einsum(eq, ab, b_s)
+            + torch.einsum(eq, ab, bb))
+
+
+def _tf32_attention(q, k, v, products, causal=True, window=None,
+                    small="toward_zero"):
+    """The dense masked softmax with both of its products (S = Q K^T and
+    P V) in TF32, P unnormalised and divided by its row sums at the end,
+    as the kernel does; everything else float32."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    kq = k.repeat_interleave(group, dim=1)
+    vq = v.repeat_interleave(group, dim=1)
+    logits = _tf32_product("bhqd,bhkd->bhqk", q, kq, products,
+                           small) / d ** 0.5
+    pos = torch.arange(s)
+    mask = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    logits = logits.masked_fill(~mask, -1e30)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    out = _tf32_product("bhqk,bhkd->bhqd", p, vq, products, small)
+    return out / p.sum(dim=-1, keepdim=True)
+
+
+# phase 7's float32 cases (chip_smoke.py), but its (4, 16, 8, 2048, 128)
+# prefill shape (a 1 GiB score block on the CPU: the card checks it), and
+# (1, 4, 2, 512, 128) causal at qwen3-1.7b's head_dim
+_TF32_CASES = [((b, hq, hkv, s, d), dict(causal=c))
+               for b, hq, hkv, s, d in ((1, 2, 2, 64, 16), (2, 4, 2, 96, 32),
+                                        (1, 8, 1, 128, 16), (2, 4, 4, 250, 8))
+               for c in (True, False)]
+_TF32_CASES += [((1, 2, 2, 128, 16), dict(causal=True, window=w))
+                for w in (16, 64, 1024)]
+_TF32_CASES += [((1, 4, 2, 1000, 64), dict(causal=True)),
+                ((1, 16, 8, 1000, 128), dict(causal=False)),
+                ((1, 4, 2, 512, 128), dict(causal=True))]
+
+
+@pytest.mark.parametrize("small", ["toward_zero", "rna"])
+@pytest.mark.parametrize("shape,kw", _TF32_CASES)
+def test_three_tf32_products_are_float32_accurate(shape, kw, small):
+    """Three TF32 products a product (the tf32x3 route's arithmetic, small
+    rounded toward zero as the kernel's mma reads it, or to nearest) stay
+    within the card's float32 tolerance of the plain version; one TF32
+    product a product exceeds it.  So three are needed, and enough."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(*shape, seed=sum(shape)))
+    want = flash_attention_plain(q, k, v, **kw)
+    atol, rtol = CARD_F32_TOL
+    limit = atol + rtol * want.abs()
+    ratio = {n: float(((_tf32_attention(q, k, v, n, small=small, **kw)
+                        - want).abs() / limit).max()) for n in (1, 3)}
+    print(f"{shape} {kw}, small {small}: max |emulation - plain| over the "
+          f"float32 limit: three products {ratio[3]:.3g}, one product "
+          f"{ratio[1]:.3g}")
+    assert ratio[3] <= 1, ratio
+    assert ratio[1] > 1, ratio

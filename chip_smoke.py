@@ -15,13 +15,18 @@ Phases, each of which must pass:
 
 1. **kernels** — each of the three LUT kernels (mixed fused, uniform fused,
    per-layer) at model A's widths, at batches 0, 1, 16, 1000 and 4096,
-   called directly and through the engine: bit-exact against its plain
-   PyTorch version on the card and against the reference's outputs.
+   called through its wrapper and through the engine, and each route of
+   the two fused kernels (``smem``: ``lut_fused_smem.cu``, slabs staged in
+   shared memory; ``global``: ``lut_kernels.cu``, the first design) called
+   directly, also on a copy of the slabs whose table slab is a view at an
+   odd byte offset: bit-exact against its plain PyTorch version on the
+   card and against the reference's outputs.
 2. **serving** — for each layout, every launch counter set to 0, then
    ``run_closed_loop`` (4 clients x 4 requests of 1-8 rows, 3-bit codes)
    through ``ServingTier``: outputs bit-exact with ``net(codes)``, zero
    kernel builds and zero compiler runs after warmup, and the layout's
-   kernel launched.  Its launch count is what the ``kernels`` line reports.
+   kernel launched, the fused layouts on the ``smem`` route only.  Its
+   launch counts are what the ``kernels`` line reports.
 3. **times** — median CUDA-event time per forward of each kernel and of its
    plain version at batch 16 (the serving bucket) and 4096, calls issued
    back to back from Python (so host launch gaps count), and the device
@@ -29,7 +34,10 @@ Phases, each of which must pass:
    (``device_ms``), beside the bound: the larger of the bytes the forward
    must move (codes in, codes out, slabs once) over 3.35 TB/s and its
    int32 operations over 33.5 TOP/s (half the 67 TFLOP/s fp32 CUDA-core
-   rate: Hopper has 64 INT32 lanes per SM against 128 FP32).  No single PyTorch call computes
+   rate: Hopper has 64 INT32 lanes per SM against 128 FP32).  The fused
+   kernels' two routes are timed in turns (global, smem, smem, global),
+   event and device time per launch; the ``global`` route's are the
+   earlier design's.  No single PyTorch call computes
    these functions, so ``library_ms`` is null.
 4. **masked matmul** — the three routes of ``masked_matmul`` against the
    plain version on the card, each case asserting its route from
@@ -179,7 +187,8 @@ TIME_BATCHES = (16, 4096)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
-SOURCE = "src/repro_torch/kernels/csrc/lut_kernels.cu"
+LUT_SOURCE = "src/repro_torch/kernels/csrc/lut_kernels.cu"
+LUT_SMEM_SOURCE = "src/repro_torch/kernels/csrc/lut_fused_smem.cu"
 MM_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul.cu"
 MM_WGMMA_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul_wgmma.cu"
 MM_FFMA_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul_ffma.cu"
@@ -234,10 +243,25 @@ def nbytes(*tensors) -> int:
 
 
 def reset_counts(wrapper) -> None:
-    """Set a kernel wrapper's launch count and its per-route counts to 0."""
+    """Set a kernel wrapper's launch count and its per-route counts (where
+    it has routes) to 0."""
     wrapper.launches = 0
-    for route in wrapper.launches_by_route:
+    for route in getattr(wrapper, "launches_by_route", ()):
         wrapper.launches_by_route[route] = 0
+
+
+def table_at_odd_offset(torch, slabs):
+    """The same slabs with the table slab a contiguous view one element
+    into a larger buffer: an odd byte offset for an int8 table."""
+    import dataclasses
+
+    tab = slabs.table_slab
+    buf = torch.zeros(tab.numel() + 1, dtype=tab.dtype, device=tab.device)
+    buf[1:] = tab.reshape(-1)
+    fields = {f.name: getattr(slabs, f.name)
+              for f in dataclasses.fields(slabs) if f.init}
+    return type(slabs)(**{**fields,
+                          "table_slab": buf[1:].reshape(tab.shape)})
 
 
 def cuda_ms(fn, iters: int, reps: int = 7) -> float:
@@ -692,7 +716,7 @@ def training_phase(torch, dev, kernels) -> dict:
 
     # (c)-(e): the main path of this slice, every launch counter at 0
     for k in kernels.values():
-        k["wrapper"].launches = 0
+        reset_counts(k["wrapper"])
     reset_counts(masked_matmul)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -758,7 +782,8 @@ def training_phase(torch, dev, kernels) -> dict:
     log(f"phase 5 main path launches: masked_matmul {launches} "
         f"(by route {masked_matmul.launches_by_route}), "
         f"lut_layer_forward {lut_lookup.launches}, lut_uniform_forward "
-        f"{lut_network.launches}")
+        f"{lut_network.launches} (by route "
+        f"{lut_network.launches_by_route})")
     return {"launches": launches,
             "launches_by_route": dict(masked_matmul.launches_by_route),
             "loss_rtol_20": rel,
@@ -1176,7 +1201,7 @@ def lm_main_path(torch, dev, kernels) -> dict:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
 
     for k in kernels.values():
-        k["wrapper"].launches = 0
+        reset_counts(k["wrapper"])
     reset_counts(masked_matmul)
     reset_counts(flash_attention)
     torch.cuda.synchronize()
@@ -1497,6 +1522,7 @@ def main() -> None:
     from repro_torch import engine, serve
     from repro_torch.kernels import _build
     from repro_torch.kernels.lut_lookup import lut_lookup, lut_lookup_plain
+    from repro_torch.kernels import lut_network as lut_network_mod
     from repro_torch.kernels.lut_network import (lut_network,
                                                  lut_network_mixed,
                                                  lut_network_mixed_plain,
@@ -1546,11 +1572,30 @@ def main() -> None:
         return c
 
     s_mixed, s_uniform = nets["mixed"].slabs, nets["uniform"].slabs
+
+    def direct(slabs):
+        """Each route of a fused kernel called directly (uncounted)."""
+        def call(route, c):
+            out = torch.empty((c.shape[0], slabs.n_out), dtype=torch.int32,
+                              device=dev)
+            if c.shape[0] == 0:
+                return out
+            if route == "global":
+                lut_network_mod._launch_global(c, slabs, out)
+            else:
+                lut_network_mod._launch_smem(
+                    c, out, lut_network_mod._smem_state(slabs, c.shape[1]))
+            return out
+        return call
+
+    fused_routes = {"smem": LUT_SMEM_SOURCE, "global": LUT_SOURCE}
     kernels = {
         "mixed": dict(
             name="lut_mixed_forward", wrapper=lut_network_mixed,
             kernel=lambda c: lut_network_mixed(c, s_mixed),
             plain=lambda c: lut_network_mixed_plain(c, s_mixed),
+            slabs=s_mixed, direct=direct(s_mixed), routes=fused_routes,
+            source=LUT_SMEM_SOURCE,
             replaces="src/repro/kernels/lut_network.py:541",
             slab_bytes=nbytes(s_mixed.idx_slab, s_mixed.shift_slab,
                               s_mixed.width_slab, s_mixed.table_slab,
@@ -1563,6 +1608,8 @@ def main() -> None:
             name="lut_uniform_forward", wrapper=lut_network,
             kernel=lambda c: lut_network(c, s_uniform),
             plain=lambda c: lut_network_plain(c, s_uniform),
+            slabs=s_uniform, direct=direct(s_uniform), routes=fused_routes,
+            source=LUT_SMEM_SOURCE,
             replaces="src/repro/kernels/lut_network.py:270",
             slab_bytes=nbytes(s_uniform.idx_slab, s_uniform.table_slab,
                               s_uniform.layer_meta, s_uniform.perm),
@@ -1571,6 +1618,7 @@ def main() -> None:
         "per_layer": dict(
             name="lut_layer_forward", wrapper=lut_lookup,
             kernel=per_layer_kernel, plain=per_layer_plain,
+            source=LUT_SOURCE,
             replaces="src/repro/kernels/lut_lookup.py:86",
             slab_bytes=sum(nbytes(i, t)
                            for i, t, _ in nets["per_layer"].layers),
@@ -1584,43 +1632,63 @@ def main() -> None:
     for layout, k in kernels.items():
         want_all = ref[f"out_{layout}"]
         k["max_abs_err"] = 0
+        calls = {"kernel": k["kernel"], "engine": nets[layout]}
+        if "direct" in k:
+            odd = table_at_odd_offset(torch, k["slabs"])
+            if odd.table_slab.data_ptr() % 2 != 1 and odd.packed:
+                fail(f"{k['name']}: the odd-offset table slab is at "
+                     f"{odd.table_slab.data_ptr()}")
+            odd_direct = direct(odd)
+            for route in k["routes"]:
+                calls[f"{route} route"] = (
+                    lambda c, r=route: k["direct"](r, c))
+                calls[f"{route} route, table at an odd offset"] = (
+                    lambda c, r=route: odd_direct(r, c))
         for b in BATCHES:
             codes = codes_all[:b].contiguous()
             before = k["wrapper"].launches
-            got = k["kernel"](codes)
-            via_engine = nets[layout](codes)
-            plain = k["plain"](codes)
-            torch.cuda.synchronize()
+            got = {"kernel": k["kernel"](codes)}
             launched = k["wrapper"].launches - before
-            if b and not launched:
-                fail(f"{k['name']} batch {b}: kernel not launched")
+            got.update({what: fn(codes) for what, fn in calls.items()
+                        if what != "kernel"})
+            got["plain"] = k["plain"](codes)
+            torch.cuda.synchronize()
+            if b and launched != k["per_call"]:
+                fail(f"{k['name']} batch {b}: the wrapper counted "
+                     f"{launched} launches for one call")
             if b == 0 and launched:
                 fail(f"{k['name']} batch 0 launched a kernel")
-            err = int((got.long() - plain.long()).abs().max()) if b else 0
-            k["max_abs_err"] = max(k["max_abs_err"], err)
             want = torch.from_numpy(want_all[:b]).to(dev)
-            for what, out in (("kernel", got), ("engine", via_engine),
-                              ("plain", plain)):
+            for what, out in got.items():
                 if out.shape != (b, n_out) or out.dtype != torch.int32:
                     fail(f"{k['name']} batch {b}: {what} gave "
                          f"{out.dtype} {tuple(out.shape)}")
+                if b and what != "plain":
+                    err = int((out.long() - got["plain"].long()).abs().max())
+                    k["max_abs_err"] = max(k["max_abs_err"], err)
                 if not torch.equal(out, want):
                     fail(f"{k['name']} batch {b}: {what} output differs "
                          f"from the reference's")
         log(f"phase 1 {k['name']}: bit-exact vs plain and reference at "
-            f"batches {BATCHES}")
+            f"batches {BATCHES} ({', '.join(calls)})")
 
     # -- phase 2: the main path, serving each layout through the tier
     for layout, k in kernels.items():
         for other in kernels.values():
-            other["wrapper"].launches = 0
+            reset_counts(other["wrapper"])
         rep = serve.run_closed_loop(nets[layout], n_clients=4,
                                     n_per_client=4, rows_min=1, rows_max=8,
                                     bw=3, seed=0)
         k["launches"] = k["wrapper"].launches
+        by_route = dict(getattr(k["wrapper"], "launches_by_route", {}))
         st = rep.stats
         if not k["launches"]:
             fail(f"serving {layout}: {k['name']} was never launched")
+        if "routes" in k:
+            k["launches_by_route"] = by_route
+            if by_route["global"] or by_route["smem"] != k["launches"]:
+                fail(f"serving {layout}: {k['name']} left the smem route: "
+                     f"{by_route}")
         if st["retraces_after_warmup"] or st["compiler_runs_after_warmup"]:
             fail(f"serving {layout}: compile-once contract broken: {st}")
         legs = " ".join(f"{leg}={rep.breakdown[leg]['mean_ms']:.3f}"
@@ -1629,35 +1697,66 @@ def main() -> None:
             f"({rep.rows} rows) bit-exact, p50={rep.p50_ms:.3f} ms "
             f"p99={rep.p99_ms:.3f} ms, {rep.rows_per_sec:.0f} rows/s, "
             f"{st['batches']} batches (flushes {st['flush_causes']}), "
-            f"mean legs ms: {legs}; {k['name']} launches={k['launches']}, "
+            f"mean legs ms: {legs}; {k['name']} launches={k['launches']}"
+            f"{f' by route {by_route}' if by_route else ''}, "
             f"retraces={st['retraces_after_warmup']} "
             f"compiler_runs={st['compiler_runs_after_warmup']}")
 
     # -- phase 3: times beside the bound
     records = []
     for layout, k in kernels.items():
-        rec = {"name": k["name"], "route": "cuda", "source": SOURCE,
+        rec = {"name": k["name"], "route": "cuda", "source": k["source"],
                "replaces": k["replaces"], "launches": k["launches"],
                "max_abs_err": k["max_abs_err"]}
+        if "routes" in k:
+            rec.update(routes=k["routes"],
+                       launches_by_route=k["launches_by_route"])
+        else:
+            # one kernel, reading its tables from global memory
+            rec.update(routes={"global": k["source"]},
+                       launches_by_route={"global": k["launches"]})
         for b in TIME_BATCHES:
             codes = codes_all[:b].contiguous()
             iters = 200 if b <= 16 else 50
-            ms = cuda_ms(lambda: k["kernel"](codes), iters)
+            suffix = "" if b == TIME_BATCHES[0] else f"_b{b}"
+            if "routes" in k:
+                # the earlier design and the routed kernel in turns
+                turns = {"global": [], "smem": []}
+                for route in ("global", "smem", "smem", "global"):
+                    fn = ((lambda: k["direct"]("global", codes))
+                          if route == "global" else
+                          (lambda: k["kernel"](codes)))
+                    turns[route].append(cuda_ms(fn, iters))
+                ms = statistics.mean(turns["smem"])
+                earlier_dev = device_ms(
+                    lambda: k["direct"]("global", codes), iters)
+                rec.update({
+                    f"earlier_ms{suffix}": statistics.mean(turns["global"]),
+                    f"earlier_device_ms{suffix}": earlier_dev,
+                    f"turns_ms{suffix}": turns})
+            else:
+                ms = cuda_ms(lambda: k["kernel"](codes), iters)
             plain_ms = cuda_ms(lambda: k["plain"](codes), iters)
             dev_ms = device_ms(lambda: k["kernel"](codes), iters,
                                k["per_call"])
             moved = b * (n_in + n_out) * 4 + k["slab_bytes"]
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             ops_ms = b * k["ops_per_row"] / INT32_OPS_PER_S * 1e3
-            suffix = "" if b == TIME_BATCHES[0] else f"_b{b}"
             rec.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
                         f"device_ms{suffix}": dev_ms,
                         f"bound_ms{suffix}": max(bytes_ms, ops_ms),
                         f"bound_by{suffix}": ("bytes" if bytes_ms >= ops_ms
                                               else "operations")})
+            if k["per_call"] > 1 and dev_ms is not None:
+                rec[f"device_ms_per_launch{suffix}"] = dev_ms / k["per_call"]
+            earlier = (f", earlier design (global route) "
+                       f"{rec[f'earlier_ms{suffix}']:.5f} ms, device "
+                       f"{rec[f'earlier_device_ms{suffix}']} ms"
+                       if "routes" in k else "")
             log(f"phase 3 {k['name']} batch {b}: {ms:.5f} ms/forward, "
-                f"device {dev_ms} ms, plain {plain_ms:.5f} ms, bound "
-                f"{max(bytes_ms, ops_ms):.6f} ms ({moved} B)")
+                f"device {dev_ms} ms ({k['per_call']} launches a forward), "
+                f"plain {plain_ms:.5f} ms, bound "
+                f"{max(bytes_ms, ops_ms):.6f} ms ({moved} B){earlier}")
         rec["library_ms"] = None
         rec["batch"] = TIME_BATCHES[0]
         records.append(rec)

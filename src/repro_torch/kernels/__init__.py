@@ -1,11 +1,14 @@
 """Hand-written Hopper LUT kernels, their plain-torch versions and costing.
 
-Each kernel wrapper launches its CUDA kernel (``csrc/lut_kernels.cu``) on
-CUDA tensors and runs its plain version on CPU tensors; ``launches`` on
-the wrapper counts kernel launches.
+Each kernel wrapper launches its CUDA kernel on CUDA tensors and runs its
+plain version on CPU tensors; ``launches`` on the wrapper counts kernel
+launches.
 
-* ``lut_network.lut_network_mixed`` — fused network, mixed slabs;
-* ``lut_network.lut_network`` — fused network, uniform slabs;
+* ``lut_network.lut_network_mixed`` — fused network, mixed slabs
+  (``csrc/lut_fused_smem.cu``, route ``smem``; ``csrc/lut_kernels.cu``,
+  route ``global``, for slabs no shared-memory layout fits);
+* ``lut_network.lut_network`` — fused network, uniform slabs (the same
+  two routes);
 * ``lut_lookup.lut_lookup`` — one LUT layer.
 """
 

@@ -39,6 +39,10 @@ _SIGNATURES = {
                           _I, _I, _I, _P, _P),
     "lut_uniform_forward": (_P, _I, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I,
                             _I, _I, _P, _P),
+    "lut_mixed_smem_forward": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
+                               _I, _I, _P, _P),
+    "lut_uniform_smem_forward": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
+                                 _I, _P, _P),
     "lut_layer_forward": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P),
     "masked_matmul_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "masked_matmul_wgmma_forward": (_P, _P, _P, _P, _I, _I, _I, _P, _P),

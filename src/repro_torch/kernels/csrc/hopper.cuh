@@ -3,7 +3,8 @@
 // for the 128-byte swizzle, the wgmma fences, and the wgmma instructions
 // the kernels issue.  Used by masked_matmul_wgmma.cu and
 // flash_attention_wgmma.cu (flash_attention.cu takes only
-// allow_dynamic_smem); header only, nothing here allocates.  The wgmma
+// allow_dynamic_smem; lut_fused_smem.cu the mbarriers, the 1-D bulk copy
+// and allow_dynamic_smem); header only, nothing here allocates.  The wgmma
 // wrappers below are regular and written out in full: inline asm needs
 // every accumulator register named.
 //
@@ -87,6 +88,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// 1-D bulk copy: `bytes` (a multiple of 16) from global `src` to shared
+// `dst`, both 16-byte aligned, completion counted in bytes on the barrier.
+// No tensor map: the copy engine takes the two addresses as they are.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,

@@ -1,6 +1,10 @@
 // LogicNets LUT inference kernels for Hopper (sm_90a), plain C interface.
 //
-// Three kernels, one per layout of a compiled LUT network:
+// Three kernels, one per layout of a compiled LUT network.  The two fused
+// ones are the first design, now the route "global" of
+// kernels/lut_network.py: they serve only slabs whose shared-memory layout
+// does not fit a block; every other call takes lut_fused_smem.cu (route
+// "smem", the slabs staged in shared memory).
 //
 //   lut_mixed_forward    replaces src/repro/kernels/lut_network.py
 //                        _mixed_kernel / lut_network_mixed_pallas: the fused
@@ -23,8 +27,8 @@
 // one batch tile's activations in shared memory for the whole network
 // (two buffers, ping-pong, a barrier between layers), so no activation
 // leaves the SM between layers, as on the FPGA and in the Pallas kernels.
-// Slabs are read from global memory through the read-only path; staging
-// them in shared memory is the next step for speed.
+// Slabs are read from global memory through the read-only path (staged
+// in shared memory by lut_fused_smem.cu).
 //
 // Semantics kept from the Pallas kernels (their one-hot gathers):
 //   * a fan-in index outside the layer's input bus reads code 0;

@@ -3,8 +3,7 @@
 The port of ``repro.kernels.lut_network``.  A sparse stack is packed into
 slabs once (host numpy) and served by one kernel launch per batch, with
 the activations of a batch tile kept in shared memory from the network's
-input to its output (``csrc/lut_kernels.cu``).  Two layouts, as in the
-reference:
+input to its output.  Two layouts, as in the reference:
 
 * **uniform** (:class:`NetworkSlabs`) — row-stacked ``(sum O, FI_max)``
   fan-in indices and ``(sum O, E_max)`` tables (int8 when every code fits
@@ -15,7 +14,25 @@ reference:
   back to back in one flat slab (optionally row-deduped through static
   per-neuron offsets), neurons grouped by entry count within a layer and
   the final layer's group sort undone by ``out_perm``.
-  :func:`lut_network_mixed` launches ``lut_mixed_forward``.
+  :func:`lut_network_mixed` launches it.
+
+Each layout has two kernels on CUDA tensors, chosen by the pure
+:func:`lut_fused_route` from the slabs' shared-memory layout
+(:func:`fused_smem_layout`, computed once per slabs object and input
+width, and cached on the slabs):
+
+* ``"smem"`` (``csrc/lut_fused_smem.cu``, ``lut_mixed_smem_forward`` /
+  ``lut_uniform_smem_forward``): the whole network's read-only state is
+  copied into each block's shared memory (1-D bulk copies, one mbarrier a
+  stage of layers) and persistent blocks walk the batch tiles; every call
+  whose layout fits :data:`SMEM_PER_BLOCK_BYTES`;
+* ``"global"`` (``csrc/lut_kernels.cu``, ``lut_mixed_forward`` /
+  ``lut_uniform_forward``, the first design): slabs read from global
+  memory, for slabs no layout fits.
+
+``launches`` on each wrapper counts its launches and
+``launches_by_route`` each route's.  A failed build or launch raises; no
+route falls back to another.
 
 The slab dataclasses hold torch tensors plus static metadata, exactly the
 reference's fields, so ``repro_torch.engine`` saves and loads artifacts
@@ -33,6 +50,8 @@ an out-of-range fan-in index reads 0 and an out-of-range entry yields 0.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -46,10 +65,22 @@ from repro_torch.kernels.lut_lookup import (gather_entries,
                                             require, stream_of)
 
 # The fused kernels keep two (tile_b, bus width) int32 activation buffers
-# in shared memory and cap them at the 48 KiB a block gets without an
-# opt-in attribute; the slab budget (kernels.plan) is what is left.
+# in shared memory.  The first design (route "global") caps them at the
+# 48 KiB a block gets without an opt-in attribute; the slab budget
+# (kernels.plan) is what is left of a block's shared memory on an H100.
 ACT_SMEM_BYTES = 48 * 1024
 FUSED_TILE_B = 32
+SMEM_PER_BLOCK_BYTES = 232_448
+# The smem route: batch rows a tile and threads a block (from
+# tools/lut_smem_sweep.py on the card, PERF.md), and the most mbarriers
+# (stages of layers) a layout uses; the kernel's limit, kMaxStages.
+SMEM_TILE_B = 32
+SMEM_THREADS = 512
+SMEM_MIN_TILE_ROWS = 4
+SMEM_MAX_STAGES = 8
+# regions of the smem layout, in the order of the kernel's arrays
+SMEM_ARRAYS = ("elems", "row_meta", "table", "layers", "perm")
+_LAYER_COLS = 5          # row0, n_out, fan_in, n_entries, stage
 
 
 def fused_tile_b(bus_width: int) -> int:
@@ -99,6 +130,9 @@ class NetworkSlabs:
     layer_meta: torch.Tensor = dataclasses.field(init=False, repr=False)
     # derived: (n_out,) int32 identity, the kernel's output order
     perm: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # the smem route's layout and operands by input width (_smem_state)
+    _smem: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
 
     def __post_init__(self):
         if not self.meta:
@@ -237,50 +271,6 @@ def lut_network_plain(codes: torch.Tensor,
     return h
 
 
-def _fused_args(codes: torch.Tensor, slabs) -> tuple:
-    """Shared checks of both fused wrappers -> (out, tile_b, bus width)."""
-    dev = codes.device
-    require(codes, "codes", (torch.int32,), 2, dev)
-    if slabs.idx_slab.device != dev:
-        raise ValueError(f"codes are on {dev}, slabs on "
-                         f"{slabs.idx_slab.device}")
-    ld = max(codes.shape[1], *(m.n_out for m in slabs.meta))
-    out = torch.empty((codes.shape[0], slabs.n_out), dtype=torch.int32,
-                      device=dev)
-    return out, fused_tile_b(ld), ld
-
-
-def lut_network(codes: torch.Tensor, slabs: NetworkSlabs) -> torch.Tensor:
-    """Whole sparse stack, uniform slabs: (batch, I0) -> (batch, O_last).
-
-    CUDA tensors launch the fused uniform kernel (``launches`` counts those
-    launches); CPU tensors run :func:`lut_network_plain`.
-    """
-    dev = codes.device
-    if dev.type == "cpu":
-        return lut_network_plain(codes, slabs)
-    if dev.type != "cuda":
-        raise ValueError(f"lut_network runs on cuda or cpu, not {dev}")
-    out, tile_b, ld = _fused_args(codes, slabs)
-    if codes.shape[0] == 0:
-        return out
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.lut_uniform_forward(
-            codes.data_ptr(), codes.shape[0], codes.shape[1],
-            slabs.idx_slab.data_ptr(), slabs.idx_slab.shape[1],
-            slabs.table_slab.data_ptr(), slabs.table_slab.shape[1],
-            int(slabs.packed), slabs.layer_meta.data_ptr(), slabs.n_layers,
-            slabs.perm.data_ptr(), slabs.n_out,
-            tile_b, ld, out.data_ptr(), stream_of(dev))
-    _build.check(err, "lut_uniform_forward")
-    lut_network.launches += 1
-    return out
-
-
-lut_network.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # Mixed-width layout: compiler-exact slabs
 # ---------------------------------------------------------------------------
@@ -332,6 +322,9 @@ class MixedNetworkSlabs:
     row_meta: torch.Tensor = dataclasses.field(init=False, repr=False)
     # derived: (n_out,) int32 out_perm (the identity when None)
     perm: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # the smem route's layout and operands by input width (_smem_state)
+    _smem: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
 
     def __post_init__(self):
         if not self.meta:
@@ -346,8 +339,8 @@ class MixedNetworkSlabs:
                     torch.int8 if self.packed else torch.int32,
                     (1, t_total))
         layers, rows = [], []
-        row = flat = 0
-        for m in self.meta:
+        row = 0
+        for m, tables in zip(self.meta, _neuron_tables(self.meta)):
             if not 0 <= m.fan_in <= fi_max:
                 raise ValueError(f"layer fan_in {m.fan_in} does not fit "
                                  f"FI_max={fi_max}")
@@ -356,21 +349,12 @@ class MixedNetworkSlabs:
                                  f"{m.n_out} neurons")
             layers.append((row, m.n_out, m.fan_in))
             row += m.n_out
-            for g in m.groups:
-                n_e = 1 << g.entry_bits
-                if g.offs is None:
-                    offs = [flat + i * n_e for i in range(g.n_out)]
-                    flat += g.n_out * n_e
-                elif len(g.offs) == g.n_out:
-                    offs = list(g.offs)
-                else:
-                    raise ValueError("group offs must name every neuron")
-                for off in offs:
-                    if not 0 <= off <= t_total - n_e:
-                        raise ValueError(
-                            f"neuron table [{off}, {off + n_e}) lies "
-                            f"outside the {t_total}-entry table slab")
-                    rows.append((off, n_e))
+            for off, n_e in tables:
+                if not 0 <= off <= t_total - n_e:
+                    raise ValueError(
+                        f"neuron table [{off}, {off + n_e}) lies "
+                        f"outside the {t_total}-entry table slab")
+                rows.append((off, n_e))
         n_out = self.meta[-1].n_out
         perm = list(range(n_out)) if self.out_perm is None \
             else list(self.out_perm)
@@ -404,6 +388,25 @@ class MixedNetworkSlabs:
                 "width_slab_bytes": wd, "table_slab_bytes": tab,
                 "total_bytes": idx + sh + wd + tab,
                 "packed_int8": self.packed, "layout": "mixed"}
+
+
+def _neuron_tables(meta) -> list[list[tuple[int, int]]]:
+    """Every neuron's (flat table offset, entry count), layer by layer,
+    from the mixed layout's static metadata alone."""
+    out, flat = [], 0
+    for m in meta:
+        tables = []
+        for g in m.groups:
+            n_e = 1 << g.entry_bits
+            if g.offs is None:
+                tables += [(flat + i * n_e, n_e) for i in range(g.n_out)]
+                flat += g.n_out * n_e
+            elif len(g.offs) == g.n_out:
+                tables += [(int(off), n_e) for off in g.offs]
+            else:
+                raise ValueError("group offs must name every neuron")
+        out.append(tables)
+    return out
 
 
 def _table_entries(L) -> int:
@@ -552,34 +555,346 @@ def lut_network_mixed_plain(codes: torch.Tensor,
     return h if slabs.out_perm is None else h[:, slabs.perm.long()]
 
 
+# ---------------------------------------------------------------------------
+# The smem route's layout
+# ---------------------------------------------------------------------------
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class SmemLayout:
+    """Where the smem kernels keep a network in a block's shared memory.
+
+    ``regions`` maps ``"barriers"``, each of :data:`SMEM_ARRAYS` and
+    ``"act"`` (the two activation buffers) to its ``(offset, bytes)``
+    reserved, 16-byte aligned and disjoint; an array's region holds its
+    staged bytes (``sizes``) plus 15 bytes, as the kernel shifts the array
+    to agree with its source modulo 16 (the alignment padding).
+    ``stages[s]`` maps each array to the byte range ``[begin, end)`` that
+    stage ``s`` copies (on mbarrier ``s``), and ``wait[l]`` is the last
+    stage layer ``l`` must wait on.  ``tile_b`` is the most batch rows a
+    tile holds (shrunk until the layout fits; :func:`smem_tile_rows` picks
+    a call's rows up to it), ``ld`` the activation row stride (the widest
+    bus plus the zero column), ``total_bytes`` the dynamic shared memory a
+    block takes; ``fits`` says whether that is within
+    :data:`SMEM_PER_BLOCK_BYTES`.  ``plan`` is the same layout as the
+    kernel's int32 host array.
+    """
+
+    fits: bool
+    total_bytes: int
+    tile_b: int
+    ld: int
+    regions: dict
+    sizes: dict
+    stages: tuple
+    wait: tuple
+    plan: np.ndarray = dataclasses.field(repr=False, compare=False)
+
+
+def _layer_tables_hi(slabs) -> list[int]:
+    """Per layer, the end (in table entries) of the furthest table range
+    any of its neurons reads."""
+    if isinstance(slabs, MixedNetworkSlabs):
+        return [max((off + n_e for off, n_e in tables), default=0)
+                for tables in _neuron_tables(slabs.meta)]
+    e_max = slabs.table_slab.shape[1]
+    ends, row = [], 0
+    for m in slabs.meta:
+        row += m.n_out
+        ends.append(row * e_max)
+    return ends
+
+
+def fused_smem_layout(slabs, n_in: int) -> SmemLayout:
+    """The smem kernels' shared-memory layout of ``slabs`` for codes of
+    ``n_in`` columns: a pure function of the slabs' shapes and static
+    metadata (no device read).
+
+    Staged: one packed int32 word per (neuron, element) (``elems``), the
+    mixed layout's ``row_meta`` (8 bytes a neuron), the table slab as
+    stored up to the furthest entry any neuron reads, the per-layer table
+    (``layers``, 20 bytes a layer) and ``perm``; then the mbarriers (8 bytes
+    a stage) and two ``(tile_b, ld)`` int32 activation buffers.  Layers
+    form ``min(n_layers, SMEM_MAX_STAGES)`` stages of consecutive layers;
+    stage ``s`` copies its layers' rows of ``elems`` and ``row_meta``, the
+    table bytes from where stage ``s - 1`` stopped up to the furthest any
+    of its layers reads (a deduplicated neuron may read an earlier
+    layer's rows, which an earlier stage copied), the layer table (stage
+    0) and ``perm`` (the last stage); a layer waits on its own stage.
+
+    Against ``fused_plan``'s slab estimate the staged arrays add at most
+    ``4 n_out + 20 n_layers`` bytes (``elems`` costs 4 bytes an element
+    where the estimate counts 12 for a mixed slab and 4 for a uniform
+    one, and the 8 bytes of ``row_meta`` a neuron come out of the other
+    8), plus 8 a stage and at most 150 of alignment padding; ``tile_b``
+    shrinks until the activation buffers fit what is left.  Every slab the
+    plan admits fits at ``tile_b`` >= 1 when ``12 ld + 28 n_layers + 160
+    <= 49 152`` (the 48 KiB the plan leaves), e.g. every bus of up to
+    4 000 codes at 30 layers.
+    """
+    mixed = isinstance(slabs, MixedNetworkSlabs)
+    meta = slabs.meta
+    n_layers = len(meta)
+    fi_max = slabs.idx_slab.shape[1]
+    isz = slabs.table_slab.element_size()
+    ld = max(n_in, *(m.n_out for m in meta)) + 1
+    n_stages = min(n_layers, SMEM_MAX_STAGES)
+    wait = tuple(l * n_stages // n_layers for l in range(n_layers))
+    hi = _layer_tables_hi(slabs)
+    rows = list(itertools.accumulate((m.n_out for m in meta), initial=0))
+    stages = []
+    table_end = 0
+    for st in range(n_stages):
+        ls = [l for l in range(n_layers) if wait[l] == st]
+        r0, r1 = rows[ls[0]], rows[ls[-1] + 1]
+        begin = table_end
+        table_end = max(table_end, *(hi[l] * isz for l in ls))
+        stages.append({
+            "elems": (r0 * fi_max * 4, r1 * fi_max * 4),
+            "row_meta": (r0 * 8, r1 * 8) if mixed else (0, 0),
+            "table": (begin, table_end),
+            "layers": (0, n_layers * _LAYER_COLS * 4) if st == 0 else (0, 0),
+            "perm": ((0, slabs.n_out * 4) if st == n_stages - 1
+                     else (0, 0)),
+        })
+    sizes = {a: max(st[a][1] for st in stages) for a in SMEM_ARRAYS}
+    regions = {"barriers": (0, 8 * n_stages)}
+    off = _round16(8 * n_stages)
+    for a in SMEM_ARRAYS:
+        size = _round16(sizes[a] + 15) if sizes[a] else 0
+        regions[a] = (off, size)
+        off += size
+    room = (SMEM_PER_BLOCK_BYTES - off) // (2 * 4 * ld)
+    tile_b = max(0, min(SMEM_TILE_B, room))
+    regions["act"] = (off, 2 * 4 * tile_b * ld)
+    total = off + regions["act"][1]
+    fits = (tile_b >= 1 and total <= SMEM_PER_BLOCK_BYTES
+            and ld <= 0xFFFF)
+    plan = [n_layers, n_stages, fi_max,
+            0 if mixed else slabs.table_slab.shape[1], ld, tile_b, off,
+            total, slabs.n_out, *(regions[a][0] for a in SMEM_ARRAYS)]
+    for st in stages:
+        for a in SMEM_ARRAYS:
+            plan += st[a]
+    return SmemLayout(fits, total, tile_b, ld, regions, sizes,
+                      tuple(stages), wait, np.asarray(plan, dtype=np.int32))
+
+
+def smem_tile_rows(batch: int, tile_b: int, sms: int) -> int:
+    """Batch rows a tile of the smem kernels: enough tiles to give each of
+    ``sms`` SMs one, but at least ``SMEM_MIN_TILE_ROWS`` rows and at most
+    the layout's ``tile_b`` (on an H100, batch 16: 4 tiles of 4; 1000:
+    125 of 8; 4096: 128 of 32)."""
+    return max(1, min(tile_b, max(SMEM_MIN_TILE_ROWS, -(-batch // sms))))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def lut_fused_route(layout: SmemLayout) -> str:
+    """Which kernel a CUDA call takes: ``"smem"`` when the slabs' layout
+    fits a block's shared memory, else ``"global"`` (the first design)."""
+    return "smem" if layout.fits else "global"
+
+
+class SmemOperands(NamedTuple):
+    """The smem kernels' derived device tables (built once per layout)."""
+
+    elems: torch.Tensor     # (sum O, FI_max) int32 packed words
+    layers: torch.Tensor    # (n_layers, 5) int32 row0, n_out, fan_in,
+    #                         n_entries (uniform; 0 mixed), stage
+
+
+def smem_operands(slabs, n_in: int, layout: SmemLayout) -> SmemOperands:
+    """Pack, on the slabs' device, one int32 word per (neuron, element):
+    bits 0-15 the fan-in index (``ld - 1``, a column that stays 0, where
+    the index lies outside the layer's input bus), bits 16-20 the shift
+    and bits 24-29 the width (32: every bit; a shift outside [0, 32) is
+    stored as shift 0, width 0), so the kernel reads one word an element
+    and checks no bound; and the per-layer table."""
+    mixed = isinstance(slabs, MixedNetworkSlabs)
+    idx = slabs.idx_slab.to(torch.int64)
+    dev, (o_sum, fi_max) = idx.device, idx.shape
+    buses = [n_in] + [m.n_out for m in slabs.meta[:-1]]
+    bus = torch.tensor([b for b, m in zip(buses, slabs.meta)
+                        for _ in range(m.n_out)], dtype=torch.int64,
+                       device=dev)[:, None]
+    src = torch.where((idx >= 0) & (idx < bus), idx, layout.ld - 1)
+    if mixed:
+        shift = slabs.shift_slab.to(torch.int64)
+        width = slabs.width_slab.to(torch.int64)
+    else:
+        bw = torch.tensor([m.bw_in for m in slabs.meta
+                           for _ in range(m.n_out)], dtype=torch.int64,
+                          device=dev)
+        shift = bw[:, None] * torch.arange(fi_max, device=dev)[None, :]
+        width = torch.full((o_sum, fi_max), 32, dtype=torch.int64,
+                           device=dev)
+    width = torch.where((width >= 0) & (width < 32), width, 32)
+    ok = (shift >= 0) & (shift < 32)
+    word = (src | (torch.where(ok, shift, 0) << 16)
+            | (torch.where(ok, width, 0) << 24))
+    rows, row = [], 0
+    for m, st in zip(slabs.meta, layout.wait):
+        rows.append((row, m.n_out, m.fan_in,
+                     0 if mixed else m.n_entries, st))
+        row += m.n_out
+    return SmemOperands(word.to(torch.int32).contiguous(),
+                        torch.tensor(rows, dtype=torch.int32, device=dev))
+
+
+class SmemState(NamedTuple):
+    """A slabs object's smem route at one input width: its layout, and
+    where it fits, the derived tables, the kernel's entry point and its
+    operands after ``n_in`` (pointers and the plan, fixed for the slabs
+    object), so a call converts only the codes, the output and the
+    launch shape."""
+
+    layout: SmemLayout
+    ops: SmemOperands | None
+    entry: str
+    operands: tuple
+
+
+def _smem_state(slabs, n_in: int) -> SmemState:
+    """The :class:`SmemState` of ``slabs`` at input width ``n_in``,
+    computed at the first call and cached on the slabs object."""
+    state = slabs._smem.get(n_in)
+    if state is None:
+        layout = fused_smem_layout(slabs, n_in)
+        ops, entry, operands = None, "", ()
+        if layout.fits:
+            ops = smem_operands(slabs, n_in, layout)
+            mixed = isinstance(slabs, MixedNetworkSlabs)
+            entry = ("lut_mixed_smem_forward" if mixed
+                     else "lut_uniform_smem_forward")
+            rows = (slabs.row_meta.data_ptr(),) if mixed else ()
+            operands = (ops.elems.data_ptr(), *rows,
+                        slabs.table_slab.data_ptr(), int(slabs.packed),
+                        ops.layers.data_ptr(), slabs.perm.data_ptr(),
+                        layout.plan.ctypes.data)
+        state = slabs._smem[n_in] = SmemState(layout, ops, entry, operands)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# The fused forwards
+# ---------------------------------------------------------------------------
+
+
+def _fused_args(codes: torch.Tensor, slabs, name: str):
+    """Shared checks of both fused wrappers -> the output, or None on the
+    CPU (the caller runs the plain version)."""
+    dev = codes.device
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    require(codes, "codes", (torch.int32,), 2, dev)
+    if slabs.idx_slab.device != dev:
+        raise ValueError(f"codes are on {dev}, slabs on "
+                         f"{slabs.idx_slab.device}")
+    return torch.empty((codes.shape[0], slabs.n_out), dtype=torch.int32,
+                       device=dev)
+
+
+def _launch_global(codes: torch.Tensor, slabs, out: torch.Tensor) -> None:
+    """The first design (``csrc/lut_kernels.cu``) on checked operands."""
+    dev = codes.device
+    ld = max(codes.shape[1], *(m.n_out for m in slabs.meta))
+    tile_b = fused_tile_b(ld)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        if isinstance(slabs, MixedNetworkSlabs):
+            name = "lut_mixed_forward"
+            err = lib.lut_mixed_forward(
+                codes.data_ptr(), codes.shape[0], codes.shape[1],
+                slabs.idx_slab.data_ptr(), slabs.shift_slab.data_ptr(),
+                slabs.width_slab.data_ptr(), slabs.idx_slab.shape[1],
+                slabs.table_slab.data_ptr(), int(slabs.packed),
+                slabs.row_meta.data_ptr(), slabs.layer_meta.data_ptr(),
+                slabs.n_layers, slabs.perm.data_ptr(), slabs.n_out, tile_b,
+                ld, out.data_ptr(), stream_of(dev))
+        else:
+            name = "lut_uniform_forward"
+            err = lib.lut_uniform_forward(
+                codes.data_ptr(), codes.shape[0], codes.shape[1],
+                slabs.idx_slab.data_ptr(), slabs.idx_slab.shape[1],
+                slabs.table_slab.data_ptr(), slabs.table_slab.shape[1],
+                int(slabs.packed), slabs.layer_meta.data_ptr(),
+                slabs.n_layers, slabs.perm.data_ptr(), slabs.n_out,
+                tile_b, ld, out.data_ptr(), stream_of(dev))
+    _build.check(err, name)
+
+
+def _launch_smem(codes: torch.Tensor, out: torch.Tensor,
+                 state: SmemState, *, threads: int | None = None,
+                 tile_rows: int | None = None, bulk: bool = True) -> None:
+    """The smem kernel (``csrc/lut_fused_smem.cu``) on checked operands
+    (``out`` contiguous) in a layout that fits; ``threads``, ``tile_rows``
+    and ``bulk=False`` (one barrier, 16-byte loads by every thread) are
+    for the design sweep."""
+    dev = codes.device
+    batch, n_in = codes.shape
+    layout = state.layout
+    rows = tile_rows or smem_tile_rows(batch, layout.tile_b,
+                                       _sm_count(dev.index))
+    with torch.cuda.device(dev):
+        err = getattr(_build.library(), state.entry)(
+            codes.data_ptr(), batch, n_in, *state.operands,
+            threads or SMEM_THREADS, rows, int(bulk), out.data_ptr(),
+            stream_of(dev))
+    _build.check(err, state.entry)
+
+
+def _fused_forward(wrapper, codes: torch.Tensor, slabs,
+                   out: torch.Tensor) -> torch.Tensor:
+    if codes.shape[0] == 0:
+        return out
+    state = _smem_state(slabs, codes.shape[1])
+    route = lut_fused_route(state.layout)
+    if route == "smem":
+        _launch_smem(codes, out, state)
+    else:
+        _launch_global(codes, slabs, out)
+    wrapper.launches += 1
+    wrapper.launches_by_route[route] += 1
+    return out
+
+
+def lut_network(codes: torch.Tensor, slabs: NetworkSlabs) -> torch.Tensor:
+    """Whole sparse stack, uniform slabs: (batch, I0) -> (batch, O_last).
+
+    CUDA tensors launch the route :func:`lut_fused_route` picks
+    (``launches`` and ``launches_by_route`` count them); CPU tensors run
+    :func:`lut_network_plain`.
+    """
+    out = _fused_args(codes, slabs, "lut_network")
+    if out is None:
+        return lut_network_plain(codes, slabs)
+    return _fused_forward(lut_network, codes, slabs, out)
+
+
 def lut_network_mixed(codes: torch.Tensor,
                       slabs: MixedNetworkSlabs) -> torch.Tensor:
     """Whole sparse stack, mixed slabs: (batch, I0) -> (batch, O_last).
 
-    CUDA tensors launch the fused mixed kernel (``launches`` counts those
-    launches); CPU tensors run :func:`lut_network_mixed_plain`.
+    CUDA tensors launch the route :func:`lut_fused_route` picks
+    (``launches`` and ``launches_by_route`` count them); CPU tensors run
+    :func:`lut_network_mixed_plain`.
     """
-    dev = codes.device
-    if dev.type == "cpu":
+    out = _fused_args(codes, slabs, "lut_network_mixed")
+    if out is None:
         return lut_network_mixed_plain(codes, slabs)
-    if dev.type != "cuda":
-        raise ValueError(f"lut_network_mixed runs on cuda or cpu, not {dev}")
-    out, tile_b, ld = _fused_args(codes, slabs)
-    if codes.shape[0] == 0:
-        return out
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.lut_mixed_forward(
-            codes.data_ptr(), codes.shape[0], codes.shape[1],
-            slabs.idx_slab.data_ptr(), slabs.shift_slab.data_ptr(),
-            slabs.width_slab.data_ptr(), slabs.idx_slab.shape[1],
-            slabs.table_slab.data_ptr(), int(slabs.packed),
-            slabs.row_meta.data_ptr(), slabs.layer_meta.data_ptr(),
-            slabs.n_layers, slabs.perm.data_ptr(), slabs.n_out, tile_b, ld,
-            out.data_ptr(), stream_of(dev))
-    _build.check(err, "lut_mixed_forward")
-    lut_network_mixed.launches += 1
-    return out
+    return _fused_forward(lut_network_mixed, codes, slabs, out)
 
 
-lut_network_mixed.launches = 0
+for _wrapper in (lut_network, lut_network_mixed):
+    _wrapper.launches = 0
+    _wrapper.launches_by_route = {"smem": 0, "global": 0}

@@ -10,8 +10,10 @@ per-layer kernel.
 
 The budget is Hopper's, not the TPU's: a block may use 232 448 bytes of
 shared memory, of which the fused kernels' activation tile takes up to
-``ACT_SMEM_BYTES``; the slabs get the rest, so that a later kernel can
-stage them whole in shared memory.  The serialized field keeps the
+``ACT_SMEM_BYTES``; the slabs get the rest, and the smem kernels stage
+them whole in shared memory (``lut_network.fused_smem_layout``, which
+pays for the metadata the estimate does not count out of the activation
+tile).  The serialized field keeps the
 reference's name, ``vmem_budget_bytes``, so artifacts stay readable by
 both packages.
 """
@@ -22,10 +24,10 @@ import dataclasses
 
 from repro_torch.kernels.lut_lookup import DEFAULT_BLOCK_B
 from repro_torch.kernels.lut_network import (ACT_SMEM_BYTES,
+                                             SMEM_PER_BLOCK_BYTES,
                                              estimate_mixed_slab_bytes,
                                              estimate_slab_bytes)
 
-SMEM_PER_BLOCK_BYTES = 232_448
 FUSED_SMEM_BUDGET_BYTES = SMEM_PER_BLOCK_BYTES - ACT_SMEM_BYTES
 
 

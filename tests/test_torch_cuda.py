@@ -4,7 +4,11 @@ JAX is not installed).  Without a CUDA device every test here skips.
 
 Each LUT kernel must be bit-exact (tolerance 0: integer codes) with its
 plain version on the same CUDA tensors, count one launch per call, and
-refuse tensors it cannot take.  The masked matmul is held to its plain
+refuse tensors it cannot take; both routes of the fused kernels (``smem``
+and ``global``), on the reference compiler's edge cases
+(``tests/fixtures/torch_port/lut_mixed_cases.npz``), table slabs at odd
+byte offsets, slabs whose layout shrinks its tile and one past every
+layout (``global``), at batches 1, 15, 16, 17 and 4096.  The masked matmul is held to its plain
 version within float32 atol 1e-4 / rtol 1e-5 (another summation order)
 and bfloat16 atol 5e-2 / rtol 1e-3 plus exactly one bfloat16 step of the
 plain output (the reference's tolerance; the step because both round a
@@ -30,8 +34,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (ARTIFACT, codes, load_ref, load_train,
-                             random_stack)
+from torch_port_util import (ARTIFACT, budget_stack, codes,
+                             load_mixed_cases, load_ref, load_train,
+                             random_stack, with_table_offset)
 
 from repro_torch import engine
 from repro_torch.kernels import flash_attention as FA
@@ -131,6 +136,120 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(dev):
     with pytest.raises(ValueError, match="slabs on"):
         P.lut_network(x, us)
 
+
+
+LUT_BATCHES = (1, 15, 16, 17, 4096)
+
+
+def _fused_routes(slabs, x, route="smem"):
+    """The routed call counts one launch on ``route``; it and both routes
+    called directly equal the plain version bit for bit."""
+    mixed = isinstance(slabs, P.MixedNetworkSlabs)
+    wrapper = P.lut_network_mixed if mixed else P.lut_network
+    plain = P.lut_network_mixed_plain if mixed else P.lut_network_plain
+    state = P._smem_state(slabs, x.shape[1])
+    assert P.lut_fused_route(state.layout) == route
+    before = dict(wrapper.launches_by_route)
+    got = wrapper(x, slabs)
+    torch.cuda.synchronize()
+    assert wrapper.launches_by_route == {
+        r: n + (r == route) for r, n in before.items()}
+    want = plain(x, slabs)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    direct = torch.empty_like(got)
+    P._launch_global(x, slabs, direct)
+    torch.cuda.synchronize()
+    assert torch.equal(direct, want)
+    if state.layout.fits:
+        for bulk in (True, False):
+            direct = torch.empty_like(got)
+            P._launch_smem(x, direct, state, bulk=bulk)
+            torch.cuda.synchronize()
+            assert torch.equal(direct, want)
+
+
+@pytest.mark.parametrize("name", ["het", "boundary", "dedup", "compiled"])
+@pytest.mark.parametrize("build", [{"pack": True}, {"pack": False},
+                                   {"dedup": False}])
+@pytest.mark.parametrize("odd", [False, True])
+def test_mixed_smem_route_matches_plain(dev, name, build, odd):
+    """The reference compiler's edge cases (width-0 padding and out_perm,
+    boundary codes 0 / 255, dedup offsets, a level-3 stack), packed and
+    not, the table slab 16-byte aligned or at an odd byte offset."""
+    n_in, layers = load_mixed_cases()[name]
+    slabs = P.build_mixed_network_slabs(layers, device=dev, **build)
+    if odd:
+        slabs = with_table_offset(slabs)
+    for batch in LUT_BATCHES:
+        x = _on(dev, codes(n_in, batch, hi=8, seed=batch))[0]
+        _fused_routes(slabs, x)
+
+
+@pytest.mark.parametrize("pack", [None, False])
+@pytest.mark.parametrize("widths,fan_ins,bws,hi,odd", [
+    ((12, 20, 16, 8), (3, 3, 3), (2, 2, 2), 4, False),
+    ((10, 12, 9, 7), (2, 3, 1), (2, 2, 3), 4, True),
+    # codes up to 15 at bw_in 2: entries past the tables give 0
+    ((8, 10, 6), (2, 2), (2, 2), 16, False),
+])
+def test_uniform_smem_route_matches_plain(dev, widths, fan_ins, bws, hi,
+                                          odd, pack):
+    slabs = P.build_network_slabs(random_stack(widths, fan_ins, bws, seed=5),
+                                  pack=pack, device=dev)
+    if odd:
+        slabs = with_table_offset(slabs)
+    for batch in LUT_BATCHES:
+        x = _on(dev, codes(widths[0], batch, hi=hi, seed=batch))[0]
+        _fused_routes(slabs, x)
+
+
+def test_model_a_smem_route_matches_reference(dev):
+    ref = load_ref()
+    x = _on(dev, ref["codes"])[0]
+    mixed = engine.load(ARTIFACT, device=dev).slabs
+    uniform = P.build_network_slabs(
+        [(ref[f"idx_{i}"], ref[f"table_{i}"], int(ref["bws"][i]))
+         for i in range(3)], device=dev)
+    for slabs, name in ((mixed, "mixed"), (uniform, "uniform")):
+        _fused_routes(slabs, x)
+        fn = P.lut_network_mixed if name == "mixed" else P.lut_network
+        assert torch.equal(fn(x, slabs).cpu(),
+                           torch.from_numpy(ref[f"out_{name}"]))
+
+
+@pytest.mark.parametrize("mixed", [True, False])
+def test_smem_route_with_shrunk_tile(dev, mixed):
+    """Slabs at exactly the plan's budget: the layout shrinks tile_b."""
+    build = P.build_mixed_network_slabs if mixed else P.build_network_slabs
+    slabs = build(budget_stack(mixed), device=dev)
+    assert P._smem_state(slabs, 716).layout.tile_b < P.SMEM_TILE_B
+    for batch in LUT_BATCHES:
+        _fused_routes(slabs, _on(dev, codes(716, batch, hi=2,
+                                            seed=batch))[0])
+
+
+def test_slab_past_the_limit_takes_global(dev):
+    """400 KB of int32 tables: no layout fits; the first design serves."""
+    slabs = P.build_network_slabs(
+        random_stack((16, 100, 100), (3, 3), (3, 3), seed=1, hi=1000),
+        device=dev)
+    for batch in LUT_BATCHES:
+        _fused_routes(slabs, _on(dev, codes(16, batch, hi=8,
+                                            seed=batch))[0], route="global")
+
+
+def test_fused_batch_zero_launches_nothing(dev):
+    ref = load_ref()
+    uniform = P.build_network_slabs(
+        [(ref[f"idx_{i}"], ref[f"table_{i}"], int(ref["bws"][i]))
+         for i in range(3)], device=dev)
+    mixed = engine.load(ARTIFACT, device=dev).slabs
+    for fn, slabs in ((P.lut_network_mixed, mixed),
+                      (P.lut_network, uniform)):
+        before = (fn.launches, dict(fn.launches_by_route))
+        out = fn(torch.zeros((0, 16), dtype=torch.int32, device=dev), slabs)
+        assert out.shape == (0, 64)
+        assert (fn.launches, fn.launches_by_route) == before
 
 
 def _mm_inputs(dev, m, k, n, dtype, seed=0):

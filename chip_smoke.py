@@ -9,36 +9,57 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc`` (one ``nvcc`` per source, all at once), serves fpga4hep model A
 (16 -> 64 -> 64 -> 64, fan-in 3, 3-bit codes) from the committed fixture
 (``tests/fixtures/torch_port``: the reference's level-3 artifact, the raw
-truth tables and the reference's outputs on 4096 seeded input rows), then
-trains model A at full width, turns it into truth tables and serves them.
+truth tables and the reference's outputs on 4096 seeded input rows) and
+fpga4hep model D (Table 6.1: 16 -> 64 -> 32 -> 32 at fan-in 5 and a
+5-neuron head at fan-in 6, 2-bit codes, full widths; ``model_d_ref.npz``:
+the reference's raw tables and outputs), whose uniform slabs (547 960
+bytes) exceed the shared-memory budget, so that the engine sends it to
+the per-layer kernel by itself (the phase fails otherwise); then trains
+model A at full width, turns it into truth tables and serves them.
 Phases, each of which must pass:
 
 1. **kernels** — each of the three LUT kernels (mixed fused, uniform fused,
-   per-layer) at model A's widths, at batches 0, 1, 16, 1000 and 4096,
-   called through its wrapper and through the engine, and each route of
-   the two fused kernels (``smem``: ``lut_fused_smem.cu``, slabs staged in
-   shared memory; ``global``: ``lut_kernels.cu``, the first design) called
-   directly, also on a copy of the slabs whose table slab is a view at an
-   odd byte offset: bit-exact against its plain PyTorch version on the
-   card and against the reference's outputs.
-2. **serving** — for each layout, every launch counter set to 0, then
-   ``run_closed_loop`` (4 clients x 4 requests of 1-8 rows, 3-bit codes)
-   through ``ServingTier``: outputs bit-exact with ``net(codes)``, zero
-   kernel builds and zero compiler runs after warmup, and the layout's
-   kernel launched, the fused layouts on the ``smem`` route only.  Its
-   launch counts are what the ``kernels`` line reports.
+   per-layer) at model A's widths, and the per-layer kernel at model D's,
+   at batches 0, 1, 16, 1000 and 4096, called through its wrapper and
+   through the engine; each route of the two fused kernels (``smem``:
+   ``lut_fused_smem.cu``, slabs staged in shared memory; ``global``:
+   ``lut_kernels.cu``, the first design) called directly, also on a copy
+   of the slabs whose table slab is a view at an odd byte offset; and
+   each route of the per-layer kernel (``smem``: tables staged in shared
+   memory; ``direct``: read in place; both ``lut_layer_smem.cu``, as
+   programmatic dependent launches) forced on every layer, also with
+   every table 4 bytes past a 16-byte boundary, beside the first design
+   (``lut_layer_forward`` in ``lut_kernels.cu``): bit-exact against the
+   plain PyTorch version on the card and against the reference's outputs.
+2. **serving** — for each layout (model A: mixed, uniform, per-layer;
+   model D: per-layer), every launch counter set to 0, then
+   ``run_closed_loop`` (4 clients x 4 requests of 1-8 rows of the model's
+   input codes) through ``ServingTier``: outputs bit-exact with
+   ``net(codes)``, zero kernel builds and zero compiler runs after warmup,
+   and the layout's kernel launched, the fused layouts on the ``smem``
+   route only, the per-layer kernel on its two routes only.  Its launch
+   counts are what the ``kernels`` line reports (the per-layer record
+   sums models A and D, with ``launches_by_model``).
 3. **times** — median CUDA-event time per forward of each kernel and of its
    plain version at batch 16 (the serving bucket) and 4096, calls issued
    back to back from Python (so host launch gaps count), and the device
    time per forward that ``torch.profiler`` records for the kernels alone
    (``device_ms``), beside the bound: the larger of the bytes the forward
-   must move (codes in, codes out, slabs once) over 3.35 TB/s and its
-   int32 operations over 33.5 TOP/s (half the 67 TFLOP/s fp32 CUDA-core
-   rate: Hopper has 64 INT32 lanes per SM against 128 FP32).  The fused
-   kernels' two routes are timed in turns (global, smem, smem, global),
-   event and device time per launch; the ``global`` route's are the
-   earlier design's.  No single PyTorch call computes
-   these functions, so ``library_ms`` is null.
+   must move over 3.35 TB/s and its int32 operations over 33.5 TOP/s
+   (half the 67 TFLOP/s fp32 CUDA-core rate: Hopper has 64 INT32 lanes per
+   SM against 128 FP32).  A fused forward moves its codes in, its codes
+   out and its slabs once; a per-layer forward moves, launch by launch,
+   that layer's codes in and out and its indices and tables once
+   (:func:`per_layer_bytes`).  The fused kernels' two routes are timed in
+   turns (global, smem, smem, global), event and device time per launch;
+   the ``global`` route's are the earlier design's.  The per-layer
+   forward (model A's three launches, model D's four, under
+   ``model_d``) is also timed device-paced (:func:`paced_ms`: a spin
+   kernel holds the stream while 50 forwards queue) in turns: the first
+   design, the routed launches, the routed launches without programmatic
+   dependent launch, and back; under PDL a waiting kernel's profiler
+   record includes its wait.  No single PyTorch call computes these
+   functions, so ``library_ms`` is null.
 4. **masked matmul** — the three routes of ``masked_matmul`` against the
    plain version on the card, each case asserting its route from
    ``masked_matmul.launches_by_route``: float32 on the ffma kernel at
@@ -189,6 +210,11 @@ INT32_OPS_PER_S = 33.5e12
 FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 LUT_SOURCE = "src/repro_torch/kernels/csrc/lut_kernels.cu"
 LUT_SMEM_SOURCE = "src/repro_torch/kernels/csrc/lut_fused_smem.cu"
+LUT_LAYER_SOURCE = "src/repro_torch/kernels/csrc/lut_layer_smem.cu"
+# forwards a device-paced reading queues behind the spin kernel, held
+# twice SPIN_CYCLES (about 50 ms): a host issuing a launch in 60 us queues
+# 4 x 50 launches in 12 ms
+PACED_ITERS = 50
 MM_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul.cu"
 MM_WGMMA_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul_wgmma.cu"
 MM_FFMA_SOURCE = "src/repro_torch/kernels/csrc/masked_matmul_ffma.cu"
@@ -242,6 +268,44 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def per_layer_bytes(batch: int, n_in: int, shapes) -> int:
+    """The least bytes a per-layer forward of ``batch`` rows moves: each
+    launch reads its own (batch, I_l) codes and writes its own (batch, O_l)
+    codes, and reads its (O_l, FI_l) indices and (O_l, E_l) tables once
+    (int32 throughout).  ``shapes`` holds each layer's (O_l, FI_l, E_l)."""
+    total = 0
+    for n_out, fan_in, n_entries in shapes:
+        total += 4 * (batch * (n_in + n_out) + n_out * (fan_in + n_entries))
+        n_in = n_out
+    return total
+
+
+def paced_ms(fn, iters: int = PACED_ITERS, reps: int = 5) -> float | None:
+    """Device-paced ms a call: a spin kernel holds the stream while the
+    host queues ``iters`` calls, and CUDA events bracket them (gaps between
+    kernels included); the median over ``reps``.  None when the host did
+    not finish queueing before the spin ended (the reading would be the
+    host's pace)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2 * SPIN_CYCLES)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if not held:
+            return None
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
 def reset_counts(wrapper) -> None:
     """Set a kernel wrapper's launch count and its per-route counts (where
     it has routes) to 0."""
@@ -255,13 +319,18 @@ def table_at_odd_offset(torch, slabs):
     into a larger buffer: an odd byte offset for an int8 table."""
     import dataclasses
 
-    tab = slabs.table_slab
-    buf = torch.zeros(tab.numel() + 1, dtype=tab.dtype, device=tab.device)
-    buf[1:] = tab.reshape(-1)
     fields = {f.name: getattr(slabs, f.name)
               for f in dataclasses.fields(slabs) if f.init}
-    return type(slabs)(**{**fields,
-                          "table_slab": buf[1:].reshape(tab.shape)})
+    return type(slabs)(**{**fields, "table_slab": view_at_offset(
+        torch, slabs.table_slab)})
+
+
+def view_at_offset(torch, t, pad: int = 1):
+    """``t`` as a contiguous view ``pad`` elements into a larger buffer
+    (a caller holds it to a chosen address modulo 16)."""
+    buf = torch.zeros(t.numel() + pad, dtype=t.dtype, device=t.device)
+    buf[pad:] = t.reshape(-1)
+    return buf[pad:].reshape(t.shape)
 
 
 def cuda_ms(fn, iters: int, reps: int = 7) -> float:
@@ -1294,13 +1363,14 @@ def lm_main_path(torch, dev, kernels) -> dict:
         f"{res.steps} decode steps: {step_ms:.3f} ms/step (host clock, "
         f"synchronised every step), {res.tokens / res.seconds:.1f} "
         f"tokens/s, occupancy {res.occupancy:.2f}")
+    lut_launches = sum(w.launches for w in {
+        id(k["wrapper"]): k["wrapper"] for k in kernels.values()}.values())
     launches = flash_attention.launches
     log(f"phase 9 main path launches: flash_attention_forward {launches} "
         f"({cfg.n_layers} per prefill, {launches // cfg.n_layers} "
         f"prefills; by route {flash_attention.launches_by_route}), "
         f"masked_matmul_forward "
-        f"{masked_matmul.launches}, LUT kernels "
-        f"{sum(k['wrapper'].launches for k in kernels.values())}")
+        f"{masked_matmul.launches}, LUT kernels {lut_launches}")
     return {"model": model, "cfg": cfg, "tokens": tokens,
             "launches": launches,
             "launches_by_route": dict(flash_attention.launches_by_route),
@@ -1521,6 +1591,7 @@ def main() -> None:
 
     from repro_torch import engine, serve
     from repro_torch.kernels import _build
+    from repro_torch.kernels import lut_lookup as lut_lookup_mod
     from repro_torch.kernels.lut_lookup import lut_lookup, lut_lookup_plain
     from repro_torch.kernels import lut_network as lut_network_mod
     from repro_torch.kernels.lut_network import (lut_network,
@@ -1548,28 +1619,72 @@ def main() -> None:
     print(smi, flush=True)
 
     ref = np.load(FIXTURE / "model_a_ref.npz")
+    ref_d = np.load(FIXTURE / "model_d_ref.npz")
+    if not np.array_equal(ref_d["out_uniform"], ref_d["out_per_layer"]):
+        fail("model_d_ref.npz: the reference's two layouts disagree")
     codes_all = torch.from_numpy(ref["codes"]).to(dev)
-    triples = [(ref[f"idx_{i}"], ref[f"table_{i}"], int(ref["bws"][i]))
-               for i in range(len(ref["bws"]))]
+
+    def triples_of(r):
+        return [(r[f"idx_{i}"], r[f"table_{i}"], int(r["bws"][i]))
+                for i in range(len(r["bws"]))]
+
+    triples = triples_of(ref)
     nets = {
         "mixed": engine.load(str(FIXTURE / "model_a_l3.npz")),
         "uniform": engine.compile_network(triples, block_b=16),
+        # model A's raw tables fit the uniform layout: the per-layer kernel
+        # serves them only by force
         "per_layer": engine.compile_network(triples, fused=False,
                                             block_b=16),
+        # model D's do not: the engine sends them to it by itself
+        "per_layer_d": engine.compile_network(triples_of(ref_d), block_b=16),
     }
-    for layout, net in nets.items():
-        if net.layout != layout or net.device.type != "cuda":
-            fail(f"{layout}: engine chose {net.layout} on {net.device}")
+    for key, net in nets.items():
+        if net.layout != key.removesuffix("_d") or net.device.type != "cuda":
+            fail(f"{key}: engine chose {net.layout} on {net.device}")
+    cost_d = nets["per_layer_d"].plan.variant.cost
+    if cost_d.reason != "slab_exceeds_smem_budget":
+        fail(f"model D: the engine chose per_layer for {cost_d.reason!r}, "
+             f"not slab_exceeds_smem_budget")
+    log(f"model D (fpga4hep Table 6.1: 16 -> 64 -> 32 -> 32 -> 5, fan-in 5 "
+        f"and 6, 2-bit codes, full widths): the engine chose per_layer by "
+        f"itself ({cost_d.reason}: {cost_d.slab_bytes} B of uniform slabs "
+        f"against a {cost_d.vmem_budget_bytes} B budget)")
+    sms = lut_lookup_mod._sm_count(dev.index or 0)
 
-    def per_layer_kernel(c):
-        for idx, tab, bw in nets["per_layer"].layers:
-            c = lut_lookup(c, idx, tab, bw)
-        return c
+    def layer_chain(net, route=None, layers=None, pdl=1):
+        """A per-layer forward: through the wrapper (counted) when
+        ``route`` is None; else every launch called directly, uncounted, on
+        ``route``: "smem" or "direct" forced, "rule" as the wrapper routes
+        it, or "first" (the first design)."""
+        layers = layers or net.layers
 
-    def per_layer_plain(c):
-        for idx, tab, bw in nets["per_layer"].layers:
-            c = lut_lookup_plain(c, idx, tab, bw)
-        return c
+        def call(c):
+            for idx, tab, bw in layers:
+                if route is None:
+                    c = lut_lookup(c, idx, tab, bw)
+                    continue
+                out = torch.empty((c.shape[0], idx.shape[0]),
+                                  dtype=torch.int32, device=dev)
+                if c.shape[0] and route == "first":
+                    lut_lookup_mod._launch_first(c, idx, tab, bw, out)
+                elif c.shape[0]:
+                    geom = lut_lookup_mod.lut_layer_route(
+                        c.shape[0], c.shape[1], idx.shape[0], idx.shape[1],
+                        tab.shape[1], sms, tab.element_size(),
+                        route=None if route == "rule" else route)
+                    lut_lookup_mod._launch_layer(c, idx, tab, bw, out, geom,
+                                                 pdl=pdl)
+                c = out
+            return c
+        return call
+
+    def layer_plain(net):
+        def call(c):
+            for idx, tab, bw in net.layers:
+                c = lut_lookup_plain(c, idx, tab, bw)
+            return c
+        return call
 
     s_mixed, s_uniform = nets["mixed"].slabs, nets["uniform"].slabs
 
@@ -1589,9 +1704,29 @@ def main() -> None:
         return call
 
     fused_routes = {"smem": LUT_SMEM_SOURCE, "global": LUT_SOURCE}
+
+    def per_layer(key, model, r):
+        net = nets[key]
+        return dict(
+            name="lut_layer_forward", model=model, wrapper=lut_lookup,
+            net=net, codes=torch.from_numpy(r["codes"]).to(dev),
+            want=r["out_uniform" if model == "D" else "out_per_layer"],
+            bw=int(r["bws"][0]), kernel=layer_chain(net),
+            plain=layer_plain(net),
+            layer_routes={"smem": LUT_LAYER_SOURCE,
+                          "direct": LUT_LAYER_SOURCE},
+            source=LUT_LAYER_SOURCE,
+            replaces="src/repro/kernels/lut_lookup.py:86",
+            shapes=[(i.shape[0], i.shape[1], t.shape[1])
+                    for i, t, _ in net.layers],
+            ops_per_row=sum(i.shape[0] * (2 * i.shape[1] + 2)
+                            for i, _, _ in net.layers),
+            per_call=len(net.layers))
+
     kernels = {
         "mixed": dict(
             name="lut_mixed_forward", wrapper=lut_network_mixed,
+            net=nets["mixed"], codes=codes_all, want=ref["out_mixed"], bw=3,
             kernel=lambda c: lut_network_mixed(c, s_mixed),
             plain=lambda c: lut_network_mixed_plain(c, s_mixed),
             slabs=s_mixed, direct=direct(s_mixed), routes=fused_routes,
@@ -1606,7 +1741,8 @@ def main() -> None:
                             for m in s_mixed.meta), per_call=1),
         "uniform": dict(
             name="lut_uniform_forward", wrapper=lut_network,
-            kernel=lambda c: lut_network(c, s_uniform),
+            net=nets["uniform"], codes=codes_all, want=ref["out_uniform"],
+            bw=3, kernel=lambda c: lut_network(c, s_uniform),
             plain=lambda c: lut_network_plain(c, s_uniform),
             slabs=s_uniform, direct=direct(s_uniform), routes=fused_routes,
             source=LUT_SMEM_SOURCE,
@@ -1615,24 +1751,15 @@ def main() -> None:
                               s_uniform.layer_meta, s_uniform.perm),
             ops_per_row=sum(m.n_out * (2 * m.fan_in + 2)
                             for m in s_uniform.meta), per_call=1),
-        "per_layer": dict(
-            name="lut_layer_forward", wrapper=lut_lookup,
-            kernel=per_layer_kernel, plain=per_layer_plain,
-            source=LUT_SOURCE,
-            replaces="src/repro/kernels/lut_lookup.py:86",
-            slab_bytes=sum(nbytes(i, t)
-                           for i, t, _ in nets["per_layer"].layers),
-            ops_per_row=sum(i.shape[0] * (2 * i.shape[1] + 2)
-                            for i, _, _ in nets["per_layer"].layers),
-            per_call=len(nets["per_layer"].layers)),
+        "per_layer": per_layer("per_layer", "A", ref),
+        "per_layer_d": per_layer("per_layer_d", "D", ref_d),
     }
-    n_in, n_out = codes_all.shape[1], nets["mixed"].n_out
 
     # -- phase 1: every kernel against its plain version and the reference
-    for layout, k in kernels.items():
-        want_all = ref[f"out_{layout}"]
+    for key, k in kernels.items():
+        n_out = k["net"].n_out
         k["max_abs_err"] = 0
-        calls = {"kernel": k["kernel"], "engine": nets[layout]}
+        calls = {"kernel": k["kernel"], "engine": k["net"]}
         if "direct" in k:
             odd = table_at_odd_offset(torch, k["slabs"])
             if odd.table_slab.data_ptr() % 2 != 1 and odd.packed:
@@ -1644,8 +1771,22 @@ def main() -> None:
                     lambda c, r=route: k["direct"](r, c))
                 calls[f"{route} route, table at an odd offset"] = (
                     lambda c, r=route: odd_direct(r, c))
+        if "layer_routes" in k:
+            # every table 4 bytes past a 16-byte boundary: the staged
+            # copy's head and tail go by threads
+            shifted = [(i, view_at_offset(torch, t), bw)
+                       for i, t, bw in k["net"].layers]
+            torch.cuda.synchronize()
+            if any(t.data_ptr() % 16 != 4 for _, t, _ in shifted):
+                fail("the shifted per-layer tables are not 4 bytes past a "
+                     "16-byte boundary")
+            for route in k["layer_routes"]:
+                calls[f"{route} route"] = layer_chain(k["net"], route)
+                calls[f"{route} route, tables at 4 mod 16 bytes"] = (
+                    layer_chain(k["net"], route, shifted))
+            calls["first design"] = layer_chain(k["net"], "first")
         for b in BATCHES:
-            codes = codes_all[:b].contiguous()
+            codes = k["codes"][:b].contiguous()
             before = k["wrapper"].launches
             got = {"kernel": k["kernel"](codes)}
             launched = k["wrapper"].launches - before
@@ -1654,109 +1795,188 @@ def main() -> None:
             got["plain"] = k["plain"](codes)
             torch.cuda.synchronize()
             if b and launched != k["per_call"]:
-                fail(f"{k['name']} batch {b}: the wrapper counted "
+                fail(f"{k['name']} ({key}) batch {b}: the wrapper counted "
                      f"{launched} launches for one call")
             if b == 0 and launched:
-                fail(f"{k['name']} batch 0 launched a kernel")
-            want = torch.from_numpy(want_all[:b]).to(dev)
+                fail(f"{k['name']} ({key}) batch 0 launched a kernel")
+            want = torch.from_numpy(k["want"][:b]).to(dev)
             for what, out in got.items():
                 if out.shape != (b, n_out) or out.dtype != torch.int32:
-                    fail(f"{k['name']} batch {b}: {what} gave "
+                    fail(f"{k['name']} ({key}) batch {b}: {what} gave "
                          f"{out.dtype} {tuple(out.shape)}")
                 if b and what != "plain":
                     err = int((out.long() - got["plain"].long()).abs().max())
                     k["max_abs_err"] = max(k["max_abs_err"], err)
                 if not torch.equal(out, want):
-                    fail(f"{k['name']} batch {b}: {what} output differs "
-                         f"from the reference's")
-        log(f"phase 1 {k['name']}: bit-exact vs plain and reference at "
-            f"batches {BATCHES} ({', '.join(calls)})")
+                    fail(f"{k['name']} ({key}) batch {b}: {what} output "
+                         f"differs from the reference's")
+        log(f"phase 1 {k['name']} ({key}): bit-exact vs plain and reference "
+            f"at batches {BATCHES} ({', '.join(calls)})")
 
     # -- phase 2: the main path, serving each layout through the tier
-    for layout, k in kernels.items():
-        for other in kernels.values():
-            reset_counts(other["wrapper"])
-        rep = serve.run_closed_loop(nets[layout], n_clients=4,
-                                    n_per_client=4, rows_min=1, rows_max=8,
-                                    bw=3, seed=0)
+    wrappers = {id(k["wrapper"]): k["wrapper"] for k in kernels.values()}
+    for key, k in kernels.items():
+        for w in wrappers.values():
+            reset_counts(w)
+        rep = serve.run_closed_loop(k["net"], n_clients=4, n_per_client=4,
+                                    rows_min=1, rows_max=8, bw=k["bw"],
+                                    seed=0)
         k["launches"] = k["wrapper"].launches
-        by_route = dict(getattr(k["wrapper"], "launches_by_route", {}))
+        by_route = dict(k["wrapper"].launches_by_route)
+        k["launches_by_route"] = by_route
         st = rep.stats
         if not k["launches"]:
-            fail(f"serving {layout}: {k['name']} was never launched")
-        if "routes" in k:
-            k["launches_by_route"] = by_route
-            if by_route["global"] or by_route["smem"] != k["launches"]:
-                fail(f"serving {layout}: {k['name']} left the smem route: "
-                     f"{by_route}")
+            fail(f"serving {key}: {k['name']} was never launched")
+        if "routes" in k and (by_route["global"]
+                              or by_route["smem"] != k["launches"]):
+            fail(f"serving {key}: {k['name']} left the smem route: "
+                 f"{by_route}")
+        if "layer_routes" in k and sum(by_route.values()) != k["launches"]:
+            fail(f"serving {key}: {k['name']} launched {k['launches']} "
+                 f"times, {by_route} on its routes")
         if st["retraces_after_warmup"] or st["compiler_runs_after_warmup"]:
-            fail(f"serving {layout}: compile-once contract broken: {st}")
+            fail(f"serving {key}: compile-once contract broken: {st}")
         legs = " ".join(f"{leg}={rep.breakdown[leg]['mean_ms']:.3f}"
                         for leg in ("queue_wait", "assembly", "device"))
-        log(f"phase 2 serving {layout}: {rep.n_requests} requests "
+        log(f"phase 2 serving {key}: {rep.n_requests} requests "
             f"({rep.rows} rows) bit-exact, p50={rep.p50_ms:.3f} ms "
             f"p99={rep.p99_ms:.3f} ms, {rep.rows_per_sec:.0f} rows/s, "
             f"{st['batches']} batches (flushes {st['flush_causes']}), "
-            f"mean legs ms: {legs}; {k['name']} launches={k['launches']}"
-            f"{f' by route {by_route}' if by_route else ''}, "
+            f"mean legs ms: {legs}; {k['name']} launches={k['launches']} "
+            f"by route {by_route}, "
             f"retraces={st['retraces_after_warmup']} "
             f"compiler_runs={st['compiler_runs_after_warmup']}")
 
     # -- phase 3: times beside the bound
+    def layer_times(k) -> dict:
+        """A per-layer forward's times at TIME_BATCHES: event ms (routed
+        and the first design), device-paced ms in turns (the first design,
+        the routed launches, the routed launches without programmatic
+        dependent launch), profiler device ms, the plain version and the
+        bound."""
+        net, n_call = k["net"], k["per_call"]
+        rec = {"layers": n_call}
+        for b in TIME_BATCHES:
+            codes = k["codes"][:b].contiguous()
+            iters = 200 if b <= 16 else 50
+            sfx = "" if b == TIME_BATCHES[0] else f"_b{b}"
+            fns = {"first": layer_chain(net, "first"),
+                   "routed": k["kernel"],
+                   "no_pdl": layer_chain(net, "rule", pdl=0)}
+            turns = {w: [] for w in fns}
+            for w in ("first", "routed", "no_pdl", "no_pdl", "routed",
+                      "first"):
+                turns[w].append(paced_ms(lambda: fns[w](codes)))
+            paced = {w: (None if None in v else statistics.mean(v))
+                     for w, v in turns.items()}
+            ms = cuda_ms(lambda: k["kernel"](codes), iters)
+            earlier_ms = cuda_ms(lambda: fns["first"](codes), iters)
+            plain_ms = cuda_ms(lambda: k["plain"](codes), iters)
+            dev_ms = device_ms(lambda: k["kernel"](codes), iters, n_call)
+            earlier_dev = device_ms(lambda: fns["first"](codes), iters,
+                                    n_call)
+            moved = per_layer_bytes(b, codes.shape[1], k["shapes"])
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = b * k["ops_per_row"] / INT32_OPS_PER_S * 1e3
+            bound = max(bytes_ms, ops_ms)
+            used, c_in = [], codes.shape[1]
+            for n_out, fan_in, n_e in k["shapes"]:
+                used.append(lut_lookup_mod.lut_layer_route(
+                    b, c_in, n_out, fan_in, n_e, sms).route)
+                c_in = n_out
+            rec.update({
+                f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms,
+                f"device_ms{sfx}": dev_ms,
+                f"device_ms_per_launch{sfx}": (
+                    None if dev_ms is None else dev_ms / n_call),
+                f"paced_ms{sfx}": paced["routed"],
+                f"paced_ms_no_pdl{sfx}": paced["no_pdl"],
+                f"earlier_ms{sfx}": earlier_ms,
+                f"earlier_device_ms{sfx}": earlier_dev,
+                f"earlier_paced_ms{sfx}": paced["first"],
+                f"turns_paced_ms{sfx}": turns,
+                f"bound_ms{sfx}": bound,
+                f"bound_ms_per_launch{sfx}": bound / n_call,
+                f"bound_by{sfx}": ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"),
+                f"bound_bytes{sfx}": moved, f"routes_used{sfx}": used})
+            log(f"phase 3 {k['name']} model {k['model']} batch {b} "
+                f"({n_call} launches a forward, routes {used}): "
+                f"device-paced {paced['routed']} ms a forward (without "
+                f"PDL {paced['no_pdl']}, first design {paced['first']}; "
+                f"turns {turns}), event {ms:.5f} ms (first design "
+                f"{earlier_ms:.5f}), device {dev_ms} ms (first design "
+                f"{earlier_dev}), plain {plain_ms:.5f} ms, bound "
+                f"{bound:.6f} ms ({moved} B)")
+        return rec
+
     records = []
-    for layout, k in kernels.items():
+    layer_rec = None
+    for key, k in kernels.items():
+        if "layer_routes" in k:
+            times = layer_times(k)
+            if layer_rec is None:
+                # model A's chain at the top level, as earlier runs
+                # recorded it; model D's under "model_d"
+                layer_rec = {
+                    "name": k["name"], "route": "cuda",
+                    "source": k["source"], "replaces": k["replaces"],
+                    "launches": 0, "launches_by_route": {},
+                    "launches_by_model": {}, "max_abs_err": 0,
+                    "routes": k["layer_routes"],
+                    "earlier_design": {"source": LUT_SOURCE,
+                                       "entry": "lut_layer_forward"},
+                    **times, "library_ms": None, "batch": TIME_BATCHES[0]}
+                records.append(layer_rec)
+            else:
+                layer_rec[f"model_{k['model'].lower()}"] = times
+            layer_rec["launches"] += k["launches"]
+            layer_rec["launches_by_model"][k["model"]] = k["launches"]
+            for r, n in k["launches_by_route"].items():
+                layer_rec["launches_by_route"][r] = (
+                    layer_rec["launches_by_route"].get(r, 0) + n)
+            layer_rec["max_abs_err"] = max(layer_rec["max_abs_err"],
+                                           k["max_abs_err"])
+            continue
         rec = {"name": k["name"], "route": "cuda", "source": k["source"],
                "replaces": k["replaces"], "launches": k["launches"],
-               "max_abs_err": k["max_abs_err"]}
-        if "routes" in k:
-            rec.update(routes=k["routes"],
-                       launches_by_route=k["launches_by_route"])
-        else:
-            # one kernel, reading its tables from global memory
-            rec.update(routes={"global": k["source"]},
-                       launches_by_route={"global": k["launches"]})
+               "max_abs_err": k["max_abs_err"], "routes": k["routes"],
+               "launches_by_route": k["launches_by_route"]}
         for b in TIME_BATCHES:
-            codes = codes_all[:b].contiguous()
+            codes = k["codes"][:b].contiguous()
             iters = 200 if b <= 16 else 50
             suffix = "" if b == TIME_BATCHES[0] else f"_b{b}"
-            if "routes" in k:
-                # the earlier design and the routed kernel in turns
-                turns = {"global": [], "smem": []}
-                for route in ("global", "smem", "smem", "global"):
-                    fn = ((lambda: k["direct"]("global", codes))
-                          if route == "global" else
-                          (lambda: k["kernel"](codes)))
-                    turns[route].append(cuda_ms(fn, iters))
-                ms = statistics.mean(turns["smem"])
-                earlier_dev = device_ms(
-                    lambda: k["direct"]("global", codes), iters)
-                rec.update({
-                    f"earlier_ms{suffix}": statistics.mean(turns["global"]),
-                    f"earlier_device_ms{suffix}": earlier_dev,
-                    f"turns_ms{suffix}": turns})
-            else:
-                ms = cuda_ms(lambda: k["kernel"](codes), iters)
+            # the earlier design and the routed kernel in turns
+            turns = {"global": [], "smem": []}
+            for route in ("global", "smem", "smem", "global"):
+                fn = ((lambda: k["direct"]("global", codes))
+                      if route == "global" else
+                      (lambda: k["kernel"](codes)))
+                turns[route].append(cuda_ms(fn, iters))
+            ms = statistics.mean(turns["smem"])
+            earlier_dev = device_ms(
+                lambda: k["direct"]("global", codes), iters)
             plain_ms = cuda_ms(lambda: k["plain"](codes), iters)
-            dev_ms = device_ms(lambda: k["kernel"](codes), iters,
-                               k["per_call"])
-            moved = b * (n_in + n_out) * 4 + k["slab_bytes"]
+            dev_ms = device_ms(lambda: k["kernel"](codes), iters)
+            moved = (b * (codes.shape[1] + k["net"].n_out) * 4
+                     + k["slab_bytes"])
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             ops_ms = b * k["ops_per_row"] / INT32_OPS_PER_S * 1e3
             rec.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
                         f"device_ms{suffix}": dev_ms,
+                        f"earlier_ms{suffix}": statistics.mean(
+                            turns["global"]),
+                        f"earlier_device_ms{suffix}": earlier_dev,
+                        f"turns_ms{suffix}": turns,
                         f"bound_ms{suffix}": max(bytes_ms, ops_ms),
                         f"bound_by{suffix}": ("bytes" if bytes_ms >= ops_ms
                                               else "operations")})
-            if k["per_call"] > 1 and dev_ms is not None:
-                rec[f"device_ms_per_launch{suffix}"] = dev_ms / k["per_call"]
-            earlier = (f", earlier design (global route) "
-                       f"{rec[f'earlier_ms{suffix}']:.5f} ms, device "
-                       f"{rec[f'earlier_device_ms{suffix}']} ms"
-                       if "routes" in k else "")
             log(f"phase 3 {k['name']} batch {b}: {ms:.5f} ms/forward, "
-                f"device {dev_ms} ms ({k['per_call']} launches a forward), "
-                f"plain {plain_ms:.5f} ms, bound "
-                f"{max(bytes_ms, ops_ms):.6f} ms ({moved} B){earlier}")
+                f"device {dev_ms} ms, plain {plain_ms:.5f} ms, bound "
+                f"{max(bytes_ms, ops_ms):.6f} ms ({moved} B), earlier "
+                f"design (global route) "
+                f"{rec[f'earlier_ms{suffix}']:.5f} ms, device "
+                f"{earlier_dev} ms")
         rec["library_ms"] = None
         rec["batch"] = TIME_BATCHES[0]
         records.append(rec)

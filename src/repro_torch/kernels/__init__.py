@@ -9,7 +9,9 @@ launches.
   route ``global``, for slabs no shared-memory layout fits);
 * ``lut_network.lut_network`` — fused network, uniform slabs (the same
   two routes);
-* ``lut_lookup.lut_lookup`` — one LUT layer.
+* ``lut_lookup.lut_lookup`` — one LUT layer (``csrc/lut_layer_smem.cu``,
+  a programmatic dependent launch: route ``smem``, tables staged in shared
+  memory, or ``direct``, tables read in place).
 """
 
 from repro_torch.kernels.lut_lookup import DEFAULT_BLOCK_B

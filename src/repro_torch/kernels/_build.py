@@ -44,6 +44,9 @@ _SIGNATURES = {
     "lut_uniform_smem_forward": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
                                  _I, _P, _P),
     "lut_layer_forward": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P),
+    "lut_layer_smem_forward": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P,
+                               _I, _I, _I, _I, _I, _I, _P),
+    "lut_layer_smem_bytes": (_I, _I, _I, _I, _I, _I, _I, _I),
     "masked_matmul_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "masked_matmul_wgmma_forward": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     "masked_matmul_ffma_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,

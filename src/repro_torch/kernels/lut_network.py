@@ -50,7 +50,6 @@ an out-of-range fan-in index reads 0 and an out-of-range entry yields 0.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import itertools
 from typing import NamedTuple, Sequence
 
@@ -59,7 +58,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.kernels import _build
-from repro_torch.kernels.lut_lookup import (gather_entries,
+from repro_torch.kernels.lut_lookup import (_sm_count, gather_entries,
                                             pack_fan_in_entries,
                                             pack_fan_in_entries_mixed,
                                             require, stream_of)
@@ -690,11 +689,6 @@ def smem_tile_rows(batch: int, tile_b: int, sms: int) -> int:
     the layout's ``tile_b`` (on an H100, batch 16: 4 tiles of 4; 1000:
     125 of 8; 4096: 128 of 32)."""
     return max(1, min(tile_b, max(SMEM_MIN_TILE_ROWS, -(-batch // sms))))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def lut_fused_route(layout: SmemLayout) -> str:

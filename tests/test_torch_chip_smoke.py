@@ -80,3 +80,20 @@ def test_phase7_expects_the_wrappers_route(cs, dtype, d, route):
     from repro_torch.kernels.flash_attention import flash_attention_route
     assert cs.expected_flash_route(dtype, d) == route
     assert flash_attention_route(getattr(torch, dtype), d) == route
+
+
+def test_per_layer_bound_counts_each_launch_codes(cs):
+    """A per-layer forward of model A at batch 4096 moves, launch by
+    launch, its own codes in and out (16 + 64, 64 + 64 and 64 + 64 int32
+    a row: 5 505 024 bytes, about 5.5 MB) and each layer's indices and
+    tables once (3 x 64 x (3 + 512) int32: 395 520 bytes)."""
+    shapes = [(64, 3, 512)] * 3
+    codes = 4096 * (16 + 64 + 64 + 64 + 64 + 64) * 4
+    assert codes == 5_505_024
+    assert cs.per_layer_bytes(4096, 16, shapes) == codes + 395_520
+    # model D: 16 -> 64 -> 32 -> 32 -> 5, fan-in 5 (1024 entries) and a
+    # 5-neuron head at fan-in 6 (4096 entries)
+    shapes_d = [(64, 5, 1024), (32, 5, 1024), (32, 5, 1024), (5, 6, 4096)]
+    assert cs.per_layer_bytes(16, 16, shapes_d) == 4 * (
+        16 * (16 + 64 + 64 + 32 + 32 + 32 + 32 + 5)
+        + 64 * 1029 + 32 * 1029 * 2 + 5 * 4102)

@@ -8,7 +8,14 @@ refuse tensors it cannot take; both routes of the fused kernels (``smem``
 and ``global``), on the reference compiler's edge cases
 (``tests/fixtures/torch_port/lut_mixed_cases.npz``), table slabs at odd
 byte offsets, slabs whose layout shrinks its tile and one past every
-layout (``global``), at batches 1, 15, 16, 17 and 4096.  The masked matmul is held to its plain
+layout (``global``), at batches 1, 15, 16, 17 and 4096; and both routes
+of the per-layer kernel (``smem`` and ``direct``, ``csrc/
+lut_layer_smem.cu``), forced at the rule's geometry and at small tiles,
+with and without programmatic dependent launch and with tables 4 bytes
+past a 16-byte boundary, on model A's and model D's layers and edge
+cases, beside the first design (``lut_layer_forward``), and a queued
+chain of 48 dependent launches against the plain chain.  The masked
+matmul is held to its plain
 version within float32 atol 1e-4 / rtol 1e-5 (another summation order)
 and bfloat16 atol 5e-2 / rtol 1e-3 plus exactly one bfloat16 step of the
 plain output (the reference's tolerance; the step because both round a
@@ -30,16 +37,20 @@ second gate beside that one, 1e-3 plus two bfloat16 steps of the plain
 output, tight enough to reject a stale K/V stage.
 """
 
+import functools
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (ARTIFACT, budget_stack, codes,
+from torch_port_util import (ARTIFACT, FIXTURE_DIR, REF, budget_stack, codes,
                              load_mixed_cases, load_ref, load_train,
                              random_stack, with_table_offset)
 
 from repro_torch import engine
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import lut_lookup as L
 from repro_torch.kernels import lut_network as P
 from repro_torch.kernels import masked_matmul as MM
 from repro_torch.configs import fpga4hep
@@ -250,6 +261,195 @@ def test_fused_batch_zero_launches_nothing(dev):
         out = fn(torch.zeros((0, 16), dtype=torch.int32, device=dev), slabs)
         assert out.shape == (0, 64)
         assert (fn.launches, fn.launches_by_route) == before
+
+
+# -- the per-layer kernel (csrc/lut_layer_smem.cu): routes smem and direct
+
+MODEL_D = os.path.join(FIXTURE_DIR, "model_d_ref.npz")
+
+
+def _fixture_layers(path):
+    """Each layer of a fixture's model as (codes into it, idx, table, bw):
+    the codes are the plain chain's on the fixture's 4096 rows."""
+    with np.load(path) as z:
+        ref = {k: z[k] for k in z.files}
+    x, out = ref["codes"], []
+    for i in range(len(ref["bws"])):
+        idx, tab, bw = ref[f"idx_{i}"], ref[f"table_{i}"], int(ref["bws"][i])
+        out.append((x, idx, tab, bw))
+        x = lut_lookup_plain(*(torch.from_numpy(a) for a in (x, idx, tab)),
+                             bw).numpy()
+    return out
+
+
+def _edge_layer(n_in, n_out, fan_in, bw, n_e, hi, seed=0):
+    rng = np.random.default_rng(seed)
+    idx = np.stack([np.sort(rng.choice(n_in, min(fan_in, n_in),
+                                       replace=False))
+                    for _ in range(n_out)]).astype(np.int32)
+    tab = rng.integers(0, 1000, (n_out, n_e), dtype=np.int32)
+    return codes(n_in, 4096, hi=hi, seed=seed), idx, tab, bw
+
+
+@functools.lru_cache(maxsize=1)
+def _layer_cases():
+    cases = {f"A{i}": c for i, c in enumerate(_fixture_layers(REF))}
+    cases.update({f"D{i}": c for i, c in enumerate(_fixture_layers(MODEL_D))})
+    x, idx, tab, bw = _edge_layer(10, 40, 3, 2, 64, 4, seed=1)
+    idx[0, 0], idx[1, 1], idx[2, 2] = 10, -1, 1 << 20   # outside the bus
+    cases.update({
+        "out_of_range_idx": (x, idx, tab, bw),
+        "ragged": _edge_layer(7, 13, 2, 2, 16, 4, seed=2),
+        "past_entries": _edge_layer(10, 33, 3, 2, 64, 16, seed=3),
+        "e4096": _edge_layer(12, 5, 6, 2, 4096, 4, seed=4),
+        "shift32": _edge_layer(9, 40, 5, 8, 4096, 256, seed=5),
+        "e_not_pow2": _edge_layer(9, 7, 3, 2, 50, 4, seed=6),
+        "wide": _edge_layer(300, 333, 4, 1, 16, 2, seed=7),
+    })
+    return cases
+
+
+# model A's three layers, model D's four, and the edges of _layer_cases
+LAYER_CASES = ("A0", "A1", "A2", "D0", "D1", "D2", "D3", "out_of_range_idx",
+               "ragged", "past_entries", "e4096", "shift32", "e_not_pow2",
+               "wide")
+
+
+def _shifted(t):
+    """``t`` as a view one element past a 16-byte boundary."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    view = buf[1:].reshape(t.shape)
+    assert view.data_ptr() % 16 == t.element_size()
+    return view
+
+
+def _layer_direct(x, idx, tab, bw, route, pdl=1, **kw):
+    geom = L.lut_layer_route(x.shape[0], x.shape[1], idx.shape[0],
+                             idx.shape[1], tab.shape[1],
+                             L._sm_count(x.device.index), tab.element_size(),
+                             route=route, **kw)
+    out = torch.empty((x.shape[0], idx.shape[0]), dtype=torch.int32,
+                      device=x.device)
+    L._launch_layer(x, idx, tab, bw, out, geom, pdl=pdl)
+    return out
+
+
+@pytest.mark.parametrize("case", LAYER_CASES)
+def test_layer_routes_match_plain(dev, case):
+    """Both routes (forced, at the rule's geometry and at others), the
+    routed wrapper and the first design, each as a programmatic dependent
+    launch (dependents launched after its wait, or at its start) and as a
+    plain launch, with the table 4 bytes past a 16-byte boundary, and on a
+    uint8 copy of the table (also 1 byte past one; the sweep's comparison)
+    where every entry fits a byte: bit for bit the plain version."""
+    x_all, idx, tab, bw = _layer_cases()[case]
+    idx_d, tab_d = _on(dev, idx, tab)
+    tables = {"": tab_d, " shifted": _shifted(tab_d)}
+    if tab.min() >= 0 and tab.max() < 256:
+        tab8 = tab_d.to(torch.uint8)
+        tables.update({" uint8": tab8, " uint8 shifted": _shifted(tab8)})
+    torch.cuda.synchronize()
+    for batch in LUT_BATCHES + (1000,):
+        x = _on(dev, x_all[:batch])[0]
+        want = lut_lookup_plain(x, idx_d, tab_d, bw)
+        got = _check(lut_lookup, lambda c: lut_lookup(c, idx_d, tab_d, bw),
+                     lambda c: lut_lookup_plain(c, idx_d, tab_d, bw), x)
+        first = torch.empty_like(got)
+        L._launch_first(x, idx_d, tab_d, bw, first)
+        outs = {"first": first}
+        outs["wrapper shifted"] = lut_lookup(x, idx_d, tables[" shifted"], bw)
+        for route in ("smem", "direct"):
+            if route == "smem" and L.layer_smem_bytes(
+                    x.shape[1], idx.shape[1], tab.shape[1], 1, 1,
+                    True) > L.LAYER_SMEM_BYTES:
+                continue
+            for name, t in tables.items():
+                for pdl in (1, 0, 2):
+                    outs[f"{route}{name} pdl={pdl}"] = _layer_direct(
+                        x, idx_d, t, bw, route, pdl)
+            # small tiles: blocks walk several batch tiles (smem)
+            outs[f"{route} small tiles"] = _layer_direct(
+                x, idx_d, tab_d, bw, route, tile_o=3, tile_b=5)
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            assert torch.equal(out, want), (case, batch, name)
+
+
+def test_layer_smem_bytes_agree_with_the_kernel(dev):
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    for n_in, fan_in, n_e, tile_o, tile_b in (
+            (16, 3, 512, 16, 32), (64, 5, 1024, 21, 7), (32, 6, 4096, 5, 32),
+            (7, 2, 9, 13, 1), (300, 4, 0, 1, 3)):
+        for stage in (0, 1):
+            for n_buf in (1, 2):
+                for elem in (1, 4):
+                    assert lib.lut_layer_smem_bytes(
+                        n_in, fan_in, n_e, elem, tile_o, tile_b, stage,
+                        n_buf) == L.layer_smem_bytes(
+                            n_in, fan_in, n_e, tile_o, tile_b, bool(stage),
+                            n_buf, elem)
+
+
+@pytest.mark.parametrize("batch", [17, 4096])
+def test_layer_chain_of_dependent_launches(dev, batch):
+    """A queued chain of 48 layers of random widths, every launch
+    programmatically dependent on the one before, intermediates dropped
+    as they go (so the caching allocator hands a layer's output the memory
+    its predecessor is still reading): an early read of codes or an early
+    write would show against the plain chain."""
+    rng = np.random.default_rng(batch)
+    widths = [16] + [int(w) for w in rng.integers(4, 200, 48)]
+    layers = []
+    for n_in, n_out in zip(widths[:-1], widths[1:]):
+        fi = int(rng.integers(1, min(5, n_in) + 1))
+        idx = rng.integers(0, n_in, (n_out, fi), dtype=np.int32)
+        tab = rng.integers(0, 4, (n_out, 4 ** fi), dtype=np.int32)
+        layers.append(tuple(_on(dev, idx, tab)) + (2,))
+    x = _on(dev, codes(16, batch, hi=4, seed=1))[0]
+    want = x
+    for idx, tab, bw in layers:
+        want = lut_lookup_plain(want, idx, tab, bw)
+    routes = ("smem", "direct", None)
+    for rep in range(3):
+        c = x
+        for i, (idx, tab, bw) in enumerate(layers):
+            route = routes[(i + rep) % 3]
+            c = (lut_lookup(c, idx, tab, bw) if route is None
+                 else _layer_direct(c, idx, tab, bw, route))
+        torch.cuda.synchronize()
+        assert torch.equal(c, want), rep
+
+
+def test_layer_launch_counters(dev):
+    """The wrapper counts each launch once, on the route the rule picks:
+    model A's middle layer at batch 16 stages its tables, at 4096 reads
+    them in place."""
+    x_all, idx, tab, bw = _layer_cases()["A1"]
+    idx_d, tab_d = _on(dev, idx, tab)
+    for batch, route in ((16, "smem"), (4096, "direct")):
+        x = _on(dev, x_all[:batch])[0]
+        before = (lut_lookup.launches, dict(lut_lookup.launches_by_route))
+        lut_lookup(x, idx_d, tab_d, bw)
+        assert lut_lookup.launches == before[0] + 1
+        assert lut_lookup.launches_by_route == {
+            r: n + (r == route) for r, n in before[1].items()}
+
+
+def test_model_d_served_per_layer_matches_reference(dev):
+    """The engine sends model D to the per-layer kernel by itself; its
+    outputs are the reference's."""
+    with np.load(MODEL_D) as z:
+        ref = {k: z[k] for k in z.files}
+    net = engine.compile_network(
+        [(ref[f"idx_{i}"], ref[f"table_{i}"], int(ref["bws"][i]))
+         for i in range(4)], block_b=16, device=dev)
+    assert net.layout == "per_layer"
+    x = _on(dev, ref["codes"])[0]
+    for b in (1, 16, 17, 4096):
+        assert torch.equal(net(x[:b]).cpu(),
+                           torch.from_numpy(ref["out_uniform"][:b]))
 
 
 def _mm_inputs(dev, m, k, n, dtype, seed=0):

@@ -1,4 +1,4 @@
-"""Write the model A fixtures that the PyTorch port is held against.
+"""Write the fixtures that the PyTorch port is held against.
 
 The port (``src/repro_torch``) has no truth-table compiler yet and never
 imports JAX, so it serves a level-3 artifact that the reference package
@@ -37,12 +37,25 @@ compared with, from fixed seeds:
   rounding step there may move a value by one bfloat16 step), and the
   tokens of every request of the decode loop of ``examples/serve_lm.py``
   run with ``--requests 5 --slots 2 --max-new 6 --cache-len 64``
-  (``serve_ids`` in finishing order, ``serve_out`` their tokens).
+  (``serve_ids`` in finishing order, ``serve_out`` their tokens);
+* ``model_d_ref.npz`` (compressed) — fpga4hep model D (Table 6.1: 16 ->
+  64 -> 32 -> 32 sparse at fan-in 5, 2-bit codes, then a sparse 5-neuron
+  head at fan-in 6 with 4-bit outputs; full widths) generated as model A
+  is (``model_a_tables``' recipe): its four raw ``(idx, table, bw_in)``
+  triples, 4096 seeded input codes in ``[0, 4)`` (row 0 all 0, row 1 all
+  3), and the reference outputs on them of the layout the reference's
+  engine picks, ``uniform`` (``compile_network(triples)``: the slabs fit
+  its 8 MiB budget), and of ``per_layer`` (``fused=False``).  Rows are
+  independent, so the first ``b`` rows of an output are the reference's
+  output at batch ``b``.
 
 Run from the repo root (JAX on the CPU runs the Pallas kernels in
 interpret mode)::
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/make_torch_fixture.py
+
+``--only model_d`` writes ``model_d_ref.npz`` alone (regenerating
+``model_a_l3.npz`` rewrites its pass timings).
 
 ``tests/test_torch_engine.py`` regenerates each in memory and asserts
 they equal the committed files, so the fixture cannot drift from the
@@ -61,6 +74,7 @@ FIXTURE_DIR = os.path.join(
     "tests", "fixtures", "torch_port")
 ARTIFACT_NAME = "model_a_l3.npz"
 REF_NAME = "model_a_ref.npz"
+MODEL_D_NAME = "model_d_ref.npz"
 TRAIN_NAME = "model_a_train.npz"
 LM_NAME = "lm_smoke.npz"
 LM_ARCHS = ("qwen3-1.7b", "gemma3-27b")
@@ -78,12 +92,18 @@ CODES_SEED = 0
 
 def model_a_tables():
     """Raw truth tables of generated model A, as ``serve --lut`` makes them."""
+    return generated_tables("A")
+
+
+def generated_tables(name: str):
+    """Raw truth tables of fpga4hep model ``name`` generated the way
+    ``serve --lut`` makes model A's."""
     import jax
 
     from repro.configs import fpga4hep
     from repro.core import logicnet as LN
 
-    cfg = fpga4hep.model_a()
+    cfg = fpga4hep.MODELS[name]()
     model = LN.init(cfg, jax.random.PRNGKey(0))
     x = jax.random.uniform(jax.random.PRNGKey(1), (256, cfg.in_features),
                            minval=-1, maxval=3)
@@ -126,6 +146,29 @@ def build():
                       ("per_layer", per_layer)):
         ref[f"out_{name}"] = np.asarray(net(codes), np.int32)
     return mixed, ref
+
+
+def build_model_d() -> dict[str, np.ndarray]:
+    """The arrays of ``model_d_ref.npz``, nothing written."""
+    from repro import engine
+
+    cfg, tables = generated_tables("D")
+    triples = [(np.asarray(t.indices, np.int32), np.asarray(t.table, np.int32),
+                int(t.bw_in)) for t in tables]
+    uniform = engine.compile_network(triples, in_features=cfg.in_features,
+                                     block_b=BLOCK_B)
+    per_layer = engine.compile_network(triples, in_features=cfg.in_features,
+                                       fused=False, block_b=BLOCK_B)
+    assert (uniform.layout, per_layer.layout) == ("uniform", "per_layer")
+    codes = input_codes(cfg.in_features, cfg.bw)
+    ref = {"codes": codes, "bws": np.asarray([b for _, _, b in triples],
+                                            np.int32)}
+    for li, (idx, tab, _) in enumerate(triples):
+        ref[f"idx_{li}"] = idx
+        ref[f"table_{li}"] = tab
+    for name, net in (("uniform", uniform), ("per_layer", per_layer)):
+        ref[f"out_{name}"] = np.asarray(net(codes), np.int32)
+    return ref
 
 
 def build_train() -> dict[str, np.ndarray]:
@@ -284,7 +327,14 @@ def build_lm() -> dict[str, np.ndarray]:
     return out
 
 
-def write(directory: str = FIXTURE_DIR) -> tuple[str, str, str, str]:
+def write_model_d(directory: str = FIXTURE_DIR) -> str:
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, MODEL_D_NAME)
+    np.savez_compressed(path, **build_model_d())
+    return path
+
+
+def write(directory: str = FIXTURE_DIR) -> tuple[str, ...]:
     os.makedirs(directory, exist_ok=True)
     mixed, ref = build()
     art = mixed.save(os.path.join(directory, ARTIFACT_NAME))
@@ -294,16 +344,20 @@ def write(directory: str = FIXTURE_DIR) -> tuple[str, str, str, str]:
     np.savez_compressed(train_path, **build_train())
     lm_path = os.path.join(directory, LM_NAME)
     np.savez_compressed(lm_path, **build_lm())
-    return art, ref_path, train_path, lm_path
+    return art, ref_path, train_path, lm_path, write_model_d(directory)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--out", default=FIXTURE_DIR,
-                    help="directory to write the four .npz files into")
+                    help="directory to write the .npz files into")
+    ap.add_argument("--only", choices=("model_d",),
+                    help="write this fixture alone")
     args = ap.parse_args()
-    for path in write(args.out):
+    paths = ((write_model_d(args.out),) if args.only == "model_d"
+             else write(args.out))
+    for path in paths:
         print(f"{path}: {os.path.getsize(path)} B")
 
 

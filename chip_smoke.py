@@ -6,21 +6,33 @@ Run from the root of a checkout on a machine with an NVIDIA H100::
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
-csrc`` (one ``nvcc`` per source, all at once), serves fpga4hep model A
-(16 -> 64 -> 64 -> 64, fan-in 3, 3-bit codes) from the committed fixture
-(``tests/fixtures/torch_port``: the reference's level-3 artifact, the raw
-truth tables and the reference's outputs on 4096 seeded input rows) and
+csrc`` (one ``nvcc`` per source, all at once), times the port's
+truth-table compiler (``repro_torch.compile.optimize``, host numpy) on
+models A and D at levels 0-4 (printed as host time, on a line before the
+kernels line), compiles and serves fpga4hep model A (16 -> 64 -> 64 ->
+64, fan-in 3, 3-bit codes) from the committed fixture's raw truth tables
+(``tests/fixtures/torch_port``: those tables, the reference's level-3
+artifact and the reference's outputs on 4096 seeded input rows) and
 fpga4hep model D (Table 6.1: 16 -> 64 -> 32 -> 32 at fan-in 5 and a
 5-neuron head at fan-in 6, 2-bit codes, full widths; ``model_d_ref.npz``:
-the reference's raw tables and outputs), whose uniform slabs (547 960
-bytes) exceed the shared-memory budget, so that the engine sends it to
-the per-layer kernel by itself (the phase fails otherwise); then trains
-model A at full width, turns it into truth tables and serves them.
-Phases, each of which must pass:
+the reference's raw tables and outputs).  Model A at level 3, compiled by
+the port, must equal the reference's artifact (slabs, layer meta,
+``out_perm``, plan but its budget, stats but their timings); model D at
+level 3 (100 neurons, 77 492 bytes of mixed slabs) must take the mixed
+layout and the ``smem`` route by itself, while its raw uniform slabs
+(547 960 bytes) exceed the shared-memory budget, so that the engine sends
+the raw tables to the per-layer kernel by itself (the phase fails
+otherwise); ``compile_runs()`` must rise by exactly the two level-3
+builds.  Then it trains model A at full width, turns it into truth
+tables, compiles, verifies and serves them.  Phases, each of which must
+pass:
 
 1. **kernels** — each of the three LUT kernels (mixed fused, uniform fused,
-   per-layer) at model A's widths, and the per-layer kernel at model D's,
-   at batches 0, 1, 16, 1000 and 4096, called through its wrapper and
+   per-layer) at model A's widths (the mixed one on the port's level-3
+   compile and on the loaded reference artifact), the mixed kernel on
+   model D at level 3 (fan-in 5 and 6, 2-bit codes, a 4-bit head; held to
+   the raw tables' outputs) and the per-layer kernel on model D's raw
+   tables, at batches 0, 1, 16, 1000 and 4096, called through its wrapper and
    through the engine; each route of the two fused kernels (``smem``:
    ``lut_fused_smem.cu``, slabs staged in shared memory; ``global``:
    ``lut_kernels.cu``, the first design) called directly, also on a copy
@@ -31,15 +43,16 @@ Phases, each of which must pass:
    every table 4 bytes past a 16-byte boundary, beside the first design
    (``lut_layer_forward`` in ``lut_kernels.cu``): bit-exact against the
    plain PyTorch version on the card and against the reference's outputs.
-2. **serving** — for each layout (model A: mixed, uniform, per-layer;
-   model D: per-layer), every launch counter set to 0, then
+2. **serving** — for each layout (model A: mixed as the port compiled
+   it, uniform, per-layer; model D: mixed at level 3, per-layer), every
+   launch counter set to 0, then
    ``run_closed_loop`` (4 clients x 4 requests of 1-8 rows of the model's
    input codes) through ``ServingTier``: outputs bit-exact with
    ``net(codes)``, zero kernel builds and zero compiler runs after warmup,
    and the layout's kernel launched, the fused layouts on the ``smem``
    route only, the per-layer kernel on its two routes only.  Its launch
-   counts are what the ``kernels`` line reports (the per-layer record
-   sums models A and D, with ``launches_by_model``).
+   counts are what the ``kernels`` line reports (the mixed and per-layer
+   records sum models A and D, with ``launches_by_model``).
 3. **times** — median CUDA-event time per forward of each kernel and of its
    plain version at batch 16 (the serving bucket) and 4096, calls issued
    back to back from Python (so host launch gaps count), and the device
@@ -52,7 +65,8 @@ Phases, each of which must pass:
    that layer's codes in and out and its indices and tables once
    (:func:`per_layer_bytes`).  The fused kernels' two routes are timed in
    turns (global, smem, smem, global), event and device time per launch;
-   the ``global`` route's are the earlier design's.  The per-layer
+   the ``global`` route's are the earlier design's; model D at level 3's
+   mixed times stand under ``model_d`` in the mixed record.  The per-layer
    forward (model A's three launches, model D's four, under
    ``model_d``) is also timed device-paced (:func:`paced_ms`: a spin
    kernel holds the stream while 50 forwards queue) in turns: the first
@@ -92,8 +106,13 @@ Phases, each of which must pass:
    2 input gradients), every one on the ffma route, held-out accuracy
    within 2 points of the reference's 600-step run; (d) ``verify_tables``
    exact through the masked-matmul kernel (float path) against the
-   per-layer and the fused uniform LUT kernels (table path); (e) the
-   tables compiled and served through ``ServingTier`` bit-exact, with zero
+   per-layer and the fused uniform LUT kernels (table path), then the
+   compiler run once at level 3 and ``verify_tables(optimize_level=3)``
+   exact through the mixed fused kernel (``fused=True``) and the per-layer
+   kernel on the compiler's uniform lowering (``fused=False``), each
+   launched; (e) the raw tables compiled (uniform) and the compiler's
+   result compiled (mixed, on the ``smem`` route, equal to the table
+   codes) and each served through ``ServingTier`` bit-exact, with zero
    builds and compiler runs after warmup.
 6. **masked-matmul times** — event and profiler device time at model A's
    widest layer (256 x 64 x 64, float32, ffma) and at 4096^3 (float32 on
@@ -312,6 +331,66 @@ def reset_counts(wrapper) -> None:
     wrapper.launches = 0
     for route in getattr(wrapper, "launches_by_route", ()):
         wrapper.launches_by_route[route] = 0
+
+
+def untimed(d):
+    """A compile-stats record with every ``seconds`` field dropped."""
+    if isinstance(d, dict):
+        return {k: untimed(v) for k, v in d.items() if k != "seconds"}
+    if isinstance(d, list):
+        return [untimed(v) for v in d]
+    return d
+
+
+def plan_without_budget(plan: dict) -> dict:
+    """A plan record without its budget fields (``vmem_budget_bytes``,
+    ``headroom_bytes``): the port's budget is the card's shared memory,
+    the reference artifact's its own, so they differ by design."""
+    cost = {k: v for k, v in plan["variant"]["cost"].items()
+            if k not in ("vmem_budget_bytes", "headroom_bytes")}
+    return {**plan, "variant": {**plan["variant"], "cost": cost}}
+
+
+def compile_host_times(models: dict) -> dict:
+    """Wall seconds of one ``repro_torch.compile.optimize`` run per model
+    and level 0-4 (host CPU time: the compiler is numpy)."""
+    from repro_torch import compile as rcompile
+
+    out = {}
+    for name, triples in models.items():
+        tables = rcompile.tables_from_triples(triples)
+        for level in range(5):
+            t0 = time.perf_counter()
+            rcompile.optimize(tables, level, in_features=16)
+            out[(name, level)] = time.perf_counter() - t0
+    return out
+
+
+def check_port_compiled(torch, net, stored) -> None:
+    """The port's level-3 compile of model A against the reference's
+    artifact of it: slabs, layer metadata, output permutation, plan (its
+    budget aside) and compile stats (timings aside) all equal."""
+    a, b = net.slabs, stored.slabs
+    for f in ("idx_slab", "shift_slab", "width_slab", "table_slab"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            fail(f"model A at level 3: the port's {f} differs from "
+                 f"model_a_l3.npz's")
+    if ((a.meta, a.out_perm, a.packed, a.dedup_entries_saved)
+            != (b.meta, b.out_perm, b.packed, b.dedup_entries_saved)):
+        fail("model A at level 3: layer meta, out_perm or packing differ "
+             "from model_a_l3.npz's")
+    if (plan_without_budget(net.plan.as_dict())
+            != plan_without_budget(stored.plan.as_dict())):
+        fail(f"model A at level 3: plan {net.plan.as_dict()} differs from "
+             f"{stored.plan.as_dict()}")
+    if untimed(net.stats.as_dict()) != untimed(stored.stats.as_dict()):
+        fail("model A at level 3: compile stats differ from the stored ones")
+    log(f"model A compiled by the port at level 3 equals model_a_l3.npz: "
+        f"idx/shift/width/table slabs ({a.table_slab.numel()} B table "
+        f"slab), layer meta, out_perm, plan (budget aside) and stats "
+        f"(timings aside; {net.stats.neurons_after} neurons, "
+        f"{net.stats.table_bytes_after} B of tables)")
 
 
 def table_at_odd_offset(torch, slabs):
@@ -736,13 +815,16 @@ def training_phase(torch, dev, kernels) -> dict:
     """Phase 5: train model A on the card, make tables, verify, serve."""
     import numpy as np
 
+    from repro_torch import compile as rcompile
     from repro_torch import engine, serve
     from repro_torch.configs import fpga4hep
     from repro_torch.core import logicnet as LN
+    from repro_torch.core.quantize import codes as quant_codes
     from repro_torch.core.train import auc_roc_ovr, train_logicnet
     from repro_torch.data import jet_substructure_data
     from repro_torch.kernels.lut_lookup import lut_lookup
-    from repro_torch.kernels.lut_network import lut_network
+    from repro_torch.kernels.lut_network import (lut_network,
+                                                 lut_network_mixed)
     from repro_torch.kernels.masked_matmul import masked_matmul
 
     with np.load(FIXTURE / "model_a_train.npz") as z:
@@ -832,6 +914,30 @@ def training_phase(torch, dev, kernels) -> dict:
         "through masked_matmul_ffma_forward, table path through "
         "lut_layer_forward and lut_uniform_forward")
 
+    # the compiler once, then verify_tables at level 3 through both LUT
+    # kernels: mixed fused (fused=True) and per-layer on the compiler's
+    # uniform lowering (fused=False)
+    t0 = time.perf_counter()
+    opt = rcompile.optimize(tables, 3, in_features=cfg.in_features)
+    opt_s = time.perf_counter() - t0
+    for fused, wrapper in ((True, lut_network_mixed), (False, lut_lookup)):
+        before = wrapper.launches
+        f_codes, o_codes = LN.verify_tables(res.model, tables, xv[:200],
+                                            fused=fused, optimize_level=3)
+        torch.cuda.synchronize()
+        if wrapper.launches == before:
+            fail(f"verify_tables fused={fused} optimize_level=3: "
+                 f"{wrapper.__name__} not launched")
+        if not torch.equal(f_codes, o_codes) or not torch.equal(o_codes,
+                                                                t_codes):
+            bad = (f_codes != o_codes).any(1).nonzero().flatten().tolist()
+            fail(f"verify_tables fused={fused} optimize_level=3: not exact "
+                 f"on rows {bad}")
+    log(f"phase 5d compiled the trained tables once at level 3 in "
+        f"{opt_s:.4f} s (host CPU): {rcompile.summarize(opt.stats)}; "
+        f"verify_tables(optimize_level=3) EXACT through lut_mixed_forward "
+        f"(fused=True) and lut_layer_forward (fused=False)")
+
     net = engine.compile_network(tables, in_features=cfg.in_features,
                                  device=dev)
     if net.layout != "uniform":
@@ -847,19 +953,54 @@ def training_phase(torch, dev, kernels) -> dict:
         f"({rep.rows} rows) bit-exact, p50={rep.p50_ms:.3f} ms "
         f"p99={rep.p99_ms:.3f} ms, retraces={st['retraces_after_warmup']} "
         f"compiler_runs={st['compiler_runs_after_warmup']}")
+
+    # the compiled artifact of the same tables, from the one compiler run
+    runs = engine.compile_runs()
+    net_opt = engine.compile_network(opt, in_features=cfg.in_features,
+                                     block_b=16, device=dev)
+    if net_opt.layout != "mixed" or engine.compile_runs() != runs:
+        fail(f"the optimized trained tables compiled to {net_opt.layout} "
+             f"with {engine.compile_runs() - runs} compiler runs")
+    in_codes = quant_codes(cfg.layer_cfgs()[0].in_quant,
+                           torch.as_tensor(xv[:200], device=dev))
+    if not torch.equal(net_opt(in_codes), t_codes):
+        fail("the optimized trained artifact differs from the table codes")
+    before = (lut_network_mixed.launches,
+              dict(lut_network_mixed.launches_by_route))
+    rep = serve.run_closed_loop(net_opt, n_clients=4, n_per_client=4,
+                                rows_min=1, rows_max=8, bw=3, seed=0)
+    st = rep.stats
+    served = lut_network_mixed.launches - before[0]
+    on_smem = lut_network_mixed.launches_by_route["smem"] - before[1]["smem"]
+    if st["retraces_after_warmup"] or st["compiler_runs_after_warmup"]:
+        fail(f"serving the optimized trained model: compile-once contract "
+             f"broken: {st}")
+    if not served or on_smem != served:
+        fail(f"serving the optimized trained model: {served} mixed launches, "
+             f"{on_smem} on smem")
+    slab_b = net_opt.slab_breakdown()["total_bytes"]
+    log(f"phase 5e optimized trained model (mixed, {slab_b} B of slabs) "
+        f"served: {rep.n_requests} requests "
+        f"({rep.rows} rows) bit-exact, p50={rep.p50_ms:.3f} ms "
+        f"p99={rep.p99_ms:.3f} ms, lut_mixed_forward {served} launches all "
+        f"on smem, retraces={st['retraces_after_warmup']} "
+        f"compiler_runs={st['compiler_runs_after_warmup']}")
     launches = masked_matmul.launches
     log(f"phase 5 main path launches: masked_matmul {launches} "
         f"(by route {masked_matmul.launches_by_route}), "
         f"lut_layer_forward {lut_lookup.launches}, lut_uniform_forward "
         f"{lut_network.launches} (by route "
-        f"{lut_network.launches_by_route})")
+        f"{lut_network.launches_by_route}), lut_mixed_forward "
+        f"{lut_network_mixed.launches} (by route "
+        f"{lut_network_mixed.launches_by_route})")
     return {"launches": launches,
             "launches_by_route": dict(masked_matmul.launches_by_route),
             "loss_rtol_20": rel,
             "table_mismatches": mismatched, "boundary_entries": near,
             "train_step_ms": train_s / TRAIN_STEPS * 1e3,
             "launches_per_step": (train_launches - 3) / TRAIN_STEPS,
-            "accuracy": res.accuracy}
+            "accuracy": res.accuracy, "optimize_level3_s": opt_s,
+            "lut_mixed_launches": lut_network_mixed.launches}
 
 
 def simt_masked_matmul(torch, x, w, mk, b):
@@ -1628,20 +1769,54 @@ def main() -> None:
         return [(r[f"idx_{i}"], r[f"table_{i}"], int(r["bws"][i]))
                 for i in range(len(r["bws"]))]
 
-    triples = triples_of(ref)
+    triples, triples_d = triples_of(ref), triples_of(ref_d)
+    host_s = compile_host_times({"A": triples, "D": triples_d})
+    log(f"compile host time (optimize wall s on the host CPU of the card's "
+        f"machine, not card time; {smi}): "
+        + " ".join(f"{m}@L{lv} {t:.4f}" for (m, lv), t in host_s.items()))
+
+    # the port's own compiler: model A and model D at level 3, before
+    # anything is served, each one compiler run
+    runs0 = engine.compile_runs()
     nets = {
-        "mixed": engine.load(str(FIXTURE / "model_a_l3.npz")),
+        "mixed": engine.compile_network(triples, optimize_level=3,
+                                        in_features=16, block_b=16),
+        # the reference's artifact: phase 1 holds the load path
+        "mixed_loaded": engine.load(str(FIXTURE / "model_a_l3.npz")),
+        # model D's level-3 slabs fit the fused budget: mixed by itself
+        "mixed_d": engine.compile_network(triples_d, optimize_level=3,
+                                          block_b=16),
         "uniform": engine.compile_network(triples, block_b=16),
         # model A's raw tables fit the uniform layout: the per-layer kernel
         # serves them only by force
         "per_layer": engine.compile_network(triples, fused=False,
                                             block_b=16),
-        # model D's do not: the engine sends them to it by itself
-        "per_layer_d": engine.compile_network(triples_of(ref_d), block_b=16),
+        # model D's raw tables do not: the engine sends them to it by itself
+        "per_layer_d": engine.compile_network(triples_d, block_b=16),
     }
+    compiled = 2
+    if engine.compile_runs() != runs0 + compiled:
+        fail(f"compile_runs() rose by {engine.compile_runs() - runs0} for "
+             f"{compiled} optimize_level builds")
     for key, net in nets.items():
-        if net.layout != key.removesuffix("_d") or net.device.type != "cuda":
+        want = "per_layer" if key.startswith("per_layer") else (
+            key.split("_")[0])
+        if net.layout != want or net.device.type != "cuda":
             fail(f"{key}: engine chose {net.layout} on {net.device}")
+    check_port_compiled(torch, nets["mixed"], nets["mixed_loaded"])
+    cost_md = nets["mixed_d"].plan.variant.cost
+    route_md = lut_network_mod.lut_fused_route(
+        lut_network_mod._smem_state(nets["mixed_d"].slabs, 16).layout)
+    if cost_md.reason != "fused" or route_md != "smem":
+        fail(f"model D at level 3: {cost_md.reason!r} on route {route_md}, "
+             f"not fused on smem")
+    log(f"model D at level 3: the engine chose mixed by itself "
+        f"({cost_md.slab_bytes} B of mixed slabs against a "
+        f"{cost_md.vmem_budget_bytes} B budget; "
+        f"{nets['mixed_d'].stats.neurons_after} neurons, "
+        f"{nets['mixed_d'].stats.table_bytes_after} B of tables), route "
+        f"{route_md}; compile_runs() rose by {compiled} for the 2 "
+        f"optimize_level builds")
     cost_d = nets["per_layer_d"].plan.variant.cost
     if cost_d.reason != "slab_exceeds_smem_budget":
         fail(f"model D: the engine chose per_layer for {cost_d.reason!r}, "
@@ -1686,7 +1861,7 @@ def main() -> None:
             return c
         return call
 
-    s_mixed, s_uniform = nets["mixed"].slabs, nets["uniform"].slabs
+    s_uniform = nets["uniform"].slabs
 
     def direct(slabs):
         """Each route of a fused kernel called directly (uncounted)."""
@@ -1723,22 +1898,35 @@ def main() -> None:
                             for i, _, _ in net.layers),
             per_call=len(net.layers))
 
-    kernels = {
-        "mixed": dict(
-            name="lut_mixed_forward", wrapper=lut_network_mixed,
-            net=nets["mixed"], codes=codes_all, want=ref["out_mixed"], bw=3,
-            kernel=lambda c: lut_network_mixed(c, s_mixed),
-            plain=lambda c: lut_network_mixed_plain(c, s_mixed),
-            slabs=s_mixed, direct=direct(s_mixed), routes=fused_routes,
+    def mixed(key, model, r, want, served=True):
+        net = nets[key]
+        sl = net.slabs
+        return dict(
+            name="lut_mixed_forward", wrapper=lut_network_mixed, net=net,
+            model=model, served=served,
+            codes=torch.from_numpy(r["codes"]).to(dev), want=r[want],
+            bw=int(r["bws"][0]),
+            kernel=lambda c: lut_network_mixed(c, sl),
+            plain=lambda c: lut_network_mixed_plain(c, sl),
+            slabs=sl, direct=direct(sl), routes=fused_routes,
             source=LUT_SMEM_SOURCE,
             replaces="src/repro/kernels/lut_network.py:541",
-            slab_bytes=nbytes(s_mixed.idx_slab, s_mixed.shift_slab,
-                              s_mixed.width_slab, s_mixed.table_slab,
-                              s_mixed.row_meta, s_mixed.layer_meta,
-                              s_mixed.perm),
+            slab_bytes=nbytes(sl.idx_slab, sl.shift_slab, sl.width_slab,
+                              sl.table_slab, sl.row_meta, sl.layer_meta,
+                              sl.perm),
             # per neuron element: mask, shift, add; per code: bound, address
             ops_per_row=sum(m.n_out * (3 * m.fan_in + 2)
-                            for m in s_mixed.meta), per_call=1),
+                            for m in sl.meta), per_call=1)
+
+    kernels = {
+        # the main path's mixed layout: model A compiled by the port
+        "mixed": mixed("mixed", "A", ref, "out_mixed"),
+        # the reference's artifact of the same slabs: phase 1 only
+        "mixed_loaded": mixed("mixed_loaded", "A", ref, "out_mixed",
+                              served=False),
+        # model D at level 3: the compiler keeps the raw tables' function
+        # on every code the 2-bit input bus carries
+        "mixed_d": mixed("mixed_d", "D", ref_d, "out_uniform"),
         "uniform": dict(
             name="lut_uniform_forward", wrapper=lut_network,
             net=nets["uniform"], codes=codes_all, want=ref["out_uniform"],
@@ -1816,6 +2004,8 @@ def main() -> None:
     # -- phase 2: the main path, serving each layout through the tier
     wrappers = {id(k["wrapper"]): k["wrapper"] for k in kernels.values()}
     for key, k in kernels.items():
+        if not k.get("served", True):
+            continue
         for w in wrappers.values():
             reset_counts(w)
         rep = serve.run_closed_loop(k["net"], n_clients=4, n_per_client=4,
@@ -1910,38 +2100,11 @@ def main() -> None:
                 f"{bound:.6f} ms ({moved} B)")
         return rec
 
-    records = []
-    layer_rec = None
-    for key, k in kernels.items():
-        if "layer_routes" in k:
-            times = layer_times(k)
-            if layer_rec is None:
-                # model A's chain at the top level, as earlier runs
-                # recorded it; model D's under "model_d"
-                layer_rec = {
-                    "name": k["name"], "route": "cuda",
-                    "source": k["source"], "replaces": k["replaces"],
-                    "launches": 0, "launches_by_route": {},
-                    "launches_by_model": {}, "max_abs_err": 0,
-                    "routes": k["layer_routes"],
-                    "earlier_design": {"source": LUT_SOURCE,
-                                       "entry": "lut_layer_forward"},
-                    **times, "library_ms": None, "batch": TIME_BATCHES[0]}
-                records.append(layer_rec)
-            else:
-                layer_rec[f"model_{k['model'].lower()}"] = times
-            layer_rec["launches"] += k["launches"]
-            layer_rec["launches_by_model"][k["model"]] = k["launches"]
-            for r, n in k["launches_by_route"].items():
-                layer_rec["launches_by_route"][r] = (
-                    layer_rec["launches_by_route"].get(r, 0) + n)
-            layer_rec["max_abs_err"] = max(layer_rec["max_abs_err"],
-                                           k["max_abs_err"])
-            continue
-        rec = {"name": k["name"], "route": "cuda", "source": k["source"],
-               "replaces": k["replaces"], "launches": k["launches"],
-               "max_abs_err": k["max_abs_err"], "routes": k["routes"],
-               "launches_by_route": k["launches_by_route"]}
+    def fused_times(k) -> dict:
+        """A fused kernel's times at TIME_BATCHES: the earlier design
+        (route global) and the routed kernel (smem) in turns, event and
+        device ms, the plain version and the bound."""
+        rec = {}
         for b in TIME_BATCHES:
             codes = k["codes"][:b].contiguous()
             iters = 200 if b <= 16 else 50
@@ -1971,18 +2134,76 @@ def main() -> None:
                         f"bound_ms{suffix}": max(bytes_ms, ops_ms),
                         f"bound_by{suffix}": ("bytes" if bytes_ms >= ops_ms
                                               else "operations")})
-            log(f"phase 3 {k['name']} batch {b}: {ms:.5f} ms/forward, "
+            log(f"phase 3 {k['name']} model {k.get('model', 'A')} batch "
+                f"{b}: {ms:.5f} ms/forward, "
                 f"device {dev_ms} ms, plain {plain_ms:.5f} ms, bound "
                 f"{max(bytes_ms, ops_ms):.6f} ms ({moved} B), earlier "
                 f"design (global route) "
                 f"{rec[f'earlier_ms{suffix}']:.5f} ms, device "
                 f"{earlier_dev} ms")
+        return rec
+
+    records = []
+    layer_rec = None
+    mixed_rec = None
+    for key, k in kernels.items():
+        if "layer_routes" in k:
+            times = layer_times(k)
+            if layer_rec is None:
+                # model A's chain at the top level, as earlier runs
+                # recorded it; model D's under "model_d"
+                layer_rec = {
+                    "name": k["name"], "route": "cuda",
+                    "source": k["source"], "replaces": k["replaces"],
+                    "launches": 0, "launches_by_route": {},
+                    "launches_by_model": {}, "max_abs_err": 0,
+                    "routes": k["layer_routes"],
+                    "earlier_design": {"source": LUT_SOURCE,
+                                       "entry": "lut_layer_forward"},
+                    **times, "library_ms": None, "batch": TIME_BATCHES[0]}
+                records.append(layer_rec)
+            else:
+                layer_rec[f"model_{k['model'].lower()}"] = times
+            layer_rec["launches"] += k["launches"]
+            layer_rec["launches_by_model"][k["model"]] = k["launches"]
+            for r, n in k["launches_by_route"].items():
+                layer_rec["launches_by_route"][r] = (
+                    layer_rec["launches_by_route"].get(r, 0) + n)
+            layer_rec["max_abs_err"] = max(layer_rec["max_abs_err"],
+                                           k["max_abs_err"])
+            continue
+        if not k.get("served", True):
+            continue
+        if key == "mixed_d":
+            # model D at level 3 under "model_d"; its launches join the
+            # mixed record's
+            mixed_rec["model_d"] = fused_times(k)
+            mixed_rec["launches"] += k["launches"]
+            mixed_rec["launches_by_model"]["D"] = k["launches"]
+            for r, n in k["launches_by_route"].items():
+                mixed_rec["launches_by_route"][r] += n
+            continue
+        rec = {"name": k["name"], "route": "cuda", "source": k["source"],
+               "replaces": k["replaces"], "launches": k["launches"],
+               "max_abs_err": k["max_abs_err"], "routes": k["routes"],
+               "launches_by_route": dict(k["launches_by_route"])}
+        if key == "mixed":
+            mixed_rec = rec
+            rec["launches_by_model"] = {"A": k["launches"]}
+            rec["max_abs_err"] = max(kernels[m]["max_abs_err"] for m in
+                                     ("mixed", "mixed_loaded", "mixed_d"))
+            rec["compile_host_s"] = {f"{m}@L{lv}": t
+                                     for (m, lv), t in host_s.items()}
+        rec.update(fused_times(k))
         rec["library_ms"] = None
         rec["batch"] = TIME_BATCHES[0]
         records.append(rec)
 
     mm = masked_matmul_phase(torch, dev)
     mm.update(training_phase(torch, dev, kernels))
+    # phase 5's own mixed launches (verify_tables and the optimized trained
+    # model served), beside phase 2's
+    mixed_rec["launches_training_path"] = mm.pop("lut_mixed_launches")
     records.append(masked_matmul_times(torch, dev, mm))
     records[-1].update(training_profile(torch, dev))
 

@@ -212,19 +212,25 @@ def generate_tables(net: LogicNet) -> list[TT.LayerTruthTable]:
 
 
 def verify_tables(net: LogicNet, tables: list[TT.LayerTruthTable], x,
-                  fused: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                  fused: bool = False, optimize_level: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Functional verification: float path vs table path on the sparse stack.
 
     Returns ``(codes_float_path, codes_table_path)`` on the network's
     device; the contract is exact equality.  The float path runs the
     sparse layers in eval mode (on the card: the masked-matmul kernel);
     the table path runs the per-layer LUT kernel, or with ``fused=True``
-    the compiled whole-network kernel.
+    the compiled whole-network kernel.  ``optimize_level`` first shrinks
+    the tables through the truth-table compiler (``repro_torch.compile``);
+    the equality must survive it.  With ``fused=True`` that serves the
+    compiler's mixed-width lowering, so this is also the mixed kernel's
+    end-to-end check.
     """
     cfgs = net.cfg.layer_cfgs()
     x = _as_input(net, x)
     table_out = table_infer.network_table_forward(
-        tables, codes(cfgs[0].in_quant, x), fused=fused)
+        tables, codes(cfgs[0].in_quant, x), fused=fused,
+        optimize_level=optimize_level)
     with net.mode(False), torch.no_grad():
         h = x
         for layer in net.layers[:len(tables)]:

@@ -4,8 +4,9 @@ the port of ``repro.core.table_infer``.
 Runs a network through its generated tables: pack each neuron's selected
 input codes into a table index and read the output code there.  Must
 match the quantized float forward bit for bit.  On CUDA codes the
-per-layer chain launches the ``lut_lookup`` kernel and ``fused=True`` the
-uniform whole-network kernel (through ``engine.compile_network``); on CPU
+per-layer chain launches the ``lut_lookup`` kernel and ``fused=True`` a
+whole-network kernel (through ``engine.compile_network``: the mixed one
+after the compiler, else the uniform one when the slabs fit); on CPU
 codes both run their plain versions.
 """
 
@@ -44,21 +45,27 @@ def network_table_forward(tables: list[LayerTruthTable],
     """Full sparse-stack forward on integer codes, on ``in_codes``' device.
 
     ``fused=True`` compiles the tables into a ``CompiledLUTNet``
-    (``repro_torch.engine.compile_network``: the uniform whole-network
-    kernel when its slabs fit) and runs it; ``fused=False`` chains
-    :func:`layer_table_forward`.  A serving loop should compile once and
-    keep the artifact instead.  ``optimize_level`` needs the truth-table
-    compiler, which is not ported yet.
+    (``repro_torch.engine.compile_network``) and runs it; ``fused=False``
+    chains :func:`layer_table_forward`.  A serving loop should compile once
+    and keep the artifact instead.
+
+    ``optimize_level`` (0-3, or 4) first runs the truth-table compiler
+    (``repro_torch.compile``) over the stack; the output stays bit-identical
+    on every reachable input.  With ``fused=True`` the engine runs the
+    compiler and serves its compact mixed-width lowering (the mixed fused
+    kernel) when its slabs fit; with ``fused=False`` the per-layer kernel
+    runs the compiler's uniform lowering.
     """
-    if optimize_level is not None:
-        raise NotImplementedError(
-            "optimize_level needs the truth-table compiler, which is not "
-            "ported to repro_torch yet")
     if fused:
         from repro_torch import engine
-        net = engine.compile_network(tables, in_features=in_codes.shape[-1],
+        net = engine.compile_network(tables, optimize_level=optimize_level,
+                                     in_features=in_codes.shape[-1],
                                      device=in_codes.device)
         return net(in_codes)
+    if optimize_level is not None:
+        from repro_torch.compile import optimize_tables
+        tables = optimize_tables(list(tables), optimize_level,
+                                 in_features=in_codes.shape[-1])
     c = in_codes
     for tt in tables:
         c = layer_table_forward(tt, c)

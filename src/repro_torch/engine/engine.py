@@ -3,6 +3,8 @@
 The port of ``repro.engine.engine``::
 
     from repro_torch import engine
+    net = engine.compile_network(tables, optimize_level=3, in_features=16)
+    net.stats                                    # the compiler run's CompileStats
     net = engine.load("model_a_l3.npz")          # on cuda; device="cpu" asks
     out = net(codes)                             # (batch, n_out) int32
     net.save("copy.npz")                         # readable by repro.engine
@@ -14,14 +16,16 @@ kernel launch per layer); ``"reference"`` is the plain-torch oracle
 chain.  ``save`` / ``load`` use the reference's ``.npz`` artifact format
 (versions 1-3), so either package serves what the other wrote.
 
-``compile_network`` runs the layout ladder over raw ``(indices, table,
-bw_in)`` triples: uniform when the slabs fit the shared-memory budget,
-else per-layer.  The truth-table compiler (``optimize_level``) and the
-mixed rung it feeds are not ported yet; a level-3 artifact is compiled
-by the reference and loaded here.
+``compile_network`` runs the reference's layout ladder: with
+``optimize_level`` the truth-table compiler (``repro_torch.compile``) runs
+once and its mixed-width lowering takes the fused mixed layout when its
+slabs fit the shared-memory budget; otherwise the uniform layout when
+its slabs fit, else per-layer.
 
-``stats`` is the reference's ``CompileStats`` record as the saved dict,
-written back verbatim.
+``stats`` is the ``CompileStats`` of the build's one compiler run
+(``None`` when the compiler did not run); ``save`` writes it as
+``as_dict()`` and ``load`` reads it back with ``from_dict``, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -35,12 +39,14 @@ import torch
 from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint.ckpt import load_arrays, save_arrays
+from repro_torch.compile.pipeline import CompileStats, OptimizeResult
 from repro_torch.engine.autotune import ExecutionPlan
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.lut_lookup import DEFAULT_BLOCK_B, lut_lookup
 from repro_torch.kernels.lut_network import (LayerMeta, MixedGroupMeta,
                                              MixedLayerMeta,
                                              MixedNetworkSlabs, NetworkSlabs,
+                                             build_mixed_network_slabs,
                                              build_network_slabs,
                                              lut_network, lut_network_mixed)
 from repro_torch.kernels.plan import (FUSED_SMEM_BUDGET_BYTES, FusedPlan,
@@ -51,6 +57,13 @@ from repro_torch.kernels.plan import (FUSED_SMEM_BUDGET_BYTES, FusedPlan,
 FORMAT_VERSION = 3
 ARTIFACT_KIND = "repro.engine.CompiledLUTNet"
 
+# process-wide count of optimize() runs issued by this module; the tier
+# and the serving tests assert it stays flat after warmup
+_compile_runs = 0
+
+_M_COMPILER_RUNS = obs.registry().counter(
+    "engine_compiler_runs_total",
+    "truth-table compiler invocations issued by the engine")
 _M_BUILDS = obs.registry().counter(
     "engine_builds_total", "CompiledLUTNet builds by chosen layout",
     labels=("layout",))
@@ -63,9 +76,8 @@ _M_LOADS = obs.registry().counter(
 
 
 def compile_runs() -> int:
-    """Truth-table compiler runs issued by this engine: always 0 until the
-    compiler is ported (``compile_network(optimize_level=)`` raises)."""
-    return 0
+    """How many times this module has invoked the truth-table compiler."""
+    return _compile_runs
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
@@ -87,7 +99,7 @@ class CompiledLUTNet:
     n_out: int
     block_b: int
     plan: ExecutionPlan
-    stats: dict | None
+    stats: CompileStats | None
     device: torch.device
     slabs: NetworkSlabs | MixedNetworkSlabs | None = None
     layers: tuple[tuple[torch.Tensor, torch.Tensor, int], ...] | None = None
@@ -152,7 +164,7 @@ class CompiledLUTNet:
             "kind": ARTIFACT_KIND, "format": FORMAT_VERSION,
             "layout": self.layout, "n_in": self.n_in, "n_out": self.n_out,
             "block_b": self.block_b, "plan": self.plan.as_dict(),
-            "stats": self.stats,
+            "stats": None if self.stats is None else self.stats.as_dict(),
         }
         s = self.slabs
         if self.layout == "mixed":
@@ -241,11 +253,13 @@ def load(path: str, device=None) -> CompiledLUTNet:
             for li, bw in enumerate(meta["bws"]))
     else:
         raise ValueError(f"{path} has unknown layout {layout!r}")
+    stats = (None if meta["stats"] is None
+             else CompileStats.from_dict(meta["stats"]))
     _M_LOADS.inc()
     return CompiledLUTNet(layout=layout, n_in=int(meta["n_in"]),
                           n_out=int(meta["n_out"]),
                           block_b=int(meta["block_b"]), plan=plan,
-                          stats=meta["stats"], device=dev, slabs=slabs,
+                          stats=stats, device=dev, slabs=slabs,
                           layers=layers)
 
 
@@ -267,28 +281,72 @@ def compile_network(layers, *, optimize_level: int | None = None,
                     use_pallas: bool = True, block_b: int = DEFAULT_BLOCK_B,
                     budget_bytes: int = FUSED_SMEM_BUDGET_BYTES,
                     device=None) -> CompiledLUTNet:
-    """Build a serving artifact from ``(indices, table, bw_in)`` triples.
+    """Build a serving artifact, running the truth-table compiler at most
+    once.
 
-    ``layers`` may also be objects with ``indices``, ``table`` and
-    ``bw_in`` fields.  The reference's ladder without its compiler rung:
+    ``layers`` is a ``LayerTruthTable`` list, a sequence of ``(indices,
+    table, bw_in)`` triples, or an already-computed
+    ``repro_torch.compile.OptimizeResult`` (the compiler is then skipped
+    and its lowerings reused; ``optimize_level`` must be None).  The
+    reference's ladder:
 
-    1. the fused uniform layout when its slabs fit ``budget_bytes`` and
-       ``fused`` is set;
-    2. otherwise one per-layer kernel launch per layer; ``use_pallas=False``
+    1. ``optimize_level`` set -> run ``compile.optimize`` once; cost the
+       compiler's mixed-width lowering with ``fused_plan`` and take the
+       fused mixed layout when it fits ``budget_bytes``;
+    2. otherwise the fused uniform layout (of the compiler's uniform
+       lowering when it ran) when its slabs fit and ``fused`` is set;
+    3. otherwise one per-layer kernel launch per layer; ``use_pallas=False``
        (the reference's name) pins the plain-torch reference chain.
 
     ``in_features`` is the input bus width (default: the widest first-layer
-    index + 1); ``device`` defaults to ``cuda``.
+    index + 1, or the compiler's own record of it); ``device`` defaults to
+    ``cuda``.
     """
-    if optimize_level is not None:
-        raise NotImplementedError(
-            "optimize_level needs the truth-table compiler, which is not "
-            "ported to repro_torch yet (a later slice); compile with "
-            "repro.engine.compile_network and load the saved artifact")
+    global _compile_runs
     dev = resolve_device(device)
-    triples = _as_triples(layers)
-    if in_features is None:
-        in_features = int(np.max(np.asarray(triples[0][0]))) + 1
+    res: OptimizeResult | None = None
+    if isinstance(layers, OptimizeResult):
+        if optimize_level is not None:
+            raise ValueError(
+                "layers is already an OptimizeResult; optimize_level must "
+                "be None (the compiler does not run again)")
+        res = layers
+    else:
+        triples = _as_triples(layers)
+        if in_features is None:
+            # only the first layer's indices address the input bus
+            in_features = int(np.max(np.asarray(triples[0][0]))) + 1
+        if optimize_level is not None:
+            from repro_torch.compile import optimize, tables_from_triples
+            res = optimize(tables_from_triples(triples), optimize_level,
+                           in_features=in_features)
+            _compile_runs += 1
+            _M_COMPILER_RUNS.inc()
+    stats = res.stats if res is not None else None
+
+    if res is not None and use_pallas and fused:
+        mixed = res.mixed_tables
+        cost = fused_plan(mixed, budget_bytes)
+        if cost.fused:
+            t0 = time.perf_counter()
+            slabs = build_mixed_network_slabs(mixed, pack=cost.pack,
+                                              device=dev)
+            _M_SLAB_BUILD.observe(time.perf_counter() - t0)
+            _M_BUILDS.labels(layout="mixed").inc()
+            return CompiledLUTNet(
+                layout="mixed",
+                n_in=(res.cnet.in_features if in_features is None
+                      else in_features),
+                n_out=slabs.n_out, block_b=block_b,
+                plan=ExecutionPlan.from_fused(cost, "mixed", block_b),
+                stats=stats, device=dev, slabs=slabs)
+    if res is not None:
+        # the padded uniform lowering, built only once the mixed layout is
+        # ruled out; the optimized first layer may have pruned its widest
+        # input feature, so the bus width comes from the IR
+        triples = [(tt.indices, tt.table, tt.bw_in) for tt in res.tables]
+        if in_features is None:
+            in_features = res.cnet.in_features
     n_out = int(np.asarray(triples[-1][1]).shape[0])
 
     cost = fused_plan(triples, budget_bytes)
@@ -304,7 +362,7 @@ def compile_network(layers, *, optimize_level: int | None = None,
             layout="uniform", n_in=in_features, n_out=slabs.n_out,
             block_b=block_b,
             plan=ExecutionPlan.from_fused(cost, "uniform", block_b),
-            stats=None, device=dev, slabs=slabs)
+            stats=stats, device=dev, slabs=slabs)
     built = tuple((_tensor(np.asarray(i, dtype=np.int32), dev),
                    _tensor(np.asarray(t, dtype=np.int32), dev), int(b))
                   for i, t, b in triples)
@@ -314,4 +372,4 @@ def compile_network(layers, *, optimize_level: int | None = None,
     return CompiledLUTNet(
         layout=layout, n_in=in_features, n_out=n_out, block_b=block_b,
         plan=ExecutionPlan.from_fused(cost, layout, block_b),
-        stats=None, device=dev, layers=built)
+        stats=stats, device=dev, layers=built)

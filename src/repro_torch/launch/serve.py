@@ -1,7 +1,9 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --lut``.
 
-Loads a saved ``CompiledLUTNet`` artifact (either package's) and drives it
-through the ``repro_torch.serve`` micro-batching tier under closed-loop
+Loads a saved ``CompiledLUTNet`` artifact (either package's), or without
+``--artifact`` compiles generated fpga4hep model A through the truth-table
+compiler (``--optimize-level``, default 3), and drives it through the
+``repro_torch.serve`` micro-batching tier under closed-loop
 (or ``--open-loop RPS``) load, reporting p50/p99 latency, QPS, batch
 occupancy and the compile-once counters, with the reference CLI's report
 lines::
@@ -10,12 +12,14 @@ lines::
     python -m repro_torch.launch.serve --lut \\
         --artifact tests/fixtures/torch_port/model_a_l3.npz --input-bw 3
 
-    # quick smoke on the CPU (plain PyTorch versions of the kernels)
-    python -m repro_torch.launch.serve --lut --artifact A.npz --smoke \\
-        --device cpu
+    # compile generated model A at level 3 and serve it (layout mixed)
+    python -m repro_torch.launch.serve --lut --optimize-level 3
 
-Compiling a model in-process (the truth-table compiler), the HTTP ingress
-and the LM decode demo of ``repro.launch.serve`` wait for later slices.
+    # quick smoke on the CPU (plain PyTorch versions of the kernels)
+    python -m repro_torch.launch.serve --lut --smoke --device cpu
+
+The HTTP ingress, ``--autotune`` and the LM decode demo of
+``repro.launch.serve`` wait for later slices.
 Exits non-zero if the compile-once contract is broken in steady state.
 """
 
@@ -51,24 +55,62 @@ def _print_report(rep, st: dict) -> None:
                   f"p50={leg['p50_ms']:.2f}ms p99={leg['p99_ms']:.2f}ms")
 
 
+def _build_net(args: argparse.Namespace):
+    """Load ``--artifact`` or compile generated fpga4hep model A.
+
+    Model A is made as the reference's CLI makes it (a seeded init, one
+    ``train=True`` forward over 256 rows uniform in [-1, 3) for the
+    batch-norm statistics, ``generate_tables``), from ``torch.Generator``
+    seeds 0 and 1, so its tables are not the reference's.  Returns the
+    net and the request code width.
+    """
+    import torch
+
+    from repro_torch import engine
+
+    if args.artifact:
+        net = engine.load(args.artifact, device=args.device)
+        print(f"[serve --lut] loaded {args.artifact}: layout={net.layout} "
+              f"n_in={net.n_in} n_out={net.n_out} "
+              f"table slab {net.slab_breakdown()['table_slab_bytes']} B "
+              f"on {net.device} "
+              f"(compiler runs this process: {engine.compile_runs()})")
+        # the artifact does not record its input quantizer width
+        return net, args.input_bw
+    from repro_torch._device import resolve_device
+    from repro_torch.configs import fpga4hep
+    from repro_torch.core import logicnet as LN
+
+    dev = resolve_device(args.device)
+    cfg = fpga4hep.model_a()
+    model = LN.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    x = torch.rand((256, cfg.in_features),
+                   generator=torch.Generator().manual_seed(1)) * 4 - 1
+    with torch.no_grad():
+        LN.forward(model, x, train=True)
+    tables = LN.generate_tables(model)
+    net = engine.compile_network(tables, optimize_level=args.optimize_level,
+                                 in_features=cfg.in_features,
+                                 block_b=args.block_b, device=dev)
+    print(f"[serve --lut] compiled generated fpga4hep model A at level "
+          f"{args.optimize_level}: layout={net.layout}, table slab "
+          f"{net.slab_breakdown()['table_slab_bytes']} B on {net.device}")
+    return net, cfg.bw
+
+
 def _run_lut(args: argparse.Namespace) -> None:
-    """Load the artifact and drive it through the tier.
+    """Load or compile the net and drive it through the tier.
 
     ``--metrics-json`` dumps in a ``finally`` so a run killed by SIGTERM
     still leaves its snapshot (SIGTERM is re-pointed at ``SystemExit``).
     """
-    from repro_torch import engine, obs, serve
+    from repro_torch import obs, serve
 
     def _term(signum, frame):
         raise SystemExit(128 + signum)
 
     signal.signal(signal.SIGTERM, _term)
-    net = engine.load(args.artifact, device=args.device)
-    print(f"[serve --lut] loaded {args.artifact}: layout={net.layout} "
-          f"n_in={net.n_in} n_out={net.n_out} "
-          f"table slab {net.slab_breakdown()['table_slab_bytes']} B "
-          f"on {net.device} "
-          f"(compiler runs this process: {engine.compile_runs()})")
+    net, bw = _build_net(args)
     if args.smoke:
         args.clients, args.requests_per_client = 4, 4
     tier_cfg = serve.TierConfig(
@@ -78,7 +120,7 @@ def _run_lut(args: argparse.Namespace) -> None:
         request_timeout_s=(None if args.request_timeout_ms is None
                            else args.request_timeout_ms * 1e-3))
     load = dict(rows_min=args.rows_min, rows_max=args.rows_max,
-                bw=args.input_bw, seed=args.seed)
+                bw=bw, seed=args.seed)
     try:
         with obs.PeriodicReporter(interval_s=args.report_every_s):
             if args.open_loop is not None:
@@ -117,8 +159,13 @@ def main(argv=None) -> None:
     ap.add_argument("--lut", action="store_true", required=True,
                     help="serve a CompiledLUTNet through the micro-batching "
                     "tier (the only mode of the port so far)")
-    ap.add_argument("--artifact", required=True, metavar="NPZ",
-                    help="saved CompiledLUTNet .npz to serve")
+    ap.add_argument("--artifact", default=None, metavar="NPZ",
+                    help="saved CompiledLUTNet .npz to serve (default: "
+                    "compile generated fpga4hep model A)")
+    ap.add_argument("--optimize-level", type=int, default=3,
+                    help="truth-table compiler level when compiling")
+    ap.add_argument("--block-b", type=int, default=16,
+                    help="engine batch bucket when compiling")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                     "kernels' plain PyTorch versions)")
@@ -143,8 +190,9 @@ def main(argv=None) -> None:
     ap.add_argument("--report-json", default=None, metavar="PATH",
                     help="dump the LoadReport as JSON")
     ap.add_argument("--input-bw", type=int, default=2,
-                    help="synthetic request code width (codes are uniform "
-                    "in [0, 2**bw); the artifact does not record it)")
+                    help="synthetic request code width for --artifact "
+                    "(codes are uniform in [0, 2**bw); the artifact does "
+                    "not record it; a compiled model A uses its own 3)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--smoke", action="store_true",
                     help="tiny load (4 clients x 4 requests)")

@@ -4,7 +4,9 @@
 Select a Table 6.1 model (A-E) and a sparsity method, train, report
 per-class AUC-ROC and accuracy, verify the truth tables exactly against
 the float path, compare the analytical LUT cost with the
-logic-minimization proxy (Table 5.2), compile the tables into a serving
+logic-minimization proxy (Table 5.2), shrink the tables with the
+truth-table compiler (``--optimize-level``, default 2; 0 skips it) and
+verify the optimized tables exactly, compile the result into a serving
 artifact and check it against the table codes::
 
     # train model A on the card and keep its serving artifact
@@ -16,8 +18,8 @@ artifact and check it against the table codes::
     # a few steps on the CPU (plain PyTorch versions of the kernels)
     python -m repro_torch.launch.train_jsc_logicnet --steps 5 --device cpu
 
-The truth-table compiler (``--optimize-level``) and Verilog output of
-``examples/train_jsc_logicnet.py`` wait for their modules' port.
+The Verilog output of ``examples/train_jsc_logicnet.py`` waits for the
+Verilog module's port.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ def main(argv=None) -> None:
                     choices=["apriori", "iterative", "momentum"])
     ap.add_argument("--steps", type=int, default=600)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--optimize-level", type=int, default=2,
+                    help="truth-table compiler level (0 disables; see "
+                    "repro_torch.compile)")
     ap.add_argument("--out", default=None,
                     help="directory for the serving artifact "
                     "logicnet_<model>.npz")
@@ -85,8 +90,21 @@ def main(argv=None) -> None:
           f"{minimized} ({analytical / max(minimized, 1):.2f}x reduction; "
           "Vivado synthesis lands lower still, Table 5.2)")
 
-    net = engine.compile_network(tables, in_features=cfg.in_features,
-                                 device=dev)
+    opt = None
+    if args.optimize_level:
+        from repro_torch import compile as rcompile
+        opt = rcompile.optimize(tables, args.optimize_level,
+                                in_features=cfg.in_features)
+        print(f"truth-table compiler: {rcompile.summarize(opt.stats)}")
+        # verify the optimized tables themselves: one compile, reused for
+        # the serving artifact below
+        f_codes, t_codes = LN.verify_tables(res.model, opt.tables, xv[:200])
+        if not torch.equal(f_codes, t_codes):
+            raise SystemExit("optimized-table verification failed")
+        print("optimized-table functional verification: EXACT")
+
+    net = engine.compile_network(opt if opt is not None else tables,
+                                 in_features=cfg.in_features, device=dev)
     bd = net.slab_breakdown()
     print(f"serving artifact: layout={net.layout} "
           f"table slab {bd['table_slab_bytes']} B "

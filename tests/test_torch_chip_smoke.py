@@ -97,3 +97,48 @@ def test_per_layer_bound_counts_each_launch_codes(cs):
     assert cs.per_layer_bytes(16, 16, shapes_d) == 4 * (
         16 * (16 + 64 + 64 + 32 + 32 + 32 + 32 + 5)
         + 64 * 1029 + 32 * 1029 * 2 + 5 * 4102)
+
+
+def test_port_compiled_model_a_passes_its_check(cs, capsys):
+    """``check_port_compiled`` passes the port's level-3 compile of model
+    A's raw tables against the reference's artifact (here on the CPU), and
+    fails a build whose stats differ."""
+    import dataclasses
+
+    import torch
+
+    from torch_port_util import ARTIFACT, load_ref, ref_triples
+
+    from repro_torch import engine
+
+    net = engine.compile_network(ref_triples(load_ref()), optimize_level=3,
+                                 in_features=16, block_b=16, device="cpu")
+    stored = engine.load(ARTIFACT, device="cpu")
+    cs.check_port_compiled(torch, net, stored)
+    assert "equals model_a_l3.npz" in capsys.readouterr().out
+    other = dataclasses.replace(
+        net, stats=dataclasses.replace(net.stats, rounds=net.stats.rounds + 1))
+    with pytest.raises(SystemExit):
+        cs.check_port_compiled(torch, other, stored)
+
+
+def test_record_filters(cs):
+    rec = {"level": 3, "seconds": 1.0,
+           "passes": [{"name": "cse", "seconds": 0.5, "round": 0}]}
+    assert cs.untimed(rec) == {"level": 3,
+                               "passes": [{"name": "cse", "round": 0}]}
+    plan = {"source": "heuristic", "variant": {"layout": "mixed", "cost": {
+        "fused": True, "vmem_budget_bytes": 183296,
+        "headroom_bytes": 140168, "slab_bytes": 43128}}}
+    assert cs.plan_without_budget(plan) == {
+        "source": "heuristic", "variant": {"layout": "mixed", "cost": {
+            "fused": True, "slab_bytes": 43128}}}
+
+
+def test_compile_host_times_cover_levels_0_to_4(cs):
+    from torch_port_util import random_stack
+
+    layers = random_stack((16, 8, 4), (2, 2), (2, 2), seed=3)
+    times = cs.compile_host_times({"X": layers})
+    assert sorted(times) == [("X", lv) for lv in range(5)]
+    assert all(t >= 0 for t in times.values())

@@ -14,7 +14,9 @@ lut_layer_smem.cu``), forced at the rule's geometry and at small tiles,
 with and without programmatic dependent launch and with tables 4 bytes
 past a 16-byte boundary, on model A's and model D's layers and edge
 cases, beside the first design (``lut_layer_forward``), and a queued
-chain of 48 dependent launches against the plain chain.  The masked
+chain of 48 dependent launches against the plain chain; and the mixed
+kernel's two routes on what the port's own compiler makes at level 3
+(models A and D, and three seeded random stacks).  The masked
 matmul is held to its plain
 version within float32 atol 1e-4 / rtol 1e-5 (another summation order)
 and bfloat16 atol 5e-2 / rtol 1e-3 plus exactly one bfloat16 step of the
@@ -450,6 +452,57 @@ def test_model_d_served_per_layer_matches_reference(dev):
     for b in (1, 16, 17, 4096):
         assert torch.equal(net(x[:b]).cpu(),
                            torch.from_numpy(ref["out_uniform"][:b]))
+
+
+# -- the port's own compiler feeding the mixed kernel
+
+def _fixture(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.mark.parametrize("model", ["A", "D"])
+def test_port_compiled_models_on_mixed_kernel(dev, model):
+    """Models A and D compiled by the port at level 3 take the mixed layout
+    and the smem route; both routes equal the plain version at every
+    batch, and the outputs the raw tables' (the reference's)."""
+    ref = _fixture(REF if model == "A" else MODEL_D)
+    triples = [(ref[f"idx_{i}"], ref[f"table_{i}"], int(ref["bws"][i]))
+               for i in range(len(ref["bws"]))]
+    runs = engine.compile_runs()
+    net = engine.compile_network(triples, optimize_level=3, in_features=16,
+                                 block_b=16, device=dev)
+    assert engine.compile_runs() == runs + 1
+    assert net.layout == "mixed" and net.plan.variant.cost.reason == "fused"
+    x = _on(dev, ref["codes"])[0]
+    for batch in LUT_BATCHES:
+        _fused_routes(net.slabs, x[:batch].contiguous())
+    want = ref["out_mixed" if model == "A" else "out_uniform"]
+    assert torch.equal(net(x).cpu(), torch.from_numpy(want))
+
+
+@pytest.mark.parametrize("seed,hi", [(0, 2), (1, 3), (2, None)])
+def test_port_compiled_random_stacks_on_mixed_kernel(dev, seed, hi):
+    """Seeded sparse stacks at level 3 (codes from 2 values, which the
+    re-encoding pass narrows to 1 bit, from 3 or from all 4): both routes
+    of the mixed kernel equal the plain version, and the raw stack's plain
+    chain."""
+    from repro_torch import compile as rcompile
+
+    layers = random_stack((16, 40, 24, 12), (3, 4, 2), (2, 2, 2),
+                          seed=seed, hi=hi)
+    opt = rcompile.optimize(rcompile.tables_from_triples(layers), 3,
+                            in_features=16)
+    slabs = P.build_mixed_network_slabs(opt.mixed_tables, device=dev)
+    for batch in LUT_BATCHES:
+        xc = codes(16, batch, hi=4, seed=batch)
+        _fused_routes(slabs, _on(dev, xc)[0])
+        want = torch.from_numpy(xc)
+        for idx, tab, bw in layers:
+            want = lut_lookup_plain(want, *(torch.from_numpy(a)
+                                            for a in (idx, tab)), bw)
+        got = P.lut_network_mixed(_on(dev, xc)[0], slabs)
+        assert torch.equal(got.cpu(), want)
 
 
 def _mm_inputs(dev, m, k, n, dtype, seed=0):

@@ -176,9 +176,17 @@ def test_batch_edges_and_input_validation():
         np.testing.assert_array_equal(net(x).numpy(), full[:13].numpy())
         with pytest.raises(ValueError, match="expected"):
             net(np.zeros((2, 9), np.int32))
-    with pytest.raises(NotImplementedError, match="compiler"):
-        engine.compile_network(layers, optimize_level=3, device="cpu")
-    assert engine.compile_runs() == 0
+    # the compiler rung: one run, the reference's layout and outputs,
+    # ragged batches padded the same way
+    runs = engine.compile_runs()
+    net = engine.compile_network(layers, optimize_level=3, in_features=8,
+                                 block_b=8, device="cpu")
+    jnet = jengine.compile_network(layers, optimize_level=3, in_features=8,
+                                   block_b=8)
+    assert engine.compile_runs() == runs + 1
+    assert net.layout == jnet.layout
+    x = codes(8, 13, seed=1)
+    np.testing.assert_array_equal(_port_out(net, x), _jax_out(jnet, x))
 
 
 def test_ladder_matches_reference_on_model_a():

@@ -388,8 +388,15 @@ def test_table_forward_matches_reference(fixture, held_out):
         PLN.sparse_head_forward(net, tables, xv).numpy(),
         np.asarray(JLN.sparse_head_forward(cfg, model, jt, jnp.asarray(xv))),
         atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="compiler"):
-        PTI.network_table_forward(tables, pc, optimize_level=1)
+    # the compiler first (level 1), through both table paths, against the
+    # reference's compiled per-layer chain
+    want1 = np.asarray(JTI.network_table_forward(jt, in_codes,
+                                                 optimize_level=1))
+    np.testing.assert_array_equal(want1, np.asarray(want))
+    for fused in (False, True):
+        np.testing.assert_array_equal(
+            PTI.network_table_forward(tables, pc, fused=fused,
+                                      optimize_level=1).numpy(), want1)
 
 
 def test_skip_topology_forwards_but_has_no_tables():

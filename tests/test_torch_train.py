@@ -181,8 +181,13 @@ def test_entry_point_on_cpu(tmp_path, capsys):
     assert "truth-table functional verification: EXACT" in out
     assert "serving artifact verification: EXACT" in out
     assert "AUC-ROC[t]" in out and "minimization proxy" in out
+    # the default --optimize-level 2 compiles once: its summary, the
+    # optimized tables verified, and a mixed artifact built from them
+    assert "truth-table compiler: level=2 " in out
+    assert "optimized-table functional verification: EXACT" in out
     net = engine.load(str(tmp_path / "logicnet_A.npz"), device="cpu")
-    assert net.layout == "uniform" and (net.n_in, net.n_out) == (16, 64)
+    assert net.layout == "mixed" and (net.n_in, net.n_out) == (16, 64)
+    assert net.stats is not None and net.stats.level == 2
     # the reference reads the artifact the port wrote
     from repro import engine as jengine
     ref_net = jengine.load(str(tmp_path / "logicnet_A.npz"))

@@ -70,6 +70,25 @@ def het_fan_in_stack(widths, bws, fan_in_choices, seed=0):
     return net
 
 
+def untimed(d):
+    """A compile-stats record with every ``seconds`` field dropped."""
+    if isinstance(d, dict):
+        return {k: untimed(v) for k, v in d.items() if k != "seconds"}
+    if isinstance(d, list):
+        return [untimed(v) for v in d]
+    return d
+
+
+def assert_same_cover(a, b):
+    """Two SOP covers (either package's) equal, or both budget fallbacks."""
+    if a is None or b is None:
+        assert a is None and b is None
+        return
+    assert (a.n_in, a.out_bits, a.bits) == (b.n_in, b.out_bits, b.bits)
+    assert (a.n_terms, a.n_literals) == (b.n_terms, b.n_literals)
+    np.testing.assert_array_equal(a.table(), b.table())
+
+
 def codes(n_in, batch, hi=4, seed=0):
     return np.random.default_rng(seed).integers(0, hi, (batch, n_in),
                                                 dtype=np.int32)

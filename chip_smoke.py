@@ -200,6 +200,35 @@ pass:
     operations three times over at 495 TFLOP/s (dense TF32), and the SIMT
     route's at 67 TFLOP/s.
 
+11. **the serving front** — (a) HTTP: ``BackgroundIngress`` on port 0
+    over model A at level 3 as the port compiled it (mixed, ``smem``),
+    then over model D's raw tables (per-layer, by the engine's choice),
+    every launch counter at 0 before each: the fixture's 4096 rows as raw
+    int8 and as JSON bodies, bit-exact with the reference's outputs;
+    ``run_open_loop(url=..., verify_net=net)`` at 400 rps offered, 64
+    requests of 1-8 rows, every request ``ok`` and bit-exact; a quota case
+    (200 rows/s, burst 16) whose ``rejected_quota`` count is positive and
+    equals the rise of ``ingress_rejected_total{reason="quota"}``; zero
+    kernel builds and compiler runs after warmup; launches of the model's
+    kernel only, on its expected routes; ``GET /metrics`` holding the
+    ``serve_*`` and ``ingress_*`` families; HTTP p50 / p99 / rows/s printed
+    beside phase 2's in-process figures.  (b) autotune:
+    ``compile_network(optimize_level=3, autotune=True)`` on models A and D
+    (one compiler run each): every enumerated variant timed, each with a
+    kernel route (from ``launches_by_route``; a ``global`` route is
+    reported, not failed), the winner the argmin of the table, the plan's
+    ``backend`` naming the card, outputs bit-exact with the reference's;
+    after ``save`` and ``load`` zero compiler runs, zero variants timed
+    and the same outputs, and with ``backend`` stripped from the plan
+    ``measured_here`` false; the search run a second time on the same
+    tables, both timing tables printed (key, route, us a forward) with the
+    spread among variants that differ only in block_b beside the gap
+    between layouts.  (c) ``python -m repro_torch.launch.serve --lut
+    --http 0 --smoke`` and ``--lut --autotune --smoke`` as subprocesses:
+    exit 0, zero builds and compiler runs after warmup.  The LUT records
+    carry phase 11's launches beside phase 2's (``launches_http_a`` /
+    ``launches_http_d``, ``launches_autotune``).
+
 Every device time is ``torch.profiler``'s sum of the measured calls'
 kernel records, taken only from a trace that holds all of them and, for
 device-bound calls (the flash shapes, the 4096^3 masked matmuls), reads at
@@ -214,6 +243,7 @@ it exits non-zero before printing either.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1719,6 +1749,315 @@ def flash_f32_times(torch, dev) -> dict:
             "shape": [b, 16, 8, s, 128]}
 
 
+def http_get(port: int, path: str) -> tuple[int, str]:
+    """One ``GET`` against a localhost ingress (30 s timeout)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def counter_value(snap: dict, name: str, **labels) -> float:
+    for s in snap.get(name, {}).get("series", []):
+        if s["labels"] == labels:
+            return s["value"]
+    return 0.0
+
+
+def block_b_spread(timings: dict) -> tuple[dict, dict]:
+    """Per (layout, pack): the spread of the variants that differ only in
+    block_b, (max - min) / min, and the group's best over the table's
+    best (the gap between layouts)."""
+    groups: dict[str, list[float]] = {}
+    for key, us in timings.items():
+        layout, _, pack = key.split("/")
+        groups.setdefault(f"{layout}/{pack}", []).append(us)
+    best = min(timings.values())
+    return ({g: (max(v) - min(v)) / min(v) for g, v in groups.items()},
+            {g: min(v) / best for g, v in groups.items()})
+
+
+def serving_front_phase(torch, dev, kernels, ref, ref_d, triples) -> dict:
+    """Phase 11: the serving front, the HTTP ingress (a) and the variant
+    autotuner (b) on the card, then both serving commands of the CLI (c)."""
+    import asyncio
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import engine, obs, serve
+    from repro_torch.checkpoint.ckpt import load_arrays, save_arrays
+    from repro_torch.compile import optimize, tables_from_triples
+    from repro_torch.engine.autotune import backend_of
+    from repro_torch.kernels import enumerate_variants
+    from repro_torch.kernels.lut_lookup import lut_lookup
+    from repro_torch.kernels.lut_network import (lut_network,
+                                                 lut_network_mixed)
+
+    wrappers = (lut_network_mixed, lut_network, lut_lookup)
+    out = {"http": {}, "autotune": {}, "autotune_launches": {}}
+
+    def infer(port, codes, raw):
+        return asyncio.run(asyncio.wait_for(serve.http_infer(
+            "127.0.0.1", port, codes, raw=raw, timeout_s=60), 120))
+
+    # (a) HTTP: model A at level 3 as the port compiled it (mixed, smem),
+    # then model D's raw tables (per-layer, by the engine's choice)
+    for key in ("mixed", "per_layer_d"):
+        k = kernels[key]
+        net, want = k["net"], k["want"]
+        rows = k["codes"].cpu().numpy()
+        for w in wrappers:
+            reset_counts(w)
+        with serve.BackgroundIngress(net) as ing:
+            for raw in (True, False):
+                got = infer(ing.port, rows, raw)
+                if not np.array_equal(got, want):
+                    fail(f"phase 11a {key}: {len(rows)} rows over HTTP "
+                         f"({'raw' if raw else 'JSON'}) differ from the "
+                         f"reference's outputs")
+            # the same arrivals and requests over HTTP and in process, in
+            # turns: the difference is what the HTTP leg adds
+            load = dict(offered_rps=400.0, n_requests=64, rows_min=1,
+                        rows_max=8, bw=k["bw"], seed=0)
+            turns = {"http": [], "in_process": []}
+            h0 = obs.registry().snapshot()
+            for how in ("http", "in_process", "in_process", "http"):
+                r = (serve.run_open_loop(url=ing.url, verify_net=net, **load)
+                     if how == "http" else serve.run_open_loop(net, **load))
+                if r.outcomes != {"ok": 64}:
+                    fail(f"phase 11a {key}: open loop ({how}) gave "
+                         f"{r.outcomes}")
+                turns[how].append(r)
+            h1 = obs.registry().snapshot()
+            rep = turns["http"][0]
+            status, page = http_get(ing.port, "/metrics")
+            st = ing.stats()
+        server_ms = {}
+        for name in ("ingress_request_seconds", "ingress_decode_seconds",
+                     "ingress_infer_seconds"):
+            a, b = h0[name]["series"][0], h1[name]["series"][0]
+            server_ms[name] = ((b["sum"] - a["sum"])
+                               / max(1, b["count"] - a["count"]) * 1e3)
+        mean = {how: {m: statistics.mean(getattr(r, m) for r in rs)
+                      for m in ("p50_ms", "p99_ms", "rows_per_sec")}
+                for how, rs in turns.items()}
+        if st["retraces_after_warmup"] or st["compiler_runs_after_warmup"]:
+            fail(f"phase 11a {key}: compile-once contract broken: {st}")
+        families = ("serve_requests_total", "serve_batches_total",
+                    "serve_request_latency_seconds",
+                    "ingress_requests_total", "ingress_infer_seconds",
+                    "ingress_decode_seconds", "ingress_open_connections")
+        missing = [f for f in families if f"# TYPE {f} " not in page]
+        if status != 200 or missing:
+            fail(f"phase 11a {key}: GET /metrics {status}, missing "
+                 f"{missing}")
+        wrapper = k["wrapper"]
+        by_route = dict(wrapper.launches_by_route)
+        launched = wrapper.launches
+        others = sum(w.launches for w in wrappers if w is not wrapper)
+        if not launched or others:
+            fail(f"phase 11a {key}: {k['name']} launched {launched} times, "
+                 f"the other LUT kernels {others}")
+        if "routes" in k and (by_route["global"]
+                              or by_route["smem"] != launched):
+            fail(f"phase 11a {key}: {k['name']} left the smem route: "
+                 f"{by_route}")
+        if "layer_routes" in k and sum(by_route.values()) != launched:
+            fail(f"phase 11a {key}: {k['name']} routes {by_route} for "
+                 f"{launched} launches")
+        # the quota case: 200 rows/s, burst 16, against about 1800 rows/s
+        # offered
+        quota = serve.IngressConfig(quota=serve.QuotaConfig(
+            rate_rows_per_s=200.0, burst_rows=16.0))
+        before = obs.registry().snapshot()
+        with serve.BackgroundIngress(net, config=quota) as ing:
+            q = serve.run_open_loop(
+                url=ing.url, offered_rps=400.0, n_requests=64, rows_min=1,
+                rows_max=8, bw=k["bw"], seed=1, tenant="smoke",
+                verify_net=net)
+            qst = ing.stats()
+        after = obs.registry().snapshot()
+        delta = (counter_value(after, "ingress_rejected_total",
+                               reason="quota")
+                 - counter_value(before, "ingress_rejected_total",
+                                 reason="quota"))
+        n_quota = q.outcomes.get("rejected_quota", 0)
+        if not n_quota or delta != n_quota or q.rejected != n_quota:
+            fail(f"phase 11a {key}: quota run {q.outcomes}, "
+                 f"ingress_rejected_total{{reason=quota}} rose by {delta}")
+        if qst["retraces_after_warmup"] or qst["compiler_runs_after_warmup"]:
+            fail(f"phase 11a {key}: compile-once contract broken: {qst}")
+        p2 = k["phase2"]
+        out["http"][key] = {
+            "launches": launched, "launches_by_route": by_route,
+            "p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms,
+            "rows_per_sec": rep.rows_per_sec, "quota": dict(q.outcomes),
+            "turns_mean": mean, "server_mean_ms": server_ms}
+        log(f"phase 11a HTTP {key} (model {k['model']}, {net.layout}): "
+            f"{len(rows)} rows raw and JSON bit-exact; open loop 400 rps x "
+            f"64 requests ({rep.rows} rows) all ok and bit-exact, "
+            f"p50={rep.p50_ms:.3f} ms p99={rep.p99_ms:.3f} ms "
+            f"{rep.rows_per_sec:.0f} rows/s over HTTP (phase 2 in process: "
+            f"p50={p2['p50_ms']:.3f} p99={p2['p99_ms']:.3f} "
+            f"{p2['rows_per_sec']:.0f} rows/s); in turns (http, in "
+            f"process, in process, http), mean of two: HTTP p50 "
+            f"{mean['http']['p50_ms']:.3f} p99 {mean['http']['p99_ms']:.3f} "
+            f"ms against in process p50 {mean['in_process']['p50_ms']:.3f} "
+            f"p99 {mean['in_process']['p99_ms']:.3f} ms on the same "
+            f"arrivals; server side a request mean "
+            f"{server_ms['ingress_request_seconds']:.3f} ms (decode "
+            f"{server_ms['ingress_decode_seconds']:.4f}, tier "
+            f"{server_ms['ingress_infer_seconds']:.3f}); quota 200 rows/s "
+            f"burst 16: "
+            f"{q.outcomes}, ingress_rejected_total{{reason=quota}} +"
+            f"{delta:.0f}; {k['name']} launches={launched} by route "
+            f"{by_route}; retraces={st['retraces_after_warmup']} "
+            f"compiler_runs={st['compiler_runs_after_warmup']}")
+
+    # (b) autotune: models A and D compiled at level 3, every variant
+    # timed on the card, then saved, loaded and replayed
+    backend = backend_of(dev)
+    launches_total = {w.__name__: 0 for w in wrappers}
+    names = {"lut_network_mixed": "lut_mixed_forward",
+             "lut_network": "lut_uniform_forward",
+             "lut_lookup": "lut_layer_forward"}
+    layout_wrapper = {"mixed": lut_network_mixed, "uniform": lut_network,
+                      "per_layer": lut_lookup}
+    codes_of = {"A": ref["codes"], "D": ref_d["codes"]}
+    want_of = {"A": ref["out_mixed"], "D": ref_d["out_uniform"]}
+    for model, trip in triples.items():
+        res = optimize(tables_from_triples(trip), 3, in_features=16)
+        uniform = [(t.indices, t.table, t.bw_in) for t in res.tables]
+        expected = [v.key for v in enumerate_variants(
+            uniform, res.mixed_tables, block_bs=(16, 64, 128, 256))]
+        for w in wrappers:
+            reset_counts(w)
+        runs0 = engine.compile_runs()
+        snap0 = obs.registry().snapshot()
+        net = engine.compile_network(trip, optimize_level=3,
+                                     in_features=16, block_b=16,
+                                     autotune=True, device=dev)
+        plan = net.plan
+        timed = (sum(s["value"] for s in obs.registry().snapshot()[
+            "engine_autotune_variants_total"]["series"])
+            - sum(s["value"] for s in snap0.get(
+                "engine_autotune_variants_total", {}).get("series", [])))
+        if engine.compile_runs() != runs0 + 1:
+            fail(f"phase 11b model {model}: {engine.compile_runs() - runs0} "
+                 f"compiler runs for one autotuned build")
+        if list(plan.timings_us) != expected or timed != len(expected):
+            fail(f"phase 11b model {model}: timed {list(plan.timings_us)} "
+                 f"({timed} counted), enumerated {expected}")
+        for layout in {key.split("/")[0] for key in expected}:
+            if not layout_wrapper[layout].launches:
+                fail(f"phase 11b model {model}: no {layout} launch")
+        for w in wrappers:
+            launches_total[w.__name__] += w.launches
+        plain = [key for key, r in plan.routes.items() if r == "plain"]
+        if plain or set(plan.routes) != set(expected):
+            fail(f"phase 11b model {model}: routes {plan.routes}")
+        argmin = min(plan.timings_us, key=plan.timings_us.get)
+        if plan.variant.key != argmin or plan.source != "autotune":
+            fail(f"phase 11b model {model}: chose {plan.variant.key}, the "
+                 f"table's argmin is {argmin}")
+        if plan.backend != backend or not net.measured_here:
+            fail(f"phase 11b model {model}: backend {plan.backend!r}")
+        if net.block_b != plan.block_b:
+            fail(f"phase 11b model {model}: serves at {net.block_b}, plan "
+                 f"{plan.block_b}")
+        x = torch.from_numpy(codes_of[model]).to(dev)
+        got = net(x).cpu().numpy()
+        if not np.array_equal(got, want_of[model]):
+            fail(f"phase 11b model {model}: the autotuned artifact's "
+                 f"outputs differ from the reference's")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / f"model_{model.lower()}_tuned.npz")
+            net.save(path)
+            runs0 = engine.compile_runs()
+            snap0 = obs.registry().snapshot()
+            loaded = engine.load(path, device=dev)
+            same = np.array_equal(loaded(x).cpu().numpy(), got)
+            retimed = (obs.registry().snapshot()
+                       ["engine_autotune_variants_total"]
+                       != snap0["engine_autotune_variants_total"])
+            if (engine.compile_runs() != runs0 or retimed or not same
+                    or loaded.plan != plan or not loaded.measured_here):
+                fail(f"phase 11b model {model}: load ran "
+                     f"{engine.compile_runs() - runs0} compiler runs, "
+                     f"searched again {retimed}, same outputs {same}, "
+                     f"measured here {loaded.measured_here}")
+            arrays, meta = load_arrays(path)
+            meta["plan"].pop("backend")
+            save_arrays(path, arrays, meta)
+            foreign = engine.load(path, device=dev)
+            if (foreign.measured_here or foreign.plan.source != "autotune"
+                    or not np.array_equal(foreign(x).cpu().numpy(), got)):
+                fail(f"phase 11b model {model}: a plan without its "
+                     f"backend loads as measured here "
+                     f"({foreign.measured_here})")
+        # the search again on the same tables: block_b-only variants do
+        # the same work at 256 rows, so their order is the host's noise
+        plan2, _ = engine.autotune_network(
+            uniform, res.mixed_tables, in_features=16, block_b=16,
+            device=dev)
+        spread1, gap1 = block_b_spread(plan.timings_us)
+        spread2, gap2 = block_b_spread(plan2.timings_us)
+        log(f"phase 11b autotune model {model} at level 3 on {backend} "
+            f"({plan.batch} rows, {len(expected)} variants; winner run 1 "
+            f"{plan.variant.key}, run 2 {plan2.variant.key}; heuristic "
+            f"{plan.default_key}); key, route, us a forward run 1 / run 2:")
+        for key in expected:
+            log(f"phase 11b   {key:24s} {plan.routes[key]:7s} "
+                f"{plan.timings_us[key]:9.2f} / {plan2.timings_us[key]:9.2f}")
+        log(f"phase 11b model {model}: spread of block_b-only variants "
+            f"(max-min)/min run 1 "
+            + ", ".join(f"{g} {v:.3f}" for g, v in spread1.items())
+            + "; run 2 " + ", ".join(f"{g} {v:.3f}"
+                                     for g, v in spread2.items())
+            + "; gap between layouts (group best / table best) run 1 "
+            + ", ".join(f"{g} {v:.3f}" for g, v in gap1.items())
+            + "; run 2 " + ", ".join(f"{g} {v:.3f}" for g, v in gap2.items())
+            + "; outputs bit-exact with the reference's, save/load: 0 "
+              "compiler runs, 0 variants timed, same outputs; backend "
+              "stripped: measured_here False")
+        out["autotune"][model] = {
+            "winner": plan.variant.key, "winner_run2": plan2.variant.key,
+            "default_key": plan.default_key, "routes": plan.routes,
+            "timings_us": plan.timings_us,
+            "timings_us_run2": plan2.timings_us,
+            "block_b_spread": [spread1, spread2],
+            "layout_gap": [gap1, gap2]}
+    out["autotune_launches"] = {names[n]: c
+                                for n, c in launches_total.items()}
+
+    # (c) the CLI's two serving commands, as a user runs them
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for extra, must in ((["--http", "0"], ("responses verified bit-exact "
+                                           "over HTTP",)),
+                        (["--autotune"], (f"autotuned on {backend}",))):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--lut",
+               *extra, "--smoke", "--report-every-s", "0"]
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=300)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if "autotuned on" in ln or "latency" in ln
+                 or "contract" in ln]
+        if (proc.returncode
+                or "retraces=0 compiler_runs=0 after warmup"
+                not in proc.stdout
+                or any(m not in proc.stdout for m in must)):
+            fail(f"phase 11c {' '.join(cmd[2:])}: rc {proc.returncode}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        log(f"phase 11c {' '.join(cmd[3:])}: rc 0; " + " | ".join(lines))
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2026,6 +2365,8 @@ def main() -> None:
                  f"times, {by_route} on its routes")
         if st["retraces_after_warmup"] or st["compiler_runs_after_warmup"]:
             fail(f"serving {key}: compile-once contract broken: {st}")
+        k["phase2"] = {"p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms,
+                       "rows_per_sec": rep.rows_per_sec}
         legs = " ".join(f"{leg}={rep.breakdown[leg]['mean_ms']:.3f}"
                         for leg in ("queue_wait", "assembly", "device"))
         log(f"phase 2 serving {key}: {rep.n_requests} requests "
@@ -2238,6 +2579,22 @@ def main() -> None:
     torch.cuda.empty_cache()
     records.append(fa_rec)
     records.append(tf_rec)
+
+    front = serving_front_phase(torch, dev, kernels, ref, ref_d,
+                                {"A": triples, "D": triples_d})
+    for rec, key, model in ((mixed_rec, "mixed", "A"),
+                            (layer_rec, "per_layer_d", "D")):
+        rec[f"launches_http_{model.lower()}"] = front["http"][key][
+            "launches"]
+        rec[f"launches_http_{model.lower()}_by_route"] = front["http"][key][
+            "launches_by_route"]
+        rec[f"http_{model.lower()}"] = {
+            m: front["http"][key][m] for m in ("p50_ms", "p99_ms",
+                                               "rows_per_sec")}
+    for rec in records:
+        if rec["name"] in front["autotune_launches"]:
+            rec["launches_autotune"] = front["autotune_launches"][
+                rec["name"]]
 
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

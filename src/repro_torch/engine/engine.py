@@ -22,6 +22,10 @@ once and its mixed-width lowering takes the fused mixed layout when its
 slabs fit the shared-memory budget; otherwise the uniform layout when
 its slabs fit, else per-layer.
 
+``autotune=True`` replaces the ladder with measurement on the device
+(``repro_torch.engine.autotune``): the artifact carries the winner, its
+timing table and the name of the card that took it.
+
 ``stats`` is the ``CompileStats`` of the build's one compiler run
 (``None`` when the compiler did not run); ``save`` writes it as
 ``as_dict()`` and ``load`` reads it back with ``from_dict``, as the
@@ -40,7 +44,8 @@ from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint.ckpt import load_arrays, save_arrays
 from repro_torch.compile.pipeline import CompileStats, OptimizeResult
-from repro_torch.engine.autotune import ExecutionPlan
+from repro_torch.engine.autotune import (ExecutionPlan, autotune_network,
+                                        backend_of)
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.lut_lookup import DEFAULT_BLOCK_B, lut_lookup
 from repro_torch.kernels.lut_network import (LayerMeta, MixedGroupMeta,
@@ -138,6 +143,14 @@ class CompiledLUTNet:
             codes = step(codes, idx, tab, bw)
         return codes
 
+    @property
+    def measured_here(self) -> bool:
+        """Whether the plan's timings were taken by this package on this
+        artifact's kind of device.  A plan another package or another card
+        timed is replayed as saved, but never reported as measured here."""
+        return (self.plan.source == "autotune"
+                and self.plan.backend == backend_of(self.device))
+
     def kernel_builds(self) -> int:
         """Kernel-library builds and loads in this process.
 
@@ -199,7 +212,9 @@ class CompiledLUTNet:
 def load(path: str, device=None) -> CompiledLUTNet:
     """Rebuild a ``CompiledLUTNet`` from an artifact of either package.
 
-    Reads formats 1-3 with no compiler run and no slab build; ``device``
+    Reads formats 1-3 with no compiler run, no slab build and no search:
+    an autotuned plan is replayed as saved (the artifact holds only its
+    variant's slabs), whoever timed it (see ``measured_here``); ``device``
     defaults to ``cuda``.
     """
     dev = resolve_device(device)
@@ -280,7 +295,8 @@ def compile_network(layers, *, optimize_level: int | None = None,
                     in_features: int | None = None, fused: bool = True,
                     use_pallas: bool = True, block_b: int = DEFAULT_BLOCK_B,
                     budget_bytes: int = FUSED_SMEM_BUDGET_BYTES,
-                    device=None) -> CompiledLUTNet:
+                    autotune: bool = False, autotune_codes=None,
+                    autotune_block_bs=None, device=None) -> CompiledLUTNet:
     """Build a serving artifact, running the truth-table compiler at most
     once.
 
@@ -297,6 +313,15 @@ def compile_network(layers, *, optimize_level: int | None = None,
        lowering when it ran) when its slabs fit and ``fused`` is set;
     3. otherwise one per-layer kernel launch per layer; ``use_pallas=False``
        (the reference's name) pins the plain-torch reference chain.
+
+    ``autotune=True`` replaces the ladder with measurement: every eligible
+    variant (layout x block_b x pack) is built on ``device`` and its
+    forward timed there (``repro_torch.engine.autotune``); the artifact
+    serves the winner at its ``block_b`` and carries the timing table.
+    ``autotune_codes`` supplies the batch (None: seeded synthetic codes),
+    ``autotune_block_bs`` the ``block_b`` sweep (``block_b`` always joins
+    it).  ``autotune`` is ignored under ``fused=False`` or
+    ``use_pallas=False``: the caller pinned the path.
 
     ``in_features`` is the input bus width (default: the widest first-layer
     index + 1, or the compiler's own record of it); ``device`` defaults to
@@ -323,6 +348,30 @@ def compile_network(layers, *, optimize_level: int | None = None,
             _compile_runs += 1
             _M_COMPILER_RUNS.inc()
     stats = res.stats if res is not None else None
+
+    if autotune and use_pallas and fused:
+        mixed = res.mixed_tables if res is not None else None
+        if res is not None:
+            triples = [(tt.indices, tt.table, tt.bw_in)
+                       for tt in res.tables]
+            if in_features is None:
+                in_features = res.cnet.in_features
+        # the search's cost is observed by engine_autotune_seconds, not by
+        # the slab-build histogram
+        plan, built = autotune_network(
+            triples, mixed, in_features=in_features, block_b=block_b,
+            budget_bytes=budget_bytes, codes=autotune_codes,
+            block_bs=autotune_block_bs, device=dev)
+        _M_BUILDS.labels(layout=plan.layout).inc()
+        if plan.layout in ("mixed", "uniform"):
+            return CompiledLUTNet(layout=plan.layout, n_in=in_features,
+                                  n_out=built.n_out, block_b=plan.block_b,
+                                  plan=plan, stats=stats, device=dev,
+                                  slabs=built)
+        n_out = int(np.asarray(triples[-1][1]).shape[0])
+        return CompiledLUTNet(layout="per_layer", n_in=in_features,
+                              n_out=n_out, block_b=plan.block_b, plan=plan,
+                              stats=stats, device=dev, layers=built)
 
     if res is not None and use_pallas and fused:
         mixed = res.mixed_tables

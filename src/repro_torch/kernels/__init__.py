@@ -15,9 +15,11 @@ launches.
 """
 
 from repro_torch.kernels.lut_lookup import DEFAULT_BLOCK_B
-from repro_torch.kernels.plan import (FUSED_SMEM_BUDGET_BYTES, FusedPlan,
+from repro_torch.kernels.plan import (DEFAULT_BLOCK_BS,
+                                      FUSED_SMEM_BUDGET_BYTES, FusedPlan,
                                       PlanVariant, default_variant,
-                                      fused_plan)
+                                      enumerate_variants, fused_plan)
 
-__all__ = ["DEFAULT_BLOCK_B", "FUSED_SMEM_BUDGET_BYTES", "FusedPlan",
-           "PlanVariant", "default_variant", "fused_plan"]
+__all__ = ["DEFAULT_BLOCK_B", "DEFAULT_BLOCK_BS", "FUSED_SMEM_BUDGET_BYTES",
+           "FusedPlan", "PlanVariant", "default_variant",
+           "enumerate_variants", "fused_plan"]

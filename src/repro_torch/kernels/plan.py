@@ -1,12 +1,13 @@
-"""Layout costing for the fused kernels: ``FusedPlan`` and ``PlanVariant``.
+"""Execution-plan variants: the space the engine autotunes over.
 
-The port of ``repro.kernels.plan``'s costing half (the variant search,
-``enumerate_variants``, comes with the autotuner).  ``fused_plan`` says
-whether a stack takes a fused kernel: its projected slabs must fit
+The port of ``repro.kernels.plan``.  ``fused_plan`` says whether a stack
+takes a fused kernel: its projected slabs must fit
 :data:`FUSED_SMEM_BUDGET_BYTES` and every code must lie in the range both
-packages' fused layouts hold.  ``default_variant`` is the engine's
-heuristic ladder: mixed if eligible, else uniform if eligible, else the
-per-layer kernel.
+packages' fused layouts hold.  :class:`PlanVariant` is one point of the
+space (layout x ``block_b`` x pack), :func:`enumerate_variants` lists
+every eligible one for a stack (``repro_torch.engine.autotune`` times
+them), and :func:`default_variant` is the engine's heuristic ladder:
+mixed if eligible, else uniform if eligible, else the per-layer kernel.
 
 The budget is Hopper's, not the TPU's: a block may use 232 448 bytes of
 shared memory, of which the fused kernels' activation tile takes up to
@@ -27,6 +28,10 @@ from repro_torch.kernels.lut_network import (ACT_SMEM_BYTES,
                                              SMEM_PER_BLOCK_BYTES,
                                              estimate_mixed_slab_bytes,
                                              estimate_slab_bytes)
+
+# block_b sweep the autotuner explores by default (the engine adds the
+# caller's requested block_b to this set when it differs)
+DEFAULT_BLOCK_BS = (64, 128, 256)
 
 FUSED_SMEM_BUDGET_BYTES = SMEM_PER_BLOCK_BYTES - ACT_SMEM_BYTES
 
@@ -109,6 +114,47 @@ class PlanVariant:
         return cls(layout=str(d["layout"]), block_b=int(d["block_b"]),
                    pack=bool(d["pack"]),
                    cost=FusedPlan.from_dict(d["cost"]))
+
+
+def enumerate_variants(uniform_triples=None, mixed_tables=None, *,
+                       block_bs=DEFAULT_BLOCK_BS,
+                       budget_bytes: int = FUSED_SMEM_BUDGET_BYTES
+                       ) -> tuple[PlanVariant, ...]:
+    """Every buildable variant for a stack, in the reference's order.
+
+    For each available layout (``mixed_tables`` when the compiler's
+    lowering exists, ``uniform_triples`` always) the auto-pack costing is
+    computed once; pack=False is also enumerated where auto-pack chose
+    int8, and each eligible (layout, pack) is crossed with every
+    ``block_bs`` tile.  Fused combinations over the budget or the code
+    range are dropped; the per-layer kernel is always enumerable and
+    closes the space, so the result is non-empty whenever
+    ``uniform_triples`` is given.
+    """
+    variants: list[PlanVariant] = []
+    pools = []
+    if mixed_tables is not None:
+        pools.append(list(mixed_tables))
+    if uniform_triples is not None:
+        pools.append(list(uniform_triples))
+    for layers in pools:
+        auto = fused_plan(layers, budget_bytes)
+        packs = [auto.pack] + ([False] if auto.pack else [])
+        for p in packs:
+            plan = (auto if p == auto.pack
+                    else fused_plan(layers, budget_bytes, pack=p))
+            if not plan.fused:
+                continue
+            for bb in block_bs:
+                variants.append(PlanVariant(plan.layout, int(bb), p, plan))
+    if uniform_triples is not None:
+        base = fused_plan(list(uniform_triples), budget_bytes)
+        cost = dataclasses.replace(
+            base, fused=False,
+            reason=base.reason if not base.fused else "per_layer_variant")
+        for bb in block_bs:
+            variants.append(PlanVariant("per_layer", int(bb), False, cost))
+    return tuple(variants)
 
 
 def default_variant(uniform_triples=None, mixed_tables=None, *,

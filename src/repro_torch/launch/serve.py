@@ -2,7 +2,8 @@
 
 Loads a saved ``CompiledLUTNet`` artifact (either package's), or without
 ``--artifact`` compiles generated fpga4hep model A through the truth-table
-compiler (``--optimize-level``, default 3), and drives it through the
+compiler (``--optimize-level``, default 3; ``--autotune`` times every plan
+variant on the device and serves the winner), and drives it through the
 ``repro_torch.serve`` micro-batching tier under closed-loop
 (or ``--open-loop RPS``) load, reporting p50/p99 latency, QPS, batch
 occupancy and the compile-once counters, with the reference CLI's report
@@ -15,12 +16,22 @@ lines::
     # compile generated model A at level 3 and serve it (layout mixed)
     python -m repro_torch.launch.serve --lut --optimize-level 3
 
+    # put the HTTP ingress in front (0 = ephemeral port): one verified
+    # open-loop run through it, or, without --smoke / --open-loop, serve
+    # until SIGTERM with a per-tenant row quota
+    python -m repro_torch.launch.serve --lut --http 0 --smoke
+    python -m repro_torch.launch.serve --lut --http 8080 \\
+        --tenant-quota 500:1000
+
+    # time every plan variant on the card and serve the measured winner
+    python -m repro_torch.launch.serve --lut --autotune --smoke
+
     # quick smoke on the CPU (plain PyTorch versions of the kernels)
     python -m repro_torch.launch.serve --lut --smoke --device cpu
 
-The HTTP ingress, ``--autotune`` and the LM decode demo of
-``repro.launch.serve`` wait for later slices.
-Exits non-zero if the compile-once contract is broken in steady state.
+The LM decode demo of ``repro.launch.serve`` is
+``repro_torch.launch.serve_lm``.  Exits non-zero if the compile-once
+contract is broken in steady state.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from __future__ import annotations
 import argparse
 import json
 import signal
+import threading
 
 
 def _print_report(rep, st: dict) -> None:
@@ -44,15 +56,36 @@ def _print_report(rep, st: dict) -> None:
           f"p90={rep.p90_ms:.2f}ms p99={rep.p99_ms:.2f}ms "
           f"mean={rep.mean_ms:.2f}ms; qps={rep.qps:.0f} "
           f"({rep.rows_per_sec:.0f} rows/s)")
-    print(f"[serve --lut] {st['batches']} batches, occupancy "
-          f"{st['batch_occupancy']:.2f} (mean "
-          f"{st['mean_batch_rows']:.1f} rows), "
-          f"flushes={st['flush_causes']}, {st['n_devices']} device(s)")
+    if st:
+        print(f"[serve --lut] {st['batches']} batches, occupancy "
+              f"{st['batch_occupancy']:.2f} (mean "
+              f"{st['mean_batch_rows']:.1f} rows), "
+              f"flushes={st['flush_causes']}, {st['n_devices']} device(s)")
     for stage in ("queue_wait", "assembly", "device"):
         leg = rep.breakdown.get(stage)
         if leg and leg["count"]:
             print(f"[serve --lut] {stage}: mean={leg['mean_ms']:.2f}ms "
                   f"p50={leg['p50_ms']:.2f}ms p99={leg['p99_ms']:.2f}ms")
+
+
+def _print_plan(net) -> None:
+    """An autotuned plan's line: its timings where this package took them
+    on this device, else only where it came from."""
+    plan = net.plan
+    if plan.source != "autotune":
+        return
+    us = plan.timings_us
+    if not net.measured_here:
+        print(f"[serve --lut] plan {plan.variant.key} (source autotune, "
+              f"backend {plan.backend or 'not recorded'}) replayed as "
+              f"saved: timings not taken on this device ({net.device})")
+        return
+    key = plan.variant.key
+    print(f"[serve --lut] autotuned on {plan.backend} over {len(us)} "
+          f"variants at {plan.batch} rows: chose {key} "
+          f"({us[key]:.1f} us/forward, route {plan.routes.get(key)}) vs "
+          f"heuristic {plan.default_key} at {us[plan.default_key]:.1f} us; "
+          f"save the artifact to replay this plan with zero search")
 
 
 def _build_net(args: argparse.Namespace):
@@ -75,6 +108,7 @@ def _build_net(args: argparse.Namespace):
               f"table slab {net.slab_breakdown()['table_slab_bytes']} B "
               f"on {net.device} "
               f"(compiler runs this process: {engine.compile_runs()})")
+        _print_plan(net)
         # the artifact does not record its input quantizer width
         return net, args.input_bw
     from repro_torch._device import resolve_device
@@ -91,18 +125,83 @@ def _build_net(args: argparse.Namespace):
     tables = LN.generate_tables(model)
     net = engine.compile_network(tables, optimize_level=args.optimize_level,
                                  in_features=cfg.in_features,
-                                 block_b=args.block_b, device=dev)
+                                 block_b=args.block_b,
+                                 autotune=args.autotune, device=dev)
     print(f"[serve --lut] compiled generated fpga4hep model A at level "
           f"{args.optimize_level}: layout={net.layout}, table slab "
           f"{net.slab_breakdown()['table_slab_bytes']} B on {net.device}")
+    _print_plan(net)
     return net, cfg.bw
 
 
+def _parse_quota(spec: str | None):
+    """``--tenant-quota RATE[:BURST]`` -> QuotaConfig (rows/s) or None."""
+    from repro_torch import serve
+
+    if spec is None:
+        return None
+    rate, _, burst = spec.partition(":")
+    return serve.QuotaConfig(rate_rows_per_s=float(rate),
+                             burst_rows=float(burst) if burst else None)
+
+
+def _dump_report(args: argparse.Namespace, rep) -> None:
+    if args.report_json:
+        with open(args.report_json, "w") as fh:
+            json.dump(rep.as_dict(), fh, indent=2, default=str)
+        print(f"[serve --lut] load report -> {args.report_json}")
+
+
+def _run_http(args: argparse.Namespace, net, bw, tier_cfg) -> dict:
+    """HTTP ingress mode: one open-loop run through it, verified bit-exact
+    (``--smoke`` / ``--open-loop``), or serve until SIGTERM."""
+    from repro_torch import serve
+
+    cfg = serve.IngressConfig(port=args.http, quota=_parse_quota(
+        args.tenant_quota))
+    ing = serve.BackgroundIngress(net, tier_cfg, cfg).start()
+    try:
+        print(f"[serve --lut] http ingress listening on {ing.url} "
+              f"(POST /v1/infer, GET /healthz, GET /metrics)", flush=True)
+        if args.smoke or args.open_loop is not None:
+            offered = args.open_loop if args.open_loop is not None else 400.0
+            rep = serve.run_open_loop(
+                url=ing.url, offered_rps=offered,
+                n_requests=args.clients * args.requests_per_client,
+                rows_min=args.rows_min, rows_max=args.rows_max, bw=bw,
+                seed=args.seed, verify_net=net)
+            print("[serve --lut] responses verified bit-exact over HTTP")
+            _print_report(rep, ing.stats())
+            _dump_report(args, rep)
+        else:
+            stop = threading.Event()
+
+            def _drain(signum, frame):
+                print(f"[serve --lut] signal {signum}: draining",
+                      flush=True)
+                stop.set()
+
+            prev = [signal.signal(s, _drain)
+                    for s in (signal.SIGTERM, signal.SIGINT)]
+            try:
+                while not stop.wait(0.5):
+                    pass
+            finally:
+                for s, h in zip((signal.SIGTERM, signal.SIGINT), prev):
+                    signal.signal(s, h)
+    finally:
+        ing.stop()                      # graceful drain
+    return ing.stats()
+
+
 def _run_lut(args: argparse.Namespace) -> None:
-    """Load or compile the net and drive it through the tier.
+    """Load or compile the net and drive it through the tier, optionally
+    behind the HTTP ingress.
 
     ``--metrics-json`` dumps in a ``finally`` so a run killed by SIGTERM
-    still leaves its snapshot (SIGTERM is re-pointed at ``SystemExit``).
+    still leaves its snapshot (SIGTERM is re-pointed at ``SystemExit``);
+    the HTTP serve-forever mode instead catches SIGTERM for a graceful
+    drain.
     """
     from repro_torch import obs, serve
 
@@ -123,21 +222,21 @@ def _run_lut(args: argparse.Namespace) -> None:
                 bw=bw, seed=args.seed)
     try:
         with obs.PeriodicReporter(interval_s=args.report_every_s):
-            if args.open_loop is not None:
-                rep = serve.run_open_loop(
-                    net, config=tier_cfg, offered_rps=args.open_loop,
-                    n_requests=args.clients * args.requests_per_client,
-                    **load)
+            if args.http is not None:
+                st = _run_http(args, net, bw, tier_cfg)
             else:
-                rep = serve.run_closed_loop(
-                    net, config=tier_cfg, n_clients=args.clients,
-                    n_per_client=args.requests_per_client, **load)
-        st = rep.stats
-        _print_report(rep, st)
-        if args.report_json:
-            with open(args.report_json, "w") as fh:
-                json.dump(rep.as_dict(), fh, indent=2, default=str)
-            print(f"[serve --lut] load report -> {args.report_json}")
+                if args.open_loop is not None:
+                    rep = serve.run_open_loop(
+                        net, config=tier_cfg, offered_rps=args.open_loop,
+                        n_requests=args.clients * args.requests_per_client,
+                        **load)
+                else:
+                    rep = serve.run_closed_loop(
+                        net, config=tier_cfg, n_clients=args.clients,
+                        n_per_client=args.requests_per_client, **load)
+                st = rep.stats
+                _print_report(rep, st)
+                _dump_report(args, rep)
         print(f"[serve --lut] compile-once contract: "
               f"retraces={st['retraces_after_warmup']} "
               f"compiler_runs={st['compiler_runs_after_warmup']} "
@@ -158,7 +257,7 @@ def main(argv=None) -> None:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--lut", action="store_true", required=True,
                     help="serve a CompiledLUTNet through the micro-batching "
-                    "tier (the only mode of the port so far)")
+                    "tier (the only mode of this launcher; LMs: serve_lm)")
     ap.add_argument("--artifact", default=None, metavar="NPZ",
                     help="saved CompiledLUTNet .npz to serve (default: "
                     "compile generated fpga4hep model A)")
@@ -166,6 +265,11 @@ def main(argv=None) -> None:
                     help="truth-table compiler level when compiling")
     ap.add_argument("--block-b", type=int, default=16,
                     help="engine batch bucket when compiling")
+    ap.add_argument("--autotune", action="store_true",
+                    help="when compiling, time every eligible plan variant "
+                    "(layout x block_b x pack) on the device and serve the "
+                    "measured winner; the tier then buckets on the plan's "
+                    "block_b")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                     "kernels' plain PyTorch versions)")
@@ -183,6 +287,16 @@ def main(argv=None) -> None:
                     help="bounded-queue backpressure limit")
     ap.add_argument("--request-timeout-ms", type=float, default=None,
                     help="per-request launch deadline (default: none)")
+    ap.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="put the HTTP ingress in front of the tier on "
+                    "this port (0 = ephemeral; the bound port is printed). "
+                    "With --smoke/--open-loop: one verified open-loop run "
+                    "through the ingress; otherwise serve until SIGTERM "
+                    "with a graceful drain")
+    ap.add_argument("--tenant-quota", default=None, metavar="RATE[:BURST]",
+                    help="per-tenant token-bucket admission quota in "
+                    "rows/s (burst defaults to one second of rate); "
+                    "requests over quota get HTTP 429")
     ap.add_argument("--open-loop", type=float, default=None, metavar="RPS",
                     help="use the open-loop Poisson-arrival generator at "
                     "this offered load instead of closed-loop clients "

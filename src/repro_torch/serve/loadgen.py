@@ -1,7 +1,6 @@
 """Closed- and open-loop load generators for the serving tier.
 
-The port of ``repro.serve.loadgen``, in-process only (driving an HTTP
-ingress by ``url=`` waits for the ingress port).  Two arrival models, one
+The port of ``repro.serve.loadgen``.  Two arrival models, one
 :class:`LoadReport`:
 
 * **closed loop** (:func:`run_closed_loop`) — a fixed pool of
@@ -15,8 +14,9 @@ ingress by ``url=`` waits for the ingress port).  Two arrival models, one
   the way independent network clients actually behave.  Offered load is
   an *input* (``offered_rps``), so driving it past capacity is
   meaningful: the report separates goodput from rejections
-  (backpressure) and timeouts instead of letting the arrival process
-  silently throttle (``--open-loop RPS`` on the CLI).
+  (quota / backpressure) and timeouts instead of letting the arrival
+  process silently throttle — against the in-process tier or a live HTTP
+  ingress (``url=...``; ``--open-loop RPS`` and ``--http`` on the CLI).
 """
 
 from __future__ import annotations
@@ -43,14 +43,15 @@ class LoadReport:
     snapshot (:meth:`repro_torch.serve.ServingTier.stats`) taken at the
     end of the run — its ``retraces_after_warmup`` /
     ``compiler_runs_after_warmup`` fields are the compile-once serving
-    contract.
+    contract (``{}`` when the run drove a remote ingress URL, whose
+    tier lives elsewhere).
 
     Closed-loop runs complete every request, so the open-loop fields
     keep their defaults: ``offered_rps`` is the configured arrival
     rate (``nan`` = closed loop), ``goodput_rps`` counts only
     successful requests, ``outcomes`` histograms every request's fate
-    (``ok`` / ``rejected_overload`` / ``timeout`` / ``closed``), and
-    ``rejection_rate`` is the non-``ok`` fraction.
+    (``ok`` / ``rejected_quota`` / ``rejected_overload`` / ``timeout`` /
+    ``closed``), and ``rejection_rate`` is the non-``ok`` fraction.
     """
 
     n_clients: int
@@ -204,6 +205,11 @@ def run_closed_loop(net, *, config: TierConfig | None = None,
 
 
 def _classify(exc: BaseException) -> str:
+    # local import: ingress imports tier, and loadgen needs its
+    # QuotaExceeded only here
+    from repro_torch.serve.ingress import QuotaExceeded
+    if isinstance(exc, QuotaExceeded):
+        return "rejected_quota"
     if isinstance(exc, TierOverloaded):
         return "rejected_overload"
     if isinstance(exc, RequestTimeout):
@@ -240,19 +246,31 @@ async def _open_loop(submit, requests: list[np.ndarray],
     return outs, latencies, outcomes
 
 
-def run_open_loop(net, *, config: TierConfig | None = None,
+def run_open_loop(net=None, *, url: str | None = None,
+                  config: TierConfig | None = None,
                   offered_rps: float = 200.0, n_requests: int = 64,
                   rows_min: int = 1, rows_max: int = 8, bw: int = 2,
-                  seed: int = 0, check_outputs: bool = True) -> LoadReport:
-    """Drive open-loop Poisson-arrival load into an in-process tier.
+                  seed: int = 0, tenant: str | None = None,
+                  check_outputs: bool = True, verify_net=None,
+                  n_in: int | None = None) -> LoadReport:
+    """Drive open-loop Poisson-arrival load into a tier or HTTP ingress.
 
     Requests fire at :func:`poisson_arrivals` times whether or not
     earlier ones resolved, so ``offered_rps`` really is the offered
-    load — push it past capacity and the report shows *how* the tier
+    load — push it past capacity and the report shows *how* the server
     sheds (``outcomes`` / ``rejection_rate``) and what it still
     completes (``goodput_rps``), instead of the arrival process backing
-    off as a closed loop would.  ``check_outputs`` verifies successful
-    responses bit-exact against ``net`` after the timed run.
+    off as a closed loop would.
+
+    Exactly one target: ``net`` serves through an in-process
+    :class:`ServingTier` (``config`` sets its knobs), or ``url``
+    (``http://host:port``) posts raw-int8 bodies to a live HTTP ingress
+    as ``tenant`` — rejections come back as the same typed exceptions
+    either way, so the outcome accounting is identical.
+    ``check_outputs`` verifies successful responses bit-exact after the
+    timed run against ``verify_net`` (defaults to ``net``; pass it
+    explicitly for ``url`` runs, or they go unverified); its outputs may
+    live on any device.
 
     >>> import numpy as np
     >>> from repro_torch import engine, serve
@@ -269,22 +287,50 @@ def run_open_loop(net, *, config: TierConfig | None = None,
     >>> rep.rejection_rate
     0.0
     """
-    requests = make_requests(net.n_in, n_requests, rows_min=rows_min,
+    if (net is None) == (url is None):
+        raise ValueError("pass exactly one of net= or url=")
+    if n_in is None:
+        if net is not None:
+            n_in = net.n_in
+        elif verify_net is not None:
+            n_in = verify_net.n_in
+        else:
+            raise ValueError("url= mode needs verify_net= or n_in= to "
+                             "size the synthetic requests")
+    requests = make_requests(n_in, n_requests, rows_min=rows_min,
                              rows_max=rows_max, bw=bw, seed=seed)
     arrivals = poisson_arrivals(offered_rps, n_requests, seed=seed)
 
-    async def main():
-        async with ServingTier(net, config) as tier:
-            t0 = time.perf_counter()
-            res = await _open_loop(tier.infer, requests, arrivals)
-            wall = time.perf_counter() - t0
-            return (*res, wall, tier.stats(), tier.latency_breakdown())
+    if net is not None:
+        async def main():
+            async with ServingTier(net, config) as tier:
+                t0 = time.perf_counter()
+                res = await _open_loop(tier.infer, requests, arrivals)
+                wall = time.perf_counter() - t0
+                return (*res, wall, tier.stats(), tier.latency_breakdown())
+    else:
+        from repro_torch.serve.ingress import HttpClientPool
+        host, _, port = url.removeprefix("http://").partition(":")
+
+        async def main():
+            # keep-alive pool: requests reuse warm connections, so the
+            # timed run measures the server's admission path rather than
+            # a TCP handshake per request
+            pool = HttpClientPool(host, int(port), size=16, tenant=tenant)
+            try:
+                t0 = time.perf_counter()
+                res = await _open_loop(pool.infer, requests, arrivals)
+                wall = time.perf_counter() - t0
+            finally:
+                await pool.close()
+            return (*res, wall, {}, {})
 
     outs, lats, outcomes, wall, stats, breakdown = asyncio.run(main())
-    if check_outputs:
+    ref = verify_net if verify_net is not None else net
+    if check_outputs and ref is not None:
         for req, out, oc in zip(requests, outs, outcomes):
             if oc == "ok":
-                np.testing.assert_array_equal(out, _to_numpy(net(req)))
+                np.testing.assert_array_equal(out, _to_numpy(ref(req)))
     counts: dict[str, int] = {}
     for oc in outcomes:
         counts[oc] = counts.get(oc, 0) + 1
@@ -307,7 +353,8 @@ def run_open_loop(net, *, config: TierConfig | None = None,
         breakdown=breakdown,
         offered_rps=float(offered_rps),
         goodput_rps=n_ok / wall,
-        rejected=counts.get("rejected_overload", 0) + counts.get("closed", 0),
+        rejected=counts.get("rejected_quota", 0)
+        + counts.get("rejected_overload", 0) + counts.get("closed", 0),
         timed_out=counts.get("timeout", 0),
         rejection_rate=1.0 - n_ok / n_requests if n_requests else 0.0,
         outcomes=counts,

@@ -61,9 +61,13 @@ pass:
    must move over 3.35 TB/s and its int32 operations over 33.5 TOP/s
    (half the 67 TFLOP/s fp32 CUDA-core rate: Hopper has 64 INT32 lanes per
    SM against 128 FP32).  A fused forward moves its codes in, its codes
-   out and its slabs once; a per-layer forward moves, launch by launch,
-   that layer's codes in and out and its indices and tables once
-   (:func:`per_layer_bytes`).  The fused kernels' two routes are timed in
+   out, its slabs but the table slab once, and of the table slab the
+   elements its batch addresses (:func:`fused_table_reads`); a per-layer
+   forward moves, launch by launch, that layer's codes in and out, its
+   indices once and the table entries its batch addresses
+   (:func:`per_layer_bytes`, :func:`addressed_entries`).  The bound with
+   whole tables or slabs is kept beside it (``bound_ms_whole_tables``,
+   ``bound_ms_whole_slab``).  The fused kernels' two routes are timed in
    turns (global, smem, smem, global), event and device time per launch;
    the ``global`` route's are the earlier design's; model D at level 3's
    mixed times stand under ``model_d`` in the mixed record.  The per-layer
@@ -229,6 +233,45 @@ pass:
     carry phase 11's launches beside phase 2's (``launches_http_a`` /
     ``launches_http_d``, ``launches_autotune``).
 
+12. **the legacy flag API and the MNIST family** — (a) every launch
+    counter at 0: ``ops.lut_network(codes, layers, fused=True,
+    optimize_level=3)`` twice over model A's raw tables, both bit-exact
+    with the reference's outputs, the second adding 0 compiler runs and
+    1 to ``engine_memo_hits_total``, the mixed kernel on ``smem``;
+    ``fused=True`` without a level on the uniform kernel;
+    ``ops.lut_lookup`` / ``masked_matmul`` / ``flash_attention`` each one
+    launch, equal bit for bit to its wrapper; 10
+    ``sparse_head_forward(fused=True)`` calls building one artifact.
+    (b) Table 7.1's widest MLP, ``mlp((2048, 2048, 2048), 2, 5)`` at full
+    width (784 -> 2048 x 3 sparse, fan-in 5, 2-bit codes, dense head),
+    every launch counter at 0 before training and again before serving
+    (the MNIST path): ``train_logicnet`` on ``mnist_like_data(4800, 0)``
+    flattened and centred (4000 rows to train on, 800 held out), 250 steps
+    at batch 256, lr 5e-3 (the reference table's budget), every masked
+    matmul on ``ffma``, held-out accuracy at least ``MNIST_MIN_ACCURACY``;
+    ``generate_tables`` and ``verify_tables`` EXACT on 200 held-out rows;
+    ``compile_network`` with no level, which must pick ``per_layer`` for
+    ``slab_exceeds_smem_budget`` by itself; the ``--smoke`` closed loop
+    through ``ServingTier`` (zero builds and compiler runs after warmup,
+    only the per-layer kernel launched, served rows equal to the plain
+    version of the same artifact); the per-layer forward device-paced at
+    batch 16, 256 and 4096 on the rule's routes and on the other route of
+    every layer, beside the bound of the table entries each batch
+    addresses (and the whole-tables bound); the masked matmul at
+    the step's 256 x 784 x 2048 and 256 x 2048 x 2048 with the trained
+    masks (event, device, plain, ``addmm``, bound); 30 profiled steps
+    (host against device ms a step).  (c) Table 7.4's first layer,
+    ``SparseConv(SparseConvCfg(1, 16, 3, first_layer=True))``: one
+    train-mode forward and backward over 256 ``mnist_like_data`` images
+    on the card with cuDNN's TF32 default on around it, against the same
+    weights on the CPU: outputs within ``CONV_TOL``, gradients within it
+    plus ``CONV_GRAD_ULPS`` float32 units of their envelope
+    (:func:`conv_grad_envelope`), and a control with the depthwise conv's
+    backward in TF32 refused by that gate wherever it changes a gradient.  The per-layer record carries
+    the MNIST readings under ``mnist``, the masked-matmul record its two
+    shapes under ``mnist`` and the training under ``mnist_training``, and
+    each record its phase-12a launches (``launches_legacy_api``).
+
 Every device time is ``torch.profiler``'s sum of the measured calls'
 kernel records, taken only from a trace that holds all of them and, for
 device-bound calls (the flash shapes, the 4096^3 masked matmuls), reads at
@@ -302,6 +345,26 @@ MM_TOL = {"float32": (1e-4, 1e-5, 0), "bfloat16": (5e-2, 1e-3, 1)}
 TRAIN_STEPS = 600
 ACCURACY_POINTS = 0.02
 BOUNDARY_STEPS = 1e-5
+# phase 12: Table 7.1's widest MNIST MLP, trained on the reference table's
+# budget (benchmarks/paper_tables.py: 250 steps, lr 5e-3, 4000 + 800 rows)
+MNIST_MLP = ((2048, 2048, 2048), 2, 5)
+MNIST_STEPS = 250
+MNIST_LR = 5e-3
+# a floor for held-out accuracy on 10 classes (chance 0.1): a run that
+# learned nothing fails
+MNIST_MIN_ACCURACY = 0.5
+MNIST_TIME_BATCHES = (16, 256, 4096)
+# SparseConv on the card against the CPU: outputs within atol + rtol |y|;
+# a parameter gradient sums B * H' * W' (173 056) terms, and a float32 sum
+# taken in another order misses atol + rtol |g| at small elements, so a
+# gradient element may also differ by CONV_GRAD_ULPS float32 units of its
+# envelope (the sum of its last reduction's |terms|, from a float64 run):
+# on the CPU the batch taken in four other orders moves w_dw by 3.9-5.9
+# units (the gradient at the conv output carries BN's float32 error), and
+# TF32 operands in its weight gradient by 2 888 (the gate sits 22x from
+# each; tests/test_torch_chip_smoke.py)
+CONV_TOL = (1e-5, 1e-5)
+CONV_GRAD_ULPS = 128
 
 
 def fail(msg: str) -> None:
@@ -317,16 +380,142 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def per_layer_bytes(batch: int, n_in: int, shapes) -> int:
-    """The least bytes a per-layer forward of ``batch`` rows moves: each
+def per_layer_bytes(batch: int, n_in: int, shapes, entries=None) -> int:
+    """The bytes a per-layer forward of ``batch`` rows must move: each
     launch reads its own (batch, I_l) codes and writes its own (batch, O_l)
-    codes, and reads its (O_l, FI_l) indices and (O_l, E_l) tables once
-    (int32 throughout).  ``shapes`` holds each layer's (O_l, FI_l, E_l)."""
+    codes, and reads its (O_l, FI_l) indices once and, of its (O_l, E_l)
+    table, the ``entries[l]`` entries the batch addresses
+    (:func:`addressed_entries`; int32 throughout).  Without ``entries``
+    whole tables are counted: what a batch that addresses every entry
+    would need.  ``shapes`` holds each layer's (O_l, FI_l, E_l)."""
     total = 0
-    for n_out, fan_in, n_entries in shapes:
-        total += 4 * (batch * (n_in + n_out) + n_out * (fan_in + n_entries))
+    for layer, (n_out, fan_in, n_entries) in enumerate(shapes):
+        read = n_out * n_entries if entries is None else entries[layer]
+        total += 4 * (batch * (n_in + n_out) + n_out * fan_in + read)
         n_in = n_out
     return total
+
+
+def addressed_entries(layers, codes) -> list:
+    """Each layer's count of table entries a per-layer forward over
+    ``codes`` reads (its distinct (neuron, entry) pairs), layer by layer
+    through the plain version; ``layers`` holds (indices, table, bw_in)."""
+    import torch
+
+    from repro_torch.kernels import lut_lookup as L
+    out = []
+    for idx, tab, bw in layers:
+        entry = L.pack_fan_in_entries(codes, idx, bw)          # (O, B)
+        rows = torch.arange(idx.shape[0], device=codes.device)[:, None]
+        ok = (entry >= 0) & (entry < tab.shape[1])
+        out.append(int(torch.unique(
+            (rows * tab.shape[1] + entry)[ok]).numel()))
+        codes = L.lut_lookup_plain(codes, idx, tab, bw)
+    return out
+
+
+def fused_table_reads(slabs, codes) -> int:
+    """The table-slab elements a fused forward over ``codes`` reads: the
+    distinct slab positions its entries address, layer by layer through
+    the plain version (uniform slabs, or mixed ones: ``row_meta``)."""
+    import torch
+
+    from repro_torch.kernels import lut_lookup as L
+    from repro_torch.kernels import lut_network as N
+    mixed = hasattr(slabs, "row_meta")
+    table = slabs.table_slab.reshape(-1)
+    e_max = slabs.table_slab.shape[-1]
+    h, row, reads = codes, 0, 0
+    for m in slabs.meta:
+        rows = slice(row, row + m.n_out)
+        if mixed:
+            entry = L.pack_fan_in_entries_mixed(
+                h, slabs.idx_slab[rows, :m.fan_in],
+                slabs.shift_slab[rows, :m.fan_in],
+                slabs.width_slab[rows, :m.fan_in]).T            # (B, O)
+            off, n_e = (slabs.row_meta[rows, 0].long(),
+                        slabs.row_meta[rows, 1].long())
+            ok = (entry >= 0) & (entry < n_e)
+            pos = off + torch.minimum(entry.clamp(min=0), n_e - 1)
+            reads += int(torch.unique(pos[ok]).numel())
+            h = torch.where(ok, N._widen(table[pos], slabs.packed),
+                            torch.zeros((), dtype=torch.int32,
+                                        device=h.device))
+        else:
+            entry = L.pack_fan_in_entries(
+                h, slabs.idx_slab[rows, :m.fan_in], m.bw_in).T  # (B, O)
+            ok = (entry >= 0) & (entry < m.n_entries)
+            pos = (torch.arange(row, row + m.n_out, device=h.device)
+                   * e_max + entry)
+            reads += int(torch.unique(pos[ok]).numel())
+            h = N._widen(L.gather_entries(
+                slabs.table_slab[rows, :m.n_entries], entry), slabs.packed)
+        row += m.n_out
+    return reads
+
+
+def conv_grad_envelope(mod, x, r) -> dict:
+    """Each parameter gradient's envelope for ``(mod(x) * r).sum()`` over
+    a ``SparseConv`` ``mod`` in train mode: per element, the sum of the
+    absolute values of the terms its last reduction adds, from a float64
+    run on the CPU.  With ``dh``, ``dh1``, ``dy`` the gradients at bn1's
+    input and output and at bn2's input, and the hats the batch-normalised
+    activations: w_dw sum |x_q| |dh| (through the masked depthwise conv),
+    b_dw sum |dh|, bn1 sum |dh1 h^| and sum |dh1|, w_pw sum |q_m| |dy|
+    (masked), b_pw sum |dy|, bn2 sum |r y^| and sum |r|."""
+    import copy
+
+    import torch
+
+    from repro_torch.core.layers import BN_EPS, depthwise
+    from repro_torch.core.quantize import quantize
+    m = copy.deepcopy(mod).cpu().double().train()
+    cfg, dims = m.cfg, (0, 1, 2)
+    x, r = x.detach().cpu().double(), r.detach().cpu().double()
+    seen = {}
+    hooks = [
+        m.bn1.register_forward_hook(
+            lambda _m, i, o: seen.update(h=i[0], h1=o)),
+        m.bn2.register_forward_hook(lambda _m, i, o: seen.update(y=i[0])),
+        m.bn1.register_full_backward_hook(
+            lambda _m, gi, go: seen.update(dh=gi[0], dh1=go[0])),
+        m.bn2.register_full_backward_hook(
+            lambda _m, gi, go: seen.update(dy=gi[0]))]
+    (m(x) * r).sum().backward()
+    for h in hooks:
+        h.remove()
+
+    def hat(v):
+        v = v.detach() - v.detach().mean(dims)
+        return v * (v.square().mean(dims) + BN_EPS).rsqrt()
+
+    with torch.no_grad():
+        xq = quantize(cfg.in_quant, x).value.abs()
+        qm = quantize(cfg.mid_quant, seen["h1"]).value.abs()
+        dh, dh1, dy = seen["dh"].abs(), seen["dh1"].abs(), seen["dy"].abs()
+        env = {"b_dw": dh.sum(dims), "b_pw": dy.sum(dims),
+               "w_pw": m.mask_pw * torch.einsum("bhwc,bhwo->co", qm, dy),
+               "bn1.scale": (dh1 * hat(seen["h"]).abs()).sum(dims),
+               "bn1.bias": dh1.sum(dims),
+               "bn2.scale": (r.abs() * hat(seen["y"]).abs()).sum(dims),
+               "bn2.bias": r.abs().sum(dims)}
+    probe = torch.zeros_like(m.w_dw, requires_grad=True)
+    gw, = torch.autograd.grad(
+        depthwise(xq, probe, cfg.stride, cfg.replicate), probe, dh)
+    env["w_dw"] = m.mask_dw * gw
+    return env
+
+
+def conv_grad_reading(g, ref, env) -> float:
+    """The largest excess of ``|g - ref|`` over ``CONV_TOL`` (atol + rtol
+    ``|ref|``), in float32 units (2^-24) of the envelope ``env``: inf
+    where an element with no envelope differs by more than the tolerance.
+    A gradient passes at ``CONV_GRAD_ULPS`` or less."""
+    atol, rtol = CONV_TOL
+    g, ref, env = g.double().cpu(), ref.double().cpu(), env.double().cpu()
+    excess = ((g - ref).abs() - atol - rtol * ref.abs()).clamp(min=0)
+    units = excess / (2.0 ** -24 * env)
+    return float(units.nan_to_num(nan=0.0).max())
 
 
 def paced_ms(fn, iters: int = PACED_ITERS, reps: int = 5) -> float | None:
@@ -506,8 +695,8 @@ DEVICE_BOUND_FLOOR = 0.8
 # the events would then time the host's pace
 SPIN_CYCLES = 50_000_000
 # calls traced ahead of the measured ones, to take the records the
-# profiler drops at the start of a trace
-LEAD_CALLS = 3
+# profiler drops at the start of a trace (as many as eight seen)
+LEAD_CALLS = 20
 
 
 def trace_accepted(n_records: int, want: int, device_ms: float,
@@ -542,8 +731,9 @@ def device_ms(fn, iters: int, launches: int = 1, tries: int = 5,
     around it take what a trace loses at its start and end); another is
     taken otherwise, up to ``tries`` times, then None (not measured).  The
     profiler drops the first records of a trace (as many as two of the
-    float32 flash kernel's), so the calls before the measured ones are
-    several.  The floor on event time holds for device-bound calls alone:
+    float32 flash kernel's, eight of the MNIST-shape masked matmul's), so
+    the calls before the measured ones are many.  The floor on event time
+    holds for device-bound calls alone:
     model A's 0.003 ms masked matmul and the per-layer LUT kernels read
     0.67-0.78 of their event time (the card's gaps between short
     kernels)."""
@@ -2058,6 +2248,475 @@ def serving_front_phase(torch, dev, kernels, ref, ref_d, triples) -> dict:
     return out
 
 
+def legacy_api_phase(torch, dev, ref, triples) -> dict:
+    """Phase 12a: the legacy flag API (``repro_torch.kernels.ops``) on the
+    card, through the engine's memo."""
+    import numpy as np
+
+    from repro_torch import engine, obs
+    from repro_torch.configs import fpga4hep
+    from repro_torch.core import logicnet as LN
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lut_lookup import lut_lookup
+    from repro_torch.kernels.lut_network import (lut_network,
+                                                 lut_network_mixed)
+    from repro_torch.kernels.masked_matmul import masked_matmul
+
+    wrappers = (lut_network_mixed, lut_network, lut_lookup, masked_matmul,
+                flash_attention)
+    for w in wrappers:
+        reset_counts(w)
+
+    def memo_hits():
+        return counter_value(obs.registry().snapshot(),
+                             "engine_memo_hits_total")
+
+    codes = torch.from_numpy(ref["codes"]).to(dev)
+    engine.cache_clear()
+    runs0, hits0 = engine.compile_runs(), memo_hits()
+    first = ops.lut_network(codes, triples, fused=True, optimize_level=3)
+    runs1, hits1 = engine.compile_runs(), memo_hits()
+    second = ops.lut_network(codes, triples, fused=True, optimize_level=3)
+    runs2, hits2 = engine.compile_runs(), memo_hits()
+    torch.cuda.synchronize()
+    want = torch.from_numpy(ref["out_mixed"]).to(dev)
+    for name, out in (("first", first), ("second", second)):
+        if not torch.equal(out, want):
+            fail(f"phase 12a ops.lut_network(fused=True, optimize_level=3) "
+                 f"{name} call differs from the reference's outputs")
+    if (runs1 - runs0, runs2 - runs1, hits2 - hits1) != (1, 0, 1):
+        fail(f"phase 12a: compiler runs {runs1 - runs0} then "
+             f"{runs2 - runs1}, memo hits {hits1 - hits0} then "
+             f"{hits2 - hits1} (want 1, 0 runs and a hit on the second)")
+    mixed_routes = dict(lut_network_mixed.launches_by_route)
+    if lut_network_mixed.launches != 2 or mixed_routes["smem"] != 2:
+        fail(f"phase 12a: the mixed kernel launched "
+             f"{lut_network_mixed.launches} times, routes {mixed_routes}")
+    uniform = ops.lut_network(codes, triples, fused=True)
+    torch.cuda.synchronize()
+    if not torch.equal(uniform, torch.from_numpy(ref["out_uniform"]).to(dev)):
+        fail("phase 12a ops.lut_network(fused=True) differs from the "
+             "reference's outputs")
+    if (lut_network.launches, lut_network.launches_by_route["smem"]) != (
+            1, 1):
+        fail(f"phase 12a: fused=True without a level launched the uniform "
+             f"kernel {lut_network.launches} times, routes "
+             f"{lut_network.launches_by_route}")
+
+    # each other legacy function against its wrapper on the same inputs
+    idx, tab, bw = (torch.from_numpy(np.asarray(a)).to(dev)
+                    if i < 2 else a for i, a in enumerate(triples[0]))
+    x, w, mk, b = mm_inputs(torch, dev, 256, 64, 64, "float32",
+                            model_a_masks()[1].to(dev))
+    q, k, v = flash_inputs(torch, dev, 1, 16, 8, 256, 128, "bfloat16")
+    cases = (
+        ("lut_lookup", lut_lookup, lambda: ops.lut_lookup(codes, idx, tab,
+                                                          bw),
+         lambda: lut_lookup(codes, idx, tab, bw)),
+        ("masked_matmul", masked_matmul,
+         lambda: ops.masked_matmul(x, w, mk, b),
+         lambda: masked_matmul(x, w, mk, b)),
+        ("flash_attention", flash_attention,
+         lambda: ops.flash_attention(q, k, v),
+         lambda: flash_attention(q, k, v)))
+    for name, wrapper, legacy, direct in cases:
+        before = wrapper.launches
+        got = legacy()
+        launched = wrapper.launches - before
+        want_out = direct()
+        torch.cuda.synchronize()
+        if launched != 1:
+            fail(f"phase 12a ops.{name} launched its kernel {launched} "
+                 f"times")
+        if not torch.equal(got, want_out):
+            fail(f"phase 12a ops.{name} differs from its wrapper's output")
+    # the fault this slice repairs: a deployment forward with fused=True
+    # builds its artifact once
+    cfg = fpga4hep.model_a()
+    net = LN.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    xa = np.random.default_rng(0).standard_normal((256, 16)).astype(
+        np.float32)
+    LN.forward(net, xa, train=True)
+    tables = LN.generate_tables(net)
+    want_head = LN.sparse_head_forward(net, tables, xa)
+    runs0 = engine.compile_runs()
+    builds0 = sum(s["value"] for s in obs.registry().snapshot()[
+        "engine_builds_total"]["series"])
+    for _ in range(10):
+        head = LN.sparse_head_forward(net, tables, xa, fused=True)
+        if not torch.equal(head, want_head):
+            fail("phase 12a sparse_head_forward(fused=True) differs from "
+                 "the per-layer table path")
+    builds = sum(s["value"] for s in obs.registry().snapshot()[
+        "engine_builds_total"]["series"]) - builds0
+    if engine.compile_runs() - runs0 > 1 or builds != 1:
+        fail(f"phase 12a: 10 sparse_head_forward(fused=True) calls ran the "
+             f"compiler {engine.compile_runs() - runs0} times and built "
+             f"{builds} artifacts")
+    launches = {name: w.launches for name, w in zip(
+        ("lut_mixed_forward", "lut_uniform_forward", "lut_layer_forward",
+         "masked_matmul_ffma_forward", "flash_attention_forward"),
+        wrappers)}
+    log(f"phase 12a legacy API on model A: ops.lut_network(fused=True, "
+        f"optimize_level=3) twice bit-exact with the reference, compiler "
+        f"runs 1 then 0, memo hits +1 on the second call, mixed kernel "
+        f"routes {mixed_routes}; fused=True without a level on the uniform "
+        f"kernel; ops.lut_lookup / masked_matmul / flash_attention each one "
+        f"launch, equal to their wrappers; 10 sparse_head_forward(fused=True) "
+        f"calls: {engine.compile_runs() - runs0} compiler runs, {builds} "
+        f"build; launches {launches}")
+    engine.cache_clear()
+    return {"launches": launches, "mixed_routes": mixed_routes}
+
+
+def mnist_phase(torch, dev, sms) -> dict:
+    """Phase 12b: Table 7.1's widest MLP trained, verified and served at
+    full width; the per-layer kernel and the masked matmul timed at its
+    shapes."""
+    import numpy as np
+
+    from repro_torch import engine, serve
+    from repro_torch.configs import mnist
+    from repro_torch.core import logicnet as LN
+    from repro_torch.core.quantize import codes as quant_codes
+    from repro_torch.core.train import train_logicnet
+    from repro_torch.kernels import lut_lookup as L
+    from repro_torch.kernels.lut_network import (lut_network,
+                                                 lut_network_mixed)
+    from repro_torch.kernels.masked_matmul import (masked_matmul,
+                                                   masked_matmul_plain,
+                                                   masked_matmul_route)
+    from repro_torch.launch.train_mnist_logicnet import mnist_data
+
+    cfg = mnist.mlp(*MNIST_MLP)
+    xt, yt, xv, yv = mnist_data()
+    wrappers = (masked_matmul, L.lut_lookup, lut_network, lut_network_mixed)
+    for w in wrappers:
+        reset_counts(w)
+    # the weights are drawn on the host before the clock starts (10.4 M
+    # normals and 6 144 masks: a few hundred ms that are not a step's)
+    net0 = LN.init(cfg, torch.Generator().manual_seed(0), mask_seed=0,
+                   device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_logicnet(cfg, xt, yt, xv, yv, steps=MNIST_STEPS,
+                         lr=MNIST_LR, seed=0, device=dev, net=net0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    mm_launches = masked_matmul.launches
+    mm_routes = dict(masked_matmul.launches_by_route)
+    losses = np.asarray(res.losses)
+    if (not np.isfinite(losses).all() or res.accuracy < MNIST_MIN_ACCURACY
+            or mm_routes["ffma"] != mm_launches
+            or mm_launches < 5 * MNIST_STEPS):
+        fail(f"phase 12b training: accuracy {res.accuracy}, finite losses "
+             f"{np.isfinite(losses).all()}, masked_matmul {mm_launches} "
+             f"launches by route {mm_routes}")
+    log(f"phase 12b MNIST mlp{MNIST_MLP} ({cfg.in_features} -> "
+        f"{' -> '.join(map(str, cfg.hidden))} sparse at fan-in "
+        f"{cfg.fan_in}, {cfg.bw}-bit, dense -> {cfg.n_classes}; "
+        f"{cfg.total_luts()} LUTs): {MNIST_STEPS} steps at batch 256 in "
+        f"{train_s:.2f} s ({train_s / MNIST_STEPS * 1e3:.3f} ms a step on "
+        f"the host clock, the data upload and the held-out accuracy pass "
+        f"included), "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, held-out accuracy "
+        f"{res.accuracy:.4f}; masked_matmul {mm_launches} launches by route "
+        f"{mm_routes}")
+    net_m = res.model
+
+    t0 = time.perf_counter()
+    tables = LN.generate_tables(net_m)
+    gen_s = time.perf_counter() - t0
+    f_codes, t_codes = LN.verify_tables(net_m, tables, xv[:200])
+    torch.cuda.synchronize()
+    if not torch.equal(f_codes, t_codes):
+        fail(f"phase 12b verify_tables: "
+             f"{int((f_codes != t_codes).sum())} codes differ")
+    log(f"phase 12b tables: {len(tables)} layers x {tables[0].table.shape} "
+        f"generated on the card in {gen_s:.2f} s; verify_tables on 200 "
+        f"held-out rows EXACT")
+
+    runs0 = engine.compile_runs()
+    net = engine.compile_network(tables, block_b=16, device=dev)
+    plain_net = engine.compile_network(tables, use_pallas=False,
+                                       block_b=16, device=dev)
+    cost = net.plan.variant.cost
+    if (net.layout != "per_layer" or cost.reason != "slab_exceeds_smem_budget"
+            or engine.compile_runs() != runs0):
+        fail(f"phase 12b: the engine chose {net.layout} for "
+             f"{cost.reason!r}, not per_layer for slab_exceeds_smem_budget")
+    for w in wrappers:
+        reset_counts(w)
+    rep = serve.run_closed_loop(net, n_clients=4, n_per_client=4,
+                                rows_min=1, rows_max=8, bw=2, seed=0)
+    st = rep.stats
+    layer_launches = L.lut_lookup.launches
+    layer_routes = dict(L.lut_lookup.launches_by_route)
+    if (not layer_launches or st["retraces_after_warmup"]
+            or st["compiler_runs_after_warmup"]
+            or lut_network.launches or lut_network_mixed.launches):
+        fail(f"phase 12b serving: per-layer launches {layer_launches}, "
+             f"stats {st}")
+    # served rows equal net(codes) (run_closed_loop checks that); net(codes)
+    # equals the plain chain of the same artifact's tables
+    for r in serve.make_requests(net.n_in, 16, rows_min=1, rows_max=8, bw=2,
+                                 seed=0):
+        c = torch.from_numpy(r).to(dev)
+        if not torch.equal(net(c), plain_net(c)):
+            fail("phase 12b: a served request differs from the plain "
+                 "version of the same artifact")
+    legs = " ".join(f"{leg}={rep.breakdown[leg]['mean_ms']:.3f}"
+                    for leg in ("queue_wait", "assembly", "device"))
+    log(f"phase 12b serving per_layer (the engine's choice: "
+        f"{cost.slab_bytes} B of uniform slabs against a "
+        f"{cost.vmem_budget_bytes} B budget): {rep.n_requests} requests "
+        f"({rep.rows} rows) bit-exact with the plain version, "
+        f"p50={rep.p50_ms:.3f} ms p99={rep.p99_ms:.3f} ms, "
+        f"{rep.rows_per_sec:.0f} rows/s, mean legs ms: {legs}; lut_lookup "
+        f"launches {layer_launches} by route {layer_routes}, "
+        f"retraces={st['retraces_after_warmup']} "
+        f"compiler_runs={st['compiler_runs_after_warmup']}")
+
+    # the per-layer forward device-paced at three batches, on the routes
+    # the rule picks and on the other route of every layer
+    x_all = np.concatenate([xt, xv])
+    codes_all = quant_codes(cfg.layer_cfgs()[0].in_quant, torch.from_numpy(
+        x_all[:max(MNIST_TIME_BATCHES)]).to(dev)).to(torch.int32)
+    shapes = [(i.shape[0], i.shape[1], t.shape[1]) for i, t, _ in net.layers]
+
+    def chain(route_of):
+        def call(c):
+            for idx, tab, bw in net.layers:
+                out = torch.empty((c.shape[0], idx.shape[0]),
+                                  dtype=torch.int32, device=dev)
+                geom = L.lut_layer_route(c.shape[0], c.shape[1],
+                                         idx.shape[0], idx.shape[1],
+                                         tab.shape[1], sms,
+                                         route=route_of(c, idx, tab))
+                L._launch_layer(c, idx, tab, bw, out, geom)
+                c = out
+            return c
+        return call
+
+    def rule_route(c, idx, tab):
+        return L.lut_layer_route(c.shape[0], c.shape[1], idx.shape[0],
+                                 idx.shape[1], tab.shape[1], sms).route
+
+    def other_route(c, idx, tab):
+        return "smem" if rule_route(c, idx, tab) == "direct" else "direct"
+
+    layer_rec = {"model": f"mnist mlp{MNIST_MLP}", "layers": len(shapes),
+                 "shapes": shapes, "launches": layer_launches,
+                 "launches_by_route": layer_routes,
+                 "serving": {"p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms,
+                             "rows_per_sec": rep.rows_per_sec}}
+    for b in MNIST_TIME_BATCHES:
+        c = codes_all[:b].contiguous()
+        want = plain_net(c)
+        fns = {"rule": chain(rule_route), "other": chain(other_route)}
+        for what, fn in fns.items():
+            out = fn(c)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                fail(f"phase 12b per-layer forward batch {b} ({what} "
+                     f"routes) differs from the plain version")
+        routes, other, n_in = [], [], c.shape[1]
+        for n_out, fan_in, n_e in shapes:
+            g = L.lut_layer_route(b, n_in, n_out, fan_in, n_e, sms)
+            routes.append(g.route)
+            other.append("smem" if g.route == "direct" else "direct")
+            n_in = n_out
+        turns = {w: [] for w in fns}
+        for w in ("rule", "other", "other", "rule"):
+            turns[w].append(paced_ms(lambda: fns[w](c)))
+        paced = {w: (None if None in v else statistics.mean(v))
+                 for w, v in turns.items()}
+        ms = cuda_ms(lambda: net(c), 50)
+        plain_ms = cuda_ms(lambda: plain_net(c), 10)
+        whole = per_layer_bytes(b, c.shape[1], shapes)
+        entries = addressed_entries(net.layers, c)
+        moved = per_layer_bytes(b, c.shape[1], shapes, entries)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = b * sum(o * (2 * f + 2) for o, f, _ in shapes) \
+            / INT32_OPS_PER_S * 1e3
+        whole_ms = max(whole / HBM_BYTES_PER_S * 1e3, ops_ms)
+        layer_rec[f"b{b}"] = {
+            "paced_ms": paced["rule"], "routes": routes,
+            "paced_ms_other_route": paced["other"], "other_routes": other,
+            "turns_paced_ms": turns, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes": moved, "entries_addressed": entries,
+            "bound_ms_whole_tables": whole_ms,
+            "bound_bytes_whole_tables": whole}
+        log(f"phase 12b per-layer forward batch {b}: device-paced "
+            f"{paced['rule']} ms on the rule's routes {routes}, "
+            f"{paced['other']} ms on the other routes {other} (turns "
+            f"{turns}); engine call {ms:.5f} ms event, plain "
+            f"{plain_ms:.5f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
+            f"({moved} B: the {sum(entries)} table entries this batch "
+            f"addresses), {whole_ms:.6f} ms with whole tables ({whole} B)")
+
+    # the masked matmul at the training step's two shapes, float32
+    mm_rec = {}
+    for mask in (net_m.layers[0].mask, net_m.layers[1].mask):
+        m, (k, n) = 256, mask.shape
+        x, w, mk, bias = mm_inputs(torch, dev, m, k, n, "float32",
+                                   mask.detach())
+        route = masked_matmul_route(x.dtype, k, n)
+        want = masked_matmul_plain(x, w, mk, bias)
+        got = masked_matmul(x, w, mk, bias)
+        torch.cuda.synchronize()
+        atol, rtol, _ = MM_TOL["float32"]
+        err = float((got - want).abs().max())
+        if route != "ffma" or not bool(
+                ((got - want).abs() <= atol + rtol * want.abs()).all()):
+            fail(f"phase 12b masked_matmul {m}x{k}x{n} ({route}): max "
+                 f"|kernel - plain| {err}")
+        ms = cuda_ms(lambda: masked_matmul(x, w, mk, bias), 200)
+        plain_ms = cuda_ms(lambda: masked_matmul_plain(x, w, mk, bias), 200)
+        library_ms = cuda_ms(lambda: torch.addmm(bias, x, w * mk), 200)
+        dev_ms = device_ms(lambda: masked_matmul(x, w, mk, bias), 200,
+                           device_bound=True)
+        moved = nbytes(x, w, mk, bias) + m * n * 4
+        ops = 2 * m * int(mk.count_nonzero())
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FLOPS_PER_S["float32"] * 1e3
+        mm_rec[f"{m}x{k}x{n}"] = {
+            "route": route, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        log(f"phase 12b masked_matmul {m}x{k}x{n} float32 ({route}, the "
+            f"MNIST mask, nnz {int(mk.count_nonzero())}): {ms:.5f} ms/call, "
+            f"device {dev_ms} ms, plain {plain_ms:.5f} ms, addmm "
+            f"{library_ms:.5f} ms ({ms / library_ms:.2f}x), bound "
+            f"{max(bytes_ms, ops_ms):.6f} ms ({moved} B)")
+
+    # where a training step's time goes: 50 steps a call of an already
+    # made network (the profiler's first call is its warm-up); the call's
+    # one upload of the 12.5 MB of training data is split out
+    steps = 50
+    net1 = LN.init(cfg, torch.Generator().manual_seed(1), mask_seed=0,
+                   device=dev)
+    wall, total, by_name, counts = profile_split(
+        torch, lambda: train_logicnet(cfg, xt, yt, xv, yv, steps=steps,
+                                      lr=MNIST_LR, seed=0, device=dev,
+                                      net=net1), 1)
+    mm_dev = sum(t for n, t in by_name.items() if "masked_matmul" in n)
+    h2d = sum(t for n, t in by_name.items() if "Memcpy HtoD" in n)
+    train = {"steps": MNIST_STEPS, "train_s": train_s,
+             "ms_per_step": train_s / MNIST_STEPS * 1e3,
+             "accuracy": res.accuracy, "loss_first": float(losses[0]),
+             "loss_last": float(losses[-1]),
+             "masked_matmul_launches": mm_launches,
+             "masked_matmul_routes": mm_routes,
+             "profiled_steps": steps,
+             "profiled_wall_ms": wall / steps,
+             "profiled_device_ms": total / steps,
+             "profiled_device_ms_without_uploads": (total - h2d) / steps,
+             "profiled_mm_device_ms": mm_dev / steps,
+             "kernels_per_step": sum(counts.values()) / steps,
+             "idle_share": 1 - total / wall, "tables_s": gen_s}
+    log(f"phase 12b training step ({steps} steps a call, profiled): "
+        f"{train['profiled_wall_ms']:.3f} ms host clock, "
+        f"{train['profiled_device_ms']:.4f} ms device "
+        f"({train['profiled_device_ms_without_uploads']:.4f} without the "
+        f"host-to-device copies; masked matmul "
+        f"{train['profiled_mm_device_ms']:.4f} ms), device idle "
+        f"{train['idle_share'] * 100:.1f} %, {train['kernels_per_step']:.2f} "
+        f"kernels a step; top: {top_kernels(by_name)}")
+    return {"per_layer": layer_rec, "masked_matmul": mm_rec,
+            "training": train}
+
+
+def sparse_conv_phase(torch, dev) -> dict:
+    """Phase 12c: Table 7.4's first SparseConv layer, one train-mode
+    forward and backward on the card against the same weights on the
+    CPU, with cuDNN's TF32 default (allow_tf32 True) left on around it.
+    A control repeats the step with the depthwise conv's backward left to
+    that default (the layer's float32 block lifted for the backward only):
+    where its gradients differ from the sound run's, the gate must refuse
+    them."""
+    import contextlib
+    import copy
+    from unittest import mock
+
+    from repro_torch.core import SparseConv, SparseConvCfg
+    from repro_torch.core import layers as LY
+
+    cfg = SparseConvCfg(1, 16, 3, first_layer=True)
+    cpu = SparseConv(cfg, torch.Generator().manual_seed(0)).train()
+    card, control = copy.deepcopy(cpu).to(dev), copy.deepcopy(cpu).to(dev)
+    x, r = conv_inputs(torch)
+    env = conv_grad_envelope(cpu, x, r)
+    xd, rd = x.to(dev), r.to(dev)
+
+    def step(mod, xx, rr, tf32_backward=False):
+        mod.zero_grad(set_to_none=True)
+        y = mod(xx)
+        with (mock.patch.object(LY, "_float32_convs", contextlib.nullcontext)
+              if tf32_backward else contextlib.nullcontext()):
+            (y * rr).sum().backward()
+        return y
+
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        y_card = step(card, xd, rd)
+        step(control, xd, rd, tf32_backward=True)
+        y_cpu = step(cpu, x, r)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: step(card, xd, rd), 20)
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    atol, rtol = CONV_TOL
+    y_err = float((y_card.detach().cpu() - y_cpu.detach()).abs().max())
+    if not bool(((y_card.detach().cpu() - y_cpu.detach()).abs()
+                 <= atol + rtol * y_cpu.detach().abs()).all()):
+        fail(f"phase 12c SparseConv output: max |card - cpu| {y_err}")
+    want = {n: p.grad for n, p in cpu.named_parameters()}
+    got = {n: p.grad.cpu() for n, p in card.named_parameters()}
+    ctl = {n: p.grad.cpu() for n, p in control.named_parameters()}
+    g_err = {n: float((got[n] - want[n]).abs().max()) for n in want}
+    units = {n: conv_grad_reading(got[n], want[n], env[n]) for n in want}
+    ctl_units = {n: conv_grad_reading(ctl[n], want[n], env[n])
+                 for n in want}
+    ctl_err = {n: float((ctl[n] - want[n]).abs().max()) for n in want}
+    changed = [n for n in want if not torch.equal(ctl[n], got[n])]
+    log(f"phase 12c SparseConv {cfg} on 256 mnist_like images: outputs "
+        f"within {atol} + {rtol} |y| of the CPU's (max |diff| {y_err}); "
+        f"gradients: max |card - cpu| {g_err}, excess over the tolerance "
+        f"in float32 units of each envelope {units} (gate "
+        f"{CONV_GRAD_ULPS}); control with a TF32 backward: max |diff| "
+        f"{ctl_err}, units {ctl_units}, gradients that changed {changed}; "
+        f"{ms:.4f} ms a step (event), cuDNN TF32 left on outside the "
+        f"layer's own float32 block")
+    for n, u in units.items():
+        if u > CONV_GRAD_ULPS:
+            fail(f"phase 12c SparseConv gradient {n}: {u} float32 units of "
+                 f"its envelope over the tolerance (gate {CONV_GRAD_ULPS})")
+    if changed and max(ctl_units[n] for n in changed) <= CONV_GRAD_ULPS:
+        fail(f"phase 12c: a TF32 backward changed {changed} and the "
+             f"gradient gate passed it ({ctl_units})")
+    return {"y_max_abs_err": y_err, "grad_max_abs_err": g_err,
+            "grad_envelope_units": units, "grad_gate_units": CONV_GRAD_ULPS,
+            "control_tf32_backward": {"grad_max_abs_err": ctl_err,
+                                      "grad_envelope_units": ctl_units,
+                                      "changed": changed},
+            "ms_per_step": ms}
+
+
+def conv_inputs(torch):
+    """Phase 12c's 256 images and the upstream gradient (CPU, seeded)."""
+    from repro_torch.data import mnist_like_data
+    x, _ = mnist_like_data(256, 1)
+    r = torch.randn((256, 26, 26, 16),
+                    generator=torch.Generator().manual_seed(1))
+    return torch.from_numpy(x), r
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2406,7 +3065,9 @@ def main() -> None:
             dev_ms = device_ms(lambda: k["kernel"](codes), iters, n_call)
             earlier_dev = device_ms(lambda: fns["first"](codes), iters,
                                     n_call)
-            moved = per_layer_bytes(b, codes.shape[1], k["shapes"])
+            whole = per_layer_bytes(b, codes.shape[1], k["shapes"])
+            moved = per_layer_bytes(b, codes.shape[1], k["shapes"],
+                                    addressed_entries(net.layers, codes))
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             ops_ms = b * k["ops_per_row"] / INT32_OPS_PER_S * 1e3
             bound = max(bytes_ms, ops_ms)
@@ -2430,7 +3091,11 @@ def main() -> None:
                 f"bound_ms_per_launch{sfx}": bound / n_call,
                 f"bound_by{sfx}": ("bytes" if bytes_ms >= ops_ms
                                    else "operations"),
-                f"bound_bytes{sfx}": moved, f"routes_used{sfx}": used})
+                f"bound_bytes{sfx}": moved,
+                f"bound_ms_whole_tables{sfx}": max(
+                    whole / HBM_BYTES_PER_S * 1e3, ops_ms),
+                f"bound_bytes_whole_tables{sfx}": whole,
+                f"routes_used{sfx}": used})
             log(f"phase 3 {k['name']} model {k['model']} batch {b} "
                 f"({n_call} launches a forward, routes {used}): "
                 f"device-paced {paced['routed']} ms a forward (without "
@@ -2438,7 +3103,8 @@ def main() -> None:
                 f"turns {turns}), event {ms:.5f} ms (first design "
                 f"{earlier_ms:.5f}), device {dev_ms} ms (first design "
                 f"{earlier_dev}), plain {plain_ms:.5f} ms, bound "
-                f"{bound:.6f} ms ({moved} B)")
+                f"{bound:.6f} ms ({moved} B: the table entries this batch "
+                f"addresses; {whole} B with whole tables)")
         return rec
 
     def fused_times(k) -> dict:
@@ -2462,8 +3128,12 @@ def main() -> None:
                 lambda: k["direct"]("global", codes), iters)
             plain_ms = cuda_ms(lambda: k["plain"](codes), iters)
             dev_ms = device_ms(lambda: k["kernel"](codes), iters)
-            moved = (b * (codes.shape[1] + k["net"].n_out) * 4
+            sl = k["slabs"]
+            tab_bytes = nbytes(sl.table_slab)
+            whole = (b * (codes.shape[1] + k["net"].n_out) * 4
                      + k["slab_bytes"])
+            moved = whole - tab_bytes + (fused_table_reads(sl, codes)
+                                         * sl.table_slab.element_size())
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             ops_ms = b * k["ops_per_row"] / INT32_OPS_PER_S * 1e3
             rec.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
@@ -2474,11 +3144,17 @@ def main() -> None:
                         f"turns_ms{suffix}": turns,
                         f"bound_ms{suffix}": max(bytes_ms, ops_ms),
                         f"bound_by{suffix}": ("bytes" if bytes_ms >= ops_ms
-                                              else "operations")})
+                                              else "operations"),
+                        f"bound_bytes{suffix}": moved,
+                        f"bound_ms_whole_slab{suffix}": max(
+                            whole / HBM_BYTES_PER_S * 1e3, ops_ms),
+                        f"bound_bytes_whole_slab{suffix}": whole})
             log(f"phase 3 {k['name']} model {k.get('model', 'A')} batch "
                 f"{b}: {ms:.5f} ms/forward, "
                 f"device {dev_ms} ms, plain {plain_ms:.5f} ms, bound "
-                f"{max(bytes_ms, ops_ms):.6f} ms ({moved} B), earlier "
+                f"{max(bytes_ms, ops_ms):.6f} ms ({moved} B: the table "
+                f"entries this batch addresses; {whole} B with the whole "
+                f"slab), earlier "
                 f"design (global route) "
                 f"{rec[f'earlier_ms{suffix}']:.5f} ms, device "
                 f"{earlier_dev} ms")
@@ -2595,6 +3271,22 @@ def main() -> None:
         if rec["name"] in front["autotune_launches"]:
             rec["launches_autotune"] = front["autotune_launches"][
                 rec["name"]]
+
+    # -- phase 12: the legacy flag API, the MNIST path, SparseConv
+    legacy = legacy_api_phase(torch, dev, ref, triples)
+    mnist_out = mnist_phase(torch, dev, sms)
+    conv = sparse_conv_phase(torch, dev)
+    for rec in records:
+        if rec["name"] in legacy["launches"]:
+            rec["launches_legacy_api"] = legacy["launches"][rec["name"]]
+    layer_rec["mnist"] = mnist_out["per_layer"]
+    mm_rec = next(r for r in records
+                  if r["name"] == "masked_matmul_ffma_forward")
+    mm_rec["mnist"] = mnist_out["masked_matmul"]
+    mm_rec["mnist"]["launches"] = mnist_out["training"][
+        "masked_matmul_launches"]
+    mm_rec["mnist_training"] = mnist_out["training"]
+    mm_rec["sparse_conv"] = conv
 
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

@@ -5,9 +5,9 @@ Runs a network through its generated tables: pack each neuron's selected
 input codes into a table index and read the output code there.  Must
 match the quantized float forward bit for bit.  On CUDA codes the
 per-layer chain launches the ``lut_lookup`` kernel and ``fused=True`` a
-whole-network kernel (through ``engine.compile_network``: the mixed one
-after the compiler, else the uniform one when the slabs fit); on CPU
-codes both run their plain versions.
+whole-network kernel (through ``kernels.ops.lut_network``, the engine's
+memo: the mixed one after the compiler, else the uniform one when the
+slabs fit); on CPU codes both run their plain versions.
 """
 
 from __future__ import annotations
@@ -44,10 +44,13 @@ def network_table_forward(tables: list[LayerTruthTable],
                           optimize_level: int | None = None) -> torch.Tensor:
     """Full sparse-stack forward on integer codes, on ``in_codes``' device.
 
-    ``fused=True`` compiles the tables into a ``CompiledLUTNet``
-    (``repro_torch.engine.compile_network``) and runs it; ``fused=False``
-    chains :func:`layer_table_forward`.  A serving loop should compile once
-    and keep the artifact instead.
+    ``fused=True`` runs the tables through ``kernels.ops.lut_network``, a
+    thin wrapper over the engine's identity-keyed memo
+    (``repro_torch.engine.cached_compile``): the first call with a set of
+    tables compiles them into a ``CompiledLUTNet``, and later calls with the
+    same table arrays reuse it (no compiler run, no slab build).
+    ``fused=False`` chains :func:`layer_table_forward`.  A serving loop
+    should compile once and keep the artifact instead.
 
     ``optimize_level`` (0-3, or 4) first runs the truth-table compiler
     (``repro_torch.compile``) over the stack; the output stays bit-identical
@@ -57,11 +60,11 @@ def network_table_forward(tables: list[LayerTruthTable],
     runs the compiler's uniform lowering.
     """
     if fused:
-        from repro_torch import engine
-        net = engine.compile_network(tables, optimize_level=optimize_level,
-                                     in_features=in_codes.shape[-1],
-                                     device=in_codes.device)
-        return net(in_codes)
+        from repro_torch.kernels.ops import lut_network
+        return lut_network(in_codes,
+                           [(tt.indices, tt.table, tt.bw_in)
+                            for tt in tables], fused=True,
+                           optimize_level=optimize_level)
     if optimize_level is not None:
         from repro_torch.compile import optimize_tables
         tables = optimize_tables(list(tables), optimize_level,

@@ -30,6 +30,11 @@ timing table and the name of the card that took it.
 (``None`` when the compiler did not run); ``save`` writes it as
 ``as_dict()`` and ``load`` reads it back with ``from_dict``, as the
 reference does.
+
+``cached_compile`` is the memo behind the legacy flag API
+(``repro_torch.kernels.ops.lut_network``): keyed by the layer arrays'
+identity, the flags and the device, so a loop of legacy calls over the
+same tables compiles once.
 """
 
 from __future__ import annotations
@@ -75,6 +80,12 @@ _M_BUILDS = obs.registry().counter(
 _M_SLAB_BUILD = obs.registry().histogram(
     "engine_slab_build_seconds",
     "host-side slab construction time per compile_network build")
+_M_MEMO_HITS = obs.registry().counter(
+    "engine_memo_hits_total",
+    "cached_compile hits (legacy flag calls served from the memo)")
+_M_MEMO_MISSES = obs.registry().counter(
+    "engine_memo_misses_total",
+    "cached_compile misses (legacy flag calls that built an artifact)")
 _M_LOADS = obs.registry().counter(
     "engine_artifact_loads_total",
     "CompiledLUTNet artifacts rebuilt from disk via engine.load")
@@ -422,3 +433,70 @@ def compile_network(layers, *, optimize_level: int | None = None,
         layout=layout, n_in=in_features, n_out=n_out, block_b=block_b,
         plan=ExecutionPlan.from_fused(cost, layout, block_b),
         stats=stats, device=dev, layers=built)
+
+
+# ---------------------------------------------------------------------------
+# Identity-keyed memo for the legacy flag API (ops.lut_network)
+# ---------------------------------------------------------------------------
+
+# key -> (layers kept alive so ids stay unique, CompiledLUTNet); the
+# insertion-ordered dict gives FIFO eviction
+_cache: dict[tuple, tuple[list, CompiledLUTNet]] = {}
+_CACHE_MAX = 16
+
+
+def _device_key(dev: torch.device) -> str:
+    """``dev`` with its index made explicit: ``cuda`` and ``cuda:0`` are
+    one device while ``cuda:0`` is current."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def cached_compile(layers, *, optimize_level: int | None,
+                   in_features: int, fused: bool, use_pallas: bool,
+                   block_b: int, budget_bytes: int,
+                   device=None) -> CompiledLUTNet:
+    """Memoized :func:`compile_network` keyed by layer identity, the flags
+    and the device.
+
+    A caller looping over ``ops.lut_network(codes, layers,
+    optimize_level=...)`` with the same layer arrays gets the artifact of
+    the first call: no second compiler run, no second slab build or upload.
+    Keys hold the ``id()`` of the index and table arrays (no hashing of
+    megabyte tables) and each entry pins its arrays, so a live id is never
+    recycled into a collision.  So arrays handed to ``lut_network`` must
+    be treated as immutable: an in-place table edit serves stale results
+    until :func:`cache_clear`.  An artifact lives on one device, and the
+    device is part of the key: a CPU artifact never answers a CUDA call.
+    FIFO-bounded to ``_CACHE_MAX`` entries.
+    """
+    dev = resolve_device(device)
+    layers = list(layers)
+    triples = _as_triples(layers)
+    key = (tuple((id(i), id(t), b) for i, t, b in triples),
+           optimize_level, in_features, fused, use_pallas, block_b,
+           budget_bytes, _device_key(dev))
+    hit = _cache.get(key)
+    if hit is not None:
+        _M_MEMO_HITS.inc()
+        return hit[1]
+    _M_MEMO_MISSES.inc()
+    net = compile_network(triples, optimize_level=optimize_level,
+                          in_features=in_features, fused=fused,
+                          use_pallas=use_pallas, block_b=block_b,
+                          budget_bytes=budget_bytes, device=dev)
+    while len(_cache) >= _CACHE_MAX:
+        _cache.pop(next(iter(_cache)))
+    _cache[key] = (layers, net)
+    return net
+
+
+def cache_size() -> int:
+    """Number of memoized legacy-API artifacts."""
+    return len(_cache)
+
+
+def cache_clear() -> None:
+    """Drop every memoized artifact (after an in-place table edit)."""
+    _cache.clear()

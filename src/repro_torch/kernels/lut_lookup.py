@@ -12,9 +12,10 @@ programmatic dependent launch, on one of two routes that the pure
   stages its neuron tile's tables in shared memory (one 1-D bulk copy,
   issued before the launch waits for the previous layer, so it hides
   under that layer) and walks batch tiles;
-* ``"direct"`` (larger batches, or a neuron whose table alone passes
-  :data:`LAYER_SMEM_BYTES`): tables are read in place, where staging a
-  layer's tables in every block group would cost more than it saves.
+* ``"direct"`` (larger batches, a neuron whose table alone passes
+  :data:`LAYER_SMEM_BYTES`, or a wide input bus, where every neuron tile
+  staging the whole batch's codes costs more than the table reads it
+  saves): tables are read in place.
 
 ``launches`` counts the launches and ``launches_by_route`` each route's.
 The first design (``lut_layer_forward`` in ``csrc/lut_kernels.cu``, one
@@ -59,9 +60,18 @@ LAYER_SMEM_MAX_BATCH = 256
 # these bounds
 LAYER_MIN_ROWS = 16
 LAYER_SMEM_TILE_B = 128
-# neurons a tile (at most): route smem, route direct
+# neurons a tile (at most): route smem, route direct (which takes more
+# on a wide input bus: see LAYER_SECTOR_BYTES)
 LAYER_SMEM_TILE_O = 16
 LAYER_DIRECT_TILE_O = 32
+# bytes of a table read in place, for one output: an L2 sector.  Each
+# neuron tile's blocks stage every batch row's n_in codes (4 bytes each),
+# so a direct tile takes at least n_in * 4 / LAYER_SECTOR_BYTES neurons
+# (to a power of two): the codes it stages then cost no more than the
+# sectors its outputs read (tools/lut_layer_sweep.py at the MNIST widths,
+# 784 and 2048 inputs: 128 and 256 neurons a tile, 2.2-4.1x faster than
+# 32 at 4096 rows)
+LAYER_SECTOR_BYTES = 32
 # route direct: one output a thread, two where that grid would pass this
 # many blocks an SM
 LAYER_DIRECT_BLOCKS_PER_SM = 4
@@ -179,6 +189,17 @@ def layer_smem_bytes(n_in: int, fan_in: int, n_entries: int, tile_o: int,
             + n_buf * _round16(4 * tile_b * n_in + 15))
 
 
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def staged_codes_bytes(geom: LayerRoute, batch: int, n_in: int) -> int:
+    """Bytes of codes a launch at ``geom`` copies into shared memory after
+    its wait, summed over its blocks: every neuron tile's blocks stage
+    every batch row's ``n_in`` codes."""
+    return geom.grid_o * batch * n_in * 4
+
+
 def _geometry(route: str, batch: int, n_in: int, n_out: int, fan_in: int,
               n_entries: int, sms: int, elem: int, tile_o: int | None,
               tile_b: int | None) -> LayerRoute | None:
@@ -186,7 +207,9 @@ def _geometry(route: str, batch: int, n_in: int, n_out: int, fan_in: int,
     block of it fits."""
     stage = route == "smem"
     threads = LAYER_THREADS
-    cap = tile_o or (LAYER_SMEM_TILE_O if stage else LAYER_DIRECT_TILE_O)
+    cap = tile_o or (LAYER_SMEM_TILE_O if stage else max(
+        LAYER_DIRECT_TILE_O, _pow2_at_least(-(-4 * n_in
+                                              // LAYER_SECTOR_BYTES))))
     to = min(n_out, threads, cap)
     grid_o = -(-n_out // to)
     to = -(-n_out // grid_o)
@@ -239,12 +262,19 @@ def lut_layer_route(batch: int, n_in: int, n_out: int, fan_in: int,
     out once.
 
     Route: ``"smem"`` up to :data:`LAYER_SMEM_MAX_BATCH` rows where its
-    block fits, else ``"direct"`` (``tools/lut_layer_sweep.py`` on models
-    A and D: staging wins by 4-10 % at batches 16 to 256, reading in place
-    by 1-17 % at 1000 and 4096).
+    block fits and the codes it stages after its wait
+    (:func:`staged_codes_bytes`) are no more than route direct's plus one
+    table sector (:data:`LAYER_SECTOR_BYTES`) an output, which direct
+    reads after its wait and smem staged before it; else ``"direct"``
+    (``tools/lut_layer_sweep.py`` on models A and D: staging wins by
+    4-10 % at batches 16 to 256, reading in place by 1-17 % at 1000 and
+    4096; at the MNIST widths, 784 and 2048 inputs, staging cuts smem's
+    neuron tile to 1 where its codes do not fit beside the tables, and
+    lost by 14x at 16 rows and 26x at 256).
 
     Geometry: neurons a tile up to :data:`LAYER_SMEM_TILE_O` (smem) or
-    :data:`LAYER_DIRECT_TILE_O` (direct), split evenly; rows a batch tile
+    :data:`LAYER_DIRECT_TILE_O` (direct; more on a wide input bus, see
+    :data:`LAYER_SECTOR_BYTES`), split evenly; rows a batch tile
     ``ceil(batch grid_o / sms)`` within [:data:`LAYER_MIN_ROWS`,
     :data:`LAYER_SMEM_TILE_B`] (smem), or ``threads // tile_o``, one output
     a thread, doubled where that grid would pass
@@ -267,7 +297,11 @@ def lut_layer_route(batch: int, n_in: int, n_out: int, fan_in: int,
     if route is None:
         smem = (_geometry("smem", *args)
                 if batch <= LAYER_SMEM_MAX_BATCH else None)
-        if smem is not None:
+        direct = _geometry("direct", *args)
+        if smem is not None and (
+                direct is None or staged_codes_bytes(smem, batch, n_in)
+                <= staged_codes_bytes(direct, batch, n_in)
+                + batch * n_out * LAYER_SECTOR_BYTES):
             return smem
         route = "direct"
     geom = _geometry(route, *args)

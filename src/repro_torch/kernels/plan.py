@@ -118,7 +118,8 @@ class PlanVariant:
 
 def enumerate_variants(uniform_triples=None, mixed_tables=None, *,
                        block_bs=DEFAULT_BLOCK_BS,
-                       budget_bytes: int = FUSED_SMEM_BUDGET_BYTES
+                       budget_bytes: int = FUSED_SMEM_BUDGET_BYTES,
+                       include_per_layer: bool = True
                        ) -> tuple[PlanVariant, ...]:
     """Every buildable variant for a stack, in the reference's order.
 
@@ -127,9 +128,9 @@ def enumerate_variants(uniform_triples=None, mixed_tables=None, *,
     computed once; pack=False is also enumerated where auto-pack chose
     int8, and each eligible (layout, pack) is crossed with every
     ``block_bs`` tile.  Fused combinations over the budget or the code
-    range are dropped; the per-layer kernel is always enumerable and
-    closes the space, so the result is non-empty whenever
-    ``uniform_triples`` is given.
+    range are dropped; the per-layer kernel is always enumerable and,
+    with ``include_per_layer``, closes the space, so the result is then
+    non-empty whenever ``uniform_triples`` is given.
     """
     variants: list[PlanVariant] = []
     pools = []
@@ -147,7 +148,7 @@ def enumerate_variants(uniform_triples=None, mixed_tables=None, *,
                 continue
             for bb in block_bs:
                 variants.append(PlanVariant(plan.layout, int(bb), p, plan))
-    if uniform_triples is not None:
+    if include_per_layer and uniform_triples is not None:
         base = fused_plan(list(uniform_triples), budget_bytes)
         cost = dataclasses.replace(
             base, fused=False,

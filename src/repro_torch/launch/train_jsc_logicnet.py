@@ -52,29 +52,44 @@ def main(argv=None) -> None:
                     "kernels' plain PyTorch versions)")
     args = ap.parse_args(argv)
 
+    from repro_torch.configs import fpga4hep
+    from repro_torch.data import jet_substructure_data
+
+    cfg = fpga4hep.MODELS[args.model]()
+    x, y = jet_substructure_data(8000, seed=0)
+    run(cfg, (x[:7000], y[:7000], x[7000:], y[7000:]), name=args.model,
+        classes=CLASSES, method=args.method, steps=args.steps,
+        seed=args.seed, optimize_level=args.optimize_level, out=args.out,
+        device=args.device)
+
+
+def run(cfg, data, *, name: str, classes, method: str = "apriori",
+        steps: int = 600, lr: float = 1e-2, seed: int = 0,
+        optimize_level: int = 2, out: str | None = None,
+        device=None) -> None:
+    """Train ``cfg`` on ``data`` (train and held-out arrays), report
+    per-class AUC-ROC and accuracy, verify the tables (and, at an
+    ``optimize_level``, the compiled ones), build and check the serving
+    artifact, and write it to ``out/logicnet_<name>.npz``."""
     import torch
 
     from repro_torch import engine
     from repro_torch._device import resolve_device
-    from repro_torch.configs import fpga4hep
     from repro_torch.core import logicnet as LN
     from repro_torch.core.quantize import codes
     from repro_torch.core.train import auc_roc_ovr, train_logicnet
     from repro_torch.core.truth_table import minimized_lut_estimate
-    from repro_torch.data import jet_substructure_data
 
-    dev = resolve_device(args.device)
-    cfg = fpga4hep.MODELS[args.model]()
-    print(f"model {args.model}: HL={cfg.hidden} BW={cfg.bw} X={cfg.fan_in} "
+    dev = resolve_device(device)
+    print(f"model {name}: HL={cfg.hidden} BW={cfg.bw} X={cfg.fan_in} "
           f"LUTs={cfg.luts()} (total {cfg.total_luts()}) on {dev}")
 
-    x, y = jet_substructure_data(8000, seed=0)
-    xt, yt, xv, yv = x[:7000], y[:7000], x[7000:], y[7000:]
-    res = train_logicnet(cfg, xt, yt, xv, yv, method=args.method,
-                         steps=args.steps, seed=args.seed, device=dev)
+    xt, yt, xv, yv = data
+    res = train_logicnet(cfg, xt, yt, xv, yv, method=method, steps=steps,
+                         lr=lr, seed=seed, device=dev)
     aucs = auc_roc_ovr(res.model, xv, yv)
-    for c, name in enumerate(CLASSES):
-        print(f"  AUC-ROC[{name}] = {aucs[c] * 100:.2f}")
+    for c, cname in enumerate(classes):
+        print(f"  AUC-ROC[{cname}] = {aucs[c] * 100:.2f}")
     print(f"  avg AUC-ROC = {np.nanmean(list(aucs.values())) * 100:.2f}   "
           f"accuracy = {res.accuracy:.3f}")
 
@@ -91,9 +106,9 @@ def main(argv=None) -> None:
           "Vivado synthesis lands lower still, Table 5.2)")
 
     opt = None
-    if args.optimize_level:
+    if optimize_level:
         from repro_torch import compile as rcompile
-        opt = rcompile.optimize(tables, args.optimize_level,
+        opt = rcompile.optimize(tables, optimize_level,
                                 in_features=cfg.in_features)
         print(f"truth-table compiler: {rcompile.summarize(opt.stats)}")
         # verify the optimized tables themselves: one compile, reused for
@@ -115,10 +130,9 @@ def main(argv=None) -> None:
         raise SystemExit("serving artifact verification failed")
     print("serving artifact verification: EXACT")
 
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        apath = net.save(os.path.join(args.out,
-                                      f"logicnet_{args.model}.npz"))
+    if out:
+        os.makedirs(out, exist_ok=True)
+        apath = net.save(os.path.join(out, f"logicnet_{name}.npz"))
         print(f"wrote serving artifact {apath} (python -m "
               f"repro_torch.launch.serve --lut --artifact {apath} serves it)")
 

@@ -99,6 +99,106 @@ def test_per_layer_bound_counts_each_launch_codes(cs):
         + 64 * 1029 + 32 * 1029 * 2 + 5 * 4102)
 
 
+def test_per_layer_bound_counts_the_entries_addressed(cs):
+    """With ``entries`` the bound counts only the table entries a batch
+    addresses; with every entry addressed it is the whole-tables count.
+    ``addressed_entries`` counts distinct (neuron, entry) pairs layer by
+    layer: two neurons reading bus wire 0 or 1 of a 1-bit bus, over rows
+    (0, 0) and (0, 1), address 1 and 2 entries."""
+    import torch
+
+    shapes_d = [(64, 5, 1024), (32, 5, 1024), (32, 5, 1024), (5, 6, 4096)]
+    full = [o * e for o, _, e in shapes_d]
+    assert cs.per_layer_bytes(16, 16, shapes_d, full) == \
+        cs.per_layer_bytes(16, 16, shapes_d)
+    assert cs.per_layer_bytes(16, 16, shapes_d, [0, 0, 0, 0]) == \
+        cs.per_layer_bytes(16, 16, shapes_d) - 4 * sum(full)
+    idx = torch.tensor([[0], [1]], dtype=torch.int32)
+    tab = torch.tensor([[0, 1], [1, 0]], dtype=torch.int32)
+    codes = torch.tensor([[0, 0], [0, 1]], dtype=torch.int32)
+    assert cs.addressed_entries([(idx, tab, 1)], codes) == [3]
+    # a second layer sees the first one's outputs: rows (0, 1) and (0, 0)
+    assert cs.addressed_entries([(idx, tab, 1), (idx, tab, 1)],
+                                codes) == [3, 3]
+
+
+@pytest.mark.parametrize("layout", ["uniform", "mixed"])
+def test_fused_table_reads_one_entry_a_neuron_a_row(cs, layout):
+    """A fused forward of one row reads one table element a neuron (the
+    mixed slabs share tables between neurons, so at most that many); over
+    model A's 4096 fixture rows it reads no more elements than the slab
+    holds, and the uniform slabs read what the per-layer chain of the same
+    tables addresses."""
+    import torch
+
+    from torch_port_util import load_ref, ref_triples
+
+    from repro_torch import engine
+
+    triples = ref_triples(load_ref())
+    net = engine.compile_network(
+        triples, optimize_level=3 if layout == "mixed" else None,
+        in_features=16, block_b=16, device="cpu")
+    assert net.layout == layout
+    sl = net.slabs
+    codes = torch.from_numpy(load_ref()["codes"])
+    one_row = cs.fused_table_reads(sl, codes[:1])
+    neurons = sum(m.n_out for m in sl.meta)
+    assert (one_row == neurons if layout == "uniform"
+            else 0 < one_row <= neurons)
+    reads = cs.fused_table_reads(sl, codes)
+    assert 0 < reads <= sl.table_slab.numel()
+    if layout == "uniform":
+        layers = [(torch.from_numpy(i), torch.from_numpy(t), bw)
+                  for i, t, bw in triples]
+        assert reads == sum(cs.addressed_entries(layers, codes))
+
+
+def test_conv_gradient_gate_sees_tf32_operands_not_reordering(cs):
+    """Phase 12c's gradient gate on the CPU: the same SparseConv step over
+    the batch in another order (the same sums, added in another order)
+    stays within ``CONV_GRAD_ULPS`` float32 units of each gradient's
+    envelope, and a depthwise weight gradient whose operands are rounded
+    to TF32 (10 mantissa bits, to nearest) is refused."""
+    import copy
+
+    import torch
+
+    from repro_torch.core import SparseConv, SparseConvCfg
+    from repro_torch.core.layers import depthwise
+    from repro_torch.core.quantize import quantize
+
+    cfg = SparseConvCfg(1, 16, 3, first_layer=True)
+    mod = SparseConv(cfg, torch.Generator().manual_seed(0)).train()
+    x, r = cs.conv_inputs(torch)
+    env = cs.conv_grad_envelope(mod, x, r)
+
+    def grads(xx, rr):
+        m = copy.deepcopy(mod)
+        seen = {}
+        m.bn1.register_full_backward_hook(
+            lambda _m, gi, go: seen.update(dh=gi[0]))
+        (m(xx) * rr).sum().backward()
+        return {n: p.grad for n, p in m.named_parameters()}, seen["dh"]
+
+    def tf32(t):
+        i = t.contiguous().view(torch.int32)
+        return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    want, dh = grads(x, r)
+    perm = torch.randperm(256, generator=torch.Generator().manual_seed(2))
+    got, _ = grads(x[perm], r[perm])
+    units = {n: cs.conv_grad_reading(got[n], want[n], env[n]) for n in want}
+    assert max(units.values()) <= cs.CONV_GRAD_ULPS, units
+    assert any(not torch.equal(got[n], want[n]) for n in want)
+    probe = torch.zeros_like(mod.w_dw, requires_grad=True)
+    gw, = torch.autograd.grad(depthwise(
+        tf32(quantize(cfg.in_quant, x).value), probe, cfg.stride,
+        cfg.replicate), probe, tf32(dh))
+    assert cs.conv_grad_reading(mod.mask_dw * gw, want["w_dw"],
+                                env["w_dw"]) > cs.CONV_GRAD_ULPS
+
+
 def test_port_compiled_model_a_passes_its_check(cs, capsys):
     """``check_port_compiled`` passes the port's level-3 compile of model
     A's raw tables against the reference's artifact (here on the CPU), and

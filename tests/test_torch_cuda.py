@@ -439,6 +439,54 @@ def test_layer_launch_counters(dev):
             r: n + (r == route) for r, n in before[1].items()}
 
 
+# the layers of Table 7.1's widest MNIST MLP: (n_in, n_out, fan_in, entries)
+MNIST_LAYERS = ((784, 2048, 5, 1024), (2048, 2048, 5, 1024))
+
+
+@pytest.mark.parametrize("n_in,n_out,fan_in,n_e", MNIST_LAYERS)
+def test_layer_routes_at_mnist_widths(dev, n_in, n_out, fan_in, n_e):
+    """The routed wrapper and each route forced at its own geometry, at
+    the MNIST MLP's widths and batches 1, 16, 256 and 4096: bit for bit
+    the plain version."""
+    x_all, idx, tab, bw = _edge_layer(n_in, n_out, fan_in, 2, n_e, 4,
+                                      seed=n_in)
+    idx_d, tab_d = _on(dev, idx, tab)
+    for batch in (1, 16, 256, 4096):
+        x = _on(dev, x_all[:batch])[0]
+        want = lut_lookup_plain(x, idx_d, tab_d, bw)
+        _check(lut_lookup, lambda c: lut_lookup(c, idx_d, tab_d, bw),
+               lambda c: lut_lookup_plain(c, idx_d, tab_d, bw), x)
+        for route in ("smem", "direct"):
+            got = _layer_direct(x, idx_d, tab_d, bw, route)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (batch, route)
+
+
+def test_cached_compile_keyed_by_device(dev):
+    """A CPU call and a CUDA call with the same arrays make two entries,
+    each on its own device; ``cuda`` and ``cuda:<current>`` are one."""
+    from repro_torch.kernels import ops
+
+    engine.cache_clear()
+    layers = random_stack((8, 6, 4), (2, 2), (2, 2), seed=3)
+    kw = dict(optimize_level=None, in_features=8, fused=True,
+              use_pallas=True, block_b=8,
+              budget_bytes=ops.FUSED_SMEM_BUDGET_BYTES)
+    on_cpu = engine.cached_compile(layers, device="cpu", **kw)
+    on_card = engine.cached_compile(layers, device=dev, **kw)
+    assert engine.cache_size() == 2
+    assert on_cpu.device.type == "cpu" and on_card.device.type == "cuda"
+    here = torch.device("cuda", torch.cuda.current_device())
+    assert engine.cached_compile(layers, device=here, **kw) is on_card
+    x = codes(8, 33, hi=4, seed=1)
+    before = P.lut_network.launches
+    got = ops.lut_network(torch.from_numpy(x).to(dev), layers, block_b=8)
+    assert P.lut_network.launches == before + 1 and engine.cache_size() == 2
+    assert torch.equal(got.cpu(), ops.lut_network(torch.from_numpy(x),
+                                                  layers, block_b=8))
+    engine.cache_clear()
+
+
 def test_model_d_served_per_layer_matches_reference(dev):
     """The engine sends model D to the per-layer kernel by itself; its
     outputs are the reference's."""

@@ -187,6 +187,46 @@ def test_route_rule_choices():
         route(16, 12, 3, 1, 16, SMS, route="global")
 
 
+# the layers of fpga4hep models A and D: (n_in, n_out, fan_in, entries)
+MODEL_LAYERS = [(16, 64, 3, 512), (64, 64, 3, 512), (16, 64, 5, 1024),
+                (64, 32, 5, 1024), (32, 32, 5, 1024), (32, 5, 6, 4096)]
+
+
+@pytest.mark.parametrize("shape", MODEL_LAYERS)
+def test_route_rule_keeps_models_a_and_d(shape):
+    """Models A's and D's layers keep the routes and tiles the sweep set
+    them at every batch up to 4096: staged tables (16 neurons a tile, or
+    the layer's) up to LAYER_SMEM_MAX_BATCH rows, read in place (32) above,
+    whatever the wide-bus terms of the rule do at other widths."""
+    n_in, n_out, fan_in, n_e = shape
+    for batch in range(1, 4097):
+        g = L.lut_layer_route(batch, n_in, n_out, fan_in, n_e, SMS)
+        smem = batch <= L.LAYER_SMEM_MAX_BATCH
+        assert g.route == ("smem" if smem else "direct"), batch
+        want_o = min(n_out, 16 if smem else 32)
+        assert g.tile_o == -(-n_out // -(-n_out // want_o)), batch
+
+
+@pytest.mark.parametrize("n_in,tile_o", [(784, 128), (2048, 256)])
+def test_route_rule_at_mnist_widths(n_in, tile_o):
+    """At the MNIST MLP's widths (2048 neurons, fan-in 5, 1024 entries)
+    staging cuts smem's neuron tile, so its staged codes pass direct's
+    plus a table sector an output at every batch: the rule reads tables
+    in place, with a neuron tile of n_in * 4 / 32 (to a power of two)."""
+    for batch in (1, 2, 16, 17, 100, 256, 257, 4096):
+        g = L.lut_layer_route(batch, n_in, 2048, 5, 1024, SMS)
+        assert (g.route, g.tile_o) == ("direct", tile_o), batch
+        if batch <= L.LAYER_SMEM_MAX_BATCH:
+            s = L.lut_layer_route(batch, n_in, 2048, 5, 1024, SMS,
+                                  route="smem")
+            assert (L.staged_codes_bytes(s, batch, n_in)
+                    > L.staged_codes_bytes(g, batch, n_in)
+                    + batch * 2048 * L.LAYER_SECTOR_BYTES)
+    # a caller's tile still overrides the rule's
+    assert L.lut_layer_route(16, n_in, 2048, 5, 1024, SMS, route="direct",
+                             tile_o=32).tile_o == 32
+
+
 def test_route_is_cached():
     """Worked out once a (table shape, batch) and reused."""
     L.lut_layer_route(4096, 64, 64, 3, 512, SMS)

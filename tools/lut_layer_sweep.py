@@ -4,6 +4,7 @@
 Run from the root of a checkout on a machine with an NVIDIA H100::
 
     python3 tools/lut_layer_sweep.py [--out build/lut_layer_sweep.json]
+                                     [--only models|mnist]
 
 For fpga4hep model A's raw tables (3 layers, ``model_a_ref.npz``) and
 model D's (4 layers, ``model_d_ref.npz``), at batches 16, 128, 256, 1000
@@ -24,8 +25,19 @@ queues 50 forwards, CUDA events bracket them; ms a forward, gaps between
 kernels included, median of 5).  Last, the host's cost of one wrapper
 call at batch 16 (microseconds of host clock while a spin kernel holds
 the stream), the routed ``lut_lookup`` against the first design behind
-the same checks, in turns.  It prints ptxas's registers and spills, the
-card's name and power limit, and writes every reading to ``--out``.
+the same checks, in turns.
+
+Then the MNIST widths (``--only mnist`` runs this part alone): the
+layers of Table 7.1's widest MLP (784 -> 2048 and 2048 -> 2048 at fan-in
+5, 2-bit codes, 1024-entry int32 tables; seeded random tables and codes)
+at batches 1, 16, 256 and 4096, each layer launch timed device-paced on
+the rule's route, on each route forced at its own geometry, and on route
+``direct`` at larger neuron tiles (``MNIST_DIRECT_TILE_O``), beside the
+staged-codes bytes each geometry copies into shared memory summed over
+its blocks (``lut_lookup.staged_codes_bytes``); and the whole 784 -> 2048 ->
+2048 -> 2048 forward by the rule and on each route forced.  It prints
+ptxas's registers and spills, the card's name and power limit, and
+writes every reading to ``--out``.
 """
 
 from __future__ import annotations
@@ -43,6 +55,10 @@ TILE_O = (8, 16, 32, 64)
 TILE_B = (4, 8, 16, 32, 64, 128)
 HOST_ITERS = 200
 REPS = 5
+MNIST_BATCHES = (1, 16, 256, 4096)
+# (n_in, n_out, fan_in, bw): the layers of mlp((2048, 2048, 2048), 2, 5)
+MNIST_LAYERS = ((784, 2048, 5, 2), (2048, 2048, 5, 2))
+MNIST_DIRECT_TILE_O = (64, 128, 256)
 
 
 def host_us(torch, cs, fn) -> float:
@@ -60,11 +76,91 @@ def host_us(torch, cs, fn) -> float:
     return statistics.median(times)
 
 
+def mnist_sweep(torch, cs, L, dev, sms, chain, plain) -> dict:
+    """The MNIST-width readings (see the module docstring)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    layers = []
+    for n_in, n_out, fan_in, bw in MNIST_LAYERS + MNIST_LAYERS[1:]:
+        idx = np.stack([np.sort(rng.choice(n_in, fan_in, replace=False))
+                        for _ in range(n_out)]).astype(np.int32)
+        tab = rng.integers(0, 2 ** bw, (n_out, 2 ** (fan_in * bw)),
+                           dtype=np.int32)
+        layers.append((torch.from_numpy(idx).to(dev),
+                       torch.from_numpy(tab).to(dev), bw))
+    codes_all = torch.from_numpy(rng.integers(
+        0, 4, (max(MNIST_BATCHES), MNIST_LAYERS[0][0]),
+        dtype=np.int32)).to(dev)
+    out = {}
+    for b in MNIST_BATCHES:
+        codes = codes_all[:b].contiguous()
+        want = plain(layers, codes)
+        ins = [codes]
+        for idx, tab, bw in layers[:-1]:
+            ins.append(L.lut_lookup_plain(ins[-1], idx, tab, bw))
+        rec = {"layers": {}, "forward": {}}
+        for li, (n_in, n_out, fan_in, _) in enumerate(MNIST_LAYERS):
+            x = ins[li].contiguous()
+            one = [layers[li]]
+            ref = plain(one, x)
+            n_e = layers[li][1].shape[1]
+            geoms = {"rule": L.lut_layer_route(b, n_in, n_out, fan_in, n_e,
+                                               sms)}
+            for route in ("smem", "direct"):
+                try:
+                    geoms[route] = L.lut_layer_route(b, n_in, n_out, fan_in,
+                                                     n_e, sms, route=route)
+                except ValueError:
+                    pass
+            for to in MNIST_DIRECT_TILE_O:
+                geoms[f"direct/o{to}"] = L.lut_layer_route(
+                    b, n_in, n_out, fan_in, n_e, sms, route="direct",
+                    tile_o=to)
+            readings = {}
+            for key, g in geoms.items():
+                fn = chain(one, g.route, tile_o=g.tile_o, tile_b=g.tile_b)
+                got = fn(x)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    sys.exit(f"mnist layer {n_in}->{n_out} batch {b} {key}: "
+                             f"output differs from the plain version")
+                readings[key] = {
+                    "ms": cs.paced_ms(lambda: fn(x)), **g._asdict(),
+                    "staged_codes_bytes": L.staged_codes_bytes(g, b, n_in)}
+            rec["layers"][f"{n_in}->{n_out}"] = readings
+            print(f"mnist layer {n_in}->{n_out} batch {b}: "
+                  + " ".join(f"{k}={v['ms']} ms ({v['route']} o{v['tile_o']} "
+                             f"b{v['tile_b']} grid {v['grid_o']}x"
+                             f"{v['grid_b']}, {v['staged_codes_bytes']} B "
+                             f"staged)" for k, v in readings.items()),
+                  flush=True)
+        for route in ("rule", "smem", "direct"):
+            fn = chain(layers, route)
+            try:
+                got = fn(codes)
+            except ValueError as e:
+                rec["forward"][route] = str(e)
+                continue
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                sys.exit(f"mnist forward batch {b} {route}: output differs "
+                         f"from the plain chain")
+            rec["forward"][route] = cs.paced_ms(lambda: fn(codes))
+        print(f"mnist forward 784->2048->2048->2048 batch {b}: "
+              + " ".join(f"{k}={v}" for k, v in rec["forward"].items()),
+              flush=True)
+        out[f"b{b}"] = rec
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "lut_layer_sweep.json"))
+    ap.add_argument("--only", choices=("models", "mnist"), default=None,
+                    help="run one part of the sweep")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -127,6 +223,8 @@ def main() -> None:
 
     result = {"card": smi, "reps": REPS, "paced_iters": cs.PACED_ITERS,
               "grid": {}, "turns": {}, "rule": {}, "host_us": {}}
+    if args.only == "mnist":
+        models = {}
     for name, (codes_all, layers, layers8) in models.items():
         for b in BATCHES:
             codes = codes_all[:b].contiguous()
@@ -198,6 +296,8 @@ def main() -> None:
         print(f"model {name} layer 1 batch 16: host us a wrapper call: "
               + " ".join(f"{k} {statistics.mean(v):.2f} ({v})"
                          for k, v in turns.items()), flush=True)
+    if args.only != "models":
+        result["mnist"] = mnist_sweep(torch, cs, L, dev, sms, chain, plain)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     print(smi, flush=True)

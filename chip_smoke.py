@@ -271,6 +271,31 @@ pass:
     the MNIST readings under ``mnist``, the masked-matmul record its two
     shapes under ``mnist`` and the training under ``mnist_training``, and
     each record its phase-12a launches (``launches_legacy_api``).
+13. **the quickstart, Verilog and the thesis's tables** — every launch
+    counter at 0 before each part.  (a) ``repro_torch.launch.quickstart``
+    as a function: model C trained 300 steps a-priori (every masked
+    matmul on ``ffma``, held-out accuracy at least
+    ``QUICKSTART_MIN_ACCURACY``), ``verify_tables(fused=True)`` EXACT on
+    the uniform fused kernel, the level-3 artifact ``mixed`` and equal to
+    the table codes, its save/load round-trip EXACT (two mixed launches,
+    both ``smem``), and its Verilog.  (b) Verilog of model A compiled by
+    the port at level 3 from the fixture's raw tables, of model A at
+    level 4 as SOP assigns, and of model D's raw tables (10-bit case
+    modules): ``RTL_ROWS`` seeded rows packed into words
+    (:func:`pack_words`) through ``evaluate_verilog`` equal, bit for bit,
+    the kernel the engine picks (one mixed ``smem`` launch for A, the
+    per-layer kernel for D) and its plain version; the SOP form equals
+    the case form on every word, and its ``netlist_sop_cost`` estimate
+    lies below ``netlist_lut_cost``.  (c) ``paper_tables.timed_tables(
+    quick=True)``: every row and each table's wall seconds printed;
+    :func:`paper_tables.row_failures` (what the tool's own
+    ``check_rows`` refuses) finds any ``ERROR`` row, an inexact Table 2.1
+    or 6.1 row, and Table 7.3 sparse LUTs that change across skips; the
+    masked matmul (all ``ffma``) and the per-layer kernel (each trained
+    network's ``verify_tables``) must launch.  Each record carries its
+    launches in (a) and (c) (``launches_quickstart``,
+    ``launches_paper_tables``, each with ``_by_route``); the mixed and
+    per-layer records carry (b)'s readings under ``rtl``.
 
 Every device time is ``torch.profiler``'s sum of the measured calls'
 kernel records, taken only from a trace that holds all of them and, for
@@ -2717,6 +2742,197 @@ def conv_inputs(torch):
     return torch.from_numpy(x), r
 
 
+# -- phase 13: the quickstart, RTL against the kernels, the thesis's tables
+
+RTL_ROWS = 64
+# the wrappers whose launches phase 13 reads, by their kernels line's names
+PHASE13_WRAPPERS = ("lut_mixed_forward", "lut_uniform_forward",
+                    "lut_layer_forward", "masked_matmul_ffma_forward")
+QUICKSTART_MIN_ACCURACY = 0.8
+
+
+def pack_words(codes, bw: int) -> list:
+    """Each row of (rows, features) integer codes as the netlist's input
+    word: feature f's code at bits [bw * f, bw * (f + 1))."""
+    return [sum(int(c) << (bw * f) for f, c in enumerate(row))
+            for row in codes]
+
+
+def unpack_word(word: int, bw: int, n_out: int) -> list:
+    """An output word as its ``n_out`` codes of ``bw`` bits, LSB first."""
+    return [(word >> (bw * j)) & ((1 << bw) - 1) for j in range(n_out)]
+
+
+def phase13_launches(wrappers) -> dict:
+    """Each wrapper's launches and launches by route, by kernel name."""
+    return {name: {"launches": w.launches,
+                   "by_route": dict(w.launches_by_route)}
+            for name, w in zip(PHASE13_WRAPPERS, wrappers)}
+
+
+def launched_only(launches: dict) -> dict:
+    """The kernels of a ``phase13_launches`` record that launched."""
+    return {k: v for k, v in launches.items() if v["launches"]}
+
+
+def quickstart_phase(torch, dev, wrappers) -> dict:
+    """Phase 13a: ``repro_torch.launch.quickstart`` on the card."""
+    from repro_torch.launch import quickstart
+
+    for w in wrappers:
+        reset_counts(w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = quickstart.run(device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = phase13_launches(wrappers)
+    mixed, uniform, layer, mm = (launches[n] for n in PHASE13_WRAPPERS)
+    if not (out["verify_exact"] and out["roundtrip_exact"]
+            and out["layout"] == "mixed"
+            and out["accuracy"] >= QUICKSTART_MIN_ACCURACY):
+        fail(f"phase 13a quickstart: {out}")
+    # verify_tables(fused=True) on the uniform kernel; the artifact and its
+    # reloaded copy on the mixed one; every training step on ffma
+    if (uniform["launches"] != 1 or uniform["by_route"]["smem"] != 1
+            or mixed["launches"] != 2 or mixed["by_route"]["smem"] != 2
+            or mm["launches"] < quickstart.STEPS
+            or mm["by_route"]["ffma"] != mm["launches"]
+            or layer["launches"]):
+        fail(f"phase 13a quickstart launches {launches}")
+    log(f"phase 13a quickstart (model C, {quickstart.STEPS} steps, a-priori) "
+        f"in {secs:.2f} s: accuracy {out['accuracy']:.4f}; "
+        f"verify_tables(fused=True) EXACT on the uniform fused kernel; "
+        f"artifact layout {out['layout']} ({out['table_slab_bytes']} B of "
+        f"table slab, raw {out['raw_table_bytes']} B), round-trip "
+        f"({out['npz_bytes']} B npz) EXACT; {out['modules']} Verilog "
+        f"modules, {out['verilog_bytes'] / 1e3:.1f} kB; launches "
+        f"{launched_only(launches)}")
+    return {**out, "seconds": secs, "launches": launches}
+
+
+def rtl_phase(torch, dev, triples, triples_d, wrappers) -> dict:
+    """Phase 13b: Verilog of models A (level 3, and level 4 as SOP) and D
+    (raw) evaluated word by word against the kernel the engine picks and
+    the plain version, on ``RTL_ROWS`` seeded rows."""
+    import numpy as np
+
+    from repro_torch import compile as rcompile
+    from repro_torch import engine
+    from repro_torch.core import lut_cost as LC
+    from repro_torch.core import verilog as V
+    from repro_torch.core.netlist import build_netlist
+    from repro_torch.kernels.lut_lookup import lut_lookup_plain
+    from repro_torch.kernels.lut_network import lut_network_mixed_plain
+
+    rng = np.random.default_rng(13)
+    out = {}
+    t0 = time.perf_counter()
+    res = {lv: rcompile.optimize(rcompile.tables_from_triples(triples), lv,
+                                 in_features=16) for lv in (3, 4)}
+    opt_s = time.perf_counter() - t0
+    raw_d = rcompile.tables_from_triples(triples_d)
+    cases = (("A@L3", res[3].netlist, res[3], False, 3),
+             ("A@L4-sop", res[4].netlist, res[4], True, 3),
+             ("D-raw", build_netlist(raw_d, 16), triples_d, False, 2))
+    for name, nl, layers, sop, bw in cases:
+        codes_np = rng.integers(0, 1 << bw, (RTL_ROWS, 16), dtype=np.int32)
+        codes = torch.from_numpy(codes_np).to(dev)
+        net = engine.compile_network(layers, in_features=16, device=dev)
+        want_layout = "per_layer" if name == "D-raw" else "mixed"
+        for w in wrappers:
+            reset_counts(w)
+        got = net(codes)
+        torch.cuda.synchronize()
+        launched = phase13_launches(wrappers)
+        if net.layout == "mixed":
+            plain = lut_network_mixed_plain(codes, net.slabs)
+            route_ok = launched["lut_mixed_forward"]["by_route"] == {
+                "smem": 1, "global": 0}
+        else:
+            plain = codes
+            for idx, tab, b in net.layers:
+                plain = lut_lookup_plain(plain, idx, tab, b)
+            route_ok = (launched["lut_layer_forward"]["launches"]
+                        == len(net.layers))
+        if net.layout != want_layout or not route_ok:
+            fail(f"phase 13b {name}: layout {net.layout}, launches "
+                 f"{launched}")
+        t0 = time.perf_counter()
+        files = V.generate_verilog(nl, sop=sop)
+        gen_s = time.perf_counter() - t0
+        forms = {"rtl": files}
+        if sop:
+            forms["rtl_case"] = V.generate_verilog(nl)
+            if not any("assign M1[" in t for t in files.values()):
+                fail(f"phase 13b {name}: no SOP module emitted")
+        n_layers, last = len(nl.layers), nl.layers[-1]
+        t0 = time.perf_counter()
+        rtl = {k: np.array([unpack_word(V.evaluate_verilog(f, w, n_layers),
+                                        last[0].out_bits, len(last))
+                            for w in pack_words(codes_np, bw)])
+               for k, f in forms.items()}
+        eval_s = time.perf_counter() - t0
+        got_np, plain_np = got.cpu().numpy(), plain.cpu().numpy()
+        for k, r in rtl.items():
+            if not (np.array_equal(r, got_np) and np.array_equal(r, plain_np)):
+                fail(f"phase 13b {name}: {k} differs from the kernel on "
+                     f"{int((r != got_np).any(1).sum())} of {RTL_ROWS} rows "
+                     f"and from the plain version on "
+                     f"{int((r != plain_np).any(1).sum())}")
+        bound = LC.netlist_lut_cost(nl)
+        sop_cost = LC.netlist_sop_cost(nl)
+        if sop and not sop_cost["est_kluts"] < bound:
+            fail(f"phase 13b {name}: SOP estimate {sop_cost} not below the "
+                 f"bound {bound}")
+        n_bytes = sum(map(len, files.values()))
+        log(f"phase 13b {name}: {len(files)} Verilog modules, {n_bytes} B "
+            f"(generate_verilog {gen_s:.3f} s host); {RTL_ROWS} words "
+            f"through evaluate_verilog ({' and '.join(forms)}, {eval_s:.2f} s "
+            f"host) == {net.layout} kernel ({launched_only(launched)}) == "
+            f"plain, bit for "
+            f"bit; netlist_lut_cost {bound}, netlist_sop_cost est_kluts "
+            f"{sop_cost['est_kluts']} ({sop_cost['covered_neurons']} "
+            f"covered, {sop_cost['fallback_neurons']} at the bound)")
+        out[name] = {"layout": net.layout, "modules": len(files),
+                     "verilog_bytes": n_bytes, "generate_s": gen_s,
+                     "evaluate_s": eval_s, "netlist_lut_cost": bound,
+                     "est_kluts": sop_cost["est_kluts"],
+                     "launches": launched_only(launched)}
+    out["optimize_s"] = opt_s
+    return out
+
+
+def tables_phase(torch, dev, wrappers) -> dict:
+    """Phase 13c: ``all_tables(quick=True)`` on the card."""
+    from repro_torch.launch import paper_tables
+
+    for w in wrappers:
+        reset_counts(w)
+    t0 = time.perf_counter()
+    rows, walls = paper_tables.timed_tables(quick=True, device=dev)
+    secs = time.perf_counter() - t0
+    launches = phase13_launches(wrappers)
+    for name, us, derived in rows:
+        log(f"phase 13c {name} {us:.1f} us {derived}")
+    log(f"phase 13c wall s a table: "
+        + " ".join(f"{n}={s:.2f}" for n, s in walls.items())
+        + f"; all {secs:.2f} s (budgets {paper_tables.BUDGETS[True]})")
+    bad = paper_tables.row_failures(rows)
+    mm, layer = launches["masked_matmul_ffma_forward"], launches[
+        "lut_layer_forward"]
+    if (not mm["launches"] or mm["by_route"]["ffma"] != mm["launches"]
+            or not layer["launches"]):
+        bad.append(f"launches {launches}")
+    if bad:
+        fail("phase 13c: " + "; ".join(bad))
+    log(f"phase 13c: no ERROR row, Table 2.1 and 6.1 exact, Table 7.3's "
+        f"sparse LUTs equal across skips; launches "
+        f"{launched_only(launches)}")
+    return {"rows": len(rows), "walls": walls, "seconds": secs,
+            "launches": launches}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3287,6 +3503,25 @@ def main() -> None:
         "masked_matmul_launches"]
     mm_rec["mnist_training"] = mnist_out["training"]
     mm_rec["sparse_conv"] = conv
+
+    # -- phase 13: the quickstart, RTL against the kernels, the tables
+    from repro_torch.kernels.masked_matmul import masked_matmul
+    p13_wrappers = (lut_network_mixed, lut_network, lut_lookup,
+                    masked_matmul)
+    quick = quickstart_phase(torch, dev, p13_wrappers)
+    rtl = rtl_phase(torch, dev, triples, triples_d, p13_wrappers)
+    tables_out = tables_phase(torch, dev, p13_wrappers)
+    for rec in records:
+        for key, launches in (("quickstart", quick["launches"]),
+                              ("paper_tables", tables_out["launches"])):
+            if rec["name"] in launches:
+                rec[f"launches_{key}"] = launches[rec["name"]]["launches"]
+                rec[f"launches_{key}_by_route"] = launches[rec["name"]][
+                    "by_route"]
+    layer_rec["rtl"] = {k: v for k, v in rtl.items() if k == "D-raw"}
+    mixed_rec["rtl"] = {k: v for k, v in rtl.items() if k.startswith("A@")}
+    mixed_rec["rtl"]["optimize_s"] = rtl["optimize_s"]
+    mm_rec["paper_tables_walls_s"] = tables_out["walls"]
 
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

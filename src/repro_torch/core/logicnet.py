@@ -5,13 +5,12 @@ A LogicNet is a stack of SparseLinear layers and an optional final
 DenseQuantLinear (Tables 6.1 / 7.1).  :class:`LogicNet` holds them as an
 ``nn.Module``; the module-level functions follow the reference's flow:
 ``init`` -> ``forward`` / ``loss_fn`` / ``accuracy`` -> ``generate_tables``
--> ``verify_tables`` / ``sparse_head_forward``.
+-> ``verify_tables`` / ``sparse_head_forward`` / ``to_verilog``.
 
 ``from_reference`` and ``to_reference`` carry weights between the
 reference's list of layer dicts (``{"params": {"w", "b", "bn": {"scale",
 "bias"}}, "mask", "bn_state": {"mean", "var"}}``, numpy arrays) and a
-:class:`LogicNet`.  Verilog generation waits for the port of the netlist
-and Verilog modules.
+:class:`LogicNet`.
 """
 
 from __future__ import annotations
@@ -253,6 +252,28 @@ def sparse_head_forward(net: LogicNet, tables: list[TT.LayerTruthTable], x,
     h = dequantize_code(cfgs[-1].in_quant, out_codes)
     with net.mode(False), torch.no_grad():
         return net.layers[-1](h)
+
+
+def to_verilog(net: LogicNet, pipeline: bool = False,
+               optimize_level: int | None = None,
+               sop: bool = False) -> dict[str, str]:
+    """Generate RTL; ``optimize_level`` routes the netlist through the
+    truth-table compiler first — deduped/shrunk case-statement modules with
+    don't-care entries folded into each module's ``default:`` arm.
+    ``sop=True`` emits two-level sum-of-products assigns for neurons the
+    minimizer covered (``optimize_level=4`` attaches the covers); the rest
+    keep the case-statement form."""
+    from repro_torch.core import netlist as NL
+    from repro_torch.core import verilog
+
+    tables = generate_tables(net)
+    if optimize_level is not None:
+        from repro_torch.compile import optimize
+        nl = optimize(tables, optimize_level,
+                      in_features=net.cfg.in_features).netlist
+    else:
+        nl = NL.build_netlist(tables, net.cfg.in_features)
+    return verilog.generate_verilog(nl, pipeline, sop=sop)
 
 
 # ---------------------------------------------------------------------------

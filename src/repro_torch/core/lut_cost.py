@@ -1,10 +1,12 @@
 """Analytical LUT-cost model (paper §2.1 eqs. 2.1–2.3, §4 eqs. 4.1–4.4).
 
-The port's copy of ``repro.core.lut_cost`` but its netlist and SOP costs
-(which wait for the port's Verilog backend) and ``table_vmem_bytes`` (a
-TPU VMEM figure).  All counts are for hardware building blocks composed
-solely of 6:1 LUTs — the paper's pessimistic cost heuristic (actual
-Vivado synthesis lands 1.6–9.5x lower, Table 5.2).
+The port's copy of ``repro.core.lut_cost``, netlist and SOP costs
+included, but ``table_vmem_bytes``: that is a TPU VMEM figure, and the
+port's counterpart is the shared-memory budget of ``kernels/plan.py``
+(``FUSED_SMEM_BUDGET_BYTES``, costed by ``fused_plan``).  All counts are
+for hardware building blocks composed solely of 6:1 LUTs — the paper's
+pessimistic cost heuristic (actual Vivado synthesis lands 1.6–9.5x lower,
+Table 5.2).
 """
 
 from __future__ import annotations
@@ -110,3 +112,91 @@ def sparse_conv_pw_cost(out_pix: int, o_bits: int, n_ofm: int, x_s: int,
                         i_bits: int) -> int:
     """Eq. (4.4): pointwise stage; X_s = pointwise sparsity (synapse count)."""
     return out_pix * o_bits * n_ofm * lut_cost_per_bit(x_s * i_bits)
+
+
+def netlist_lut_cost(netlist) -> int:
+    """Analytical 6-LUT cost of a (possibly optimized) ``Netlist``.
+
+    Per-neuron ``lut_cost(len(input_bits), out_bits)`` summed over the net —
+    the quantity the compile pipeline reports as pre- vs post-optimization
+    cost.  Unlike the config-level ``sparse_linear_cost`` this prices each
+    neuron at its *own* width, so pruned inputs and eliminated neurons show
+    up directly.
+    """
+    total = 0
+    for layer in netlist.layers:
+        for n in layer:
+            total += lut_cost(max(len(n.input_bits), 1), n.out_bits)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Measured post-synthesis cost (two-level SOP covers, repro_torch.synth)
+# ---------------------------------------------------------------------------
+
+def sop_lut_estimate(cover, k: int = 6) -> int:
+    """k-LUT estimate for one neuron's minimized SOP cover.
+
+    Per output bit: each product term of L literals packs into an AND
+    tree of ``ceil((L-1)/(k-1))`` k-input LUTs (0 when L <= 1 — a bare
+    wire or inverter absorbs into the OR stage), then the T terms
+    combine through an OR tree of ``ceil((T-1)/(k-1))`` LUTs; a bit
+    whose whole expression fits one LUT costs 1.  The estimate is
+    clamped per bit by the worst-case ``lut_cost_per_bit`` of the bit's
+    *actual support* — two-level form can be a bad shape for LUT
+    packing (many wide terms), but a LUT never needs more than the
+    generic bound on the inputs the bit truly depends on.  Constant and
+    single-literal bits cost 0.
+    """
+    if k < 2:
+        raise ValueError(f"k-LUT packing needs k >= 2, got {k}")
+
+    def tree(n_inputs: int) -> int:
+        # LUTs to reduce n_inputs signals to 1 through k-ary nodes
+        if n_inputs <= 1:
+            return 0
+        return -(-(n_inputs - 1) // (k - 1))
+
+    total = 0
+    for b in range(cover.out_bits):
+        cubes = cover.bits[b]
+        support = len(cover.bit_support(b))
+        if support == 0:        # constant bit: a tied-off wire, no LUT
+            continue
+        lits = [c.n_literals for c in cubes]
+        if len(cubes) == 1 and lits[0] <= 1:
+            continue            # bare wire / single inverter
+        if support <= k:
+            est = 1             # whole bit fits one k-LUT
+        else:
+            est = sum(tree(n) for n in lits) + tree(len(cubes))
+            est = max(est, 1)
+        total += min(est, lut_cost_per_bit(support))
+    return total
+
+
+def netlist_sop_cost(netlist, k: int = 6) -> dict:
+    """Measured post-synthesis cost of a synthesized ``Netlist``.
+
+    Sums :func:`sop_lut_estimate` over every neuron carrying an SOP
+    cover; neurons without one (budget fallback) are priced at the
+    worst-case :func:`lut_cost` bound.  Returns the accounting dict the
+    bench reports next to the analytical bound: ``est_kluts`` (the
+    headline), ``literals`` / ``terms`` totals, and the
+    covered/fallback split.
+    """
+    est = literals = terms = 0
+    covered = fallback = 0
+    for layer in netlist.layers:
+        for n in layer:
+            if n.sop is None:
+                fallback += 1
+                est += lut_cost(max(len(n.input_bits), 1), n.out_bits)
+            else:
+                covered += 1
+                est += sop_lut_estimate(n.sop, k)
+                literals += n.sop.n_literals
+                terms += n.sop.n_terms
+    return {"est_kluts": est, "literals": literals, "terms": terms,
+            "covered_neurons": covered, "fallback_neurons": fallback,
+            "k": k}

@@ -18,8 +18,10 @@ artifact and check it against the table codes::
     # a few steps on the CPU (plain PyTorch versions of the kernels)
     python -m repro_torch.launch.train_jsc_logicnet --steps 5 --device cpu
 
-The Verilog output of ``examples/train_jsc_logicnet.py`` waits for the
-Verilog module's port.
+``--out`` writes the serving artifact only; the Verilog that
+``examples/train_jsc_logicnet.py`` also writes there comes from
+``repro_torch.core.logicnet.to_verilog`` (or ``core.verilog.
+generate_verilog`` of a compile result's netlist).
 """
 
 from __future__ import annotations

@@ -242,3 +242,47 @@ def test_compile_host_times_cover_levels_0_to_4(cs):
     times = cs.compile_host_times({"X": layers})
     assert sorted(times) == [("X", lv) for lv in range(5)]
     assert all(t >= 0 for t in times.values())
+
+
+# ---------------------------------------------------------------------------
+# phase 13's pure helpers: word packing, and the exact columns of 13c
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bw,n", [(1, 5), (2, 16), (3, 16)])
+def test_word_packing_is_the_netlist_bus(cs, bw, n):
+    """``pack_words`` puts feature f at bits [bw f, bw (f + 1)) (the
+    reference test's word), and ``unpack_word`` inverts it."""
+    import numpy as np
+
+    rng = np.random.default_rng(bw)
+    codes = rng.integers(0, 1 << bw, (8, n))
+    words = cs.pack_words(codes, bw)
+    for row, word in zip(codes, words):
+        assert [(word >> (bw * f)) & (2 ** bw - 1) for f in range(n)] == [
+            int(c) for c in row]
+        assert cs.unpack_word(word, bw, n) == [int(c) for c in row]
+        assert word < 1 << (bw * n)
+    assert cs.pack_words([[1, 0, 3]], 2) == [0b110001]
+    assert cs.unpack_word(0b110001, 2, 3) == [1, 0, 3]
+
+
+def test_pack_words_drives_the_port_rtl(cs):
+    """Packed words through ``evaluate_verilog`` give the table forward of
+    the same rows (model A's raw tables, layer 0 only)."""
+    import numpy as np
+    import torch
+
+    from torch_port_util import load_ref, ref_triples
+
+    from repro_torch.compile import tables_from_triples
+    from repro_torch.core import verilog as V
+    from repro_torch.core.netlist import build_netlist
+    from repro_torch.core.table_infer import network_table_forward
+
+    tables = tables_from_triples(ref_triples(load_ref())[:1])
+    files = V.generate_verilog(build_netlist(tables, 16))
+    codes = np.random.default_rng(1).integers(0, 8, (4, 16), dtype=np.int32)
+    want = network_table_forward(tables, torch.from_numpy(codes)).numpy()
+    for word, row in zip(cs.pack_words(codes, 3), want):
+        out = V.evaluate_verilog(files, word, 1)
+        assert cs.unpack_word(out, tables[0].bw_out, 64) == list(row)

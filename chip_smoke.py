@@ -297,6 +297,44 @@ pass:
     ``launches_paper_tables``, each with ``_by_route``); the mixed and
     per-layer records carry (b)'s readings under ``rtl``.
 
+14. **qwen3-1.7b trained with the LogicNet-FFN** (``python -m
+    repro_torch.launch.train --full --logicnet-ffn --steps 16``: 28
+    layers at the full published width, batch 8 x seq 256, AdamW lr 3e-4,
+    ``LogicNetFFNCfg()``, remat "full").  (a) The masked matmul in
+    bfloat16 on the wgmma route at the FFN's products, 2048 x 2048 x
+    6144 and 2048 x 6144 x 2048 with the model's fan-in-16 masks, their
+    input gradients on the transposed operands, M = 8192 (14c's prefill)
+    and M = 4 (decode): within one bfloat16 step of the plain version plus
+    1e-3 of its rms (:func:`ffn_limit`), a gate that must refuse a control
+    accumulating in bfloat16 across K tiles
+    (:func:`bf16_tile_accumulated`); event and device time beside
+    ``torch.mm(x, w * mask)`` (``library_ms``: the FFN has no bias) and
+    the bound (bytes moved once; the kept products, 2 M nnz(mask), and the
+    dense ones beside it).  (b) With every launch counter at 0, the
+    launcher's run: after step 1 every pruned weight of every layer's
+    three FFN matrices is 0 and every mask column sums to 16; exactly 252
+    masked-matmul launches a step (28 layers x (3 forward + 3 recomputed
+    + 3 input gradients)), all wgmma; the first 3 losses within
+    ``LM_PARITY_RTOL`` of the same 3 steps with every FFN product on the
+    plain version (``PlainMaskedMatmul``); host ms a step, and a
+    ``torch.profiler`` trace (:func:`step_profile`, through
+    :func:`trace_accepted`) of device ms a step and the idle share;
+    ``max_memory_allocated``.  (c) The trained model's prefill (4 x 2048:
+    84 masked-matmul and 28 flash launches, all wgmma) and
+    ``serve_lm.serve`` at its defaults (84 masked-matmul launches a
+    decode step).  (d) Checkpoint and restart at full width cut to 2
+    layers: 5 steps with a checkpoint at 3 (async), a run restored from
+    it (``--resume``) equal bit for bit to the file and to the live state
+    saved, its losses at steps 4-5 within twice the spread of two
+    uninterrupted runs; bytes written and seconds in ``save()`` against
+    ``wait()``; the checkpoints in a temporary directory, removed.  (e)
+    ``compress_grads_with_feedback`` on one step's gradients of that
+    model: codes, scales and two steps of feedback equal the CPU's bit
+    for bit.  The record ``masked_matmul_wgmma_forward`` carries 14a's
+    times and 14b's launches (``launches``), 14c's (``launches_decode``)
+    and the rest under ``lm_training``, ``lm_serving``, ``checkpoint``
+    and ``compress``.
+
 Every device time is ``torch.profiler``'s sum of the measured calls'
 kernel records, taken only from a trace that holds all of them and, for
 device-bound calls (the flash shapes, the 4096^3 masked matmuls), reads at
@@ -2933,6 +2971,688 @@ def tables_phase(torch, dev, wrappers) -> dict:
             "launches": launches}
 
 
+# -- phase 14: qwen3-1.7b trained with the LogicNet-FFN -------------------
+# the launcher's flags for 14b (its defaults otherwise: batch 8 x seq 256,
+# lr 3e-4, LogicNetFFNCfg(), remat "full")
+LM_TRAIN_STEPS = 16
+# steps 1-3 are checked (masks, launches, parity), 4-6 warm the caching
+# allocator, 7-9 are timed on the host clock, 10-16 traced by step_profile
+# (3 lead, 3 measured, 1 after; a trace that loses records is taken again,
+# and its steps run past the schedule's end at its floor lr)
+LM_HOST_STEPS = (6, 9)
+LM_PROFILE_LEAD = 3
+# the spin kernel that opens each profiled step (about 0.1 ms)
+MARKER_CYCLES = 200_000
+# 14b's first steps against the same steps with every FFN product on the
+# plain version (torch float32 products of the same bfloat16 operands).
+# The two differ in summation order only: on an H100 the three losses
+# read bit for bit equal under one init and 7.24e-5 apart under another
+# (most sums of 16 kept products of a 16-level input and a bfloat16
+# weight are exact in float32), so the limit is 1e-3, 14x the larger
+LM_PARITY_STEPS = 3
+LM_PARITY_RTOL = 1e-3
+# 9 masked products a layer and step: 3 forward, 3 recomputed by remat,
+# 3 input gradients; 3 a layer and decode step
+LM_MM_PER_LAYER_STEP = 9
+LM_MM_PER_LAYER_DECODE = 3
+# 14d: the depth cut to 2 layers at full width (a 28-layer state is about
+# 29 GB of float32 parameters, moments and masks on disk; 2 layers about
+# 5.5 GB), 5 steps, a checkpoint at step 3
+CKPT_LAYERS = 2
+CKPT_STEPS = 5
+CKPT_EVERY = 3
+# 14a: the FFN's products as (name, M, mask) at batch 8 x seq 256 (M
+# 2048), at 14c's prefill of 4 x 2048 tokens (M 8192) and at 4 decode
+# slots: mask_in (2048, 6144) for wi_gate and wi_up, mask_out (6144, 2048)
+# for wo; the input gradients ("dx") read the transposed weight and mask
+FFN_CASES = (("wi", 2048, "in"), ("wo", 2048, "out"),
+             ("dx_wi", 2048, "in_t"), ("dx_wo", 2048, "out_t"),
+             ("wi_prefill", PREFILL_SHAPE[0] * PREFILL_SHAPE[1], "in"),
+             ("wo_prefill", PREFILL_SHAPE[0] * PREFILL_SHAPE[1], "out"),
+             ("wi_m4", 4, "in"), ("wo_m4", 4, "out"))
+# 14a's gate, set from the outputs' own scale: FFN_STEPS bfloat16 steps
+# of the plain output plus FFN_ATOL_SHARE of its rms.  Kernel and plain
+# version round one float32 sum of the same 16 (or about 48 or 5, for the
+# transposed masks) kept products, taken in another order, so they land
+# at most one step apart; the float32 sums themselves differ by about
+# 1e-6 of the rms.  MM_TOL's atol 5e-2 is as large as these outputs (rms
+# 0.05-0.09), so it would pass a kernel that accumulates in bfloat16:
+# the control below (FFN_CONTROL_TILE) must fail this gate
+FFN_ATOL_SHARE = 1e-3
+FFN_STEPS = 1
+# the control: x @ (w * mask) with the accumulator rounded to bfloat16
+# after each K tile of the wgmma kernel's depth (64)
+FFN_CONTROL_TILE = 64
+
+
+def lm_train_args(ckpt_dir: str, steps: int, ckpt_every: int = 1000,
+                  resume: bool = False):
+    """``launch.train``'s flags for phase 14: ``--full --logicnet-ffn``."""
+    from repro_torch.launch import train
+    return train.parse_args(["--full", "--logicnet-ffn", "--steps",
+                             str(steps), "--ckpt-dir", ckpt_dir,
+                             "--ckpt-every", str(ckpt_every)]
+                            + ["--resume"] * resume)
+
+
+def all_wrappers():
+    """Every kernel wrapper of the port (each has a launch count)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lut_lookup import lut_lookup
+    from repro_torch.kernels.lut_network import lut_network, lut_network_mixed
+    from repro_torch.kernels.masked_matmul import masked_matmul
+    return (lut_network_mixed, lut_network, lut_lookup, masked_matmul,
+            flash_attention)
+
+
+def reset_all() -> None:
+    for w in all_wrappers():
+        reset_counts(w)
+
+
+def bits_of(t):
+    """A tensor's bits (floats as same-width integers), for equality bit
+    for bit."""
+    import torch
+    t = t.detach()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def fingerprint(torch, tree) -> list:
+    """Per leaf, the int64 sum of its bits: equal trees give equal lists."""
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k])
+        else:
+            out.append(int(bits_of(t).sum(dtype=torch.int64)))
+    walk(tree)
+    return out
+
+
+def ffn_limit(torch, want):
+    """14a's elementwise limit for a bfloat16 output ``want`` of the plain
+    version: FFN_STEPS steps of ``want`` plus FFN_ATOL_SHARE of its rms."""
+    rms = float(want.float().square().mean().sqrt())
+    return mm_limit(torch, want, FFN_ATOL_SHARE * rms, 0.0, FFN_STEPS)
+
+
+def bf16_tile_accumulated(torch, x, w, mask, tile: int = FFN_CONTROL_TILE):
+    """The control for 14a's gate: ``x @ (w * mask)`` summed in float32
+    within each K tile of ``tile`` and accumulated across tiles in
+    bfloat16 (a kernel that keeps its accumulator in bfloat16 between K
+    tiles)."""
+    xf, wm = x.float(), (w * mask).float()
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.bfloat16,
+                      device=x.device)
+    for k0 in range(0, x.shape[1], tile):
+        acc = (acc.float() + xf[:, k0:k0 + tile] @ wm[k0:k0 + tile]
+               ).bfloat16()
+    return acc
+
+
+def ffn_masked_matmul_phase(torch, dev) -> dict:
+    """Phase 14a: the wgmma masked matmul at the LogicNet-FFN's shapes
+    against its plain version, timed beside ``torch.mm(x, w * mask)`` and
+    the bound."""
+    from repro_torch.kernels.masked_matmul import (masked_matmul,
+                                                   masked_matmul_plain)
+    from repro_torch.models.config import LogicNetFFNCfg
+    from repro_torch.models.layers import logicnet_masks
+
+    mask_in, mask_out = (m.to(device=dev, dtype=torch.bfloat16)
+                         for m in logicnet_masks(2048, 6144,
+                                                 LogicNetFFNCfg()))
+    masks = {"in": mask_in, "out": mask_out,
+             "in_t": mask_in.t().contiguous(),
+             "out_t": mask_out.t().contiguous()}
+    rec, err, control = {}, 0.0, {}
+    for i, (name, m, which) in enumerate(FFN_CASES):
+        mask = masks[which]
+        k, n = mask.shape
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+             ).bfloat16()
+        before = dict(masked_matmul.launches_by_route)
+        got = masked_matmul(x, w, mask)
+        want = masked_matmul_plain(x, w, mask)
+        torch.cuda.synchronize()
+        if masked_matmul.launches_by_route["wgmma"] != before["wgmma"] + 1:
+            fail(f"phase 14a masked_matmul {name} {m}x{k}x{n}: not one "
+                 f"wgmma launch ({masked_matmul.launches_by_route})")
+        limit = ffn_limit(torch, want)
+        diff = (got.float() - want.float()).abs()
+        share = float((diff / limit).max())
+        if share > 1:
+            fail(f"phase 14a masked_matmul {name} {m}x{k}x{n}: max |kernel "
+                 f"- plain| {float(diff.max())}, {share:.3g} of the limit "
+                 f"({FFN_STEPS} bfloat16 step + {FFN_ATOL_SHARE} of the "
+                 f"output's rms)")
+        err = max(err, float(diff.max()))
+        bad = (bf16_tile_accumulated(torch, x, w, mask).float()
+               - want.float()).abs() > limit
+        control[name] = int(bad.sum())
+        if not control[name]:
+            fail(f"phase 14a masked_matmul {name} {m}x{k}x{n}: the gate "
+                 f"passes the control that accumulates in bfloat16")
+        rms = float(want.float().square().mean().sqrt())
+        big = m > 4
+        iters = 20 if big else 200
+        ms = cuda_ms(lambda: masked_matmul(x, w, mask), iters)
+        plain_ms = cuda_ms(lambda: masked_matmul_plain(x, w, mask), iters)
+        library_ms = cuda_ms(lambda: torch.mm(x, w * mask), iters)
+        dev_ms = device_ms(lambda: masked_matmul(x, w, mask), iters,
+                           device_bound=big)
+        moved = nbytes(x, w, mask) + m * n * x.element_size()
+        ops = 2 * m * int(mask.count_nonzero())
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FLOPS_PER_S["bfloat16"] * 1e3
+        sfx = "" if name == "wi" else f"_{name}"
+        rec.update({f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms,
+                    f"device_ms{sfx}": dev_ms,
+                    f"library_ms{sfx}": library_ms,
+                    f"bound_ms{sfx}": max(bytes_ms, ops_ms),
+                    f"bound_by{sfx}": ("bytes" if bytes_ms >= ops_ms
+                                       else "operations"),
+                    f"bound_ms_dense{sfx}": max(
+                        bytes_ms, 2 * m * k * n / FLOPS_PER_S["bfloat16"]
+                        * 1e3),
+                    f"shape{sfx}": [m, k, n],
+                    f"limit_share{sfx}": share,
+                    f"control_beyond{sfx}": control[name]})
+        log(f"phase 14a masked_matmul {name} {m}x{k}x{n} bfloat16 (wgmma, "
+            f"fan-in-16 mask): max |kernel - plain| {float(diff.max()):.3g}, "
+            f"{share:.3g} of the limit (output rms {rms:.4g}); the "
+            f"bfloat16-accumulating control beyond it at {control[name]} "
+            f"of {m * n} outputs; "
+            f"{ms:.5f} ms/call, device {dev_ms} ms, plain {plain_ms:.5f} ms, "
+            f"torch.mm(x, w * mask) {library_ms:.5f} ms "
+            f"({ms / library_ms:.2f}x), bound {max(bytes_ms, ops_ms):.6f} ms "
+            f"({moved} B, {ops} flop of kept products; dense products "
+            f"{rec[f'bound_ms_dense{sfx}']:.6f} ms)")
+    rec["max_abs_err"] = err
+    return rec
+
+
+class PlainMaskedMatmul:
+    """``MaskedMatmulFn``'s stand-in for the parity run: the plain version
+    under autograd (torch float32 products of the same operands)."""
+
+    @staticmethod
+    def apply(x, w, mask, b=None):
+        from repro_torch.kernels.masked_matmul import masked_matmul_plain
+        return masked_matmul_plain(x, w, mask, b)
+
+
+def step_profile(torch, fn, iters: int = 3, lead: int = 2,
+                 tries: int = 3) -> dict:
+    """Host, event and device ms a call of ``fn`` (a training step) from
+    one ``torch.profiler`` trace: ``lead`` calls, then ``iters`` measured
+    calls, each synchronised and each opened by a short spin kernel
+    (``torch.cuda._sleep``, its record a marker, not counted), a last
+    marker, then one more call.  A step's device time is the sum of the
+    kernel records between its marker and the next: a step can hold a
+    device gap of 10 ms or more (the caching allocator freeing and
+    allocating between backward and the optimizer), so gaps cannot
+    delimit it.  The reading stands when all ``iters + 1`` markers are in
+    the trace and :func:`trace_accepted` takes it: every measured step
+    holds as many records as the largest (a lost record shows as a
+    shorter step).  The step's time is the host's or the device's,
+    whichever is slower, so the event-time floor for device-bound calls
+    is not applied.  The run fails when no trace of ``tries`` stands."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        host, event = [], []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                fn()
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                torch.cuda._sleep(MARKER_CYCLES)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+                event.append(start.elapsed_time(end))
+            torch.cuda._sleep(MARKER_CYCLES)
+            fn()
+            torch.cuda.synchronize()
+        records = sorted(((e.time_range, e.name) for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and not e.is_user_annotation),
+                         key=lambda r: r[0].start)
+        marks = [i for i, (_, name) in enumerate(records)
+                 if "spin_kernel" in name]
+        if len(marks) != iters + 1:
+            log(f"step_profile: {len(marks)} of {iters + 1} markers in the "
+                f"trace ({len(records)} records); tracing again")
+            continue
+        measured = [records[a + 1:b] for a, b in zip(marks, marks[1:])]
+        per = [len(run) for run in measured]
+        dev_ms = [sum(r.elapsed_us() for r, _ in run) / 1e3
+                  for run in measured]
+        dev = statistics.mean(dev_ms)
+        ev = statistics.mean(event)
+        if trace_accepted(sum(per), iters * max(per), dev, ev,
+                          device_bound=False):
+            h = statistics.mean(host)
+            by_name: dict[str, float] = {}
+            for run in measured:
+                for r, name in run:
+                    by_name[name] = (by_name.get(name, 0.0)
+                                     + r.elapsed_us() / 1e3 / iters)
+            return {"host_ms": h, "event_ms": ev, "device_ms": dev,
+                    "idle_share": 1 - dev / h, "kernels_per_step": max(per),
+                    "host_ms_each": host, "device_ms_each": dev_ms,
+                    "device_ms_by_kind": kernel_kinds(by_name),
+                    "top_kernels": "; ".join(
+                        f"{k[:160]} {v:.3f}" for k, v in sorted(
+                            by_name.items(), key=lambda kv: -kv[1])[:8]),
+                    "top_gemm_kernels": top_kernels(
+                        {k: v for k, v in by_name.items()
+                         if any(g in k.lower() for g in GEMM_NAMES)}, 4)}
+        log(f"step_profile: kernel records a measured step {per}; tracing "
+            f"again")
+    fail(f"step_profile: no trace of {tries} accepted")
+
+
+GEMM_NAMES = ("gemm", "gemv", "cutlass", "cublas", "nvjet", "xmma")
+
+
+def kernel_kinds(by_name: dict) -> dict:
+    """Device ms a step by kind of kernel: the masked matmul, the other
+    matrix products (cuBLAS / CUTLASS: attention projections, the LM head,
+    weight gradients; on Hopper cuBLAS names many of its kernels
+    ``nvjet_*``), copies and fills, and the rest (elementwise and
+    reductions: AdamW, norms, quantizers, softmax)."""
+    kinds = {"masked_matmul": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
+    for name, ms in by_name.items():
+        low = name.lower()
+        if "masked_matmul" in low:
+            kind = "masked_matmul"
+        elif any(k in low for k in GEMM_NAMES):
+            kind = "gemm"
+        elif "memcpy" in low or "memset" in low:
+            kind = "copy"
+        else:
+            kind = "other"
+        kinds[kind] += ms
+    return kinds
+
+
+def adamw_timed(torch, run_steps) -> dict:
+    """Run ``run_steps`` with ``launch.steps``' AdamW update bracketed:
+    host ms to issue it (its Python loop over the leaves) and the span of
+    the device's timeline between CUDA events around it, means a step.
+    The train step reads the loss before AdamW, so the device is idle
+    when the update starts: its span is the issue time or the kernels'
+    time, whichever is longer."""
+    from repro_torch.launch import steps as steps_mod
+    real = steps_mod.adamw_update
+    spans = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            end.record()
+            spans.append((time.perf_counter() - t0, start, end))
+
+    steps_mod.adamw_update = timed
+    try:
+        run_steps()
+    finally:
+        steps_mod.adamw_update = real
+    torch.cuda.synchronize()
+    return {"host_ms": 1e3 * statistics.mean(h for h, _, _ in spans),
+            "device_span_ms": statistics.mean(a.elapsed_time(b)
+                                              for _, a, b in spans),
+            "steps": len(spans)}
+
+
+def lm_train_phase(torch, dev, tmp: str) -> dict:
+    """Phase 14b: ``launch.train --full --logicnet-ffn`` on the card."""
+    import gc
+
+    from repro_torch.kernels.masked_matmul import masked_matmul
+    from repro_torch.launch import steps, train
+    from repro_torch.models import layers as model_layers
+
+    args = lm_train_args(tmp, LM_TRAIN_STEPS)
+    # the parity run first: the same flags, every FFN product on the plain
+    # version, LM_PARITY_STEPS steps
+    model_layers.MaskedMatmulFn = PlainMaskedMatmul
+    try:
+        reset_all()
+        plain = train.build(args)
+        plain.loop.run(plain.batches, LM_PARITY_STEPS)
+        plain_losses = [l for _, l in plain.loop.metrics]
+        if masked_matmul.launches:
+            fail(f"phase 14b parity run launched masked_matmul "
+                 f"{masked_matmul.launches} times")
+    finally:
+        from repro_torch.kernels.masked_matmul import MaskedMatmulFn
+        model_layers.MaskedMatmulFn = MaskedMatmulFn
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path of this slice: every launch counter at 0
+    reset_all()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.build(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg, loop = run.cfg, run.loop
+    n_params = sum(p.numel() for p in loop.state["params"].values())
+    n_masks = sum(p.numel() for n, p in loop.state["params"].items()
+                  if "mask" in n)
+    per_step = LM_MM_PER_LAYER_STEP * cfg.n_layers
+    loop.run(run.batches, 1)
+    if masked_matmul.launches != per_step:
+        fail(f"phase 14b step 1 launched masked_matmul "
+             f"{masked_matmul.launches} times, not {per_step}")
+    p = loop.state["params"]
+    for i in range(cfg.n_layers):
+        for wname, mname in (("wi_gate", "mask_in"), ("wi_up", "mask_in"),
+                             ("wo", "mask_out")):
+            w, m = p[f"layers.{i}.ffn.{wname}"], p[f"layers.{i}.ffn.{mname}"]
+            if bool((w[m == 0] != 0).any()) or bool(
+                    (m.sum(0) != cfg.logicnet_ffn.fan_in).any()):
+                fail(f"phase 14b layer {i} {wname}: a pruned weight is not "
+                     f"0 after step 1, or a mask column does not sum to "
+                     f"{cfg.logicnet_ffn.fan_in}")
+    loop.run(run.batches, LM_PARITY_STEPS)
+    losses = [l for _, l in loop.metrics]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    if not rel <= LM_PARITY_RTOL:
+        fail(f"phase 14b losses {losses} against the plain version's "
+             f"{plain_losses}: rtol {rel} beyond {LM_PARITY_RTOL}")
+    log(f"phase 14b {cfg.arch_id} --full --logicnet-ffn: {cfg.n_layers} "
+        f"layers, {n_params} float32 parameters ({n_masks} of them masks), "
+        f"state built in {build_s:.2f} s; step 1 launched masked_matmul "
+        f"{per_step} times, pruned weights 0 and every mask column "
+        f"{cfg.logicnet_ffn.fan_in} after it; losses {losses} against "
+        f"{plain_losses} with every FFN product on the plain version "
+        f"(max rtol {rel:.3g}, limit {LM_PARITY_RTOL})")
+    loop.run(run.batches, LM_HOST_STEPS[0])
+    adamw = adamw_timed(torch, lambda: loop.run(run.batches,
+                                                LM_HOST_STEPS[1]))
+    host_ms = 1e3 * statistics.mean(run.step_s[LM_HOST_STEPS[0]:
+                                                LM_HOST_STEPS[1]])
+    prof = step_profile(torch, lambda: loop.run(run.batches, loop.step + 1),
+                        lead=LM_PROFILE_LEAD)
+    loop.run(run.batches, LM_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    steps_run = loop.step
+    launches = masked_matmul.launches
+    by_route = dict(masked_matmul.launches_by_route)
+    losses = [l for _, l in loop.metrics]
+    if (launches != per_step * steps_run or by_route["wgmma"] != launches):
+        fail(f"phase 14b: {launches} masked_matmul launches in {steps_run} "
+             f"steps ({by_route}); expected {per_step} a step, all wgmma")
+    if len(losses) != steps_run or not all(
+            l == l and abs(l) < float("inf") for l in losses):
+        fail(f"phase 14b: losses {losses}")
+    line = train.summary(run)
+    print(line, flush=True)
+    log(f"phase 14b {steps_run} steps: masked_matmul {launches} launches "
+        f"({launches / steps_run:.0f} a step, by route {by_route}); "
+        f"{host_ms:.3f} ms a step on the host clock (synchronised, steps "
+        f"{LM_HOST_STEPS[0] + 1}-{LM_HOST_STEPS[1]}), of which AdamW "
+        f"{adamw['host_ms']:.3f} ms to issue its kernels and "
+        f"{adamw['device_span_ms']:.3f} ms of the device's timeline; "
+        f"profiled steps "
+        f"(host ms, CUDA-event ms, device ms, idle share, kernels a step): "
+        f"{prof}; peak {peak / 1e9:.3f} GB allocated "
+        f"({torch.cuda.get_device_name(0)})")
+    model = steps.model_from_state(cfg, loop.state)
+    out = {"launches": launches, "launches_by_route": by_route,
+           "steps": steps_run, "losses": losses,
+           "plain_losses": plain_losses, "parity_rtol": rel,
+           "step_ms": host_ms, "adamw": adamw, "profile": prof,
+           "peak_bytes": peak,
+           "n_params": n_params, "n_mask_params": n_masks,
+           "train_line": line}
+    del run, loop, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, cfg, model
+
+
+def lm_trained_serving_phase(torch, dev, cfg, model) -> dict:
+    """Phase 14c: the trained model's prefill and the decode loop."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.masked_matmul import masked_matmul
+    from repro_torch.launch import serve_lm, steps
+
+    b, s = PREFILL_SHAPE
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    reset_all()
+    logits = steps.make_prefill_step(cfg)(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    per_fwd = LM_MM_PER_LAYER_DECODE * cfg.n_layers
+    if (masked_matmul.launches != per_fwd
+            or masked_matmul.launches_by_route["wgmma"] != per_fwd
+            or flash_attention.launches_by_route["wgmma"] != cfg.n_layers):
+        fail(f"phase 14c prefill: masked_matmul "
+             f"{masked_matmul.launches_by_route}, flash "
+             f"{flash_attention.launches_by_route}")
+    if logits.shape != (b, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"phase 14c prefill logits {tuple(logits.shape)} not finite")
+    reset_all()
+    res = serve_lm.serve(cfg, model)
+    torch.cuda.synchronize()
+    mm = masked_matmul.launches
+    if (len(res.done) != 12 or mm != per_fwd * res.steps
+            or masked_matmul.launches_by_route["wgmma"] != mm):
+        fail(f"phase 14c decode: {len(res.done)} of 12 requests, masked_"
+             f"matmul {masked_matmul.launches_by_route} in {res.steps} "
+             f"steps (expected {per_fwd} a step, all wgmma)")
+    log(f"phase 14c trained model: prefill {b} x {s} tokens launched "
+        f"masked_matmul {per_fwd} times and flash {cfg.n_layers} (all "
+        f"wgmma), finite logits; served {len(res.done)} requests, "
+        f"{res.tokens} tokens in {res.steps} decode steps "
+        f"({1e3 * res.seconds / res.steps:.3f} ms a step), masked_matmul "
+        f"{mm} launches ({mm / res.steps:.0f} a decode step, all wgmma); "
+        f"first request's tokens {res.done[0]['out'][:8]}")
+    return {"launches_prefill": per_fwd, "launches_decode": mm,
+            "decode_steps": res.steps, "tokens": res.tokens,
+            "decode_ms": 1e3 * res.seconds / res.steps}
+
+
+def lm_checkpoint_phase(torch, dev, root: str) -> dict:
+    """Phase 14d: checkpoint and restart at full width, 2 layers."""
+    import dataclasses
+    import gc
+
+    from repro_torch.checkpoint import latest_step, load_arrays
+    from repro_torch.launch import train
+
+    def build(tag, ckpt_every, resume=False):
+        d = os.path.join(root, tag)
+        args = lm_train_args(d, CKPT_STEPS, ckpt_every, resume)
+        cfg = dataclasses.replace(train.config(args), n_layers=CKPT_LAYERS)
+        return d, train.build(args, cfg)
+
+    # A: 5 steps, a checkpoint at 3, the save and the wait timed
+    dir_a, a = build("a", CKPT_EVERY)
+    mgr, spent = a.loop.mgr, {"save": 0.0, "wait": 0.0}
+    real = {"save": mgr.save, "wait": mgr.wait}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    mgr.save, mgr.wait = timed("save"), timed("wait")
+    saved = {}
+    step_fn = a.loop.step_fn
+
+    def watched(state, batch):
+        out = step_fn(state, batch)
+        if a.loop.step + 1 == CKPT_EVERY:       # the state the loop saves
+            saved["fp"] = fingerprint(torch, {"state": state})
+        return out
+
+    a.loop.step_fn = watched
+    a.loop.run(a.batches, CKPT_STEPS)
+    losses_a = [l for _, l in a.loop.metrics]
+    path = os.path.join(dir_a, f"step_{CKPT_EVERY:08d}.npz")
+    if latest_step(dir_a) != CKPT_EVERY:
+        fail(f"phase 14d: latest checkpoint {latest_step(dir_a)}")
+    written = os.path.getsize(path)
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # B: a fresh run restored at step 3 (``--resume``), to step 5
+    t0 = time.perf_counter()
+    _, b = build("a", CKPT_EVERY, resume=True)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if b.loop.step != CKPT_EVERY:
+        fail(f"phase 14d: restored at step {b.loop.step}")
+    if fingerprint(torch, {"state": b.loop.state}) != saved["fp"]:
+        fail("phase 14d: the restored state differs from the state saved "
+             "at step 3")
+    stored, _ = load_arrays(path)
+    state = b.loop.state
+    restored = {f"['state']['{part}'][{name!r}]": t
+                for part, tree in (("params", state["params"]),)
+                for name, t in tree.items()}
+    restored.update({f"['state']['opt']['{mv}'][{name!r}]": t
+                     for mv in ("m", "v")
+                     for name, t in state["opt"][mv].items()})
+    restored["['state']['opt']['step']"] = state["opt"]["step"]
+    if sorted(restored) != sorted(k for k in stored if k != "['step']") \
+            or int(stored["['step']"]) != CKPT_EVERY:
+        fail("phase 14d: the file's leaves are not the train state's")
+    for leaf_path, t in restored.items():
+        if t.detach().cpu().numpy().tobytes() != stored[leaf_path].tobytes():
+            fail(f"phase 14d: restored {leaf_path} differs from the file")
+    del stored, restored, state
+    b.loop.run(b.batches, CKPT_STEPS)
+    resumed = [l for _, l in b.loop.metrics]
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # C: the same 5 steps again, uninterrupted and unsaved: the spread of
+    # two uninterrupted runs sets the tolerance of the resumed losses
+    _, c = build("c", 1000)
+    c.loop.run(c.batches, CKPT_STEPS)
+    losses_c = [l for _, l in c.loop.metrics]
+    spread = max(abs(x - y) for x, y in zip(losses_a, losses_c))
+    tol = 2 * spread + 1e-6 * max(abs(x) for x in losses_a)
+    miss = max(abs(x - y) for x, y in zip(resumed, losses_a[CKPT_EVERY:]))
+    if miss > tol:
+        fail(f"phase 14d: resumed losses {resumed} against "
+             f"{losses_a[CKPT_EVERY:]}: {miss} beyond {tol} (twice the "
+             f"spread {spread} of two uninterrupted runs, plus 1e-6)")
+    log(f"phase 14d checkpoint at full width, {CKPT_LAYERS} layers: "
+        f"{written} B written at step {CKPT_EVERY}; save() {spent['save']:.3f}"
+        f" s (host snapshot), wait() {spent['wait']:.3f} s (the write's "
+        f"rest after steps {CKPT_EVERY + 1}-{CKPT_STEPS}); restored in "
+        f"{restore_s:.3f} s (fresh state included) bit for bit equal to the "
+        f"file and to the live state saved; losses {losses_a}, resumed "
+        f"{resumed} (max diff {miss:.3g}, tolerance {tol:.3g}; two "
+        f"uninterrupted runs differ by {spread:.3g})")
+    return {"bytes": written, "save_s": spent["save"],
+            "wait_s": spent["wait"], "restore_s": restore_s,
+            "losses": losses_a, "resumed": resumed, "spread": spread,
+            "tolerance": tol}, c
+
+
+def compress_phase(torch, dev, run) -> dict:
+    """Phase 14e: int8 compression of one step's gradients (14d's 2-layer
+    model) on the card against the CPU on the same gradients."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import (compress_grads_with_feedback,
+                                   compress_int8, init_error_state)
+    params = run.loop.state["params"]
+    loss = M.loss_fn(params, run.cfg, run.batches(run.loop.step))
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    cpu = {k: g.cpu() for k, g in grads.items()}
+    codes = 0
+    for k in grads:
+        q, s = compress_int8(grads[k])
+        qc, sc = compress_int8(cpu[k])
+        if not (torch.equal(q.cpu(), qc) and torch.equal(bits_of(s.cpu()),
+                                                         bits_of(sc))):
+            fail(f"phase 14e compress_int8 {k}: codes or scale differ "
+                 f"between the card and the CPU")
+        codes += q.numel()
+    err, err_c = init_error_state(grads), init_error_state(cpu)
+    for _ in range(2):
+        deq, err = compress_grads_with_feedback(grads, err)
+        deq_c, err_c = compress_grads_with_feedback(cpu, err_c)
+        for k in grads:
+            if not (torch.equal(bits_of(deq[k].cpu()), bits_of(deq_c[k]))
+                    and torch.equal(bits_of(err[k].cpu()),
+                                    bits_of(err_c[k]))):
+                fail(f"phase 14e compress_grads_with_feedback {k}: the "
+                     f"card and the CPU differ")
+    log(f"phase 14e int8 compression of {len(grads)} gradients "
+        f"({codes} codes) on the card: codes and scales equal the CPU's "
+        f"bit for bit, and two steps of error feedback too")
+    return {"tensors": len(grads), "codes": codes}
+
+
+def lm_train_phases(torch, dev) -> dict:
+    """Phase 14: the kernels line's record of the wgmma masked matmul on
+    the LM training path."""
+    import shutil
+    import tempfile
+
+    torch.cuda.empty_cache()
+    rec = {"name": "masked_matmul_wgmma_forward", "route": "cuda",
+           "source": MM_WGMMA_SOURCE,
+           "replaces": "src/repro/kernels/masked_matmul.py:23"}
+    rec.update(ffn_masked_matmul_phase(torch, dev))
+    tmp = tempfile.mkdtemp(prefix="lm_train_")
+    try:
+        train_out, cfg, model = lm_train_phase(torch, dev, tmp)
+        rec["launches"] = train_out["launches"]
+        rec["launches_by_route"] = train_out["launches_by_route"]
+        rec["lm_training"] = train_out
+        serving = lm_trained_serving_phase(torch, dev, cfg, model)
+        rec["launches_decode"] = serving["launches_decode"]
+        rec["lm_serving"] = serving
+        del model
+        torch.cuda.empty_cache()
+        rec["checkpoint"], run = lm_checkpoint_phase(torch, dev, tmp)
+        rec["compress"] = compress_phase(torch, dev, run)
+        del run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3522,6 +4242,10 @@ def main() -> None:
     mixed_rec["rtl"] = {k: v for k, v in rtl.items() if k.startswith("A@")}
     mixed_rec["rtl"]["optimize_s"] = rtl["optimize_s"]
     mm_rec["paper_tables_walls_s"] = tables_out["walls"]
+
+    # -- phase 14: qwen3-1.7b trained with the LogicNet-FFN, served,
+    # checkpointed and restarted; its masked products on the wgmma route
+    records.append(lm_train_phases(torch, dev))
 
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

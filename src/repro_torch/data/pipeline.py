@@ -1,14 +1,52 @@
-"""Data pipelines: the port's copy of ``repro.data.pipeline``'s jet data
-and procedural digits.
+"""Data pipelines: the port's copy of ``repro.data.pipeline``.
 
-``jet_substructure_data`` and ``mnist_like_data`` are deterministic numpy
-functions of ``(n, seed)``, so the port and the reference draw identical
-arrays.
+Every generator is a deterministic numpy function of its seed (and, for
+``TokenStream``, of the step and the host), so the port and the reference
+draw identical arrays, and a restarted or re-sharded job never replays or
+skips data.
+
+* ``TokenStream`` — synthetic LM token batches (Zipfian unigrams with a
+  copy-back structure, so perplexity is learnable).
+* ``jet_substructure_data`` — 16-feature 5-class jet stand-in (paper §6).
+* ``mnist_like_data`` — procedural 28x28 digit-like classes (paper §7).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+
+
+@dataclasses.dataclass
+class TokenStream:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    n_hosts: int = 1
+    host: int = 0
+
+    def __post_init__(self):
+        if self.global_batch % self.n_hosts:
+            raise ValueError(f"global_batch {self.global_batch} does not "
+                             f"split over {self.n_hosts} hosts")
+        self.local_batch = self.global_batch // self.n_hosts
+
+    def batch(self, step: int) -> dict[str, np.ndarray]:
+        """Per-host slice of the global batch at ``step``; deterministic:
+        int32 ``tokens`` and next-token ``labels``, each (local_batch,
+        seq_len)."""
+        rng = np.random.default_rng((self.seed, step, self.host))
+        # Zipf unigram base with a copy-back structure: token[t] often
+        # repeats token[t-k] — gives the model something to learn.
+        zipf = rng.zipf(1.3, size=(self.local_batch, self.seq_len + 1))
+        toks = np.minimum(zipf, self.vocab - 1).astype(np.int32)
+        k = 1 + (step % 7)
+        copy = rng.random((self.local_batch, self.seq_len + 1)) < 0.5
+        toks[:, k:][copy[:, k:]] = toks[:, :-k][copy[:, k:]]
+        return {"tokens": toks[:, :-1],
+                "labels": toks[:, 1:].astype(np.int32)}
 
 
 def jet_substructure_data(n: int, seed: int = 0

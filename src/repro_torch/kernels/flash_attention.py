@@ -198,8 +198,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``launches`` counts every launch, ``launches_by_route`` each route's):
     float32 or bfloat16, one dtype and one device for all three, the last
     dimension contiguous, ``D <= 256``.  CPU tensors run
-    :func:`flash_attention_plain`.
+    :func:`flash_attention_plain`.  Inputs that require grad raise on both
+    devices: the kernel has no backward, and its output would silently
+    cut the graph.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention has no backward: q, k or v "
+                         "requires grad (train through attn_apply(..., "
+                         "train=True), the chunked attention, or call it "
+                         "under torch.no_grad())")
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,

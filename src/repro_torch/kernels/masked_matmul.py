@@ -31,8 +31,9 @@ plain torch.
 :class:`MaskedMatmulFn` is its autograd function: the forward and the
 input gradient ``dx = dy @ (w * mask)^T`` launch the kernel (in float32
 through the transposed read, else on transposed copies); ``dw = (x^T @
-dy) * mask`` and ``db = dy.sum(0)`` stay torch ops, as the reference
-leaves its gradient to XLA's autodiff of plain jnp.
+dy) * mask``, the mask's ``dmask = (x^T @ dy) * w`` (from the same
+product, when the mask requires grad) and ``db = dy.sum(0)`` stay torch
+ops, as the reference leaves its gradient to XLA's autodiff of plain jnp.
 """
 
 from __future__ import annotations
@@ -216,10 +217,15 @@ masked_matmul.launches_by_route = {"simt": 0, "wgmma": 0, "ffma": 0}
 
 
 class MaskedMatmulFn(torch.autograd.Function):
-    """Differentiable ``x @ (w * mask) + b``; the mask gets no gradient.
+    """Differentiable ``x @ (w * mask) + b``.
 
     Only the gradients in ``ctx.needs_input_grad`` are computed, so a first
-    layer whose input is data launches no ``dx`` kernel.
+    layer whose input is data launches no ``dx`` kernel, and a mask that
+    does not require grad (model A's, MNIST's) gets none.  A mask that
+    does gets ``(x^T @ dy) * w``, the derivative of the product the
+    reference differentiates (``xq @ (w * mask)``): the LM's masks are
+    parameters whose gradient counts in the clipped global norm, though
+    AdamW never updates them.
     """
 
     @staticmethod
@@ -232,16 +238,18 @@ class MaskedMatmulFn(torch.autograd.Function):
         x, w, mask = ctx.saved_tensors
         dy = dy.contiguous()
         n_in = len(ctx.needs_input_grad)
-        need_x, need_w, _, need_b = (*ctx.needs_input_grad, False)[:4]
-        dx = dw = db = None
+        need_x, need_w, need_mask, need_b = (*ctx.needs_input_grad, False)[:4]
+        dx = dw = dmask = db = None
         if need_x:
             if masked_matmul_route(dy.dtype, w.shape[1], w.shape[0]) == "ffma":
                 dx = masked_matmul(dy, w, mask, transposed=True)
             else:
                 dx = masked_matmul(dy, w.t().contiguous(),
                                    mask.t().contiguous())
-        if need_w:
-            dw = (x.t() @ dy) * mask
+        if need_w or need_mask:
+            g = x.t() @ dy
+            dw = g * mask if need_w else None
+            dmask = g * w if need_mask else None
         if need_b:
             db = dy.sum(0)
-        return (dx, dw, None, db)[:n_in]
+        return (dx, dw, dmask, db)[:n_in]

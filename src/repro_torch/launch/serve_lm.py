@@ -6,7 +6,12 @@ refilled from the queue next step), per-slot KV caches and positions,
 greedy sampling.  Prompts are fed one token per decode step, as in the
 reference; its admission, stop rule and numpy prompt generator are kept.
 The model's weights are the port's seeded init (``launch.steps.init_params``
-at seed 0); no weights are downloaded.
+at seed 0), or with ``--ckpt-dir`` those of the latest checkpoint that
+``repro_torch.launch.train`` wrote there; no weights are downloaded.
+``--logicnet-ffn`` serves the LogicNet-FFN variant (``LogicNetFFNCfg()``,
+as ``launch.train --logicnet-ffn`` trains it): prefill through the flash
+and masked-matmul kernels, every decode step's FFN products through the
+masked-matmul kernel at M = slots.
 
     # the smoke config on the CPU (plain versions of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen3-1.7b \\
@@ -15,6 +20,11 @@ at seed 0); no weights are downloaded.
     # the full published config on the card
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen3-1.7b \\
         --width full
+
+    # a trained LogicNet-FFN model (launch.train --full --logicnet-ffn
+    # --ckpt-dir DIR)
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --width full \\
+        --logicnet-ffn --ckpt-dir DIR
 """
 
 from __future__ import annotations
@@ -27,9 +37,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.launch.steps import init_params, make_decode_step
+from repro_torch.launch.steps import (init_params, make_decode_step,
+                                      restore_model)
 from repro_torch.models import model as M
-from repro_torch.models.config import ModelCfg
+from repro_torch.models.config import LogicNetFFNCfg, ModelCfg
 
 
 @dataclasses.dataclass
@@ -110,7 +121,7 @@ def serve(cfg: ModelCfg, model: M.LM, requests: int = 12, slots: int = 4,
     return ServeResult(done, steps, time.perf_counter() - t0, slots)
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--requests", type=int, default=12)
@@ -120,16 +131,28 @@ def main() -> None:
     ap.add_argument("--width", choices=("smoke", "full"), default="smoke",
                     help="the reference's smoke config or its full "
                          "published config")
+    ap.add_argument("--logicnet-ffn", action="store_true",
+                    help="the LogicNet-FFN variant (LogicNetFFNCfg())")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the parameters of the latest checkpoint "
+                         "launch.train wrote here (same --arch, --width "
+                         "and --logicnet-ffn)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = (get_smoke_config if args.width == "smoke" else get_config)(
         args.arch)
     if cfg.enc_dec or cfg.vision_tokens:
         raise SystemExit("demo server supports decoder-only archs")
-    model = init_params(cfg, seed=0, device=args.device)
+    if args.logicnet_ffn:
+        cfg = dataclasses.replace(cfg, logicnet_ffn=LogicNetFFNCfg())
+    if args.ckpt_dir is None:
+        model = init_params(cfg, seed=0, device=args.device)
+    else:
+        step, model = restore_model(cfg, args.ckpt_dir, args.device)
+        print(f"parameters of step {step} from {args.ckpt_dir}")
     res = serve(cfg, model, requests=args.requests, slots=args.slots,
                 max_new=args.max_new, cache_len=args.cache_len)
     print(f"served {len(res.done)} requests, {res.tokens} tokens in "

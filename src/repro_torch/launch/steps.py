@@ -1,19 +1,32 @@
-"""Step functions of the LM zoo: what a server calls for prefill and decode.
+"""Step builders and ``input_specs`` of the LM zoo: the port of
+``repro.launch.steps``.
 
-The port's counterpart of ``repro.launch.steps`` for serving:
-``make_prefill_step`` and ``make_decode_step`` return the functions a
-server calls (PyTorch runs eagerly, so nothing is compiled), and
-``init_params`` draws a model from a seed on a device.  Training steps
-and ``input_specs`` wait for the port's LM training (ROADMAP item 9f).
+``make_train_step``, ``make_prefill_step`` and ``make_decode_step`` return
+the functions a trainer or a server calls (PyTorch runs eagerly, so
+nothing is compiled).  ``make_train_state`` and ``init_params`` draw a
+model from a seed on a device; ``abstract_params``,
+``abstract_train_state`` and ``input_specs`` describe the same tensors on
+the ``meta`` device, allocating nothing.
+
+The train state is ``{"params": {name: tensor}, "opt": {"m", "v",
+"step"}}``: float32 masters that require grad (the LogicNet masks too:
+their gradient counts in the clipped global norm, as the reference
+differentiates its whole parameter tree), float32 moments and an int32
+step count, all on the device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import ShapeCell
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelCfg
+from repro_torch.optim.adamw import (AdamWCfg, adamw_update, init_opt_state,
+                                     logicnet_mask_fn)
 
 
 def init_params(cfg: ModelCfg, seed: int = 0, device=None) -> M.LM:
@@ -21,6 +34,88 @@ def init_params(cfg: ModelCfg, seed: int = 0, device=None) -> M.LM:
     ``device`` (default ``cuda``) from a generator seeded with ``seed``."""
     dev = resolve_device(device)
     return M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+
+
+def abstract_params(cfg: ModelCfg) -> dict[str, torch.Tensor]:
+    """Every parameter as a float32 ``meta`` tensor that requires grad, as
+    the train state's do: names and shapes, no storage."""
+    return {n: torch.empty(s, dtype=torch.float32,
+                           device="meta").requires_grad_()
+            for n, s in M.param_shapes(cfg).items()}
+
+
+def abstract_train_state(cfg: ModelCfg) -> dict:
+    """The train state's structure on the ``meta`` device (what
+    ``checkpoint.restore_checkpoint`` needs as ``like`` to restore onto a
+    device without first allocating a fresh state there)."""
+    params = abstract_params(cfg)
+    return {"params": params, "opt": init_opt_state(params)}
+
+
+def make_train_state(cfg: ModelCfg, seed: int = 0, device=None) -> dict:
+    """``{"params", "opt"}`` for a model drawn from ``seed`` on ``device``
+    (default ``cuda``): the parameters as leaf tensors that require grad,
+    in ``abstract_params``' order (the order AdamW sums the gradient norm
+    in, so a state restored onto an abstract one steps bit for bit as the
+    one it was saved from)."""
+    named = dict(init_params(cfg, seed, device).named_parameters())
+    params = {n: named[n].detach().requires_grad_()
+              for n in M.param_shapes(cfg)}
+    return {"params": params, "opt": init_opt_state(params)}
+
+
+def model_from_state(cfg: ModelCfg, state: dict) -> M.LM:
+    """The serving model over a train state's parameters (the same
+    storage, detached): what ``make_prefill_step`` and
+    ``make_decode_step`` serve after training."""
+    return M.LM(cfg, M.param_tree(cfg, {n: p.detach() for n, p in
+                                        state["params"].items()}))
+
+
+def restore_model(cfg: ModelCfg, directory: str, device=None
+                  ) -> tuple[int, M.LM]:
+    """``(step, model)``: the serving model over the parameters of the
+    latest checkpoint a ``TrainLoop`` wrote to ``directory`` (its moments
+    are not read), on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    like = {"state": {"params": abstract_params(cfg)},
+            "step": np.asarray(0)}
+    out = CheckpointManager(directory).restore_latest(like, device=dev)
+    if out is None:
+        raise FileNotFoundError(f"no checkpoint in {directory}")
+    _, tree = out
+    return int(tree["step"]), model_from_state(cfg, tree["state"])
+
+
+def make_train_step(cfg: ModelCfg, opt_cfg: AdamWCfg | None = None):
+    """``train_step(state, batch) -> (state, loss)``: the loss and the
+    gradient of every parameter (masks included), then one AdamW update
+    in place (the LogicNet masks applied to their weights' gradients and
+    values when ``cfg.logicnet_ffn`` is set).  The step count and every
+    per-step scalar of the update stay on the device.
+
+    The reference's step is a pure function, and its loop drops the new
+    state of a step whose loss is not finite.  This step updates in
+    place, so it reads the loss first (one wait for the device a step;
+    the loop reads it anyway) and, when it is not finite, returns the
+    state untouched: parameters, moments and step count bit for bit as
+    they were.
+    """
+    opt_cfg = opt_cfg or AdamWCfg(lr=3e-4)
+    mask_fn = logicnet_mask_fn if cfg.logicnet_ffn is not None else None
+
+    def train_step(state: dict, batch: dict):
+        params = state["params"]
+        loss = M.loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        loss = loss.detach()
+        if not bool(torch.isfinite(loss)):
+            return state, loss
+        adamw_update(opt_cfg, params, dict(zip(params, grads)),
+                     state["opt"], mask_fn=mask_fn)
+        return state, loss
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelCfg):
@@ -42,3 +137,41 @@ def make_decode_step(cfg: ModelCfg):
         return logits[:, 0, :], cache
 
     return serve_step
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelCfg, cell: ShapeCell) -> dict:
+    """``meta`` tensors of every model input of the cell, in the
+    reference's shapes and dtypes:
+
+    train:   {batch: {tokens, labels}}
+    prefill: {batch: {tokens}}
+    decode:  {cache: {k, v}, tokens, pos}
+
+    Vision tokens and encoder frames (ROADMAP items 9d, 9c) and an SSM
+    decode cache (9b) raise ``NotImplementedError``.
+    """
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: encoder frames as inputs (ROADMAP item 9c)")
+    if cfg.vision_tokens > 0:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: vision tokens as inputs (ROADMAP item 9d)")
+    b, s = cell.global_batch, cell.seq_len
+    if cell.kind in ("train", "prefill"):
+        batch = {"tokens": _meta((b, s), torch.int32)}
+        if cell.kind == "train":
+            batch["labels"] = _meta((b, s), torch.int32)
+        return {"batch": batch}
+    if cfg.is_ssm:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the SSM decode state (ROADMAP item 9b)")
+    # decode: a cache sized to seq_len, one new token
+    kv = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"cache": {"k": _meta(kv, torch.bfloat16),
+                      "v": _meta(kv, torch.bfloat16)},
+            "tokens": _meta((b, 1), torch.int32),
+            "pos": _meta((b,), torch.int32)}

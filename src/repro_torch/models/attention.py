@@ -1,14 +1,17 @@
-"""GQA attention: prefill through the flash-attention kernel, cached decode.
+"""GQA attention: prefill through the flash-attention kernel, training
+through the chunked attention, cached decode.
 
 The port's counterpart of ``repro.models.attention`` for decoder-only
 models: ``attn_init``, ``_project_qkv``, ``_chunked_attention``,
-``attn_apply`` and ``attn_decode``.  The reference computes prefill
+``attn_apply`` and ``attn_decode``.  The reference computes full-sequence
 attention with its pure-XLA ``_chunked_attention``, the same function its
-Pallas ``flash_attention`` kernel computes; here ``attn_apply`` calls the
-port's counterpart of that kernel (``repro_torch.kernels.flash_attention``),
-which launches ``flash_attention_forward`` on the card.  Decode attends one
-query per row against the KV cache with ``_chunked_attention`` in plain
-torch, as the reference does in XLA.
+Pallas ``flash_attention`` kernel computes.  Here ``attn_apply`` calls the
+port's counterpart of that kernel (``repro_torch.kernels.flash_attention``,
+which launches on the card) for prefill; with ``train=True`` it calls
+``_chunked_attention`` in differentiable torch ops, as the reference
+trains through its XLA version: the flash kernel has no backward, in
+either package.  Decode attends one query per row against the KV cache
+with ``_chunked_attention``, as the reference does in XLA.
 
 Supports qk-norm (qwen3) and sliding windows with gemma3's per-layer
 local/global mix (window 0 = global).  M-RoPE and cross-attention
@@ -110,8 +113,12 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attn_apply(p: dict, cfg: ModelCfg, x: torch.Tensor,
                positions: torch.Tensor, window: int = 0,
-               causal: bool = True) -> torch.Tensor:
-    """Full-sequence (prefill) attention through the flash kernel.
+               causal: bool = True, train: bool = False) -> torch.Tensor:
+    """Full-sequence attention: prefill through the flash kernel, or with
+    ``train`` through the differentiable ``_chunked_attention`` in chunks
+    of ``cfg.attn_chunk`` keys (the flash kernel raises on inputs that
+    require grad; the chunked form computes the true function where the
+    chunk divides the sequence or is at least as long, ROADMAP §3).
 
     The model holds heads as (B, S, H, D); the kernel takes (B, H, S, D)
     views, so q, k and v go in as transposed views, without copies, and the
@@ -120,10 +127,15 @@ def attn_apply(p: dict, cfg: ModelCfg, x: torch.Tensor,
     window 0 (global) is the kernel's ``window=None``.
     """
     q, k, v = _project_qkv(p, cfg, x, positions)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal,
-                          window=window if window > 0 else None)
-    return torch.einsum("bshe,hed->bsd", out.transpose(1, 2), p["wo"])
+    if train:
+        out = _chunked_attention(q, k, v, q_offset=0, window=window,
+                                 causal=causal, chunk=cfg.attn_chunk)
+    else:
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=window if window > 0 else None
+                              ).transpose(1, 2)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
 
 
 def attn_decode(p: dict, cfg: ModelCfg, x: torch.Tensor,

@@ -1,9 +1,11 @@
-"""Shared model building blocks: norms, RoPE, embeddings, SwiGLU FFN.
+"""Shared model building blocks: norms, RoPE, embeddings, SwiGLU FFN and
+the LogicNet-FFN.
 
 The port's counterparts of ``repro.models.layers`` (``rms_norm``,
 ``init_rms``, ``rope_freqs``, ``apply_rope``, ``ffn_init`` /
-``ffn_apply``, ``embed_init``, ``embed_lookup``, ``lm_logits``), with the
-reference's layouts and its points of rounding to the compute dtype.
+``ffn_apply``, ``logicnet_ffn_init`` / ``logicnet_ffn_apply``,
+``embed_init``, ``embed_lookup``, ``lm_logits``), with the reference's
+layouts and its points of rounding to the compute dtype.
 Inits draw the reference's distributions from a ``torch.Generator``; its
 ``jax.random`` bits cannot be reproduced, so tests carry the reference's
 parameters instead (``repro_torch.models.model.from_reference``).
@@ -13,6 +15,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.quantize import QuantizerCfg, quantize
+from repro_torch.core.sparsity import apriori_mask
+from repro_torch.kernels.masked_matmul import MaskedMatmulFn
+from repro_torch.models.config import LogicNetFFNCfg
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -50,6 +57,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def normal_init(shape, std: float, gen: torch.Generator,
                 dtype) -> torch.Tensor:
+    if gen.device.type == "meta":
+        # shapes only (``models.model.param_shapes``): nothing to draw
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device) * std
             ).to(dtype)
 
@@ -72,6 +82,50 @@ def ffn_apply(p: dict, x: torch.Tensor, act_fn: str = "silu") -> torch.Tensor:
     act = _ACTS[act_fn]
     h = act(x @ p["wi_gate"]) * (x @ p["wi_up"])
     return h @ p["wo"]
+
+
+def logicnet_masks(d_model: int, d_ff: int, cfg: LogicNetFFNCfg,
+                   seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The LogicNet-FFN's fan-in masks, float32 on the CPU: ``mask_in``
+    (d_model, d_ff), every hidden neuron reading ``min(fan_in, d_model)``
+    inputs, and ``mask_out`` (d_ff, d_model), from ``apriori_mask`` at
+    ``seed`` and ``seed + 1`` (numpy, so the reference's masks)."""
+    return (apriori_mask(seed, d_model, d_ff, min(cfg.fan_in, d_model)),
+            apriori_mask(seed + 1, d_ff, d_model, min(cfg.fan_in, d_ff)))
+
+
+def logicnet_ffn_init(gen: torch.Generator, d_model: int, d_ff: int,
+                      masks: tuple, dtype=torch.float32) -> dict:
+    """FFN with per-neuron fan-in masks and activation fake-quant: the
+    SwiGLU weights of :func:`ffn_init` plus ``mask_in`` and ``mask_out``,
+    copies of ``masks`` (:func:`logicnet_masks`) on ``gen``'s device.  The
+    reference draws the masks once at seed 0 for every layer (its init is
+    one ``vmap`` call), so the caller computes them once for all layers."""
+    mask_in, mask_out = masks
+    p = ffn_init(gen, d_model, d_ff, dtype)
+    p["mask_in"] = mask_in.to(device=gen.device, dtype=dtype, copy=True)
+    p["mask_out"] = mask_out.to(device=gen.device, dtype=dtype, copy=True)
+    return p
+
+
+def logicnet_ffn_apply(p: dict, x: torch.Tensor, cfg: LogicNetFFNCfg,
+                       act_fn: str = "silu") -> torch.Tensor:
+    """``quantize(h) @ (wo * mask_out)`` with ``h = act(xq @ (wi_gate *
+    mask_in)) * (xq @ (wi_up * mask_in))`` and ``xq = quantize(x)``: the
+    quantizers run in float32 and their outputs return to ``x``'s dtype,
+    as in the reference.  Each masked product is one
+    :class:`MaskedMatmulFn` call on the (rows, features) view of its
+    operand, so on the card every product (and its input gradient) is a
+    masked-matmul kernel launch."""
+    act = _ACTS[act_fn]
+    q = QuantizerCfg(cfg.bw, cfg.max_val)
+    lead = x.shape[:-1]
+    xq = quantize(q, x.float()).value.to(x.dtype).reshape(-1, x.shape[-1])
+    h = act(MaskedMatmulFn.apply(xq, p["wi_gate"], p["mask_in"])) \
+        * MaskedMatmulFn.apply(xq, p["wi_up"], p["mask_in"])
+    hq = quantize(q, h.float()).value.to(x.dtype)
+    return MaskedMatmulFn.apply(hq, p["wo"], p["mask_out"]).reshape(
+        *lead, p["wo"].shape[1])
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,

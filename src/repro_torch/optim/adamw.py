@@ -101,3 +101,23 @@ def cosine_schedule(warmup: int, total: int,
         cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * t))
         return torch.where(step < warmup, warm, cos)
     return fn
+
+
+_LOGICNET_WEIGHTS = {"wi_gate": "mask_in", "wi_up": "mask_in",
+                     "wo": "mask_out"}
+
+
+def logicnet_mask_fn(name: str, params: dict[str, torch.Tensor]
+                     ) -> torch.Tensor | None:
+    """Mask rule for LM-scale LogicNet-FFN layers: a weight named
+    ``<prefix>.wi_gate`` / ``wi_up`` / ``wo`` whose sibling mask
+    ``<prefix>.mask_in`` (``mask_out`` for ``wo``) is in ``params`` gets
+    that mask (``layers.3.ffn.wo`` -> ``layers.3.ffn.mask_out``); any other
+    name gets None.  The reference resolves the sibling by its pytree path
+    (``['layers']['ffn']['wo']``); the port's parameters are one flat dict
+    of dotted names."""
+    prefix, _, leaf = name.rpartition(".")
+    if leaf not in _LOGICNET_WEIGHTS:
+        return None
+    return params.get(f"{prefix}.{_LOGICNET_WEIGHTS[leaf]}" if prefix
+                      else _LOGICNET_WEIGHTS[leaf])

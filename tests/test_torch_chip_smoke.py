@@ -286,3 +286,63 @@ def test_pack_words_drives_the_port_rtl(cs):
     for word, row in zip(cs.pack_words(codes, 3), want):
         out = V.evaluate_verilog(files, word, 1)
         assert cs.unpack_word(out, tables[0].bw_out, 64) == list(row)
+
+
+def test_training_step_kernels_by_kind(cs):
+    """Phase 14b's breakdown of a step's device time: the masked matmul,
+    other matrix products, copies and the rest (AdamW's elementwise
+    passes), summing to the step's device time."""
+    by_name = {
+        "masked_matmul_wgmma_kernel(...)": 30.0,
+        "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128": 20.0,
+        "cutlass::Kernel2<cutlass_80_wmma_tensorop_bf16>": 5.0,
+        "nvjet_hsh_256x128_64x4_1x2_h_bz_coopA_NNT": 4.0,
+        "Memcpy HtoD (Pageable -> Device)": 0.5,
+        "Memset (Device)": 0.25,
+        "void at::native::vectorized_elementwise_kernel<4, ...>": 200.0,
+        "void at::native::reduce_kernel<512, 1, ...>": 10.0}
+    kinds = cs.kernel_kinds(by_name)
+    assert kinds == {"masked_matmul": 30.0, "gemm": 29.0, "copy": 0.75,
+                     "other": 210.0}
+    assert sum(kinds.values()) == sum(by_name.values())
+    assert cs.LM_MM_PER_LAYER_STEP * 28 == 252
+
+
+@pytest.mark.parametrize("which", ["in", "out", "in_t", "out_t"])
+def test_ffn_gate_passes_a_reordered_sum_and_refuses_bf16_accumulation(
+        cs, which):
+    """Phase 14a's gate (one bfloat16 step of the plain output plus 1e-3
+    of its rms) on the LogicNet-FFN's masks at d_model 512, d_ff 1536
+    (fan-in 16) and the FFN's operand scales: the same float32 sum taken
+    in another order, rounded to bfloat16, passes it; the control that
+    accumulates in bfloat16 across K tiles of 64 fails it, though the
+    bfloat16 gate of ``MM_TOL`` (atol 5e-2) passes that control."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.masked_matmul import masked_matmul_plain
+    from repro_torch.models.config import LogicNetFFNCfg
+    from repro_torch.models.layers import logicnet_masks
+
+    mask_in, mask_out = logicnet_masks(512, 1536, LogicNetFFNCfg())
+    mask = {"in": mask_in, "out": mask_out, "in_t": mask_in.t(),
+            "out_t": mask_out.t()}[which].contiguous().bfloat16()
+    k, n = mask.shape
+    rng = np.random.default_rng(k + n)
+    x = torch.from_numpy(rng.standard_normal((256, k)).astype(
+        np.float32)).bfloat16()
+    w = torch.from_numpy((rng.standard_normal((k, n)) / k ** 0.5).astype(
+        np.float32)).bfloat16()
+    want = masked_matmul_plain(x, w, mask)
+    limit = cs.ffn_limit(torch, want)
+    # the float64 sum of the same products, in reverse order of k
+    other = (x.double().flip(1) @ (w * mask).double().flip(0)).float(
+        ).bfloat16()
+    diff = (other.float() - want.float()).abs()
+    assert bool((diff <= limit).all())
+    control = cs.bf16_tile_accumulated(torch, x, w, mask)
+    beyond = (control.float() - want.float()).abs() > limit
+    assert int(beyond.sum()) > 0
+    atol, rtol, steps = cs.MM_TOL["bfloat16"]
+    assert bool(((control.float() - want.float()).abs()
+                 <= cs.mm_limit(torch, want, atol, rtol, steps)).all())

@@ -777,6 +777,123 @@ def test_masked_matmul_backward_launches_dx_only_when_needed(dev):
         assert x_grad or xi.grad is None
 
 
+def _close(got, want, atol, rtol, steps):
+    """|got - want| within atol + rtol |want| + ``steps`` units in the last
+    place of ``got``'s dtype at |want|."""
+    want = want.float()
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.full_like(want, torch.finfo(got.dtype).eps / 2),
+                      e)
+    diff = (got.float() - want).abs()
+    limit = atol + rtol * want.abs() + steps * ulp
+    assert (diff <= limit).all(), float((diff - limit).max())
+
+
+@functools.lru_cache(maxsize=1)
+def _lm_ffn_masks():
+    """qwen3-1.7b's LogicNet-FFN masks (fan-in 16): mask_in (2048, 6144),
+    mask_out (6144, 2048) and their transposes (the input gradients')."""
+    from repro_torch.models.config import LogicNetFFNCfg
+    from repro_torch.models.layers import logicnet_masks
+    mask_in, mask_out = logicnet_masks(2048, 6144, LogicNetFFNCfg())
+    return {"in": mask_in, "out": mask_out,
+            "in_t": mask_in.t().contiguous(),
+            "out_t": mask_out.t().contiguous()}
+
+
+@pytest.mark.parametrize("m,which", [(2048, "in"), (2048, "out"),
+                                     (2048, "in_t"), (2048, "out_t"),
+                                     (8192, "in"), (8192, "out"),
+                                     (4, "in"), (4, "out")])
+def test_masked_matmul_at_the_lm_ffn_shapes(dev, m, which):
+    """The LogicNet-FFN's products at batch 8 x seq 256 (M 2048), at a
+    prefill of 4 x 2048 tokens (M 8192) and at 4 decode slots, forward and
+    input-gradient operands, with the model's fan-in-16 masks: one wgmma
+    launch each, within one bfloat16 step of the plain output plus 1e-3 of
+    its rms.  These outputs have an rms of 0.05-0.09, so the reference's
+    atol of 5e-2 would not tell a kernel that accumulates in bfloat16 from
+    a right one."""
+    mask = _lm_ffn_masks()[which].to(dev, torch.bfloat16)
+    k, n = mask.shape
+    rng = np.random.default_rng(m + k)
+    x, w = _on(dev, rng.standard_normal((m, k)).astype(np.float32),
+               (rng.standard_normal((k, n)) / k ** 0.5).astype(np.float32))
+    x, w = x.bfloat16(), w.bfloat16()
+    rms = float(masked_matmul_plain(x, w, mask).float().square().mean()
+                .sqrt())
+    _, ran = _mm_check(x, w, mask, None, 1e-3 * rms, 0.0, 1)
+    assert ran == "wgmma"
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-4, 1e-5, 0)),
+                                       (torch.bfloat16, (5e-2, 1e-3, 2))])
+def test_masked_matmul_fn_mask_gradient_on_the_card(dev, dtype, tol):
+    """With the mask requiring grad (the LM's masks do, for the clip norm)
+    ``MaskedMatmulFn`` gives dx, dw and dmask = (x^T dy) * w within the
+    tolerance of autograd of the plain version, and launches the kernel
+    twice (forward, dx).  bfloat16 allows two steps: (x^T dy) rounds to
+    bfloat16 before the product with w, as the reference's does."""
+    x, w, mask, _ = _mm_inputs(dev, 512, 256, 384, dtype, seed=11)
+    dy = _on(dev, np.random.default_rng(12).standard_normal(
+        (512, 384)).astype(np.float32))[0].to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, w, mask)]
+    plain = [t.clone().requires_grad_() for t in (x, w, mask)]
+    before = masked_matmul.launches
+    MaskedMatmulFn.apply(*leaves).backward(dy)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches == before + 2
+    masked_matmul_plain(*plain).backward(dy)
+    for got, want in zip(leaves, plain):
+        assert got.grad.dtype == dtype
+        _close(got.grad, want.grad, *tol)
+    assert float(leaves[2].grad.float().abs().max()) > 0
+
+
+def test_lm_training_step_at_full_width(dev):
+    """One step of qwen3-1.7b with the LogicNet-FFN at full width, the
+    depth cut to 2 layers: 18 masked-matmul launches (2 layers x 3
+    products x forward, remat's recompute and dx), all wgmma; a finite
+    loss; pruned weights 0 and 16 ones a mask column after it; then one
+    decode step of the trained model: 6 launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models.config import LogicNetFFNCfg
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2,
+                              logicnet_ffn=LogicNetFFNCfg())
+    state = steps.make_train_state(cfg, seed=0, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenStream(
+        cfg.vocab, 256, 8).batch(0).items()}
+    before = dict(masked_matmul.launches_by_route)
+    state, loss = steps.make_train_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    after = masked_matmul.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == \
+        {"simt": 0, "wgmma": 18, "ffma": 0}
+    assert bool(torch.isfinite(loss)) and 11 < float(loss) < 13
+    p = state["params"]
+    for i in range(2):
+        for w, m in (("wi_gate", "mask_in"), ("wi_up", "mask_in"),
+                     ("wo", "mask_out")):
+            mask = p[f"layers.{i}.ffn.{m}"]
+            assert not bool((p[f"layers.{i}.ffn.{w}"][mask == 0]).any())
+            assert bool((mask.sum(0) == 16).all())
+    model = steps.model_from_state(cfg, state)
+    cache = M.init_cache(cfg, 4, 16, device=dev)
+    before = masked_matmul.launches_by_route["wgmma"]
+    logits, _ = steps.make_decode_step(cfg)(
+        model, cache, torch.ones((4, 1), dtype=torch.int32, device=dev),
+        torch.zeros(4, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert masked_matmul.launches_by_route["wgmma"] == before + 6
+    assert logits.shape == (4, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+
+
 def test_masked_matmul_refuses_what_the_kernel_cannot_take(dev):
     x, w, mask, b = _mm_inputs(dev, 8, 6, 4, torch.float32)
     with pytest.raises(TypeError, match="dtype"):

@@ -341,14 +341,6 @@ def test_unported_family_raises_naming_its_roadmap_item(arch):
         M.from_reference(cfg, {}, device="cpu")
 
 
-def test_logicnet_ffn_raises_naming_its_roadmap_item():
-    from repro_torch.models.config import LogicNetFFNCfg
-    cfg = dataclasses.replace(PC.get_smoke_config("qwen3-1.7b"),
-                              logicnet_ffn=LogicNetFFNCfg())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9e"):
-        M.init_params(cfg, torch.Generator())
-
-
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-27b",
                                   "starcoder2-15b", "phi3-mini-3.8b"])
 def test_port_init_has_the_reference_names_shapes_and_scales(arch):

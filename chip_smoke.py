@@ -157,13 +157,26 @@ pass:
    attn_apply's transposed (B, S, H, D) views at (2, 16, 64, 128) with
    Hkv 8 in float32 (tf32x3) and bfloat16 and at the prefill shape in
    bfloat16, each tensor-core output checked to be a view of a
-   (B, S, H, D) buffer.
+   (B, S, H, D) buffer; and phase 15's, MHA at zamba2-2.7b's head_dim 80
+   (32 heads) and olmoe-1b-7b's 128 (16 heads) at the 4 x 2048 prefill in
+   bfloat16 and at 2 x 64 in float32, MHA at D 80 on the grid (S 65, 250,
+   1000, causal or not, both dtypes), and both tensor-core kernels at D
+   80 written into the first 80 of 96 columns of a sentinel buffer, the
+   16 past them checked untouched (a write past column 79 would land on
+   the next head).
 8. **smoke LMs against the reference** — the qwen3-1.7b and gemma3-27b
    smoke configs with the reference's params (``lm_smoke.npz``): prefill
    logits through the kernel, teacher-forced decode logits and, at float32
    compute, the tokens of every request of the serve loop, against the
    reference's (float32 atol 1e-4 / rtol 1e-4, bfloat16 0.05, tokens
-   equal).
+   equal); and the smoke configs of the MoE and SSM families
+   (olmoe-1b-7b, qwen3-moe-235b-a22b, mamba2-370m, zamba2-2.7b) against
+   ``lm_smoke_moe_ssm.npz`` the same way (a hybrid launches flash once a
+   site, mamba2 never), the MoE archs at the fixture's capacity: float32
+   at every position; at bfloat16 a position past 0.05 must follow, in
+   its row, a position whose expert set differs from the reference's
+   recorded one in some layer (:func:`lm_check_routes`; one bfloat16
+   step of noise settles a near-tie of two router logits either way).
 9. **qwen3-1.7b at full width, the main path of this slice** — every launch
    counter at 0, the port's seeded init (28 layers, d_model 2048, Hq 16,
    Hkv 8, head_dim 128, vocab 151 936, bfloat16 compute): (a) prefill of
@@ -335,6 +348,38 @@ pass:
     and the rest under ``lm_training``, ``lm_serving``, ``checkpoint``
     and ``compress``.
 
+15. **the MoE and SSM families at full width** (``FAMILY_ARCHS``:
+    olmoe-1b-7b, 16 layers, 64 experts top 8, d_ff 1024; mamba2-370m, 48
+    SSM layers; zamba2-2.7b, 54 SSM layers and one shared attention
+    layer at 9 sites, head_dim 80; the port's seeded init, bfloat16),
+    every launch counter at 0 before each model's main path: (a) a
+    4 x 2048 prefill through ``make_prefill_step``, exactly 16 / 0 / 9
+    flash launches, all wgmma, finite logits; (b) ``serve_lm.serve`` at
+    its defaults, every request served, olmoe's dropped (token, k) pairs
+    a decode step at its own capacity printed; the counters read, and set
+    to 0 again for the checks: (c) for olmoe the three dispatches layer
+    by layer on the dense prefill's own hidden states (``sorted_local``
+    against ``dense`` at capacity 1.25, drops counted; ``sorted`` against
+    both at capacity E / k = 8.0; the 0.05 contract) and the
+    ``sorted_local`` prefill end to end beside dense's (reported with the
+    positions whose expert sets differ); 2 prompts of 64 tokens decoded
+    one at a time against one prefill at every position
+    (:func:`family_decode_check`; olmoe at capacity 8.0 with 0 drops):
+    float32 within 1e-4 (olmoe) or ``SSM_DECODE_TOL`` (SSM stacks); for
+    olmoe at bfloat16 the 0.05 contract on all but 1e-4 of the logits,
+    routers free at the positions whose expert sets agree with prefill's
+    (at least ``MOE_BF16_MIN_HELD``), and routers pinned to prefill's
+    choices at every position, with phase 9b's rule at each row's last
+    position; (d) the prefill and a decode step profiled
+    (:func:`step_profile`: host against device ms, the idle share,
+    kernels by kind), ``max_memory_allocated``; then flash at
+    (4, 32, 2048, 80) and (4, 16, 2048, 128) MHA causal bfloat16: event
+    and device time beside SDPA, the plain version and the bound.  The
+    flash record carries each model's main-path launches
+    (``launches_moe``, ``launches_hybrid``, ``launches_ssm``), the checks'
+    apart (``launches_moe_checks``, ...), and the phase under
+    ``lm_families``.
+
 Every device time is ``torch.profiler``'s sum of the measured calls'
 kernel records, taken only from a trace that holds all of them and, for
 device-bound calls (the flash shapes, the 4096^3 masked matmuls), reads at
@@ -348,6 +393,7 @@ it exits non-zero before printing either.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -775,13 +821,32 @@ def trace_accepted(n_records: int, want: int, device_ms: float,
     return not device_bound or device_ms >= DEVICE_BOUND_FLOOR * event_ms
 
 
+def measured_run(records, spin_end) -> tuple[list, list]:
+    """``(runs, the measured run)`` of a :func:`device_ms` trace: its
+    kernel records (time ranges sorted by start, the spin kernel's left
+    out) split into runs by device-side gaps of 10 ms or more, and the
+    first run that starts after the spin kernel ends (``spin_end``, None
+    when the trace lost that record): the measured calls queue behind the
+    spin kernel, the ``LEAD_CALLS`` calls run before it.  Without a spin
+    record, the longest run."""
+    runs = [[]]
+    for r in records:
+        if runs[-1] and r.start - runs[-1][-1].end >= 1e4:
+            runs.append([])
+        runs[-1].append(r)
+    after = [run for run in runs
+             if run and spin_end is not None and run[0].start >= spin_end]
+    return runs, after[0] if after else max(runs, key=len)
+
+
 def device_ms(fn, iters: int, launches: int = 1, tries: int = 5,
               device_bound: bool = False) -> float | None:
     """Device time per call of ``fn``, which launches ``launches`` kernels a
     call, from a trace of ``iters`` calls between ``LEAD_CALLS`` calls
     before them and one after them, each group 20 ms apart on the host.
     The kernel records fall into runs split by device-side gaps of 10 ms
-    or more; the longest run is the measured calls'.  CUDA events around
+    or more; the measured calls' run is the one after the spin kernel
+    (:func:`measured_run`).  CUDA events around
     the measured calls, inside the same trace, give their event time; a
     spin kernel first holds the stream until all of them are queued, so
     the events bracket the device's work (the spin's record is not
@@ -823,17 +888,15 @@ def device_ms(fn, iters: int, launches: int = 1, tries: int = 5,
             fn()
             torch.cuda.synchronize()
         event_ms = start.elapsed_time(end) / iters
-        records = sorted((e.time_range for e in prof.events()
-                          if e.device_type == DeviceType.CUDA
-                          and not e.is_user_annotation
-                          and "spin_kernel" not in e.name),
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation]
+        spins = [e.time_range.end for e in kernels
+                 if "spin_kernel" in e.name]
+        records = sorted((e.time_range for e in kernels
+                          if "spin_kernel" not in e.name),
                          key=lambda r: r.start)
-        runs = [[]]
-        for r in records:
-            if runs[-1] and r.start - runs[-1][-1].end >= 1e4:
-                runs.append([])
-            runs[-1].append(r)
-        measured = max(runs, key=len)
+        runs, measured = measured_run(records, spins[0] if spins else None)
         dev = sum(r.elapsed_us() for r in measured) / 1e3 / iters
         if trace_accepted(len(measured), iters * launches, dev, event_ms,
                           device_bound):
@@ -1441,6 +1504,14 @@ def flash_phase(torch, dev) -> dict:
               for dt in ("float32", "bfloat16")]
     cases += [((PREFILL_SHAPE[0], 16, 8, PREFILL_SHAPE[1], 128), "bfloat16",
                dict(causal=True), True)]
+    # phase 15's: zamba2-2.7b's shared attention (MHA at head_dim 80, the
+    # tensor-core kernels padding D to 128 and 96) and olmoe-1b-7b's (MHA
+    # at 128: one head a block), bfloat16 at the 4 x 2048 prefill, float32
+    # at the 2 x 64 decode check's
+    cases += [((PREFILL_SHAPE[0], h, h, PREFILL_SHAPE[1], d), "bfloat16",
+               dict(causal=True), True) for h, d in ((32, 80), (16, 128))]
+    cases += [((b, h, h, s, d), "float32", dict(causal=True), True)
+              for h, d in ((32, 80), (16, 128))]
     n_named = len(cases)
     # the tensor-core route's grid: GQA groups 1, 2 and 8, D 16 to 256, S
     # not a multiple of its 64-row and 64- or 128-key tiles, causal or not,
@@ -1452,6 +1523,10 @@ def flash_phase(torch, dev) -> dict:
     cases += [((1, 4, 2, 1000, d), "bfloat16", dict(causal=c, window=w),
                False)
               for d in (64, 128) for w in (16, 64, 1024) for c in (True, False)]
+    # MHA at head_dim 80 (zamba2-2.7b), both tensor-core routes
+    cases += [((1, 32, 32, s, 80), dt, dict(causal=c), False)
+              for s in (65, 250, 1000) for c in (True, False)
+              for dt in ("bfloat16", "float32")]
     # the same grid for the float32 tensor-core route (tf32x3), D 8 to 256
     cases += [((1, hq, hkv, s, d), "float32", dict(causal=c), False)
               for hq, hkv in ((4, 4), (4, 2), (8, 1))
@@ -1523,11 +1598,13 @@ def flash_phase(torch, dev) -> dict:
                 f"{kw}{views} ({route}): max |kernel - plain| "
                 f"{err:.3g}{gate}")
         del q, k, v, got, want, diff
+    guard = flash_column_guard(torch, dev)
     log(f"phase 7 flash_attention: {len(cases)} cases within tolerance "
         f"({by_route['wgmma']} on the wgmma route, {by_route['tf32x3']} on "
         f"the tf32x3 route, {by_route['simt']} on the SIMT route; the last "
-        f"{len(cases) - n_named}: GQA 1/2/8, D 8-256, S 65/250/1000, "
-        f"windows 16/64/1024, causal or not, in bfloat16 and float32); "
+        f"{len(cases) - n_named}: GQA 1/2/8, D 8-256, MHA at D 80, S "
+        f"65/250/1000, windows 16/64/1024, causal or not, in bfloat16 and "
+        f"float32); "
         f"largest difference float32 {errs['float32']:.3g}, bfloat16 "
         f"{errs['bfloat16']:.3g}, by route {route_errs}; wgmma cases within "
         f"{gate_worst:.3g} of the second gate (atol {FA_GATE[0]} + "
@@ -1535,7 +1612,45 @@ def flash_phase(torch, dev) -> dict:
     return {"max_abs_err": errs["float32"],
             "max_abs_err_bf16": errs["bfloat16"],
             "max_abs_err_by_route": route_errs,
-            "gate_worst_ratio": gate_worst, **gate_controls(torch, dev)}
+            "gate_worst_ratio": gate_worst, "column_guard": guard,
+            **gate_controls(torch, dev)}
+
+
+def flash_column_guard(torch, dev) -> dict:
+    """Phase 7: the tensor-core kernels at head_dim 80 (zamba2-2.7b's) pad D
+    to 128 inside the kernel, reading columns past 80 as zeros.  Each is
+    launched into the first 80 columns of a (B, S, H, 96) buffer full of a
+    sentinel (q, k and v the transposed (B, S, H, 80) views the model
+    passes): the 16 columns past 79, where a write past the head would
+    land on the next head's first columns in the model's (B, S, H, 80)
+    buffer, must keep the sentinel bit for bit, and the 80 within
+    tolerance of the plain version."""
+    from repro_torch.kernels import flash_attention as FA
+    out = {}
+    b, h, s, d, wide = 2, 32, 250, 80, 96
+    for dtype, launch in (("bfloat16", FA._launch_wgmma),
+                          ("float32", FA._launch_tf32)):
+        q, k, v = flash_inputs(torch, dev, b, h, h, s, d, dtype, seed=7,
+                               bshd=True)
+        buf = torch.full((b, s, h, wide), -7.25, dtype=q.dtype, device=dev)
+        launch(q, k, v, buf[..., :d].transpose(1, 2), True, None,
+               1.0 / d ** 0.5)
+        want = FA.flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if not bool((buf[..., d:] == -7.25).all()):
+            fail(f"flash_attention {dtype} at D {d}: the kernel wrote past "
+                 f"column {d - 1} of a head")
+        got = buf[..., :d].transpose(1, 2)
+        diff = (got.float() - want.float()).abs()
+        if bool((diff > mm_limit(torch, want, *FA_TOL[dtype])).any()):
+            fail(f"flash_attention {dtype} at D {d} into a strided buffer: "
+                 f"max |kernel - plain| {float(diff.max())}")
+        out[dtype] = float(diff.max())
+    log(f"phase 7 flash_attention at (B, Hq, Hkv, S, D) ({b}, {h}, {h}, "
+        f"{s}, {d}) into the first {d} of {wide} columns: the {wide - d} "
+        f"past them untouched on both tensor-core routes, max |kernel - "
+        f"plain| {out}")
+    return out
 
 
 def gate_reading(torch, got, want, tol=FA_GATE) -> tuple[float, float]:
@@ -1592,6 +1707,128 @@ def gate_controls(torch, dev) -> dict:
         del q, k, v, want, got, stale
         torch.cuda.empty_cache()
     return out
+
+
+# -- MoE router choices: recorded, compared, pinned (phases 8 and 15) -----
+
+@contextlib.contextmanager
+def record_routing():
+    """While active, every call of the port's MoE router appends
+    ``{"topi": (..., K)}`` (its top-k experts, detached) to the list this
+    yields, in call order: layer by layer, and a decode step by step."""
+    from repro_torch.models import moe
+    rec: list[dict] = []
+    inner = moe._router
+
+    def router(p, x, cfg):
+        topi, weights, aux = inner(p, x, cfg)
+        rec.append({"topi": topi.detach()})
+        return topi, weights, aux
+
+    moe._router = router
+    try:
+        yield rec
+    finally:
+        moe._router = inner
+
+
+@contextlib.contextmanager
+def pin_routing(choices):
+    """While active, the port's MoE router takes each call's experts from
+    ``choices`` (one integer tensor a call, in call order, reshaped to the
+    call's (..., K)) in place of its own top-k, and weighs them by the
+    softmax of its own logits there (its aux loss is its own): two runs
+    under the same choices differ only in arithmetic.  Every choice must
+    be used."""
+    import torch
+
+    from repro_torch.models import moe
+    inner = moe._router
+    todo = iter(choices)
+
+    def router(p, x, cfg):
+        aux = inner(p, x, cfg)[2]
+        topi = torch.as_tensor(next(todo), device=x.device).long().reshape(
+            *x.shape[:-1], cfg.moe.top_k)
+        logits = x.float() @ p["router"].float()
+        return topi, torch.softmax(logits.gather(-1, topi), dim=-1), aux
+
+    moe._router = router
+    try:
+        yield
+        if next(todo, None) is not None:
+            fail("pin_routing: the run made fewer router calls than it was "
+                 "given choices for")
+    finally:
+        moe._router = inner
+
+
+def route_sets(routes, shape) -> list:
+    """Each recorded call's chosen experts, sorted, as numpy (*shape, K)."""
+    return [r["topi"].sort(-1).values.reshape(*shape, -1).cpu().numpy()
+            for r in routes]
+
+
+def fixture_route_sets(topi) -> list:
+    """A fixture's router choices (layers, B, S, K) as :func:`route_sets`
+    of a run (one sorted (B, S, K) array a layer)."""
+    import numpy as np
+    return list(np.sort(np.asarray(topi), axis=-1))
+
+
+def routes_differ(a, b) -> "np.ndarray":
+    """(B, S) bool: positions whose expert set differs in any layer between
+    two runs' ``route_sets`` (layer by layer)."""
+    import numpy as np
+    if len(a) != len(b):
+        fail(f"the runs recorded {len(a)} and {len(b)} router calls")
+    out = np.zeros(a[0].shape[:2], bool) if a else None
+    for x, y in zip(a, b):
+        out |= (x != y).any(-1)
+    return out
+
+
+def decode_routes(routes, n_layers: int, rows: int, steps: int) -> list:
+    """A teacher-forced decode's router calls (step by step, every layer)
+    as one (rows, steps, K) array a layer, the prefill's layout."""
+    import numpy as np
+    per = route_sets(routes, (rows, 1))
+    return [np.concatenate(per[i::n_layers], axis=1)
+            for i in range(n_layers)]
+
+
+def at_or_after(marked) -> "np.ndarray":
+    """(B, S) bool: the positions at or after a marked one in their row
+    (a token that attends to a marked one)."""
+    import numpy as np
+    return np.maximum.accumulate(np.asarray(marked, bool), axis=1)
+
+
+def lm_check_routes(name, got, want, dtype, differ) -> float:
+    """``lm_check`` for logits (B, S, V) of a MoE model held against the
+    reference's: at float32 every position; at bfloat16, where one rounding
+    step upstream can settle a near-tie of two router logits the other way,
+    a position past the contract must follow, at or before it in its row,
+    a position whose expert set differs from the reference's in some layer
+    (``differ``, (B, S), :func:`routes_differ`): its own token or one it
+    attends to went through other experts.  Returns the largest difference
+    over the positions no such difference precedes."""
+    import numpy as np
+    if dtype == "float32":
+        return lm_check(name, got, want, dtype)
+    got = got.float().cpu().numpy()
+    atol, rtol = LM_TOL[dtype]
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{name}: {got.shape} vs {want.shape} or not finite")
+    diff = np.abs(got - want)
+    bad = (diff > atol + rtol * np.abs(want)).any(-1)
+    explained = at_or_after(differ)
+    if (bad & ~explained).any():
+        fail(f"{name}: {int(bad.sum())} of {bad.size} positions beyond atol "
+             f"{atol} rtol {rtol} (max {float(diff.max())}), "
+             f"{int((bad & ~explained).sum())} with the reference's experts "
+             f"at and before them")
+    return float(diff[~explained].max()) if (~explained).any() else 0.0
 
 
 def lm_check(name, got, want, dtype) -> float:
@@ -1665,6 +1902,97 @@ def lm_smoke_phase(torch, dev) -> dict:
             log(f"phase 8 {arch} {cd}: prefill max |port - reference| "
                 f"{e_pre:.3g}, decode {e_dec:.3g} (atol/rtol "
                 f"{LM_TOL[cd][0]}){msg}")
+    return out
+
+
+def moe_ssm_smoke_phase(torch, dev) -> dict:
+    """Phase 8, the MoE and SSM families: their smoke configs with the
+    reference's params against the reference's outputs
+    (``lm_smoke_moe_ssm.npz``), each run at the fixture's MoE capacity;
+    float32 at every position, and at bfloat16 a MoE model's positions
+    past the contract each after a router choice that differs from the
+    reference's recorded one (:func:`lm_check_routes`)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import model as M
+
+    with np.load(FIXTURE / "lm_smoke_moe_ssm.npz") as z:
+        fx = {k: z[k] for k in z.files}
+    out = {}
+    for arch in ("olmoe-1b-7b", "qwen3-moe-235b-a22b", "mamba2-370m",
+                 "zamba2-2.7b"):
+        pre = f"{arch}.params."
+        arrays = {k[len(pre):]: v for k, v in fx.items()
+                  if k.startswith(pre)}
+        tokens = torch.from_numpy(fx[f"{arch}.tokens"]).to(dev)
+        for cd in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_smoke_config(arch),
+                                      compute_dtype=cd)
+            if cfg.moe is not None:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=float(
+                        fx[f"{arch}.{cd}.capacity_factor"])))
+            model = M.from_reference(cfg, arrays, device=dev)
+            before = flash_attention.launches
+            with record_routing() as routes:
+                logits = M.forward(model, {"tokens": tokens})
+            torch.cuda.synchronize()
+            if flash_attention.launches - before != attention_layers(cfg):
+                fail(f"{arch} {cd} prefill launched flash_attention "
+                     f"{flash_attention.launches - before} times, not "
+                     f"{attention_layers(cfg)}")
+            want = fx[f"{arch}.{cd}.decode"]
+            b, n = want.shape[:2]
+            differ = {"prefill": np.zeros(tokens.shape, bool),
+                      "decode": np.zeros((b, n), bool)}
+            if cfg.moe is not None:
+                differ["prefill"] = routes_differ(
+                    route_sets(routes, tokens.shape),
+                    fixture_route_sets(fx[f"{arch}.{cd}.prefill_topi"]))
+            e_pre = lm_check_routes(f"{arch} {cd} prefill", logits,
+                                    fx[f"{arch}.{cd}.prefill"], cd,
+                                    differ["prefill"])
+            cache = M.init_cache(cfg, b, n, device=dev)
+            cache = {k: v.to(getattr(torch, cd))
+                     if k in ("k", "v", "shared_k", "shared_v") else v
+                     for k, v in cache.items()}
+            steps = []
+            with record_routing() as routes:
+                for t in range(n):
+                    lg, cache = M.decode_step(
+                        model, cache, tokens[:, t:t + 1],
+                        torch.full((b,), t, dtype=torch.int32, device=dev))
+                    steps.append(lg[:, 0])
+            if cfg.moe is not None:
+                differ["decode"] = routes_differ(
+                    decode_routes(routes, cfg.n_layers, b, n),
+                    fixture_route_sets(fx[f"{arch}.{cd}.decode_topi"]))
+            e_dec = lm_check_routes(f"{arch} {cd} decode",
+                                    torch.stack(steps, 1), want, cd,
+                                    differ["decode"])
+            msg = ""
+            if cd == "float32":
+                res = serve_lm.serve(cfg, model, requests=5, slots=2,
+                                     max_new=6, cache_len=64)
+                ids = [r["id"] for r in res.done]
+                toks = [r["out"] for r in res.done]
+                if (ids != fx[f"{arch}.{cd}.serve_ids"].tolist()
+                        or toks != fx[f"{arch}.{cd}.serve_out"].tolist()):
+                    fail(f"{arch} serve tokens differ from the reference's: "
+                         f"{list(zip(ids, toks))}")
+                msg = f"; serve: {len(ids)} requests, tokens equal"
+            out[f"{arch}.{cd}"] = max(e_pre, e_dec)
+            log(f"phase 8 {arch} {cd}: prefill max |port - reference| "
+                f"{e_pre:.3g}, decode {e_dec:.3g} (atol/rtol "
+                f"{LM_TOL[cd][0]}; expert set other than the reference's "
+                f"at {int(differ['prefill'].sum())} of {tokens.numel()} "
+                f"prefill and {int(differ['decode'].sum())} of {b * n} "
+                f"decode positions){msg}")
     return out
 
 
@@ -3653,6 +3981,464 @@ def lm_train_phases(torch, dev) -> dict:
     return rec
 
 
+# -- phase 15: the MoE and SSM families at full width ----------------------
+
+FAMILY_ARCHS = ("olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b")
+# float32 decode against prefill in an SSM stack: (atol, rtol).  Both
+# compute one recurrence in float32, the prefill as the chunked scan's
+# products, decode one token at a time.  The dense decoders' 1e-4 / 1e-4
+# held over qwen3-1.7b's 28 layers (phase 9b); an SSM stack sums 48-54
+# layers' rounding in another order, about twice as many, so twice that
+SSM_DECODE_TOL = (2e-4, 2e-4)
+
+
+def attention_layers(cfg) -> int:
+    """Flash launches a prefill makes: one an attention layer (a hybrid's
+    shared layer once a site; none in a plain SSM stack)."""
+    if not cfg.is_ssm:
+        return cfg.n_layers
+    return cfg.n_layers // cfg.hybrid_attn_every if cfg.is_hybrid else 0
+
+
+def no_drop_config(cfg):
+    """``cfg`` at MoE capacity E / k, where an expert has a place for
+    every token of its group, so no (token, k) pair is dropped."""
+    import dataclasses
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def drops_per_call(routes, cfg) -> list:
+    """(token, k) pairs each recorded router call lost to capacity: the
+    call's tokens form groups of ``moe.GROUP_TOKENS`` (decode: the slots)
+    at ``cfg``'s capacity."""
+    from repro_torch.models import moe
+    out = []
+    for r in routes:
+        topi = r["topi"].reshape(-1, cfg.moe.top_k)
+        gs = min(moe.GROUP_TOKENS, topi.shape[0])
+        out.append(moe.dropped_pairs(topi.reshape(-1, gs, cfg.moe.top_k),
+                                     cfg.moe.n_experts,
+                                     moe.capacity(cfg, gs)))
+    return out
+
+
+def decode_logits(torch, dev, cfg, model, tokens):
+    """``tokens`` (B, S) fed one at a time through ``make_decode_step``
+    into a fresh S-slot cache (its KV leaves float32 at float32 compute):
+    the (B, S, V) logits, float32."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    b, s = tokens.shape
+    cache = M.init_cache(cfg, b, s, device=dev)
+    if cfg.compute_dtype == "float32":
+        cache = {k: v.float() if k in ("k", "v", "shared_k", "shared_v")
+                 else v for k, v in cache.items()}
+    decode = steps.make_decode_step(cfg)
+    got = []
+    for t in range(s):
+        lg, cache = decode(model, cache, tokens[:, t:t + 1],
+                           torch.full((b,), t, dtype=torch.int32, device=dev))
+        got.append(lg)
+    return torch.stack(got, 1).float()
+
+
+def decode_compare(got, want, held, atol: float, rtol: float) -> dict:
+    """Decode's logits (B, S, V) against prefill's: over the ``held``
+    positions ((B, S) bool) and over all, and phase 9b's reading of each
+    row's last position (logits past the tolerance, top-1 token)."""
+    diff = (got - want).abs().cpu().numpy()
+    over = diff > atol + rtol * want.abs().cpu().numpy()
+    same = (got.argmax(-1) == want.argmax(-1)).cpu().numpy()
+    return {"positions_held": int(held.sum()),
+            "max_abs": float(diff[held].max()) if held.any() else None,
+            "mean_abs": float(diff[held].mean()) if held.any() else None,
+            "over": int(over[held].sum()), "logits": int(over[held].size),
+            "top1_equal": int(same[held].sum()),
+            "max_abs_all_positions": float(diff.max()),
+            "over_all_positions": int(over.sum()),
+            "last_over": int(over[:, -1].sum()),
+            "last_logits": int(over[:, -1].size),
+            "last_top1_equal": int(same[:, -1].sum())}
+
+
+# olmoe-1b-7b's bfloat16 decode against prefill with each router free: the
+# positions whose expert sets agree with prefill's in every layer were 36
+# and 38 of 128 on an H100 80GB HBM3 at 700 W; a quarter below that
+MOE_BF16_MIN_HELD = 27
+
+
+def family_decode_check(torch, dev, cfg, model, tokens) -> dict:
+    """Phase 15, decode against prefill: ``tokens`` (2, 64) fed one at a
+    time through ``decode_step`` against one prefill's logits at every
+    position, at float32 compute (a float32 KV cache) and the config's
+    bfloat16.  A MoE model runs at capacity E / k and must drop nothing.
+
+    * float32: within 1e-4 / 1e-4 (the decoder) or ``SSM_DECODE_TOL`` (an
+      SSM stack) at every logit of each position before the first whose
+      expert set differs from prefill's in some layer (none so far), at
+      least half the positions;
+    * bfloat16, a MoE model, its routers free: the 0.05 contract on all
+      but 1e-4 of the logits of the positions whose expert sets agree
+      with prefill's in every layer (a router near-tie that the two
+      summation orders settle apart moves a token past 0.05), at least
+      ``MOE_BF16_MIN_HELD`` of them;
+    * bfloat16, a MoE model, each decode step's routers pinned to
+      prefill's choices (:func:`pin_routing`): the 0.05 contract on all but
+      1e-4 of the logits at every position, and phase 9b's rule at each
+      row's last position (its logits within 0.05 but for 1e-4 of them,
+      the same top-1 token);
+    * bfloat16, an SSM stack: reported, not held (the reference's decode
+      runs its conv in float32, its prefill in bfloat16).
+
+    Each run is reported over every position too."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import model as M
+    b, s = tokens.shape
+    out = {}
+    for name in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=name)
+        if c.moe is not None:
+            c = no_drop_config(c)
+        m = M.LM(c, model.tree())
+        with record_routing() as pre_routes:
+            want = M.forward(m, {"tokens": tokens}).float()
+        with record_routing() as dec_routes:
+            got = decode_logits(torch, dev, c, m, tokens)
+        differ = np.zeros((b, s), bool)
+        if c.moe is not None:
+            drops = sum(drops_per_call(dec_routes, c))
+            if drops:
+                fail(f"{cfg.arch_id} {name} decode at capacity E / k "
+                     f"dropped {drops} pairs")
+            differ = routes_differ(route_sets(pre_routes, (b, s)),
+                                   decode_routes(dec_routes, c.n_layers, b,
+                                                 s))
+        if name == "float32":
+            atol, rtol = SSM_DECODE_TOL if c.is_ssm else (1e-4, 1e-4)
+            held, least = ~at_or_after(differ), b * s // 2
+        else:
+            atol = rtol = 0.05
+            held, least = ~differ, MOE_BF16_MIN_HELD
+        rec = decode_compare(got, want, held, atol, rtol)
+        rec["positions_route_differs"] = int(differ.sum())
+        gated = not (name == "bfloat16" and c.is_ssm)
+        allowed = 0 if name == "float32" else rec["logits"] * 1e-4
+        out[name] = rec | {"gated": gated}
+        log(f"phase 15 {cfg.arch_id} {name} compute: {b} prompts x {s} "
+            f"tokens decoded one at a time against one prefill: "
+            f"{rec['positions_held']} of {b * s} positions held (expert set "
+            f"differs at {rec['positions_route_differs']}), max |decode - "
+            f"prefill| {rec['max_abs']}, mean {rec['mean_abs']}, "
+            f"{rec['over']} of {rec['logits']} logits beyond atol {atol} + "
+            f"rtol {rtol}; top-1 equal at {rec['top1_equal']} of "
+            f"{rec['positions_held']}; over all positions max "
+            f"{rec['max_abs_all_positions']}, "
+            f"{rec['over_all_positions']} logits beyond"
+            + (f"; 0 pairs dropped at capacity {c.moe.capacity_factor}"
+               if c.moe else "") + ("" if gated else " (reported)"))
+        if gated and (rec["positions_held"] < least
+                      or rec["over"] > allowed):
+            fail(f"{cfg.arch_id} {name}: decode differs from prefill "
+                 f"(at least {least} positions held, {allowed:.0f} logits "
+                 f"allowed past the tolerance): {rec}")
+        if name == "bfloat16" and c.moe is not None:
+            choices = [r["topi"][:, t:t + 1] for t in range(s)
+                       for r in pre_routes]
+            with pin_routing(choices):
+                got = decode_logits(torch, dev, c, m, tokens)
+            pin = decode_compare(got, want, np.ones((b, s), bool), atol,
+                                 rtol)
+            out["bfloat16_pinned"] = pin
+            log(f"phase 15 {cfg.arch_id} bfloat16 compute, decode's routers "
+                f"pinned to prefill's choices: max |decode - prefill| "
+                f"{pin['max_abs']}, mean {pin['mean_abs']}, {pin['over']} of "
+                f"{pin['logits']} logits beyond atol {atol} + rtol {rtol}, "
+                f"top-1 equal at {pin['top1_equal']} of {b * s}; last "
+                f"positions: {pin['last_over']} of {pin['last_logits']} "
+                f"logits beyond, top-1 equal in {pin['last_top1_equal']} of "
+                f"{b} rows")
+            if (pin["over"] > pin["logits"] * 1e-4
+                    or pin["last_over"] > pin["last_logits"] * 1e-4
+                    or pin["last_top1_equal"] != b):
+                fail(f"{cfg.arch_id} bfloat16: decode pinned to prefill's "
+                     f"experts differs from prefill: {pin}")
+        del m, want, got
+    return out
+
+
+def dispatch_check(torch, dev, cfg, model, tokens) -> dict:
+    """Phase 15a, the three MoE dispatches at full width.  Layer by layer
+    on one input (the dense prefill's own hidden states), so that every
+    dispatch routes the same tokens: ``sorted_local`` against ``dense`` at
+    the config's capacity (the same pairs kept, drops included), and at
+    capacity E / k ``sorted`` against both, each within the 0.05 contract
+    (they differ in bfloat16 summation order: dense sums a token's k
+    expert outputs in float32 in one product, the sorted ones add them in
+    bfloat16 one at a time).  Then the model's prefill end to end with
+    ``sorted_local``, beside dense's: the last positions' logits, reported
+    with the router choices that differ between the two (near-ties the two
+    orders settle apart move a token's expert set)."""
+    import dataclasses
+
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import moe
+    from repro_torch.models.layers import embed_lookup, rms_norm
+    from repro_torch.models.model import LM
+    w = model.compute_params()
+    wide = no_drop_config(cfg)
+    cdt = getattr(torch, cfg.compute_dtype)
+    h = embed_lookup(w["embed"], tokens, cdt)
+    b, s = tokens.shape
+    pos = torch.arange(s, device=dev).expand(b, s)
+    worst = {"sorted_local": 0.0, "sorted_8": 0.0, "sorted_local_8": 0.0}
+    drops = []
+    for p in w["layers"]:
+        h = h + ATT.attn_apply(p["attn"], cfg, rms_norm(h, p["ln1"],
+                                                        cfg.norm_eps), pos)
+        hn = rms_norm(h, p["ln2"], cfg.norm_eps)
+        with record_routing() as routes:
+            dense = moe.moe_apply_dense(p["moe"], cfg, hn)[0]
+        drops.append(sum(drops_per_call(routes, cfg)))
+        pairs = {"sorted_local": (moe.moe_apply_sorted_local(
+            p["moe"], cfg, hn)[0], dense)}
+        dense8 = moe.moe_apply_dense(p["moe"], wide, hn)[0]
+        sorted8 = moe.moe_apply_sorted(p["moe"], wide, hn)[0]
+        pairs["sorted_8"] = (sorted8, dense8)
+        pairs["sorted_local_8"] = (sorted8, moe.moe_apply_sorted_local(
+            p["moe"], wide, hn)[0])
+        for key, (x, y) in pairs.items():
+            d = (x.float() - y.float()).abs()
+            if bool((d > 0.05 + 0.05 * y.float().abs()).any()):
+                fail(f"{cfg.arch_id} {key}: a MoE layer's output differs "
+                     f"from its yardstick by {float(d.max())}")
+            worst[key] = max(worst[key], float(d.max()))
+        h = h + dense
+        del pairs, dense8, sorted8
+    # end to end
+    prefill = steps.make_prefill_step(cfg)
+    local_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch="sorted_local"))
+    with record_routing() as dense_routes:
+        want = prefill(model, {"tokens": tokens}).float()
+    with record_routing() as local_routes:
+        got = steps.make_prefill_step(local_cfg)(
+            LM(local_cfg, model.tree()), {"tokens": tokens}).float()
+    differ = routes_differ(route_sets(dense_routes, (b, s)),
+                           route_sets(local_routes, (b, s)))
+    e2e = float((got - want).abs().max())
+    over = int(((got - want).abs() > 0.05 + 0.05 * want.abs()).sum())
+    rec = {"layer_max_abs": worst, "drops_by_layer": drops,
+           "end_to_end_last_max_abs": e2e, "end_to_end_over": over,
+           "end_to_end_logits": got.numel(),
+           "end_to_end_route_differs": int(differ.sum()),
+           "end_to_end_top1_equal": int((got.argmax(-1) == want.argmax(-1))
+                                        .sum())}
+    log(f"phase 15a {cfg.arch_id} dispatch, layer by layer on the dense "
+        f"prefill's hidden states: max |sorted_local - dense| "
+        f"{worst['sorted_local']:.4g} at capacity "
+        f"{cfg.moe.capacity_factor} ({sum(drops)} pairs dropped over the "
+        f"{cfg.n_layers} layers: {drops}); at capacity "
+        f"{wide.moe.capacity_factor}: |sorted - dense| "
+        f"{worst['sorted_8']:.4g}, |sorted - sorted_local| "
+        f"{worst['sorted_local_8']:.4g} (the 0.05 contract); end to end "
+        f"the sorted_local prefill's last logits within {e2e:.4g} of "
+        f"dense's ({over} of {got.numel()} beyond 0.05 + 0.05 |x|), top-1 "
+        f"equal in {rec['end_to_end_top1_equal']} of {b} "
+        f"rows; {rec['end_to_end_route_differs']} of {b * s} positions "
+        f"route to another expert set in some layer")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{cfg.arch_id} sorted_local prefill: logits not finite")
+    return rec
+
+
+def family_phase(torch, dev, arch: str) -> dict:
+    """Phase 15 for one architecture at its full published width, the
+    port's seeded init, every launch counter at 0 first."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve_lm, steps
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = steps.init_params(cfg, seed=0, device=dev)
+    model.compute_params()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 15 {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}"
+        + (f", {cfg.moe.n_experts} experts top {cfg.moe.top_k}, d_ff "
+           f"{cfg.d_ff}" if cfg.moe else "")
+        + (f", SSM d_state {cfg.ssm.d_state} head_dim {cfg.ssm.head_dim}"
+           if cfg.ssm else "")
+        + (f", shared attention every {cfg.hybrid_attn_every} layers "
+           f"(Hq {cfg.n_heads}, head_dim {cfg.resolved_head_dim})"
+           if cfg.is_hybrid else "")
+        + f", vocab {cfg.vocab}: {n_params} parameters drawn and cast in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    reset_all()
+    torch.cuda.synchronize()
+    rec = {"params": n_params}
+    # (a) prefill 4 x 2048 through make_prefill_step
+    b, s = PREFILL_SHAPE
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, s))).to(dev)
+    prefill = steps.make_prefill_step(cfg)
+    t0 = time.perf_counter()
+    logits = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    n_attn = attention_layers(cfg)
+    by_route = dict(flash_attention.launches_by_route)
+    if flash_attention.launches != n_attn or by_route["wgmma"] != n_attn:
+        fail(f"{arch} prefill launched flash_attention "
+             f"{flash_attention.launches} times ({by_route}), not {n_attn} "
+             f"on wgmma")
+    if logits.shape != (b, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"{arch} prefill logits {tuple(logits.shape)} not finite")
+    log(f"phase 15 {arch} prefill {b} x {s} tokens: flash_attention "
+        f"launched {n_attn} times, all wgmma (head_dim "
+        f"{cfg.resolved_head_dim}, Hq {cfg.n_heads} = Hkv "
+        f"{cfg.n_kv_heads}), logits finite, first call {first_ms:.1f} ms")
+    rec.update({"prefill_launches": n_attn, "prefill_first_ms": first_ms})
+    # the server at its defaults: the rest of the main path
+    with record_routing() as routes:
+        res = serve_lm.serve(cfg, model)
+    torch.cuda.synchronize()
+    if len(res.done) != 12 or any(len(r["out"]) != 24 for r in res.done):
+        fail(f"{arch}: served {len(res.done)} of 12 requests")
+    step_ms = res.seconds / res.steps * 1e3
+    rec.update({"decode_step_ms": step_ms,
+                "decode_tokens_per_s": res.tokens / res.seconds,
+                "decode_steps": res.steps})
+    msg = ""
+    if cfg.moe is not None:
+        per_call = drops_per_call(routes, cfg)
+        per_step = [sum(per_call[i:i + cfg.n_layers])
+                    for i in range(0, len(per_call), cfg.n_layers)]
+        pairs = res.slots * cfg.moe.top_k * cfg.n_layers
+        rec["serve_drops_per_step"] = {
+            "mean": statistics.mean(per_step), "max": max(per_step),
+            "steps_without": per_step.count(0), "pairs_per_step": pairs,
+            "capacity": moe.capacity(cfg, res.slots)}
+        msg = (f"; at capacity {cfg.moe.capacity_factor} each decode step "
+               f"dropped {statistics.mean(per_step):.2f} of its {pairs} "
+               f"(token, k) pairs on average ({per_step.count(0)} of "
+               f"{len(per_step)} steps none, max {max(per_step)})")
+    log(f"phase 15 {arch} served {len(res.done)} requests, {res.tokens} "
+        f"tokens in {res.steps} decode steps: {step_ms:.3f} ms/step (host "
+        f"clock, synchronised every step), "
+        f"{res.tokens / res.seconds:.1f} tokens/s{msg}")
+    # the main path's launches: the prefill's and the server's (a decode
+    # step launches no flash); the checks below count apart
+    rec.update({"launches": flash_attention.launches,
+                "launches_by_route": dict(flash_attention.launches_by_route)})
+    # the checks: the three dispatches, decode against prefill
+    reset_all()
+    if cfg.moe is not None:
+        rec["dispatch"] = dispatch_check(torch, dev, cfg, model, tokens)
+    d_tokens = tokens[:DECODE_CHECK_SHAPE[0],
+                      :DECODE_CHECK_SHAPE[1]].contiguous()
+    rec["decode_vs_prefill"] = family_decode_check(torch, dev, cfg, model,
+                                                   d_tokens)
+    rec.update({"check_launches": flash_attention.launches,
+                "check_launches_by_route": dict(
+                    flash_attention.launches_by_route)})
+    log(f"phase 15 {arch} flash launches: main path (prefill and serve) "
+        f"{rec['launches']} {rec['launches_by_route']}; the checks "
+        f"(dispatch, decode against prefill) {rec['check_launches']} "
+        f"{rec['check_launches_by_route']}")
+    # (d) times: prefill and a decode step profiled, peak memory
+    pre = step_profile(torch, lambda: prefill(model, {"tokens": tokens}),
+                       iters=3, lead=1)
+    cache = M.init_cache(cfg, 4, 128, device=dev)
+    tok = tokens[:, :1].contiguous()
+    posv = torch.zeros((4,), dtype=torch.int32, device=dev)
+    decode = steps.make_decode_step(cfg)
+    dec = step_profile(torch, lambda: decode(model, cache, tok, posv)[0]
+                       .argmax(-1).cpu(), iters=10, lead=3)
+    del cache
+    peak = torch.cuda.max_memory_allocated()
+    for name, r in (("prefill", pre), ("decode", dec)):
+        rec[f"{name}_host_ms"] = r["host_ms"]
+        rec[f"{name}_device_ms"] = r["device_ms"]
+        rec[f"{name}_idle_share"] = r["idle_share"]
+        rec[f"{name}_kernels"] = r["kernels_per_step"]
+        rec[f"{name}_device_ms_by_kind"] = r["device_ms_by_kind"]
+        rec[f"{name}_top_kernels"] = r["top_kernels"]
+        what = "4 x 2048" if name == "prefill" else "4 slots, cache 128"
+        log(f"phase 15 {arch} {name} ({what}, profiled): "
+            f"{r['host_ms']:.3f} ms host clock, {r['device_ms']:.3f} ms "
+            f"device, device idle {r['idle_share'] * 100:.1f} %, "
+            f"{r['kernels_per_step']} kernels; by kind "
+            f"{r['device_ms_by_kind']}; "
+            f"top kernels (ms): {r['top_kernels']}")
+    rec["max_memory_allocated"] = peak
+    log(f"phase 15 {arch}: max_memory_allocated {peak} B "
+        f"({peak / 1e9:.2f} GB)")
+    del model, logits
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flash_mha_times(torch, dev) -> dict:
+    """Phase 15d, flash attention at the new paths' head shapes, bfloat16
+    causal MHA: zamba2-2.7b's (4, 32, 2048, 80) and olmoe-1b-7b's
+    (4, 16, 2048, 128): event and device time beside
+    ``F.scaled_dot_product_attention(enable_gqa=True)`` (``library_ms``),
+    the plain version and the bound (q, k, v and out moved once over
+    3.35 TB/s against 4 B Hq D flops an unmasked (q, k) pair over
+    989 TFLOP/s)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    rec = {}
+    b, s = PREFILL_SHAPE
+    for h, d in ((32, 80), (16, 128)):
+        q, k, v = flash_inputs(torch, dev, b, h, h, s, d, "bfloat16")
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 5, 7)
+        dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=True),
+                           5, device_bound=True)
+        lib = cuda_ms(lambda: sdpa(q, k, v), 5, 7)
+        plain = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
+                        1, 3)
+        moved = nbytes(q, k, v) + q.numel() * q.element_size()
+        ops = 4 * b * h * d * (s * (s + 1) // 2)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FLOPS_PER_S["bfloat16"] * 1e3
+        key = f"mha_d{d}"
+        rec[key] = {"shape": [b, h, h, s, d], "ms": ms, "device_ms": dev_ms,
+                    "library_ms": lib, "plain_ms": plain,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else
+                    "operations"}
+        log(f"phase 15d flash_attention_forward (B, Hq, Hkv, S, D) ({b}, "
+            f"{h}, {h}, {s}, {d}) bfloat16 causal (wgmma): {ms:.4f} ms/call, "
+            f"device {dev_ms} ms, SDPA {lib:.4f} ms ({ms / lib:.2f}x), plain "
+            f"{plain:.4f} ms, bound {max(bytes_ms, ops_ms):.5f} ms ({moved} "
+            f"B, {ops} flop: {ops / ms / 1e9:.1f} TFLOP/s achieved)")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rec
+
+
+def lm_family_phases(torch, dev) -> dict:
+    """Phase 15: olmoe-1b-7b, mamba2-370m and zamba2-2.7b at full width,
+    then flash at their head shapes."""
+    out = {arch: family_phase(torch, dev, arch) for arch in FAMILY_ARCHS}
+    out["flash"] = flash_mha_times(torch, dev)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4162,6 +4948,7 @@ def main() -> None:
 
     fa = flash_phase(torch, dev)
     fa["lm_smoke_max_abs"] = lm_smoke_phase(torch, dev)
+    fa["lm_smoke_max_abs"].update(moe_ssm_smoke_phase(torch, dev))
     path = lm_main_path(torch, dev, kernels)
     # flash attention in two records, each with its own routes' launches on
     # the main path (the wrapper's total is launches_all_routes): the
@@ -4246,6 +5033,16 @@ def main() -> None:
     # -- phase 14: qwen3-1.7b trained with the LogicNet-FFN, served,
     # checkpointed and restarted; its masked products on the wgmma route
     records.append(lm_train_phases(torch, dev))
+
+    # -- phase 15: the MoE and SSM families at full width; flash's launches
+    # on their paths (mamba2-370m has no attention) and its times at their
+    # head shapes
+    families = lm_family_phases(torch, dev)
+    for key, arch in (("moe", "olmoe-1b-7b"), ("hybrid", "zamba2-2.7b"),
+                      ("ssm", "mamba2-370m")):
+        fa_rec[f"launches_{key}"] = families[arch]["launches"]
+        fa_rec[f"launches_{key}_checks"] = families[arch]["check_launches"]
+    fa_rec["lm_families"] = families
 
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

@@ -13,6 +13,14 @@ as ``launch.train --logicnet-ffn`` trains it): prefill through the flash
 and masked-matmul kernels, every decode step's FFN products through the
 masked-matmul kernel at M = slots.
 
+Every decoder-only family of the zoo serves through the same loop: the
+dense decoders, the mixture-of-experts ones (olmoe-1b-7b,
+qwen3-moe-235b-a22b) and the SSM stacks (mamba2-370m, zamba2-2.7b, whose
+decode state a recycled slot carries over from its previous request, as
+the reference's loop does).  A full config whose float32 weights and
+compute copy pass one card's memory (qwen3-moe-235b-a22b: 235 G
+parameters) is refused.
+
     # the smoke config on the CPU (plain versions of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen3-1.7b \\
         --requests 12 --slots 4 --max-new 24 --device cpu
@@ -20,6 +28,8 @@ masked-matmul kernel at M = slots.
     # the full published config on the card
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen3-1.7b \\
         --width full
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch olmoe-1b-7b \\
+        --width full        # also mamba2-370m, zamba2-2.7b
 
     # a trained LogicNet-FFN model (launch.train --full --logicnet-ffn
     # --ckpt-dir DIR)
@@ -41,6 +51,11 @@ from repro_torch.launch.steps import (init_params, make_decode_step,
                                       restore_model)
 from repro_torch.models import model as M
 from repro_torch.models.config import LogicNetFFNCfg, ModelCfg
+
+# one card's memory: an H100's 80 GB
+CARD_BYTES = 80e9
+# a served parameter's bytes: its float32 master and its compute copy
+SERVED_BYTES_PER_PARAM = 4 + 2
 
 
 @dataclasses.dataclass
@@ -146,6 +161,13 @@ def main(argv=None) -> None:
         args.arch)
     if cfg.enc_dec or cfg.vision_tokens:
         raise SystemExit("demo server supports decoder-only archs")
+    n = cfg.param_count()
+    if n * SERVED_BYTES_PER_PARAM > CARD_BYTES:
+        raise SystemExit(
+            f"{cfg.arch_id} has {n / 1e9:.0f} G parameters: their float32 "
+            f"weights and {cfg.compute_dtype} copy "
+            f"({n * SERVED_BYTES_PER_PARAM / 1e9:.0f} GB) do not fit one "
+            f"card ({CARD_BYTES / 1e9:.0f} GB)")
     if args.logicnet_ffn:
         cfg = dataclasses.replace(cfg, logicnet_ffn=LogicNetFFNCfg())
     if args.ckpt_dir is None:

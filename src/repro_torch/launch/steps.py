@@ -149,10 +149,12 @@ def input_specs(cfg: ModelCfg, cell: ShapeCell) -> dict:
 
     train:   {batch: {tokens, labels}}
     prefill: {batch: {tokens}}
-    decode:  {cache: {k, v}, tokens, pos}
+    decode:  {cache, tokens, pos}, the cache as ``models.model.init_cache``
+             makes it (``k``, ``v``; an SSM stack's ``ssm.{ssd, conv}``
+             and a hybrid's ``shared_k``, ``shared_v``)
 
-    Vision tokens and encoder frames (ROADMAP items 9d, 9c) and an SSM
-    decode cache (9b) raise ``NotImplementedError``.
+    Vision tokens and encoder frames (ROADMAP items 9d, 9c) raise
+    ``NotImplementedError``.
     """
     if cfg.enc_dec:
         raise NotImplementedError(
@@ -166,12 +168,7 @@ def input_specs(cfg: ModelCfg, cell: ShapeCell) -> dict:
         if cell.kind == "train":
             batch["labels"] = _meta((b, s), torch.int32)
         return {"batch": batch}
-    if cfg.is_ssm:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the SSM decode state (ROADMAP item 9b)")
     # decode: a cache sized to seq_len, one new token
-    kv = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"cache": {"k": _meta(kv, torch.bfloat16),
-                      "v": _meta(kv, torch.bfloat16)},
+    return {"cache": M.map_specs(M.cache_specs(cfg, b, s), _meta),
             "tokens": _meta((b, 1), torch.int32),
             "pos": _meta((b,), torch.int32)}

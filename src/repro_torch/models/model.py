@@ -1,13 +1,18 @@
-"""Decoder-only LM: init, prefill forward, training loss, KV cache and
-decode.
+"""Decoder-only LMs: init, prefill forward, training loss, KV / SSM
+caches and decode.
 
 The port's counterpart of ``repro.models.model`` for the dense decoder
-families (qwen3, gemma3, starcoder2, phi3), with the LogicNet-FFN (the
-paper's fan-in masks and activation quantizers in every FFN) when
-``cfg.logicnet_ffn`` is set.  The reference scans stacked layer params
-under ``jax.lax.scan``; here parameters are named per layer as the
-reference's parameter pytree (``layers.<i>.attn.wq`` is the reference's
-``layers.attn.wq[i]``).
+families (qwen3, gemma3, starcoder2, phi3), the mixture-of-experts
+decoders (qwen3-moe, olmoe: a ``moe`` FFN, ``models.moe``), the SSM stack
+(mamba2: ``ssm_layers``, ``models.ssm``) and the hybrid (zamba2: one
+``shared_attn`` decoder layer whose weights serve every
+``hybrid_attn_every``-th site between the SSM layers), with the
+LogicNet-FFN (the paper's fan-in masks and activation quantizers in every
+FFN) when ``cfg.logicnet_ffn`` is set.  The reference scans stacked layer
+params under ``jax.lax.scan``; here parameters are named per layer as
+the reference's parameter pytree (``layers.<i>.attn.wq`` is the
+reference's ``layers.attn.wq[i]``, ``ssm_layers.<i>.ssm.in_proj`` its
+``ssm_layers.ssm.in_proj[i]``; ``shared_attn.*`` is not stacked).
 
 * Serving: :class:`LM` holds one :class:`DecoderLayer` per layer in an
   ``nn.ModuleList``, float32 master weights that do not require grad.
@@ -22,9 +27,11 @@ reference's parameter pytree (``layers.<i>.attn.wq`` is the reference's
   layer runs under ``torch.utils.checkpoint`` when ``cfg.remat`` asks for
   it; attention runs the differentiable chunked form.
 
-A family the port cannot run yet (MoE, SSM or hybrid stacks, enc-dec,
-M-RoPE / vision tokens) raises ``NotImplementedError`` naming its ROADMAP
-item.
+The MoE layers' load-balancing loss is summed over layers as the
+reference's layer scan carries it (:func:`forward` with ``with_aux``),
+and :func:`loss_fn` adds 0.01 x that sum.  A family the port cannot run
+yet (enc-dec, M-RoPE / vision tokens) raises ``NotImplementedError``
+naming its ROADMAP item.
 
 Weights come from :func:`init_params` (the reference's distributions from
 a ``torch.Generator``; the LogicNet masks from numpy, so the reference's)
@@ -40,6 +47,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as ATT
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.layers import (embed_init, embed_lookup, ffn_apply,
                                        ffn_init, init_rms, lm_logits,
@@ -55,12 +64,9 @@ def _dtype(name: str) -> torch.dtype:
 
 def require_supported(cfg: ModelCfg) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of a family
-    the port cannot run yet; a dense decoder passes."""
-    if cfg.moe is not None:
-        why = "mixture-of-experts layers (ROADMAP item 9a)"
-    elif cfg.is_ssm:
-        why = "SSM and hybrid stacks (ROADMAP item 9b)"
-    elif cfg.enc_dec:
+    the port cannot run yet; decoders (dense, MoE), SSM stacks and hybrids
+    pass."""
+    if cfg.enc_dec:
         why = "encoder-decoder models and cross-attention (ROADMAP item 9c)"
     elif cfg.mrope or cfg.vision_tokens:
         why = "M-RoPE and vision tokens (ROADMAP item 9d)"
@@ -87,23 +93,39 @@ def _frozen(tree: dict) -> nn.ParameterDict:
 
 class DecoderLayer(nn.Module):
     """One decoder layer: ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo[,q_norm,
-    k_norm]}`` and ``ffn.{wi_gate,wi_up,wo[,mask_in,mask_out]}``."""
+    k_norm]}`` and either ``ffn.{wi_gate,wi_up,wo[,mask_in,mask_out]}`` or,
+    in a mixture-of-experts model, ``moe.{router,wi_gate,wi_up,wo}``."""
 
     def __init__(self, p: dict):
         super().__init__()
         self.ln1 = nn.Parameter(p["ln1"], requires_grad=False)
         self.ln2 = nn.Parameter(p["ln2"], requires_grad=False)
         self.attn = _frozen(p["attn"])
-        self.ffn = _frozen(p["ffn"])
+        self.ffn_key = "moe" if "moe" in p else "ffn"
+        setattr(self, self.ffn_key, _frozen(p[self.ffn_key]))
 
     def tree(self) -> dict:
         return {"ln1": self.ln1, "ln2": self.ln2, "attn": dict(self.attn),
-                "ffn": dict(self.ffn)}
+                self.ffn_key: dict(getattr(self, self.ffn_key))}
+
+
+class SSMLayer(nn.Module):
+    """One SSM layer: ``ln`` and ``ssm.{in_proj,conv_w,conv_b,a_log,d_skip,
+    dt_bias,norm,out_proj}``."""
+
+    def __init__(self, p: dict):
+        super().__init__()
+        self.ln = nn.Parameter(p["ln"], requires_grad=False)
+        self.ssm = _frozen(p["ssm"])
+
+    def tree(self) -> dict:
+        return {"ln": self.ln, "ssm": dict(self.ssm)}
 
 
 class LM(nn.Module):
-    """A dense decoder LM's float32 master weights: ``embed.{tok[,head]}``,
-    ``final_norm`` and ``layers``."""
+    """An LM's float32 master weights: ``embed.{tok[,head]}``,
+    ``final_norm`` and either ``layers`` (decoders) or ``ssm_layers``
+    (SSM stacks) with, in a hybrid, the one ``shared_attn`` layer."""
 
     def __init__(self, cfg: ModelCfg, params: dict):
         super().__init__()
@@ -112,13 +134,32 @@ class LM(nn.Module):
         self.embed = _frozen(params["embed"])
         self.final_norm = nn.Parameter(params["final_norm"],
                                        requires_grad=False)
-        self.layers = nn.ModuleList(DecoderLayer(p)
-                                    for p in params["layers"])
+        if cfg.is_ssm:
+            self.ssm_layers = nn.ModuleList(SSMLayer(p)
+                                            for p in params["ssm_layers"])
+            if cfg.is_hybrid:
+                self.shared_attn = DecoderLayer(params["shared_attn"])
+        else:
+            self.layers = nn.ModuleList(DecoderLayer(p)
+                                        for p in params["layers"])
         self._cast: tuple | None = None
 
     @property
     def device(self) -> torch.device:
         return self.final_norm.device
+
+    def tree(self) -> dict:
+        """The master weights as the nested tree the forward reads (the
+        tensors themselves): ``LM(other_cfg, model.tree())`` is another
+        view of the same storage, at another compute dtype say."""
+        tree = {"embed": dict(self.embed), "final_norm": self.final_norm}
+        if self.cfg.is_ssm:
+            tree["ssm_layers"] = [layer.tree() for layer in self.ssm_layers]
+            if self.cfg.is_hybrid:
+                tree["shared_attn"] = self.shared_attn.tree()
+        else:
+            tree["layers"] = [layer.tree() for layer in self.layers]
+        return tree
 
     def compute_params(self) -> dict:
         """The weights as the compute reads them: matrices in
@@ -126,18 +167,16 @@ class LM(nn.Module):
         any parameter has been written since."""
         versions = tuple(p._version for p in self.parameters())
         if self._cast is None or self._cast[0] != versions:
-            tree = {"embed": dict(self.embed), "final_norm": self.final_norm,
-                    "layers": [layer.tree() for layer in self.layers]}
             with torch.no_grad():
                 self._cast = (versions, cast_weights(
-                    tree, _dtype(self.cfg.compute_dtype)))
+                    self.tree(), _dtype(self.cfg.compute_dtype)))
         return self._cast[1]
 
 
 def cast_weights(tree, cdt: torch.dtype):
-    """Matrix leaves (2-D and up) to ``cdt``; 1-D leaves (norm scales) stay
-    float32 for numerics, as the reference's ``_cast_weights``.  Under
-    autograd the cast is part of the graph."""
+    """Matrix leaves (2-D and up) to ``cdt``; 1-D leaves (norm scales,
+    biases, ``a_log``, ...) stay float32 for numerics, as the reference's
+    ``_cast_weights``.  Under autograd the cast is part of the graph."""
     if isinstance(tree, dict):
         return {k: cast_weights(v, cdt) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -150,7 +189,9 @@ def _decoder_layer_init(gen: torch.Generator, cfg: ModelCfg, dtype,
     p = {"ln1": init_rms(cfg.d_model, gen.device),
          "ln2": init_rms(cfg.d_model, gen.device),
          "attn": ATT.attn_init(gen, cfg, dtype)}
-    if cfg.logicnet_ffn is not None:
+    if cfg.moe is not None:
+        p["moe"] = MOE.moe_init(gen, cfg, dtype)
+    elif cfg.logicnet_ffn is not None:
         p["ffn"] = logicnet_ffn_init(gen, cfg.d_model, cfg.d_ff, masks,
                                      dtype)
     else:
@@ -158,23 +199,51 @@ def _decoder_layer_init(gen: torch.Generator, cfg: ModelCfg, dtype,
     return p
 
 
+def _n_sites(cfg: ModelCfg) -> int:
+    """Sites of a hybrid's shared attention layer: one before every
+    ``hybrid_attn_every`` SSM layers."""
+    assert cfg.n_layers % cfg.hybrid_attn_every == 0, \
+        "hybrid stacks run super-layers: n_layers % attn_every == 0"
+    return cfg.n_layers // cfg.hybrid_attn_every
+
+
+def _attn_every(cfg: ModelCfg) -> int:
+    """A hybrid runs its shared attention layer before every this many SSM
+    layers; 0 for a plain SSM stack."""
+    if not cfg.is_hybrid:
+        return 0
+    _n_sites(cfg)
+    return cfg.hybrid_attn_every
+
+
 def _init_tree(cfg: ModelCfg, gen: torch.Generator) -> dict:
     require_supported(cfg)
     dtype = _dtype(cfg.param_dtype)
     masks = (logicnet_masks(cfg.d_model, cfg.d_ff, cfg.logicnet_ffn)
              if cfg.logicnet_ffn is not None else None)
-    return {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype,
+    tree = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype,
                                 cfg.tie_embeddings),
-            "final_norm": init_rms(cfg.d_model, gen.device),
-            "layers": [_decoder_layer_init(gen, cfg, dtype, masks)
-                       for _ in range(cfg.n_layers)]}
+            "final_norm": init_rms(cfg.d_model, gen.device)}
+    if cfg.is_ssm:
+        tree["ssm_layers"] = [{"ln": init_rms(cfg.d_model, gen.device),
+                               "ssm": SSM.ssm_init(gen, cfg, dtype)}
+                              for _ in range(cfg.n_layers)]
+        if cfg.is_hybrid:
+            _n_sites(cfg)
+            tree["shared_attn"] = _decoder_layer_init(gen, cfg, dtype, masks)
+    else:
+        tree["layers"] = [_decoder_layer_init(gen, cfg, dtype, masks)
+                          for _ in range(cfg.n_layers)]
+    return tree
 
 
 def init_params(cfg: ModelCfg, gen: torch.Generator) -> LM:
     """A model drawn from ``gen`` on ``gen``'s device: projections normal
     x 1/sqrt(fan-in width) as the reference, embeddings normal x 0.02,
-    norm scales 0; with the LogicNet-FFN, every layer's masks equal (the
-    reference's init draws them once, at seed 0)."""
+    norm scales 0, MoE routers and experts and SSM blocks as the
+    reference's ``moe_init`` / ``ssm_init``; with the LogicNet-FFN, every
+    layer's masks equal (the reference's init draws them once, at seed
+    0)."""
     return LM(cfg, _init_tree(cfg, gen))
 
 
@@ -205,40 +274,60 @@ def param_shapes(cfg: ModelCfg) -> dict[str, tuple]:
             for name, t in _named_leaves(_init_tree(cfg, _MetaGenerator()))}
 
 
+# the parameter lists stacked over layers in the reference's pytree
+_STACKED = ("layers", "ssm_layers")
+
+
 def param_tree(cfg: ModelCfg, params: dict) -> dict:
     """A flat ``{name: tensor}`` dict (``layers.3.ffn.wo``) as the nested
     tree the forward reads: ``{"embed": {...}, "final_norm": ...,
-    "layers": [{"ln1", "ln2", "attn": {...}, "ffn": {...}}, ...]}``; the
-    tensors themselves, not copies."""
-    tree = {"embed": {}, "layers": [{"attn": {}, "ffn": {}}
-                                    for _ in range(cfg.n_layers)]}
+    "layers": [{"ln1", "ln2", "attn": {...}, "ffn" or "moe": {...}}, ...]}``
+    or, for an SSM stack, ``"ssm_layers": [{"ln", "ssm": {...}}, ...]`` and
+    a hybrid's ``"shared_attn"``; the tensors themselves, not copies."""
+    tree: dict = {}
     for name, t in params.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            node = tree["layers"][int(parts[1])]
-            for key in parts[2:-1]:
-                node = node[key]
-        else:
-            node = tree
-            for key in parts[:-1]:
-                node = node[key]
+        node = tree
+        if parts[0] in _STACKED:
+            node = node.setdefault(parts[0], [{} for _ in
+                                              range(cfg.n_layers)])
+            node, parts = node[int(parts[1])], parts[2:]
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
         node[parts[-1]] = t
     return tree
 
 
-def reference_names(cfg: ModelCfg) -> list[str]:
-    """The flattened names of the reference's parameter pytree for ``cfg``
-    that :func:`from_reference` takes (``layers.*`` stacked over layers)."""
-    names = ["embed.tok", "final_norm", "layers.ln1", "layers.ln2"]
-    if not cfg.tie_embeddings:
-        names.append("embed.head")
+SSM_LEAVES = ("in_proj", "conv_w", "conv_b", "a_log", "d_skip", "dt_bias",
+              "norm", "out_proj")
+
+
+def _decoder_layer_names(cfg: ModelCfg, prefix: str) -> list[str]:
+    names = [f"{prefix}.ln1", f"{prefix}.ln2"]
     attn = ["wq", "wk", "wv", "wo"] + (["q_norm", "k_norm"] if cfg.qk_norm
                                        else [])
-    names += [f"layers.attn.{k}" for k in attn]
+    names += [f"{prefix}.attn.{k}" for k in attn]
+    if cfg.moe is not None:
+        return names + [f"{prefix}.moe.{k}" for k in
+                        ("router", "wi_gate", "wi_up", "wo")]
     ffn = ["wi_gate", "wi_up", "wo"] + (["mask_in", "mask_out"]
                                         if cfg.logicnet_ffn is not None
                                         else [])
-    names += [f"layers.ffn.{k}" for k in ffn]
+    return names + [f"{prefix}.ffn.{k}" for k in ffn]
+
+
+def reference_names(cfg: ModelCfg) -> list[str]:
+    """The flattened names of the reference's parameter pytree for ``cfg``
+    that :func:`from_reference` takes (``layers.*`` and ``ssm_layers.*``
+    stacked over layers, a hybrid's ``shared_attn.*`` not)."""
+    names = ["embed.tok", "final_norm"]
+    if not cfg.tie_embeddings:
+        names.append("embed.head")
+    if not cfg.is_ssm:
+        return names + _decoder_layer_names(cfg, "layers")
+    names += ["ssm_layers.ln"] + [f"ssm_layers.ssm.{k}" for k in SSM_LEAVES]
+    if cfg.is_hybrid:
+        names += _decoder_layer_names(cfg, "shared_attn")
     return names
 
 
@@ -247,8 +336,10 @@ def from_reference(cfg: ModelCfg, arrays: dict, device=None) -> LM:
 
     ``arrays`` is the reference's ``init_params`` pytree flattened to numpy
     with dotted names: ``embed.tok``, ``final_norm``, ``layers.ln1`` of
-    shape ``(L, d)``, ``layers.attn.wq`` of shape ``(L, d, H, hd)`` and so
-    on, stacked over layers as the reference's ``vmap`` init stacks them.
+    shape ``(L, d)``, ``layers.attn.wq`` of shape ``(L, d, H, hd)``,
+    ``ssm_layers.ssm.in_proj`` of shape ``(L, d, proj)`` and so on, stacked
+    over layers as the reference's ``vmap`` init stacks them; a hybrid's
+    ``shared_attn.*`` is one layer's, unstacked.
     """
     require_supported(cfg)
     if sorted(arrays) != sorted(reference_names(cfg)):
@@ -259,71 +350,123 @@ def from_reference(cfg: ModelCfg, arrays: dict, device=None) -> LM:
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
-    layers = [{"attn": {}, "ffn": {}} for _ in range(cfg.n_layers)]
+    tree: dict = {}
     for name, a in arrays.items():
         parts = name.split(".")
-        if parts[0] != "layers":
+        if parts[0] not in _STACKED:
+            node = tree
+            for key in parts[:-1]:
+                node = node.setdefault(key, {})
+            node[parts[-1]] = t(a)
             continue
         if a.shape[0] != cfg.n_layers:
             raise ValueError(f"{name} stacks {a.shape[0]} layers; "
                              f"{cfg.arch_id} has {cfg.n_layers}")
+        layers = tree.setdefault(parts[0], [{} for _ in range(cfg.n_layers)])
         for i, layer in enumerate(layers):
-            node = layer if len(parts) == 2 else layer[parts[1]]
+            node = layer
+            for key in parts[1:-1]:
+                node = node.setdefault(key, {})
             node[parts[-1]] = t(a[i])
-    embed = {n.split(".", 1)[1]: t(a) for n, a in arrays.items()
-             if n.startswith("embed.")}
-    return LM(cfg, {"embed": embed, "final_norm": t(arrays["final_norm"]),
-                    "layers": layers})
+    return LM(cfg, tree)
 
 
-def _ffn(p: dict, cfg: ModelCfg, x: torch.Tensor) -> torch.Tensor:
+def _ffn(p: dict, cfg: ModelCfg, x: torch.Tensor):
+    """A decoder layer's FFN on ``x``: ``(out, the MoE aux loss or
+    None)``."""
+    if cfg.moe is not None:
+        return MOE.moe_apply(p["moe"], cfg, x)
     if cfg.logicnet_ffn is not None:
-        return logicnet_ffn_apply(p, x, cfg.logicnet_ffn)
-    return ffn_apply(p, x, cfg.act_fn)
+        return logicnet_ffn_apply(p["ffn"], x, cfg.logicnet_ffn), None
+    return ffn_apply(p["ffn"], x, cfg.act_fn), None
 
 
 def _attn_block(p: dict, cfg: ModelCfg, h: torch.Tensor,
-                positions: torch.Tensor, window: int,
-                train: bool = False) -> torch.Tensor:
+                positions: torch.Tensor, window: int, train: bool = False):
+    """A decoder layer: ``(h, the MoE aux loss or None)``."""
     a = ATT.attn_apply(p["attn"], cfg, rms_norm(h, p["ln1"], cfg.norm_eps),
                        positions, window=window, train=train)
     h = h + a
-    return h + _ffn(p["ffn"], cfg, rms_norm(h, p["ln2"], cfg.norm_eps))
+    f, aux = _ffn(p, cfg, rms_norm(h, p["ln2"], cfg.norm_eps))
+    return h + f, aux
+
+
+def _ssm_block(p: dict, cfg: ModelCfg, h: torch.Tensor) -> torch.Tensor:
+    return h + SSM.ssm_apply(p["ssm"], cfg, rms_norm(h, p["ln"],
+                                                     cfg.norm_eps))
+
+
+def _forward_decoder(cfg: ModelCfg, w: dict, h: torch.Tensor,
+                     positions: torch.Tensor, attn_layer):
+    """A decoder's layers: ``attn_layer(p, h, positions, window)`` for each
+    layer's params; ``(h, the MoE aux losses summed, float32)``."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for p, window in zip(w["layers"], layer_windows(cfg)):
+        h, a = attn_layer(p, h, positions, window)
+        if a is not None:
+            aux = aux + a
+    return h, aux
+
+
+def _forward_ssm(cfg: ModelCfg, w: dict, h: torch.Tensor,
+                 positions: torch.Tensor, attn_layer, ssm_layer
+                 ) -> torch.Tensor:
+    """An SSM stack's layers: ``ssm_layer(p, h)`` for each; a hybrid runs
+    ``attn_layer`` on its shared layer (window 0) before every
+    ``hybrid_attn_every`` of them, the reference's super-layers."""
+    every = _attn_every(cfg)
+    for i, p in enumerate(w["ssm_layers"]):
+        if every and i % every == 0:
+            h, _ = attn_layer(w["shared_attn"], h, positions, 0)
+        h = ssm_layer(p, h)
+    return h
 
 
 def _decoder(cfg: ModelCfg, w: dict, tokens: torch.Tensor, last_only: bool,
-             layer) -> torch.Tensor:
-    """Embedding, ``layer(p, h, positions, window)`` for each layer's
-    params, final norm, LM head (in the compute dtype)."""
+             attn_layer, ssm_layer):
+    """Embedding, the layer stack, final norm, LM head (in the compute
+    dtype): ``(logits, aux)``, aux the MoE load-balancing losses summed
+    over layers (float32; 0 without MoE)."""
     cdt = _dtype(cfg.compute_dtype)
     h = embed_lookup(w["embed"], tokens, cdt)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    for p, window in zip(w["layers"], layer_windows(cfg)):
-        h = layer(p, h, positions, window)
+    if cfg.is_ssm:
+        h = _forward_ssm(cfg, w, h, positions, attn_layer, ssm_layer)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    else:
+        h, aux = _forward_decoder(cfg, w, h, positions, attn_layer)
     h = rms_norm(h, w["final_norm"], cfg.norm_eps)
     if last_only:
         h = h[:, -1:, :]
-    return lm_logits(w["embed"], h, cdt)
+    return lm_logits(w["embed"], h, cdt), aux
 
 
-def forward(model: LM, batch: dict, last_only: bool = False) -> torch.Tensor:
-    """batch: tokens (B, S) -> logits (B, S, vocab) in the compute dtype;
-    every layer's attention through the flash-attention kernel.
+def forward(model: LM, batch: dict, last_only: bool = False,
+            with_aux: bool = False):
+    """batch: tokens (B, S) -> logits (B, S, vocab) in the compute dtype
+    (with ``with_aux``, ``(logits, aux)``: the MoE load-balancing loss
+    summed over layers, float32, 0 for other families); every attention
+    layer through the flash-attention kernel.
 
     ``last_only`` computes the LM head on the final position only (the
     serving-prefill shape: the head matmul on 1 token, not S).
     """
     cfg = model.cfg
-    return _decoder(cfg, model.compute_params(), batch["tokens"], last_only,
-                    lambda p, h, pos, win: _attn_block(p, cfg, h, pos, win))
+    logits, aux = _decoder(
+        cfg, model.compute_params(), batch["tokens"], last_only,
+        lambda p, h, pos, win: _attn_block(p, cfg, h, pos, win),
+        lambda p, h: _ssm_block(p, cfg, h))
+    return (logits, aux) if with_aux else logits
 
 
-def train_forward(params: dict, cfg: ModelCfg, batch: dict) -> torch.Tensor:
-    """Logits (B, S, vocab) in the compute dtype from a flat dict of float32
-    masters, differentiable: each layer casts its matrices inside its own
-    block, so with ``cfg.remat`` the casts are recomputed in backward and
-    only each layer's input stays alive between the passes.
+def train_forward(params: dict, cfg: ModelCfg, batch: dict,
+                  with_aux: bool = False):
+    """Logits (B, S, vocab) in the compute dtype (and with ``with_aux``
+    the summed MoE aux loss, as :func:`forward`) from a flat dict of
+    float32 masters, differentiable: each layer casts its matrices inside
+    its own block, so with ``cfg.remat`` the casts are recomputed in
+    backward and only each layer's input stays alive between the passes.
 
     ``remat`` "full" (and "dots") runs each layer under
     ``torch.utils.checkpoint`` (non-reentrant): backward recomputes its
@@ -337,57 +480,115 @@ def train_forward(params: dict, cfg: ModelCfg, batch: dict) -> torch.Tensor:
         raise ValueError(f"remat {cfg.remat!r}: expected none, full or dots")
     cdt = _dtype(cfg.compute_dtype)
 
-    def block(p, h, positions, window):
+    def attn_block(p, h, positions, window):
         return _attn_block(cast_weights(p, cdt), cfg, h, positions, window,
                            train=True)
 
-    def layer(p, h, positions, window):
-        if cfg.remat == "none":
-            return block(p, h, positions, window)
-        return checkpoint(block, p, h, positions, window, use_reentrant=False)
+    def ssm_block(p, h):
+        return _ssm_block(cast_weights(p, cdt), cfg, h)
 
-    return _decoder(cfg, param_tree(cfg, params), batch["tokens"], False,
-                    layer)
+    def remat(block):
+        if cfg.remat == "none":
+            return block
+        return lambda *args: checkpoint(block, *args, use_reentrant=False)
+
+    logits, aux = _decoder(cfg, param_tree(cfg, params), batch["tokens"],
+                           False, remat(attn_block), remat(ssm_block))
+    return (logits, aux) if with_aux else logits
 
 
 def loss_fn(params: dict, cfg: ModelCfg, batch: dict) -> torch.Tensor:
     """Mean next-token cross-entropy over the labels >= 0, from float32
-    logits (logsumexp less the gold logit), as the reference's ``loss_fn``.
-    The reference adds 0.01 x the MoE load-balancing loss, which is 0 for
-    every family the port runs (MoE is ROADMAP item 9a)."""
-    logits = train_forward(params, cfg, batch).float()
+    logits (logsumexp less the gold logit), plus 0.01 x the MoE
+    load-balancing loss summed over layers, as the reference's
+    ``loss_fn``."""
+    logits, aux = train_forward(params, cfg, batch, with_aux=True)
+    logits = logits.float()
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
-    return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll + 0.01 * aux
+
+
+def cache_specs(cfg: ModelCfg, batch: int, max_seq: int) -> dict:
+    """The decode cache as a tree of ``(shape, dtype)``, the reference's
+    ``init_cache`` tree: ``k``, ``v`` (n_layers, batch, max_seq, Hkv, hd)
+    bfloat16 for decoders; for SSM stacks ``ssm.{ssd, conv}``, each
+    layer's float32 decode state stacked over layers, and in a hybrid
+    ``shared_k``, ``shared_v`` (n_sites, batch, max_seq, Hkv, hd)
+    bfloat16."""
+    require_supported(cfg)
+    hd = cfg.resolved_head_dim
+    if not cfg.is_ssm:
+        kv = ((cfg.n_layers, batch, max_seq, cfg.n_kv_heads, hd),
+              torch.bfloat16)
+        return {"k": kv, "v": kv}
+    out = {"ssm": {k: ((cfg.n_layers, *s), torch.float32) for k, s in
+                   SSM.decode_state_shapes(cfg, batch).items()}}
+    if cfg.is_hybrid:
+        kv = ((_n_sites(cfg), batch, max_seq, cfg.n_kv_heads, hd),
+              torch.bfloat16)
+        out["shared_k"] = out["shared_v"] = kv
+    return out
+
+
+def map_specs(specs: dict, fn) -> dict:
+    """``fn(shape, dtype)`` at every leaf of a :func:`cache_specs` tree."""
+    return {k: map_specs(v, fn) if isinstance(v, dict) else fn(*v)
+            for k, v in specs.items()}
 
 
 def init_cache(cfg: ModelCfg, batch: int, max_seq: int,
                device=None) -> dict:
-    """Zeroed bfloat16 KV caches ``k``, ``v`` of shape
-    ``(n_layers, batch, max_seq, n_kv_heads, head_dim)``."""
-    require_supported(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    """The zeroed decode cache of :func:`cache_specs` on ``device``
+    (default ``cuda``)."""
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+    return map_specs(cache_specs(cfg, batch, max_seq),
+                     lambda shape, dt: torch.zeros(shape, dtype=dt,
+                                                   device=dev))
 
 
 def decode_step(model: LM, cache: dict, tokens: torch.Tensor,
                 pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """One token for every sequence: tokens (B, 1), pos (B,) -> logits
-    (B, 1, vocab) and the cache, which is updated in place."""
+    (B, 1, vocab) and the cache, which is updated in place.
+
+    An SSM layer's state carries each row's history whatever ``pos`` says:
+    as in the reference, a row that starts a new sequence at pos 0 keeps
+    the previous one's state (``launch.serve_lm`` recycles slots so)."""
     cfg = model.cfg
     cdt = _dtype(cfg.compute_dtype)
     w = model.compute_params()
     h = embed_lookup(w["embed"], tokens, cdt)
-    for i, (p, window) in enumerate(zip(w["layers"], layer_windows(cfg))):
-        hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-        a, _, _ = ATT.attn_decode(p["attn"], cfg, hn, cache["k"][i],
-                                  cache["v"][i], pos, window=window)
-        h = h + a
-        h = h + _ffn(p["ffn"], cfg, rms_norm(h, p["ln2"], cfg.norm_eps))
+    if cfg.is_ssm:
+        every = _attn_every(cfg)
+        for i, p in enumerate(w["ssm_layers"]):
+            if every and i % every == 0:
+                sp, site = w["shared_attn"], i // every
+                hn = rms_norm(h, sp["ln1"], cfg.norm_eps)
+                a, _, _ = ATT.attn_decode(sp["attn"], cfg, hn,
+                                          cache["shared_k"][site],
+                                          cache["shared_v"][site], pos)
+                h = h + a
+                # the reference's hybrid decode runs the plain SwiGLU here
+                h = h + ffn_apply(sp["ffn"], rms_norm(h, sp["ln2"],
+                                                      cfg.norm_eps),
+                                  cfg.act_fn)
+            state = {k: v[i] for k, v in cache["ssm"].items()}
+            y, new = SSM.ssm_decode(p["ssm"], cfg,
+                                    rms_norm(h, p["ln"], cfg.norm_eps), state)
+            for k, v in new.items():
+                state[k].copy_(v)
+            h = h + y
+    else:
+        for i, (p, window) in enumerate(zip(w["layers"],
+                                            layer_windows(cfg))):
+            hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+            a, _, _ = ATT.attn_decode(p["attn"], cfg, hn, cache["k"][i],
+                                      cache["v"][i], pos, window=window)
+            h = h + a
+            h = h + _ffn(p, cfg, rms_norm(h, p["ln2"], cfg.norm_eps))[0]
     h = rms_norm(h, w["final_norm"], cfg.norm_eps)
     return lm_logits(w["embed"], h, cdt), cache

@@ -346,3 +346,175 @@ def test_ffn_gate_passes_a_reordered_sum_and_refuses_bf16_accumulation(
     atol, rtol, steps = cs.MM_TOL["bfloat16"]
     assert bool(((control.float() - want.float()).abs()
                  <= cs.mm_limit(torch, want, atol, rtol, steps)).all())
+
+
+# -- phase 15's pure helpers and phase 8's near-tie rule ------------------
+
+def test_attention_layers_counts_the_flash_launches_of_a_prefill(cs):
+    from repro_torch.configs import get_config
+    assert [cs.attention_layers(get_config(a)) for a in cs.FAMILY_ARCHS] == \
+        [16, 0, 9]
+
+
+def test_no_drop_config_gives_every_token_a_place(cs):
+    """At capacity E / k an expert has a place for every token of its
+    group (cap = group size), and the (token, k) pairs of any routing lose
+    none; at the config's own 1.25 four decode slots share one place an
+    expert."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("olmoe-1b-7b")
+    wide = cs.no_drop_config(cfg)
+    assert wide.moe.capacity_factor == 8.0 and wide.moe.top_k == 8
+    assert [moe.capacity(wide, g) for g in (2, 4, 128, 1024)] == \
+        [2, 4, 128, 1024]
+    assert moe.capacity(cfg, 4) == 1
+    # every slot picks the same 8 experts: the worst case
+    topi = torch.arange(8).expand(1, 4, 8)
+    routes = [{"topi": topi}]
+    assert cs.drops_per_call(routes, wide) == [0]
+    assert cs.drops_per_call(routes, cfg) == [24]
+    # distinct experts for every slot: nothing to drop at cap 1
+    assert cs.drops_per_call([{"topi": torch.arange(32).reshape(1, 4, 8)}],
+                             cfg) == [0]
+
+
+def test_drops_per_call_groups_long_calls(cs):
+    """A prefill call of 2048 tokens forms two groups of 1024."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config("olmoe-1b-7b")
+    topi = torch.arange(8).expand(2, 1024, 8)          # all on 8 experts
+    cap = 160                                          # int(1.25·1024·8/64)
+    assert cs.drops_per_call([{"topi": topi}], cfg) == [2 * 8 * (1024 - cap)]
+
+
+def test_route_rule(cs):
+    """At bfloat16 a position past the contract passes only at or after a
+    position of its row whose expert set differs from the reference's; at
+    float32 every position is held."""
+    import numpy as np
+    import torch
+    want = np.zeros((2, 10, 4), np.float32)
+    got = torch.zeros((2, 10, 4))
+    differ = np.zeros((2, 10), bool)
+    assert cs.lm_check_routes("ok", got, want, "bfloat16", differ) == 0.0
+    got[0, 6, 1] = 0.3                                  # past 0.05
+    with pytest.raises(SystemExit):
+        cs.lm_check_routes("no difference", got, want, "bfloat16", differ)
+    differ[1, 2] = True                                 # another row's
+    with pytest.raises(SystemExit):
+        cs.lm_check_routes("other row", got, want, "bfloat16", differ)
+    differ[0, 4] = True                                 # before it
+    assert cs.lm_check_routes("explained", got, want, "bfloat16",
+                              differ) == 0.0
+    with pytest.raises(SystemExit):
+        cs.lm_check_routes("float32", got, want, "float32", differ)
+    differ[0, 4], differ[0, 8] = False, True            # after it: not
+    with pytest.raises(SystemExit):
+        cs.lm_check_routes("after", got, want, "bfloat16", differ)
+
+
+def _router_case():
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    cfg = get_smoke_config("olmoe-1b-7b")
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
+    x = torch.randn((2, 8, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    return moe, cfg, p, x
+
+
+def test_record_routing_wraps_the_router(cs):
+    """Each router call's top-k experts, in call order, while active; the
+    router is put back after."""
+    import torch
+    moe, cfg, p, x = _router_case()
+    inner = moe._router
+    with cs.record_routing() as rec:
+        moe.moe_apply(p, cfg, x)
+        moe.moe_apply(p, cfg, x[:1])
+    assert moe._router is inner
+    moe.moe_apply(p, cfg, x)
+    k = cfg.moe.top_k
+    assert [tuple(r["topi"].shape) for r in rec] == [(2, 8, k), (1, 8, k)]
+    assert torch.equal(rec[0]["topi"], inner(p, x, cfg)[0])
+
+
+def test_pin_routing_takes_the_given_experts(cs):
+    """The router takes the given experts, weighed by the softmax of its
+    own logits there; a choice left over fails; the router is put back."""
+    import torch
+    moe, cfg, p, x = _router_case()
+    inner = moe._router
+    other = (inner(p, x, cfg)[0] + 1) % cfg.moe.n_experts
+    with cs.pin_routing([other]):
+        topi, weights, _ = moe._router(p, x, cfg)
+    assert moe._router is inner
+    assert torch.equal(topi, other)
+    torch.testing.assert_close(
+        weights, torch.softmax((x @ p["router"]).gather(-1, other), -1))
+    with pytest.raises(SystemExit):
+        with cs.pin_routing([other, other]):
+            moe._router(p, x, cfg)
+    assert moe._router is inner
+
+
+def test_routes_differ_compares_expert_sets(cs):
+    """The same experts in another order are the same choice; decode's
+    calls (step by step, every layer) line up with prefill's layers; a
+    fixture's (layers, B, S, K) choices give one sorted array a layer."""
+    import numpy as np
+    import torch
+    pre = [{"topi": torch.tensor([[[1, 2], [3, 4], [5, 6]]])},
+           {"topi": torch.tensor([[[0, 1], [0, 2], [0, 3]]])}]
+    dec = []
+    for t in range(3):
+        for layer in range(2):
+            topi = pre[layer]["topi"][:, t:t + 1].clone()
+            if (t, layer) == (0, 0):
+                topi = topi.flip(-1)                   # order within k
+            if (t, layer) == (2, 1):
+                topi[..., 1] = 7                       # another expert
+            dec.append({"topi": topi})
+    got = cs.decode_routes(dec, 2, 1, 3)
+    assert [g.shape for g in got] == [(1, 3, 2), (1, 3, 2)]
+    differ = cs.routes_differ(cs.route_sets(pre, (1, 3)), got)
+    assert differ.tolist() == [[False, False, True]]
+    assert [a.tolist() for a in cs.fixture_route_sets(
+        np.array([[[[2, 1], [0, 3]]]]))] == [[[[1, 2], [0, 3]]]]
+    assert cs.at_or_after([[False, True, False],
+                           [False, False, False]]).tolist() == \
+        [[False, True, True], [False, False, False]]
+
+
+def test_device_ms_takes_the_run_after_the_spin_kernel(cs):
+    """The measured calls queue behind the spin kernel; the lead calls run
+    before it.  With fewer measured calls than lead calls (5 flash calls
+    against 20) the lead run is the longer, and taking the longest run, as
+    the rule did, read a run of the wrong length (device time lost since
+    the lead calls came in); the run after the spin kernel is right.
+    Without a spin record, the longest run."""
+    from collections import namedtuple
+    R = namedtuple("R", "start end")
+
+    def calls(t0, n, dur=300):
+        return [R(t0 + i * dur, t0 + (i + 1) * dur) for i in range(n)]
+
+    lead = calls(0, 20)
+    spin_end = 6000 + 50_000
+    measured = calls(spin_end + 10, 5)
+    after = calls(measured[-1].end + 30_000, 1)
+    runs, got = cs.measured_run(lead + measured + after, spin_end)
+    assert [len(r) for r in runs] == [20, 5, 1] and got == measured
+    runs, got = cs.measured_run(lead[15:] + measured + after, spin_end)
+    assert got == measured
+    assert cs.measured_run(lead + measured + after, None)[1] == lead
+    long = calls(spin_end + 10, 200)
+    last = calls(long[-1].end + 30_000, 1)
+    assert cs.measured_run(lead + long + last, spin_end)[1] == long

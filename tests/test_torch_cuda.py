@@ -40,14 +40,15 @@ output, tight enough to reject a stale K/V stage.
 """
 
 import functools
+import importlib.util
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (ARTIFACT, FIXTURE_DIR, REF, budget_stack, codes,
-                             load_mixed_cases, load_ref, load_train,
+from torch_port_util import (ARTIFACT, FIXTURE_DIR, REF, ROOT, budget_stack,
+                             codes, load_mixed_cases, load_ref, load_train,
                              random_stack, with_table_offset)
 
 from repro_torch import engine
@@ -1044,6 +1045,72 @@ def test_flash_attention_f32_windows(dev, window, causal, shape):
     q, k, v = _qkv(dev, *shape, torch.float32, seed=window)
     assert _flash_route_check(q, k, v, causal=causal,
                               window=window) == "tf32x3"
+
+
+@pytest.mark.parametrize("s", [65, 250, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mha_at_head_dim_80(dev, s, causal, dtype):
+    """zamba2-2.7b's shared attention: MHA (Hq = Hkv = 32) at head_dim 80,
+    which both tensor-core kernels pad to 128, on the transposed (B, S, H,
+    D) views the model passes; within FLASH_TOL (and FLASH_GATE on
+    wgmma), each head's 80 columns only."""
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, s, 32, 80)).astype(
+        np.float32)).to(device=dev, dtype=dtype).transpose(1, 2)
+        for _ in range(3))
+    route = _flash_route_check(q, k, v, causal=causal)
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "zamba2-2.7b"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_moe_and_hybrid_prefill_on_the_card_match_the_cpu(dev, arch,
+                                                          compute_dtype):
+    """The smoke config's prefill on the card against the same weights on
+    the CPU (the plain versions): olmoe-1b-7b's 2 flash launches, all
+    layers' MoE dispatch on the card, within 1e-4 at float32; zamba2's 2
+    shared-attention sites.  At bfloat16 a MoE router may settle a
+    near-tie apart on the two devices, so the bfloat16 case runs at
+    capacity E / k (nothing dropped) and holds every position whose expert
+    sets agree to 0.05."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+
+    # chip_smoke.py's router recorder (importing it runs nothing)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_rules", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              compute_dtype=compute_dtype)
+    if cfg.moe is not None and compute_dtype == "bfloat16":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    cpu = steps.init_params(cfg, seed=0, device="cpu")
+    card = M.LM(cfg, M.param_tree(cfg, {n: p.to(dev) for n, p in
+                                        cpu.named_parameters()}))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)))
+    before = flash_attention.launches
+    with cs.record_routing() as on_card:
+        got = M.forward(card, {"tokens": tokens.to(dev)}).float().cpu()
+    torch.cuda.synchronize()
+    sites = cfg.n_layers // cfg.hybrid_attn_every if cfg.is_hybrid \
+        else cfg.n_layers
+    assert flash_attention.launches - before == sites
+    with cs.record_routing() as on_cpu:
+        want = M.forward(cpu, {"tokens": tokens}).float()
+    keep = torch.ones((2, 64), dtype=torch.bool)
+    for a, b in zip(on_card, on_cpu):
+        keep &= (a["topi"].cpu().sort(-1).values
+                 == b["topi"].sort(-1).values).all(-1)
+    tol = 1e-4 if compute_dtype == "float32" else 0.05
+    assert int(keep.sum()) >= 120
+    torch.testing.assert_close(got[keep], want[keep], atol=tol, rtol=tol)
 
 
 def test_flash_attention_tf32_matches_simt_at_prefill_shape(dev):

@@ -21,6 +21,18 @@ carried in by ``from_reference``.  Tolerances:
   round to bfloat16 at the same points, and a value near a rounding point
   may land one step apart;
 * served tokens at float32 compute: equal.
+
+The MoE and SSM families (olmoe-1b-7b, qwen3-moe-235b-a22b, mamba2-370m,
+zamba2-2.7b) are held against ``lm_smoke_moe_ssm.npz`` with the same
+tolerances.  The fixture also holds the reference's router choices.  A MoE
+router's top-k choice is discrete: at bfloat16 one step of noise upstream
+settles a near-tie of two logits either way, and the token and those that
+attend to it then move past 0.05.  So at bfloat16 a MoE model's positions
+past the contract must each follow, in their row, a position whose expert
+set differs from the reference's in some layer
+(``chip_smoke.lm_check_routes``, the rule phase 8 applies on the card); at
+float32 the expert sets equal the reference's and every position is held
+to 1e-4, capacity drops included.
 """
 
 import contextlib
@@ -29,6 +41,7 @@ import importlib.util
 import io
 import os
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -48,8 +61,11 @@ from repro_torch.launch import serve_lm, steps
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models import moe as MOE
 
 ARCHS = ("qwen3-1.7b", "gemma3-27b")
+MOE_SSM_ARCHS = ("olmoe-1b-7b", "qwen3-moe-235b-a22b", "mamba2-370m",
+                 "zamba2-2.7b")
 TIGHT = {"atol": 1e-4, "rtol": 1e-4}
 BF16 = {"atol": 0.05, "rtol": 0.05}
 ATTN = {"atol": 2e-5, "rtol": 1e-4}
@@ -62,6 +78,16 @@ def tool():
     spec = importlib.util.spec_from_file_location(
         "make_torch_fixture", os.path.join(ROOT, "tools",
                                            "make_torch_fixture.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def cs():
+    """``chip_smoke.py`` as a module (importing it runs nothing)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_rules", Path(ROOT) / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -324,9 +350,7 @@ def test_configs_equal_reference(arch):
             == {k: dataclasses.asdict(v) for k, v in RC.SHAPES.items()})
 
 
-UNPORTED = {"qwen3-moe-235b-a22b": "9a", "olmoe-1b-7b": "9a",
-            "zamba2-2.7b": "9b", "mamba2-370m": "9b",
-            "whisper-medium": "9c", "qwen2-vl-2b": "9d"}
+UNPORTED = {"whisper-medium": "9c", "qwen2-vl-2b": "9d"}
 
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
@@ -399,3 +423,260 @@ def test_compute_copy_follows_parameter_writes(tool, ref_params):
     assert again is not first
     torch.testing.assert_close(again["layers"][0]["attn"]["wq"],
                                (model.layers[0].attn["wq"]).bfloat16())
+
+
+# ---------------------------------------------------------------------------
+# the MoE and SSM families (lm_smoke_moe_ssm.npz)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def moe_ssm(tool):
+    with np.load(os.path.join(FIXTURE_DIR, tool.LM_MOE_SSM_NAME)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _fixture_model(fx, arch, compute_dtype):
+    """The port's smoke model of ``arch`` with the reference's params, at
+    the compute dtype and MoE capacity of the fixture's run."""
+    cfg = dataclasses.replace(PC.get_smoke_config(arch),
+                              compute_dtype=compute_dtype)
+    if cfg.moe is not None:
+        cf = float(fx[f"{arch}.{compute_dtype}.capacity_factor"])
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    pre = f"{arch}.params."
+    arrays = {k[len(pre):]: v for k, v in fx.items() if k.startswith(pre)}
+    return cfg, M.from_reference(cfg, arrays, device="cpu")
+
+
+def _route_check(cs, fx, arch, compute_dtype, which, got, routes, shape):
+    """``got`` against the fixture's ``which`` logits: float32 at every
+    position, with the reference's expert sets; bfloat16 by
+    ``chip_smoke.lm_check_routes``."""
+    cfg = PC.get_smoke_config(arch)
+    want = fx[f"{arch}.{compute_dtype}.{which}"]
+    differ = np.zeros(shape, bool)
+    if cfg.moe is not None:
+        mine = (cs.route_sets(routes, shape) if which == "prefill" else
+                cs.decode_routes(routes, cfg.n_layers, *shape))
+        differ = cs.routes_differ(mine, cs.fixture_route_sets(
+            fx[f"{arch}.{compute_dtype}.{which}_topi"]))
+    if compute_dtype == "float32":
+        assert not differ.any()
+        np.testing.assert_allclose(_f32(got), want, **TIGHT)
+    else:
+        cs.lm_check_routes(arch, got, want, compute_dtype, differ)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MOE_SSM_ARCHS)
+def test_moe_ssm_forward_matches_reference(cs, moe_ssm, arch, compute_dtype):
+    """All 64 positions, and the serving prefill's last one; the summed
+    aux loss is positive exactly for the MoE archs."""
+    cfg, model = _fixture_model(moe_ssm, arch, compute_dtype)
+    tokens = torch.from_numpy(moe_ssm[f"{arch}.tokens"])
+    with cs.record_routing() as routes:
+        got, aux = M.forward(model, {"tokens": tokens}, with_aux=True)
+    assert got.dtype == getattr(torch, compute_dtype)
+    assert (float(aux) > 0) == (cfg.moe is not None)
+    assert len(routes) == (cfg.n_layers if cfg.moe is not None else 0)
+    _route_check(cs, moe_ssm, arch, compute_dtype, "prefill", got, routes,
+                 tuple(tokens.shape))
+    last = steps.make_prefill_step(cfg)(model, {"tokens": tokens})
+    np.testing.assert_allclose(_f32(last), _f32(got[:, -1]), atol=1e-6)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MOE_SSM_ARCHS)
+def test_moe_ssm_decode_matches_reference(cs, moe_ssm, arch, compute_dtype):
+    """12 tokens fed one at a time into a 12-slot cache (KV leaves in the
+    compute dtype, SSM state float32): each step's logits.  At float32 the
+    MoE archs decode at their own capacity, 1 place an expert for the 2
+    rows, so pairs drop, as they do in the reference."""
+    cfg, model = _fixture_model(moe_ssm, arch, compute_dtype)
+    tokens = torch.from_numpy(moe_ssm[f"{arch}.tokens"])
+    n = moe_ssm[f"{arch}.{compute_dtype}.decode"].shape[1]
+    cache = M.init_cache(cfg, 2, n, device="cpu")
+    cache = {k: v.to(getattr(torch, compute_dtype))
+             if k in ("k", "v", "shared_k", "shared_v") else v
+             for k, v in cache.items()}
+    got = []
+    with cs.record_routing() as routes:
+        for t in range(n):
+            lg, cache = M.decode_step(model, cache, tokens[:, t:t + 1],
+                                      torch.full((2,), t, dtype=torch.int32))
+            got.append(lg[:, 0])
+    if cfg.moe is not None:
+        drops = sum(MOE.dropped_pairs(r["topi"].reshape(1, 2, -1),
+                                      cfg.moe.n_experts,
+                                      MOE.capacity(cfg, 2)) for r in routes)
+        assert (drops > 0) == (compute_dtype == "float32")
+    _route_check(cs, moe_ssm, arch, compute_dtype, "decode",
+                 torch.stack(got, 1), routes, (2, n))
+
+
+@pytest.mark.parametrize("arch", MOE_SSM_ARCHS)
+def test_moe_ssm_serve_tokens_equal_reference(cs, tool, moe_ssm, arch):
+    """``serve`` at ``--requests 5 --slots 2 --max-new 6 --cache-len 64``
+    and float32 compute: the reference's requests, order and tokens.  Slots
+    are recycled, so an SSM slot's next request starts from the state the
+    previous one left (as in the reference); the MoE archs drop pairs in
+    decode at their own capacity (1 place an expert for 2 slots)."""
+    cfg, model = _fixture_model(moe_ssm, arch, "float32")
+    with cs.record_routing() as routes:
+        res = serve_lm.serve(cfg, model, **tool.LM_SERVE)
+    assert [r["id"] for r in res.done] == \
+        moe_ssm[f"{arch}.float32.serve_ids"].tolist()
+    assert [r["out"] for r in res.done] == \
+        moe_ssm[f"{arch}.float32.serve_out"].tolist()
+    if cfg.moe is not None:
+        assert sum(MOE.dropped_pairs(r["topi"].reshape(1, 2, -1),
+                                     cfg.moe.n_experts, MOE.capacity(cfg, 2))
+                   for r in routes) > 0
+
+
+def test_recycled_ssm_slot_carries_the_previous_state(moe_ssm):
+    """A recycled slot restarts at pos 0 with the SSM state the previous
+    request left (the reference's loop resets only the position and the
+    token): its first logits differ from a fresh slot's, where a KV cache
+    hides stale entries by position.  The state decays within a few tokens
+    in the smoke models, so the served tokens above agree either way."""
+    for arch, differs in (("mamba2-370m", True), ("zamba2-2.7b", True),
+                          ("qwen3-1.7b", False)):
+        cfg = dataclasses.replace(PC.get_smoke_config(arch),
+                                  compute_dtype="float32")
+        model = steps.init_params(cfg, seed=0, device="cpu")
+        used = M.init_cache(cfg, 1, 16, device="cpu")
+        for t, tok in enumerate((5, 17, 99)):
+            M.decode_step(model, used, torch.tensor([[tok]]),
+                          torch.tensor([t], dtype=torch.int32))
+        first = torch.tensor([[42]])
+        zero = torch.zeros((1,), dtype=torch.int32)
+        recycled, _ = M.decode_step(model, used, first, zero)
+        fresh, _ = M.decode_step(model, M.init_cache(cfg, 1, 16,
+                                                     device="cpu"),
+                                 first, zero)
+        assert (not torch.equal(recycled, fresh)) == differs, arch
+
+
+@pytest.mark.parametrize("arch", MOE_SSM_ARCHS)
+def test_from_reference_round_trips(moe_ssm, arch):
+    """The port's parameters restacked give the reference's arrays back:
+    ``layers.*`` / ``ssm_layers.*`` stacked over layers, ``shared_attn.*``
+    one layer's."""
+    cfg, model = _fixture_model(moe_ssm, arch, "float32")
+    pre = f"{arch}.params."
+    arrays = {k[len(pre):]: v for k, v in moe_ssm.items()
+              if k.startswith(pre)}
+    assert sorted(arrays) == sorted(M.reference_names(cfg))
+    got = dict(model.named_parameters())
+    for name, a in arrays.items():
+        stack, _, rest = name.partition(".")
+        if stack in ("layers", "ssm_layers"):
+            back = np.stack([got[f"{stack}.{i}.{rest}"].numpy()
+                             for i in range(cfg.n_layers)])
+        else:
+            back = got[name].numpy()
+        np.testing.assert_array_equal(back, a)
+    assert len(got) == sum(cfg.n_layers if n.split(".")[0] in
+                           ("layers", "ssm_layers") else 1 for n in arrays)
+    if cfg.is_hybrid:
+        assert "shared_attn.attn.wq" in got
+        assert not any(n.startswith("layers.") for n in got)
+
+
+@pytest.mark.parametrize("arch", MOE_SSM_ARCHS)
+def test_param_shapes_match_the_reference_at_full_width(arch):
+    """``param_shapes`` on ``meta`` against the reference's ``eval_shape``
+    of ``init_params``, for the full published configs (qwen3-moe-235b-a22b
+    included: nothing is allocated)."""
+    cfg, rcfg = PC.get_config(arch), RC.get_config(arch)
+    want = {}
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                want[f"{prefix}{k}"] = tuple(v.shape)
+
+    walk(jax.eval_shape(lambda: RM.init_params(rcfg, jax.random.PRNGKey(0))))
+    got = M.param_shapes(cfg)
+    assert sorted(M.reference_names(cfg)) == sorted(want)
+    flat = {}
+    for name, shape in got.items():
+        stack, idx, rest = name.split(".", 2) if name.split(".")[0] in (
+            "layers", "ssm_layers") else (None, None, name)
+        key = f"{stack}.{rest}" if stack else name
+        flat.setdefault(key, []).append(shape)
+    for key, shapes in flat.items():
+        if key.split(".")[0] in ("layers", "ssm_layers"):
+            assert len(shapes) == cfg.n_layers
+            assert all(s == want[key][1:] for s in shapes), key
+        else:
+            assert shapes == [want[key]], key
+    assert sorted(flat) == sorted(want)
+    assert sum(int(np.prod(s)) for s in got.values()) == \
+        sum(int(np.prod(s)) for s in want.values())
+
+
+@pytest.mark.parametrize("arch", MOE_SSM_ARCHS)
+def test_init_cache_is_the_reference_tree(arch):
+    cfg, rcfg = PC.get_smoke_config(arch), RC.get_smoke_config(arch)
+    want = jax.eval_shape(lambda: RM.init_cache(rcfg, 3, 16))
+    got = M.init_cache(cfg, 3, 16, device="cpu")
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", v
+
+    assert {n: (tuple(v.shape), str(np.dtype(v.dtype))) for n, v in
+            leaves(want)} == \
+        {n: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+         for n, v in leaves(got)}
+    assert all(not bool(v.any()) for _, v in leaves(got))
+
+
+@pytest.mark.parametrize("arch", MOE_SSM_ARCHS)
+def test_port_init_draws_the_new_families(arch):
+    """A seeded init of the smoke config: the reference's names, a float32
+    router, the SSM leaves as ``ssm_init`` sets them, and a second draw at
+    the same seed equal."""
+    cfg = PC.get_smoke_config(arch)
+    model = steps.init_params(cfg, seed=0, device="cpu")
+    got = dict(model.named_parameters())
+    assert {n: tuple(t.shape) for n, t in got.items()} == M.param_shapes(cfg)
+    if cfg.moe is not None:
+        r = got["layers.0.moe.router"]
+        assert r.dtype == torch.float32
+        assert abs(float(r.std()) * cfg.d_model ** 0.5 - 1) < 0.2
+    if cfg.is_ssm:
+        assert torch.equal(got["ssm_layers.1.ssm.d_skip"],
+                           torch.ones_like(got["ssm_layers.1.ssm.d_skip"]))
+    again = steps.init_params(cfg, seed=0, device="cpu")
+    assert all(torch.equal(p, dict(again.named_parameters())[n])
+               for n, p in got.items())
+    w = model.compute_params()
+    key = "layers" if not cfg.is_ssm else "ssm_layers"
+    leaf = w[key][0]["moe"]["router"] if cfg.moe is not None else \
+        w[key][0]["ssm"]["conv_w"] if cfg.is_ssm else None
+    assert leaf is None or leaf.dtype == torch.bfloat16
+    if cfg.is_ssm:
+        assert w[key][0]["ssm"]["a_log"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-370m",
+                                  "zamba2-2.7b"])
+def test_serve_cli_runs_the_new_families_on_the_cpu(arch, capsys):
+    serve_lm.main(["--arch", arch, "--requests", "3", "--slots", "2",
+                   "--max-new", "4", "--cache-len", "32", "--device", "cpu"])
+    assert "served 3 requests, 12 tokens" in capsys.readouterr().out
+
+
+def test_serve_cli_refuses_qwen3_moe_at_full_width():
+    with pytest.raises(SystemExit, match="do not fit one card"):
+        serve_lm.main(["--arch", "qwen3-moe-235b-a22b", "--width", "full",
+                       "--device", "cpu"])

@@ -76,7 +76,8 @@ def _flat(tree) -> dict:
 
 
 def _per_layer(cfg, flat: dict, name: str) -> np.ndarray:
-    return np.stack([flat[name.replace("layers.", f"layers.{i}.", 1)]
+    stack, rest = name.split(".", 1)
+    return np.stack([flat[f"{stack}.{i}.{rest}"]
                      for i in range(cfg.n_layers)])
 
 
@@ -461,7 +462,8 @@ def test_abstract_params_are_the_init_names_and_shapes():
 
 @pytest.mark.parametrize("shape", sorted(RC.SHAPES))
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-27b",
-                                  "olmoe-1b-7b"])
+                                  "olmoe-1b-7b", "mamba2-370m",
+                                  "zamba2-2.7b"])
 def test_input_specs_match_the_reference(arch, shape):
     cfg, rcfg = PC.get_config(arch), RC.get_config(arch)
     want = {jax.tree_util.keystr(p): (tuple(v.shape), str(np.dtype(v.dtype)))
@@ -486,9 +488,6 @@ def test_input_specs_match_the_reference(arch, shape):
 def test_input_specs_name_the_unported_inputs(arch, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         steps.input_specs(PC.get_smoke_config(arch), PC.SHAPES["train_4k"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9b"):
-        steps.input_specs(PC.get_smoke_config("mamba2-370m"),
-                          PC.SHAPES["decode_32k"])
 
 
 def test_entry_points_default_to_the_card():
@@ -524,3 +523,73 @@ def test_train_and_serve_clis_on_the_cpu(tmp_path, capsys, monkeypatch):
                                  for p in model.parameters())
     with pytest.raises(FileNotFoundError):
         steps.restore_model(cfg, str(tmp_path / "none"), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the MoE and SSM families: the loss with the aux term, its gradients
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-235b-a22b",
+                                  "mamba2-370m", "zamba2-2.7b"])
+def test_moe_ssm_loss_and_gradients_match_reference(arch):
+    """``loss_fn`` at float32 (cross-entropy plus 0.01 x the MoE aux loss
+    summed over layers, as the reference's), its global gradient norm
+    (rtol 1e-5) and every leaf's gradient (atol 1e-6 / rtol 1e-4), from the
+    reference's init carried in; a hybrid's shared layer gathers the
+    gradient of all its sites."""
+    rcfg = dataclasses.replace(RC.get_smoke_config(arch),
+                               compute_dtype="float32")
+    cfg = dataclasses.replace(PC.get_smoke_config(arch),
+                              compute_dtype="float32")
+    ref = RM.init_params(rcfg, jax.random.PRNGKey(0))
+    batch = _batch(cfg)
+    (rloss, raux), rgrads = jax.jit(jax.value_and_grad(
+        lambda p: (RM.loss_fn(p, rcfg, batch),
+                   RM.forward(p, rcfg, batch)[1]), has_aux=True))(ref)
+    model = M.from_reference(cfg, _flat(ref), device="cpu")
+    params = _state(dict(model.named_parameters()))["params"]
+    loss = M.loss_fn(params, cfg, _torch_batch(batch))
+    _, aux = M.train_forward(params, cfg, _torch_batch(batch), with_aux=True)
+    assert (float(raux) > 0) == (cfg.moe is not None)
+    np.testing.assert_allclose(float(aux), float(raux), rtol=1e-6)
+    np.testing.assert_allclose(float(loss.detach()), float(rloss), rtol=1e-6)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(
+        params.values()))))
+    want = float(RA.global_norm(rgrads))
+    assert abs(float(global_norm(grads.values())) - want) <= 1e-5 * want
+    gflat = {n: g.numpy() for n, g in grads.items()}
+    for name, g in _flat(rgrads).items():
+        got_g = _per_layer(cfg, gflat, name) if name.split(".")[0] in (
+            "layers", "ssm_layers") else gflat[name]
+        np.testing.assert_allclose(got_g, g, atol=1e-6, rtol=1e-4,
+                                   err_msg=name)
+
+
+def test_train_cli_runs_olmoe_smoke_on_the_cpu(tmp_path, capsys):
+    """``launch.train --arch olmoe-1b-7b --size smoke --device cpu``: the
+    loss the loop reads carries the aux term."""
+    train.main(["--arch", "olmoe-1b-7b", "--size", "smoke", "--device",
+                "cpu", "--steps", "3", "--seq", "32", "--global-batch", "2",
+                "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "[train] olmoe-1b-7b-smoke: loss " in out and "(cpu)" in out
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-370m",
+                                  "zamba2-2.7b"])
+def test_remat_changes_no_number_in_the_new_families(arch):
+    """``remat="full"`` over MoE layers, SSM layers and a hybrid's shared
+    layer (checkpointed at each of its sites): the loss, aux term included,
+    and every gradient equal the run without it bit for bit."""
+    out = {}
+    for remat in ("none", "full"):
+        cfg = dataclasses.replace(PC.get_smoke_config(arch), remat=remat,
+                                  compute_dtype="float32")
+        params = steps.make_train_state(cfg, seed=0, device="cpu")["params"]
+        batch = _torch_batch(_batch(cfg))
+        loss = M.loss_fn(params, cfg, batch)
+        out[remat] = (loss.detach(), torch.autograd.grad(
+            loss, list(params.values())))
+    assert torch.equal(out["none"][0], out["full"][0])
+    assert all(torch.equal(a, b) for a, b in zip(out["none"][1],
+                                                 out["full"][1]))

@@ -38,6 +38,22 @@ compared with, from fixed seeds:
   tokens of every request of the decode loop of ``examples/serve_lm.py``
   run with ``--requests 5 --slots 2 --max-new 6 --cache-len 64``
   (``serve_ids`` in finishing order, ``serve_out`` their tokens);
+* ``lm_smoke_moe_ssm.npz`` (compressed) — the same record as
+  ``lm_smoke.npz`` for the smoke configs of the MoE and SSM families
+  (olmoe-1b-7b, qwen3-moe-235b-a22b, mamba2-370m, zamba2-2.7b), with each
+  run's MoE ``capacity_factor`` (``<arch>.<dtype>.capacity_factor``; 0
+  without MoE): the config's own (1.25, so decode drops (token, k) pairs)
+  at float32, and E / k at bfloat16, where no pair is dropped, so that a
+  router choice that one bfloat16 step of noise can flip (a near-tie)
+  moves only its own token and the ones that attend to it, not every
+  later token of its group.  Only the KV leaves of the decode cache are
+  held in the compute dtype; an SSM layer's state stays float32, as
+  ``init_cache`` makes it.  The serve loop recycles slots, so an SSM
+  slot starts its next request from the previous one's state, as the
+  reference's does.  A MoE run also holds the reference's router choices
+  (the top-k experts, int8, in its order): ``prefill_topi`` (layers, 2,
+  64, K) of the ``prefill`` run and ``decode_topi`` (layers, 2, 12, K) of
+  the ``decode`` run, recorded in those same runs (:func:`router_choices`);
 * ``model_d_ref.npz`` (compressed) — fpga4hep model D (Table 6.1: 16 ->
   64 -> 32 -> 32 sparse at fan-in 5, 2-bit codes, then a sparse 5-neuron
   head at fan-in 6 with 4-bit outputs; full widths) generated as model A
@@ -54,8 +70,9 @@ interpret mode)::
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/make_torch_fixture.py
 
-``--only model_d`` writes ``model_d_ref.npz`` alone (regenerating
-``model_a_l3.npz`` rewrites its pass timings).
+``--only model_d`` writes ``model_d_ref.npz`` alone, ``--only
+lm_moe_ssm`` ``lm_smoke_moe_ssm.npz`` (regenerating ``model_a_l3.npz``
+rewrites its pass timings).
 
 ``tests/test_torch_engine.py`` regenerates each in memory and asserts
 they equal the committed files, so the fixture cannot drift from the
@@ -65,6 +82,7 @@ reference.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import numpy as np
@@ -78,6 +96,10 @@ MODEL_D_NAME = "model_d_ref.npz"
 TRAIN_NAME = "model_a_train.npz"
 LM_NAME = "lm_smoke.npz"
 LM_ARCHS = ("qwen3-1.7b", "gemma3-27b")
+LM_MOE_SSM_NAME = "lm_smoke_moe_ssm.npz"
+LM_MOE_SSM_ARCHS = ("olmoe-1b-7b", "qwen3-moe-235b-a22b", "mamba2-370m",
+                    "zamba2-2.7b")
+KV_LEAVES = ("k", "v", "shared_k", "shared_v")
 LM_DTYPES = ("float32", "bfloat16")
 LM_SEQ = 64            # a multiple of both smoke configs' attn_chunk
 LM_DECODE = 12
@@ -283,8 +305,50 @@ def reference_serve(cfg, params, requests: int, slots: int, max_new: int,
     return done
 
 
-def build_lm() -> dict[str, np.ndarray]:
-    """The arrays of ``lm_smoke.npz``, nothing written."""
+@contextlib.contextmanager
+def router_choices():
+    """While active, every call of the reference's MoE router, under
+    ``jit`` and inside the layer scan too, appends its top-k experts
+    (numpy, in call order: layer by layer, step by step) to the list this
+    yields.  The logits of a run are the same bit for bit with and
+    without it."""
+    import jax
+
+    from repro.models import moe as MOE
+
+    rec = []
+    inner = MOE._router
+
+    def router(p, x, cfg):
+        topi, weights, aux = inner(p, x, cfg)
+        jax.debug.callback(lambda t: rec.append(np.asarray(t)), topi,
+                           ordered=True)
+        return topi, weights, aux
+
+    MOE._router = router
+    try:
+        yield rec
+    finally:
+        jax.effects_barrier()
+        MOE._router = inner
+
+
+def fixture_config(base, compute_dtype: str):
+    """The config of a fixture run: ``base`` at ``compute_dtype``; a MoE
+    config at bfloat16 also at capacity E / k (nothing dropped)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(base, compute_dtype=compute_dtype)
+    if cfg.moe is not None and compute_dtype == "bfloat16":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    return cfg
+
+
+def build_lm(archs=LM_ARCHS, config=None) -> dict[str, np.ndarray]:
+    """The arrays of ``lm_smoke.npz`` (or, with ``LM_MOE_SSM_ARCHS`` and
+    :func:`fixture_config`, of ``lm_smoke_moe_ssm.npz``), nothing
+    written."""
     import dataclasses
 
     import jax
@@ -294,7 +358,7 @@ def build_lm() -> dict[str, np.ndarray]:
     from repro.models import model as M
 
     out = {}
-    for arch in LM_ARCHS:
+    for arch in archs:
         base = get_smoke_config(arch)
         params = M.init_params(base, jax.random.PRNGKey(0))
         for name, a in flatten_params(params).items():
@@ -303,21 +367,40 @@ def build_lm() -> dict[str, np.ndarray]:
             0, base.vocab, (2, LM_SEQ)).astype(np.int32)
         out[f"{arch}.tokens"] = tokens
         for cd in LM_DTYPES:
-            cfg = dataclasses.replace(base, compute_dtype=cd)
+            cfg = (dataclasses.replace(base, compute_dtype=cd)
+                   if config is None else config(base, cd))
+            if config is not None:
+                out[f"{arch}.{cd}.capacity_factor"] = np.float32(
+                    cfg.moe.capacity_factor if cfg.moe else 0.0)
+            record = (router_choices() if cfg.moe is not None
+                      else contextlib.nullcontext([]))
             fwd = jax.jit(lambda p, t, cfg=cfg: M.forward(
                 p, cfg, {"tokens": t})[0])
-            out[f"{arch}.{cd}.prefill"] = np.asarray(fwd(params, tokens),
-                                                     np.float32)
+            with record as pre_routes:
+                out[f"{arch}.{cd}.prefill"] = np.asarray(fwd(params, tokens),
+                                                         np.float32)
             dec = jax.jit(lambda p, c, t, pos, cfg=cfg: M.decode_step(
                 p, cfg, c, t, pos))
-            cache = jax.tree.map(lambda a, cd=cd: a.astype(cd),
-                                 M.init_cache(cfg, 2, LM_DECODE))
+            cache = M.init_cache(cfg, 2, LM_DECODE)
+            cache = {k: v.astype(cd) if k in KV_LEAVES else v
+                     for k, v in cache.items()}
             steps = []
-            for t in range(LM_DECODE):
-                logits, cache = dec(params, cache, tokens[:, t:t + 1],
-                                    jnp.full((2,), t, jnp.int32))
-                steps.append(np.asarray(logits[:, 0], np.float32))
+            record = (router_choices() if cfg.moe is not None
+                      else contextlib.nullcontext([]))
+            with record as dec_routes:
+                for t in range(LM_DECODE):
+                    logits, cache = dec(params, cache, tokens[:, t:t + 1],
+                                        jnp.full((2,), t, jnp.int32))
+                    steps.append(np.asarray(logits[:, 0], np.float32))
             out[f"{arch}.{cd}.decode"] = np.stack(steps, axis=1)
+            if cfg.moe is not None:
+                out[f"{arch}.{cd}.prefill_topi"] = np.stack(
+                    pre_routes).astype(np.int8)
+                # calls step by step, every layer: (steps, layers, 2, 1, K)
+                per = np.stack(dec_routes).reshape(
+                    LM_DECODE, cfg.n_layers, 2, cfg.moe.top_k)
+                out[f"{arch}.{cd}.decode_topi"] = per.transpose(
+                    1, 2, 0, 3).astype(np.int8)
             done = reference_serve(cfg, params, **LM_SERVE)
             # every request ends after max_new tokens at these flags
             out[f"{arch}.{cd}.serve_ids"] = np.asarray(
@@ -327,10 +410,22 @@ def build_lm() -> dict[str, np.ndarray]:
     return out
 
 
+def build_lm_moe_ssm() -> dict[str, np.ndarray]:
+    """The arrays of ``lm_smoke_moe_ssm.npz``, nothing written."""
+    return build_lm(LM_MOE_SSM_ARCHS, fixture_config)
+
+
 def write_model_d(directory: str = FIXTURE_DIR) -> str:
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, MODEL_D_NAME)
     np.savez_compressed(path, **build_model_d())
+    return path
+
+
+def write_lm_moe_ssm(directory: str = FIXTURE_DIR) -> str:
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, LM_MOE_SSM_NAME)
+    np.savez_compressed(path, **build_lm_moe_ssm())
     return path
 
 
@@ -344,7 +439,8 @@ def write(directory: str = FIXTURE_DIR) -> tuple[str, ...]:
     np.savez_compressed(train_path, **build_train())
     lm_path = os.path.join(directory, LM_NAME)
     np.savez_compressed(lm_path, **build_lm())
-    return art, ref_path, train_path, lm_path, write_model_d(directory)
+    return (art, ref_path, train_path, lm_path, write_lm_moe_ssm(directory),
+            write_model_d(directory))
 
 
 def main() -> None:
@@ -352,10 +448,11 @@ def main() -> None:
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--out", default=FIXTURE_DIR,
                     help="directory to write the .npz files into")
-    ap.add_argument("--only", choices=("model_d",),
+    ap.add_argument("--only", choices=("model_d", "lm_moe_ssm"),
                     help="write this fixture alone")
     args = ap.parse_args()
-    paths = ((write_model_d(args.out),) if args.only == "model_d"
+    only = {"model_d": write_model_d, "lm_moe_ssm": write_lm_moe_ssm}
+    paths = ((only[args.only](args.out),) if args.only
              else write(args.out))
     for path in paths:
         print(f"{path}: {os.path.getsize(path)} B")

@@ -1452,16 +1452,21 @@ def training_profile(torch, dev, steps: int = 50) -> dict:
 
 
 def flash_inputs(torch, dev, b, hq, hkv, s, d, dtype, seed=0, bshd=False):
-    """Seeded (B, H, S, D) q, k and v; with ``bshd`` they are transposed
-    views of (B, S, H, D) tensors, as ``attn_apply`` passes them."""
+    """Seeded (B, H, S, D) q, k and v; ``s`` is a length, or (Sq, Skv) for
+    cross-attention.  With ``bshd`` they are transposed views of
+    (B, S, H, D) tensors, as ``attn_apply`` and ``cross_attn_apply`` pass
+    them."""
     g = torch.Generator(device=dev).manual_seed(seed)
     dt = getattr(torch, dtype)
+    sq, skv = s if isinstance(s, tuple) else (s, s)
     if bshd:
         return [torch.randn(shape, generator=g, device=dev).to(dt)
                 .transpose(1, 2)
-                for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
+                for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                              (b, skv, hkv, d))]
     return [torch.randn(shape, generator=g, device=dev).to(dt)
-            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+            for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                          (b, hkv, skv, d))]
 
 
 def expected_flash_route(dtype: str, d: int) -> str:
@@ -1512,7 +1517,39 @@ def flash_phase(torch, dev) -> dict:
                dict(causal=True), True) for h, d in ((32, 80), (16, 128))]
     cases += [((b, h, h, s, d), "float32", dict(causal=True), True)
               for h, d in ((32, 80), (16, 128))]
+    # phase 16's: whisper-medium's encoder (1500 frames, non-causal),
+    # decoder and cross-attention (448 tokens or one decode token against
+    # the 1500 frames: Sq != Skv) at MHA 16 x 64, and qwen2-vl-2b's GQA
+    # 12 / 2 at head_dim 128, as the main path gives them, then at the
+    # 2 x 64 float32 decode check's shapes
+    bb = PREFILL_SHAPE[0]
+    cases += [((bb, 16, 16, 1500, 64), "float32", dict(causal=False), True),
+              ((bb, 16, 16, (WHISPER_TEXT, 1500), 64), "float32",
+               dict(causal=False), True),
+              ((bb, 16, 16, WHISPER_TEXT, 64), "bfloat16",
+               dict(causal=True), True),
+              ((bb, 16, 16, (1, 1500), 64), "bfloat16", dict(causal=False),
+               True),
+              ((bb, 12, 2, PREFILL_SHAPE[1], 128), "bfloat16",
+               dict(causal=True), True),
+              ((b, 16, 16, 1500, 64), "float32", dict(causal=False), True),
+              ((b, 16, 16, (s, 1500), 64), "float32", dict(causal=False),
+               True),
+              ((b, 16, 16, s, 64), "float32", dict(causal=True), True),
+              ((b, 16, 16, (1, 1500), 64), "float32", dict(causal=False),
+               True),
+              ((b, 12, 2, s, 128), "float32", dict(causal=True), True)]
     n_named = len(cases)
+    # Sq != Skv on every route (non-causal, no window): one query, a ragged
+    # tile on either side, more queries than keys; SIMT at D 12 and 6
+    cases += [((1, hq, hkv, lens, d), dt, dict(causal=False), False)
+              for dt in ("bfloat16", "float32") for d in (64, 128)
+              for hq, hkv in ((4, 4), (4, 2))
+              for lens in ((1, 1500), (65, 250), (WHISPER_TEXT, 1500),
+                           (250, 65), (1, 1))]
+    cases += [((1, 4, 2, lens, d), dt, dict(causal=False), False)
+              for dt in ("bfloat16", "float32") for d in (12, 6)
+              for lens in ((1, 250), (65, 1000), (300, 70))]
     # the tensor-core route's grid: GQA groups 1, 2 and 8, D 16 to 256, S
     # not a multiple of its 64-row and 64- or 128-key tiles, causal or not,
     # and sliding windows
@@ -1603,8 +1640,9 @@ def flash_phase(torch, dev) -> dict:
         f"({by_route['wgmma']} on the wgmma route, {by_route['tf32x3']} on "
         f"the tf32x3 route, {by_route['simt']} on the SIMT route; the last "
         f"{len(cases) - n_named}: GQA 1/2/8, D 8-256, MHA at D 80, S "
-        f"65/250/1000, windows 16/64/1024, causal or not, in bfloat16 and "
-        f"float32); "
+        f"65/250/1000, windows 16/64/1024, causal or not, Sq != Skv "
+        f"(1-448 queries against 1-1500 keys, non-causal) on all three "
+        f"routes, in bfloat16 and float32); "
         f"largest difference float32 {errs['float32']:.3g}, bfloat16 "
         f"{errs['bfloat16']:.3g}, by route {route_errs}; wgmma cases within "
         f"{gate_worst:.3g} of the second gate (atol {FA_GATE[0]} + "
@@ -2133,14 +2171,14 @@ def lm_main_path(torch, dev, kernels) -> dict:
             "decode_vs_prefill_max_abs_f32": diffs["float32"]}
 
 
-def sdpa(q, k, v):
-    """``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+def sdpa(q, k, v, causal: bool = True):
+    """``F.scaled_dot_product_attention(is_causal=causal, enable_gqa=True)``
     held to its fused backends, so it never builds the (S x S) scores."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                       SDPBackend.EFFICIENT_ATTENTION]):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
 
 
@@ -4023,10 +4061,12 @@ def drops_per_call(routes, cfg) -> list:
     return out
 
 
-def decode_logits(torch, dev, cfg, model, tokens):
+def decode_logits(torch, dev, cfg, model, tokens, frames=None):
     """``tokens`` (B, S) fed one at a time through ``make_decode_step``
-    into a fresh S-slot cache (its KV leaves float32 at float32 compute):
-    the (B, S, V) logits, float32."""
+    into a fresh S-slot cache (its KV leaves float32 at float32 compute;
+    an encoder-decoder's memory of ``frames`` written by
+    ``write_cross_memory`` into its bfloat16 leaves): the (B, S, V)
+    logits, float32."""
     from repro_torch.launch import steps
     from repro_torch.models import model as M
     b, s = tokens.shape
@@ -4034,6 +4074,8 @@ def decode_logits(torch, dev, cfg, model, tokens):
     if cfg.compute_dtype == "float32":
         cache = {k: v.float() if k in ("k", "v", "shared_k", "shared_v")
                  else v for k, v in cache.items()}
+    if frames is not None:
+        M.write_cross_memory(model, cache, frames)
     decode = steps.make_decode_step(cfg)
     got = []
     for t in range(s):
@@ -4436,6 +4478,451 @@ def lm_family_phases(torch, dev) -> dict:
     then flash at their head shapes."""
     out = {arch: family_phase(torch, dev, arch) for arch in FAMILY_ARCHS}
     out["flash"] = flash_mha_times(torch, dev)
+    return out
+
+
+# -- phase 16: the encoder-decoder and M-RoPE families at full width ------
+
+ENCDEC_ARCHS = ("whisper-medium", "qwen2-vl-2b")
+WHISPER_TEXT = 448       # whisper's text context (arXiv:2212.04356)
+ENCDEC_DECODE_STEPS = 24
+ENCDEC_CACHE = 128
+# whisper-medium's float32 decode against its float32 prefill, atol at every
+# logit of every position: decode reads the memory's K and V from the
+# bfloat16 cache (as the reference's does), prefill computes them in
+# float32.  The bfloat16 contract's 0.05, stated in PERF.md before the
+# first run on the card
+ENCDEC_DECODE_ATOL = 0.05
+# qwen2-vl-2b's float32 decode against prefill at position 0, where the
+# reference's M-RoPE decode and prefill positions agree: (atol, rtol)
+VLM_POS0_TOL = (1e-4, 1e-4)
+
+
+def token_disagreements(mine, want_logits, want_tokens,
+                        atol: float = 0.05, rtol: float = 0.05
+                        ) -> tuple[int, int]:
+    """Greedy tokens ``mine`` (numpy, (B, N)) against the reference's
+    ``want_tokens``: ``(how many differ, how many of those take a token
+    whose reference logit lies below the reference's top one by more than
+    atol + rtol |top|)``.  The second must be 0 wherever logits are held
+    to that contract: a token may differ only at a near-tie (the
+    reference's bfloat16 logits hold exact ties) that the contract cannot
+    order."""
+    import numpy as np
+    differ = mine != want_tokens
+    top = want_logits.max(-1)
+    chosen = np.take_along_axis(want_logits, mine[..., None], -1)[..., 0]
+    outside = differ & (chosen < top - (atol + rtol * np.abs(top)))
+    return int(differ.sum()), int(outside.sum())
+
+
+def encdec_flash_layers(cfg) -> dict:
+    """Flash launches of a prefill by route, at bfloat16 compute: whisper's
+    encoder and cross-attention (float32 there, as in the reference: the
+    tf32x3 route) and its decoder's self-attention; a decoder's layers."""
+    if cfg.enc_dec:
+        return {"simt": 0, "wgmma": cfg.n_layers,
+                "tf32x3": cfg.n_enc_layers + cfg.n_layers}
+    return {"simt": 0, "wgmma": cfg.n_layers, "tf32x3": 0}
+
+
+def encdec_vlm_smoke_phase(torch, dev) -> dict:
+    """Phase 8, the encoder-decoder and VLM families: their smoke configs
+    with the reference's params against ``lm_smoke_encdec_vlm.npz``:
+    prefill (qwen2-vl with and without ``vision_embeds``), whisper's
+    encoder memory (float32 at either compute dtype), and 8 teacher-forced
+    decode steps from a cache whose memory ``write_cross_memory`` wrote:
+    logits within ``LM_TOL``, greedy tokens by :func:`token_disagreements`
+    (equal at float32)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+
+    with np.load(FIXTURE / "lm_smoke_encdec_vlm.npz") as z:
+        fx = {k: z[k] for k in z.files}
+    out = {}
+    for arch in ENCDEC_ARCHS:
+        pre = f"{arch}.params."
+        arrays = {k[len(pre):]: v for k, v in fx.items()
+                  if k.startswith(pre)}
+        batch = {"tokens": torch.from_numpy(fx[f"{arch}.tokens"]).to(dev)}
+        for key in ("frames", "vision_embeds"):
+            if f"{arch}.{key}" in fx:
+                batch[key] = torch.from_numpy(fx[f"{arch}.{key}"]).to(
+                    dev).bfloat16()
+        for cd in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_smoke_config(arch),
+                                      compute_dtype=cd)
+            model = M.from_reference(cfg, arrays, device=dev)
+            before = flash_attention.launches
+            logits = M.forward(model, batch)
+            torch.cuda.synchronize()
+            want_n = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers
+                                     if cfg.enc_dec else 0)
+            if flash_attention.launches - before != want_n:
+                fail(f"{arch} {cd} prefill launched flash_attention "
+                     f"{flash_attention.launches - before} times, not "
+                     f"{want_n}")
+            errs = [lm_check(f"{arch} {cd} prefill", logits,
+                             fx[f"{arch}.{cd}.prefill"], cd)]
+            if cfg.vision_tokens:
+                errs.append(lm_check(
+                    f"{arch} {cd} prefill without vision_embeds",
+                    M.forward(model, {"tokens": batch["tokens"]}),
+                    fx[f"{arch}.{cd}.prefill_text"], cd))
+            if cfg.enc_dec:
+                w = model.compute_params()
+                memory = M._forward_encoder(
+                    cfg, w, batch["frames"].to(getattr(torch, cd)),
+                    M._serve_blocks(cfg)["enc"])
+                if memory.dtype != torch.float32:
+                    fail(f"{arch} {cd}: the encoder memory is "
+                         f"{memory.dtype}, not float32")
+                errs.append(lm_check(f"{arch} {cd} encoder memory", memory,
+                                     fx[f"{arch}.{cd}.memory"], cd))
+            want = fx[f"{arch}.{cd}.decode"]
+            b, n = want.shape[:2]
+            cache = M.init_cache(cfg, b, n, device=dev)
+            cache = {k: v.to(getattr(torch, cd)) if k in ("k", "v") else v
+                     for k, v in cache.items()}
+            if cfg.enc_dec:
+                M.write_cross_memory(model, cache, batch["frames"])
+            decode = steps.make_decode_step(cfg)
+            got = []
+            for t in range(n):
+                lg, cache = decode(model, cache, batch["tokens"][:, t:t + 1],
+                                   torch.full((b,), t, dtype=torch.int32,
+                                              device=dev))
+                got.append(lg)
+            got = torch.stack(got, 1)
+            e_dec = lm_check(f"{arch} {cd} decode", got, want, cd)
+            differ, outside = token_disagreements(
+                got.float().argmax(-1).cpu().numpy(), want,
+                fx[f"{arch}.{cd}.decode_tokens"], *LM_TOL[cd])
+            if outside or (cd == "float32" and differ):
+                fail(f"{arch} {cd} decode: {differ} greedy tokens differ "
+                     f"from the reference's, {outside} outside its "
+                     f"near-ties")
+            out[f"{arch}.{cd}"] = max(errs + [e_dec])
+            log(f"phase 8 {arch} {cd}: prefill max |port - reference| "
+                f"{errs[0]:.3g}" + (f", without vision_embeds {errs[1]:.3g}"
+                                    if cfg.vision_tokens else "")
+                + (f", encoder memory (float32) {errs[1]:.3g}"
+                   if cfg.enc_dec else "")
+                + f", decode {e_dec:.3g} (atol/rtol {LM_TOL[cd][0]}); "
+                f"greedy tokens: {differ} of {b * n} differ (reference "
+                f"near-ties)")
+    return out
+
+
+def encdec_decode_check(torch, dev, cfg, model, tokens, frames) -> dict:
+    """Phase 16, float32 decode against float32 prefill: ``tokens`` (2,
+    64) fed one at a time through ``make_decode_step`` (k and v held in
+    float32).  whisper: its memory written by ``write_cross_memory`` into
+    the bfloat16 cache, every logit of every position held to
+    ``ENCDEC_DECODE_ATOL``.  qwen2-vl (text tokens, no vision_embeds):
+    position 0 held to ``VLM_POS0_TOL``; the later positions reported
+    (the reference decodes M-RoPE position p at (p, p, p), its prefill
+    at p - 256 + 16)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import model as M
+    c = dataclasses.replace(cfg, compute_dtype="float32")
+    m = M.LM(c, model.tree())
+    batch = {"tokens": tokens}
+    if c.enc_dec:
+        batch["frames"] = frames
+    want = M.forward(m, batch).float()
+    got = decode_logits(torch, dev, c, m, tokens, frames=frames)
+    diff = (got - want).abs()
+    per_pos = diff.amax(dim=(0, 2)).cpu().numpy()
+    same = (got.argmax(-1) == want.argmax(-1)).cpu().numpy()
+    rec = {"max_abs": float(diff.max()), "max_abs_by_position":
+           [float(x) for x in per_pos], "top1_equal": int(same.sum()),
+           "positions": int(same.size)}
+    b, s = tokens.shape
+    if c.enc_dec:
+        rec["atol"] = ENCDEC_DECODE_ATOL
+        log(f"phase 16 {cfg.arch_id} float32 compute: {b} prompts x {s} "
+            f"tokens decoded one at a time (memory from the bfloat16 cache) "
+            f"against one prefill (memory float32): max |decode - "
+            f"prefill| {rec['max_abs']:.4g} (gate {ENCDEC_DECODE_ATOL} at "
+            f"every logit), worst position {int(np.argmax(per_pos))}, mean "
+            f"{float(diff.mean()):.3g}; top-1 equal at "
+            f"{rec['top1_equal']} of {b * s} positions")
+        if not rec["max_abs"] <= ENCDEC_DECODE_ATOL:
+            fail(f"{cfg.arch_id}: float32 decode differs from prefill by "
+                 f"{rec['max_abs']} > {ENCDEC_DECODE_ATOL}")
+    else:
+        atol, rtol = VLM_POS0_TOL
+        d0 = diff[:, 0]
+        over = int((d0 > atol + rtol * want[:, 0].abs()).sum())
+        rec.update({"pos0_max_abs": float(d0.max()), "pos0_over": over,
+                    "later_max_abs": float(diff[:, 1:].max()),
+                    "later_min_of_max_abs": float(per_pos[1:].min())})
+        log(f"phase 16 {cfg.arch_id} float32 compute: {b} text prompts x "
+            f"{s} tokens decoded one at a time against one prefill: "
+            f"position 0 max |decode - prefill| {rec['pos0_max_abs']:.3g} "
+            f"({over} logits beyond atol {atol} + rtol {rtol}); positions "
+            f"1-{s - 1} (M-RoPE decode at (p, p, p), prefill at p - 256 + "
+            f"16, as in the reference; reported) max "
+            f"{rec['later_max_abs']:.4g}, each position at least "
+            f"{rec['later_min_of_max_abs']:.4g}; top-1 equal at "
+            f"{rec['top1_equal']} of {b * s}")
+        if over:
+            fail(f"{cfg.arch_id}: float32 decode differs from prefill at "
+                 f"position 0: {rec}")
+    return rec
+
+
+def encdec_phase(torch, dev, arch: str) -> dict:
+    """Phase 16 for one architecture at its full published width, bfloat16,
+    the port's seeded init, every launch counter at 0 first: a prefill of
+    4 sequences (whisper: 448 tokens against 1500 seeded frames; qwen2-vl:
+    2048 tokens, the first 256 seeded vision embeddings) through
+    ``make_prefill_step``, whisper's memory written by
+    ``write_cross_memory``, then 24 greedy decode steps over 4 slots and a
+    cache of 128; then the checks, counted apart, and the profiles."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = steps.init_params(cfg, seed=0, device=dev)
+    model.compute_params()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 16 {arch}: {cfg.n_layers} layers"
+        + (f" + {cfg.n_enc_layers} encoder layers over {cfg.enc_frames} "
+           f"frames" if cfg.enc_dec else "")
+        + f", d_model {cfg.d_model}, Hq {cfg.n_heads} Hkv {cfg.n_kv_heads} "
+        f"head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}"
+        + (f", M-RoPE, {cfg.vision_tokens} vision tokens" if cfg.mrope
+           else "")
+        + f", vocab {cfg.vocab}: {n_params} parameters drawn and cast in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    b = PREFILL_SHAPE[0]
+    s = WHISPER_TEXT if cfg.enc_dec else PREFILL_SHAPE[1]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, s))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": tokens}
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn((b, cfg.enc_frames, cfg.d_model),
+                                      generator=gen, device=dev).bfloat16()
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = torch.randn(
+            (b, cfg.vision_tokens, cfg.d_model), generator=gen,
+            device=dev).bfloat16()
+    reset_all()
+    torch.cuda.synchronize()
+    rec = {"params": n_params, "prefill_shape": [b, s]}
+    # (a) prefill through make_prefill_step
+    prefill = steps.make_prefill_step(cfg)
+    t0 = time.perf_counter()
+    logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    by_route = dict(flash_attention.launches_by_route)
+    want = encdec_flash_layers(cfg)
+    if by_route != want:
+        fail(f"{arch} prefill launched flash_attention {by_route}, not "
+             f"{want}")
+    if logits.shape != (b, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"{arch} prefill logits {tuple(logits.shape)} not finite")
+    log(f"phase 16 {arch} prefill {b} x {s} tokens"
+        + (f" against {b} x {cfg.enc_frames} frames" if cfg.enc_dec else
+           f" ({cfg.vision_tokens} vision embeddings each)")
+        + f": flash_attention launched {flash_attention.launches} times "
+        f"{by_route}, logits finite, first call {first_ms:.1f} ms")
+    rec.update({"prefill_launches": flash_attention.launches,
+                "prefill_launches_by_route": by_route,
+                "prefill_first_ms": first_ms})
+    # (b) 24 greedy decode steps, 4 slots, cache 128
+    cache = M.init_cache(cfg, b, ENCDEC_CACHE, device=dev)
+    if cfg.enc_dec:
+        t0 = time.perf_counter()
+        M.write_cross_memory(model, cache, batch["frames"])
+        torch.cuda.synchronize()
+        rec["write_cross_memory_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["write_cross_memory_launches"] = (flash_attention.launches
+                                              - rec["prefill_launches"])
+    before = dict(flash_attention.launches_by_route)
+    decode = steps.make_decode_step(cfg)
+    tok = tokens[:, :1].contiguous()
+    step_s, finite = [], True
+    for t in range(ENCDEC_DECODE_STEPS):
+        t0 = time.perf_counter()
+        lg, cache = decode(model, cache, tok, torch.full(
+            (b,), t, dtype=torch.int32, device=dev))
+        tok = lg.argmax(-1, keepdim=True)
+        finite &= bool(torch.isfinite(lg).all())
+        step_s.append(time.perf_counter() - t0)
+    dec_routes = {r: flash_attention.launches_by_route[r] - before[r]
+                  for r in before}
+    per_step = cfg.n_layers if cfg.enc_dec else 0
+    if not finite or dec_routes != {"simt": 0, "tf32x3": 0,
+                                    "wgmma": per_step * ENCDEC_DECODE_STEPS}:
+        fail(f"{arch} decode: finite {finite}, flash launches {dec_routes} "
+             f"(want {per_step} wgmma a step)")
+    timed = step_s[2:]
+    step_ms = statistics.mean(timed) * 1e3
+    rec.update({"decode_steps": ENCDEC_DECODE_STEPS,
+                "decode_launches_by_route": dec_routes,
+                "decode_step_ms": step_ms,
+                "decode_tokens_per_s": b / statistics.mean(timed)})
+    log(f"phase 16 {arch}: "
+        + (f"write_cross_memory {rec['write_cross_memory_ms']:.1f} ms "
+           f"({rec['write_cross_memory_launches']} encoder launches), "
+           if cfg.enc_dec else "")
+        + f"{ENCDEC_DECODE_STEPS} greedy decode steps over {b} slots, "
+        f"cache {ENCDEC_CACHE}: logits finite, flash {dec_routes} "
+        f"({per_step} a step), {step_ms:.3f} ms/step after the first two "
+        f"(host clock, synchronised by each step's finite check), "
+        f"{rec['decode_tokens_per_s']:.1f} tokens/s")
+    rec.update({"launches": flash_attention.launches,
+                "launches_by_route": dict(flash_attention.launches_by_route)})
+    del cache
+    # (c) the checks, counted apart
+    reset_all()
+    d_b, d_s = DECODE_CHECK_SHAPE
+    rec["decode_vs_prefill"] = encdec_decode_check(
+        torch, dev, cfg, model, tokens[:d_b, :d_s].contiguous(),
+        batch["frames"][:d_b] if cfg.enc_dec else None)
+    rec.update({"check_launches": flash_attention.launches,
+                "check_launches_by_route": dict(
+                    flash_attention.launches_by_route)})
+    log(f"phase 16 {arch} flash launches: main path (prefill, memory, "
+        f"decode) {rec['launches']} {rec['launches_by_route']}; the checks "
+        f"{rec['check_launches']} {rec['check_launches_by_route']}")
+    # (d) times: prefill and a decode step profiled, peak memory
+    pre = step_profile(torch, lambda: prefill(model, batch), iters=3,
+                       lead=1)
+    cache = M.init_cache(cfg, b, ENCDEC_CACHE, device=dev)
+    if cfg.enc_dec:
+        M.write_cross_memory(model, cache, batch["frames"])
+    tok = tokens[:, :1].contiguous()
+    posv = torch.zeros((b,), dtype=torch.int32, device=dev)
+    dec = step_profile(torch, lambda: decode(model, cache, tok, posv)[0]
+                       .argmax(-1).cpu(), iters=10, lead=3)
+    del cache
+    peak = torch.cuda.max_memory_allocated()
+    for name, r in (("prefill", pre), ("decode", dec)):
+        for key in ("host_ms", "device_ms", "idle_share"):
+            rec[f"{name}_{key}"] = r[key]
+        rec[f"{name}_kernels"] = r["kernels_per_step"]
+        rec[f"{name}_device_ms_by_kind"] = r["device_ms_by_kind"]
+        rec[f"{name}_top_kernels"] = r["top_kernels"]
+        what = (f"{b} x {s}" if name == "prefill"
+                else f"{b} slots, cache {ENCDEC_CACHE}")
+        log(f"phase 16 {arch} {name} ({what}, profiled): "
+            f"{r['host_ms']:.3f} ms host clock, {r['device_ms']:.3f} ms "
+            f"device, device idle {r['idle_share'] * 100:.1f} %, "
+            f"{r['kernels_per_step']} kernels; by kind "
+            f"{r['device_ms_by_kind']}; top kernels (ms): "
+            f"{r['top_kernels']}")
+    rec["max_memory_allocated"] = peak
+    log(f"phase 16 {arch}: max_memory_allocated {peak} B "
+        f"({peak / 1e9:.2f} GB)")
+    del model, logits, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+# phase 16c's shapes: (name, (B, Hq, Hkv, (Sq, Skv), D), dtype, causal)
+ENCDEC_FLASH_SHAPES = (
+    ("whisper_encoder", (4, 16, 16, (1500, 1500), 64), "float32", False),
+    ("whisper_cross_prefill", (4, 16, 16, (WHISPER_TEXT, 1500), 64),
+     "float32", False),
+    ("whisper_cross_decode", (4, 16, 16, (1, 1500), 64), "bfloat16", False),
+    ("qwen2_vl_prefill", (4, 12, 2, (2048, 2048), 128), "bfloat16", True))
+
+
+def flash_cross_times(torch, dev) -> dict:
+    """Phase 16c, flash attention at the new paths' shapes: event and
+    device time beside ``F.scaled_dot_product_attention`` (``library_ms``;
+    float32 on its memory-efficient backend with K and V expanded to Hq
+    heads outside the timed call), the plain version and the bound (q, k,
+    v and out moved once over 3.35 TB/s against 4 B Hq D flops an unmasked
+    (q, k) pair: bfloat16 at 989 TFLOP/s, float32 three TF32 products a
+    product at 495 TFLOP/s, as phase 10 bounds the tf32x3 route)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain,
+                                                     flash_attention_route)
+    rec = {}
+    for name, (b, hq, hkv, (sq, skv), d), dtype, causal in \
+            ENCDEC_FLASH_SHAPES:
+        lens = sq if sq == skv else (sq, skv)
+        q, k, v = flash_inputs(torch, dev, b, hq, hkv, lens, d, dtype)
+        route = flash_attention_route(q.dtype, d)
+        ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+
+        def kernel():
+            return flash_attention(q, k, v, causal=causal)
+
+        def library():
+            if dtype == "float32":
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                    return F.scaled_dot_product_attention(
+                        q, ke, ve, is_causal=causal)
+            return sdpa(q, k, v, causal=causal)
+
+        ms = cuda_ms(kernel, 5, 7)
+        # one query row against 1500 keys is a few microseconds: launch
+        # bound, so its trace is not held to the event time
+        dev_ms = device_ms(kernel, 5, device_bound=sq > 1)
+        lib = cuda_ms(library, 5, 7)
+        plain = cuda_ms(lambda: flash_attention_plain(q, k, v,
+                                                      causal=causal), 1, 3)
+        err = float((kernel().float() - flash_attention_plain(
+            q, k, v, causal=causal).float()).abs().max())
+        moved = nbytes(q, k, v) + q.numel() * q.element_size()
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        ops = 4 * b * hq * d * pairs
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = (TF32_PRODUCTS * ops / TF32_FLOPS_PER_S if route == "tf32x3"
+                  else ops / FLOPS_PER_S[dtype]) * 1e3
+        rec[name] = {"shape": [b, hq, hkv, sq, skv, d], "dtype": dtype,
+                     "causal": causal, "route": route, "ms": ms,
+                     "device_ms": dev_ms, "library_ms": lib,
+                     "plain_ms": plain, "max_abs_err": err,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else
+                     "operations"}
+        log(f"phase 16c flash_attention (B, Hq, Hkv, Sq, Skv, D) ({b}, "
+            f"{hq}, {hkv}, {sq}, {skv}, {d}) {dtype} "
+            f"{'causal' if causal else 'non-causal'} ({route}): {ms:.4f} "
+            f"ms/call, device {dev_ms} ms, SDPA {lib:.4f} ms "
+            f"({ms / lib:.2f}x), plain {plain:.4f} ms, max |kernel - plain| "
+            f"{err:.3g}, bound {max(bytes_ms, ops_ms):.5f} ms ({moved} B, "
+            f"{ops} flop: {ops / ms / 1e9:.1f} TFLOP/s achieved)")
+        del q, k, v, ke, ve
+        torch.cuda.empty_cache()
+    return rec
+
+
+def lm_encdec_phases(torch, dev) -> dict:
+    """Phase 16: whisper-medium and qwen2-vl-2b at full width, then flash
+    at their shapes."""
+    out = {arch: encdec_phase(torch, dev, arch) for arch in ENCDEC_ARCHS}
+    out["flash"] = flash_cross_times(torch, dev)
     return out
 
 
@@ -4949,6 +5436,7 @@ def main() -> None:
     fa = flash_phase(torch, dev)
     fa["lm_smoke_max_abs"] = lm_smoke_phase(torch, dev)
     fa["lm_smoke_max_abs"].update(moe_ssm_smoke_phase(torch, dev))
+    fa["lm_smoke_max_abs"].update(encdec_vlm_smoke_phase(torch, dev))
     path = lm_main_path(torch, dev, kernels)
     # flash attention in two records, each with its own routes' launches on
     # the main path (the wrapper's total is launches_all_routes): the
@@ -5043,6 +5531,23 @@ def main() -> None:
         fa_rec[f"launches_{key}"] = families[arch]["launches"]
         fa_rec[f"launches_{key}_checks"] = families[arch]["check_launches"]
     fa_rec["lm_families"] = families
+
+    # -- phase 16: the encoder-decoder and M-RoPE families at full width;
+    # whisper's encoder and cross-attention run the tf32x3 kernel (float32,
+    # as in the reference), its decoder and qwen2-vl the wgmma one
+    encdec = lm_encdec_phases(torch, dev)
+    for key, arch in (("whisper", "whisper-medium"),
+                      ("qwen2_vl", "qwen2-vl-2b")):
+        routes = encdec[arch]["launches_by_route"]
+        fa_rec[f"launches_{key}"] = routes["wgmma"] + routes["simt"]
+        tf_rec[f"launches_{key}"] = routes["tf32x3"]
+        fa_rec[f"launches_{key}_checks"] = encdec[arch]["check_launches"]
+    fa_rec["lm_encdec_vlm"] = {k: v for k, v in encdec.items()
+                               if k != "flash"}
+    fa_rec["cross_shapes"] = {k: v for k, v in encdec["flash"].items()
+                              if v["route"] == "wgmma"}
+    tf_rec["cross_shapes"] = {k: v for k, v in encdec["flash"].items()
+                              if v["route"] == "tf32x3"}
 
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

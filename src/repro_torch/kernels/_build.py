@@ -52,11 +52,11 @@ _SIGNATURES = {
     "masked_matmul_ffma_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                    _P),
     "flash_attention_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _F, _I, _P),
+                                _I, _F, _I, _P),
     "flash_attention_wgmma_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _I, _I, _F, _P),
+                                      _I, _I, _I, _I, _F, _P),
     "flash_attention_tf32_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, _I, _F, _P),
+                                     _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -3,10 +3,15 @@
 //
 //   flash_attention_forward  replaces src/repro/kernels/flash_attention.py
 //                            _kernel / flash_attention_pallas:
-//                            out (B, Hq, S, D) = softmax(q k^T * scale +
-//                            mask) v, with k and v (B, Hkv, S, D) shared by
-//                            Hq / Hkv query heads (GQA), a causal mask, an
-//                            optional sliding window and a ragged tail.
+//                            out (B, Hq, Sq, D) = softmax(q k^T * scale +
+//                            mask) v, with k and v (B, Hkv, Skv, D) shared
+//                            by Hq / Hkv query heads (GQA), a causal mask,
+//                            an optional sliding window and a ragged tail.
+//
+// Sq and Skv differ only without a mask (cross-attention: whisper's 448
+// decoder tokens, or one decode token, against 1500 encoder frames; the
+// wrapper refuses a causal or windowed call at Sq != Skv): query tiles run
+// over Sq, key tiles over Skv, and keys at or past Skv are masked.
 //
 // q, k, v and out share one dtype (float32 or bfloat16) and are contiguous
 // in the reference's (B, H, S, D) layout.  Every load is widened to float32
@@ -93,8 +98,8 @@ template <typename T, int NG>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
-                       int n_heads, int n_kv_heads, int seq, int dim, int dp,
-                       int causal, int window, float scale) {
+                       int n_heads, int n_kv_heads, int seq, int seq_kv,
+                       int dim, int dp, int causal, int window, float scale) {
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);   // [dp][kQStride]
   float* kv = qt + dp * kQStride;               // K^T [dp][kKStride] | V
@@ -109,7 +114,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int hk = h / (n_heads / n_kv_heads);
   const long long q_base = ((long long)b * n_heads + h) * seq * dim;
-  const long long kv_base = ((long long)b * n_kv_heads + hk) * seq * dim;
+  const long long kv_base =
+      ((long long)b * n_kv_heads + hk) * seq_kv * dim;
 
   for (int p = tid; p < kBlockQ * dp; p += kThreads) {
     const int r = p / dp;
@@ -133,7 +139,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // The KV tiles the Pallas predicate keeps: causal k_start <= last query
   // row of the tile; window k_start + kBlockK - 1 > q0 - window.
-  const int n_tiles = (seq + kBlockK - 1) / kBlockK;
+  const int n_tiles = (seq_kv + kBlockK - 1) / kBlockK;
   int t_end = n_tiles;
   if (causal) {
     const int last = (q0 + kBlockQ - 1) / kBlockK + 1;
@@ -153,8 +159,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = p - r * dp;
       const int s = k0 + r;
       kv[c * kKStride + r] =
-          (s < seq && c < dim) ? to_float(k[kv_base + (long long)s * dim + c])
-                               : 0.f;
+          (s < seq_kv && c < dim)
+              ? to_float(k[kv_base + (long long)s * dim + c])
+              : 0.f;
     }
     __syncthreads();
 
@@ -184,7 +191,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx * 4 + j;
-        bool keep = kpos < seq;
+        bool keep = kpos < seq_kv;
         if (causal) keep = keep && kpos <= qpos;
         if (window > 0) keep = keep && kpos > qpos - window;
         sc[i][j] = keep ? sc[i][j] * scale : kNegInf;
@@ -231,8 +238,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = p - r * dp;
       const int s = k0 + r;
       kv[r * vstride + c] =
-          (s < seq && c < dim) ? to_float(v[kv_base + (long long)s * dim + c])
-                               : 0.f;
+          (s < seq_kv && c < dim)
+              ? to_float(v[kv_base + (long long)s * dim + c])
+              : 0.f;
     }
     __syncthreads();
 
@@ -276,8 +284,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int NG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int n_heads, int n_kv_heads, int seq, int dim,
-                   int causal, int window, float scale, cudaStream_t stream) {
+                   int batch, int n_heads, int n_kv_heads, int seq,
+                   int seq_kv, int dim, int causal, int window, float scale,
+                   cudaStream_t stream) {
   static int smem_done[hopper::kMaxDevices] = {};
   const int dp = (dim + 3) & ~3;
   const int smem = smem_floats(dp) * static_cast<int>(sizeof(float));
@@ -288,29 +297,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   flash_attention_kernel<T, NG><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), n_heads, n_kv_heads,
-      seq, dim, dp, causal, window, scale);
+      seq, seq_kv, dim, dp, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     int batch, int n_heads, int n_kv_heads, int seq, int dim,
-                     int causal, int window, float scale,
+                     int batch, int n_heads, int n_kv_heads, int seq,
+                     int seq_kv, int dim, int causal, int window, float scale,
                      cudaStream_t stream) {
   const int dp = (dim + 3) & ~3;
   switch ((dp + 63) / 64) {
     case 1:
-      return launch<T, 1>(q, k, v, out, batch, n_heads, n_kv_heads, seq, dim,
-                          causal, window, scale, stream);
+      return launch<T, 1>(q, k, v, out, batch, n_heads, n_kv_heads, seq,
+                          seq_kv, dim, causal, window, scale, stream);
     case 2:
-      return launch<T, 2>(q, k, v, out, batch, n_heads, n_kv_heads, seq, dim,
-                          causal, window, scale, stream);
+      return launch<T, 2>(q, k, v, out, batch, n_heads, n_kv_heads, seq,
+                          seq_kv, dim, causal, window, scale, stream);
     case 3:
-      return launch<T, 3>(q, k, v, out, batch, n_heads, n_kv_heads, seq, dim,
-                          causal, window, scale, stream);
+      return launch<T, 3>(q, k, v, out, batch, n_heads, n_kv_heads, seq,
+                          seq_kv, dim, causal, window, scale, stream);
     case 4:
-      return launch<T, 4>(q, k, v, out, batch, n_heads, n_kv_heads, seq, dim,
-                          causal, window, scale, stream);
+      return launch<T, 4>(q, k, v, out, batch, n_heads, n_kv_heads, seq,
+                          seq_kv, dim, causal, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -321,25 +330,28 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  window: 0 = none, else >= 1 keys.
+// seq: query rows, seq_kv: keys (equal when causal or windowed).
 // Query tiles go on grid.x, heads on grid.y and the batch on grid.z (up to
 // 65535 each: the wrapper checks).  1 <= dim <= 256, n_heads divisible by
 // n_kv_heads.
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             void* out, int batch, int n_heads, int n_kv_heads,
-                            int seq, int dim, int causal, int window,
-                            float scale, int dtype, void* stream) {
+                            int seq, int seq_kv, int dim, int causal,
+                            int window, float scale, int dtype,
+                            void* stream) {
   if (dim < 1 || dim > kMaxDim || n_kv_heads < 1 ||
-      n_heads % n_kv_heads != 0 || window < 0) {
+      n_heads % n_kv_heads != 0 || window < 0 || seq_kv < 1 ||
+      (seq != seq_kv && (causal || window))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch<float>(q, k, v, out, batch, n_heads, n_kv_heads, seq, dim,
-                          causal, window, scale, s);
+    err = dispatch<float>(q, k, v, out, batch, n_heads, n_kv_heads, seq,
+                          seq_kv, dim, causal, window, scale, s);
   } else if (dtype == 1) {
     err = dispatch<__nv_bfloat16>(q, k, v, out, batch, n_heads, n_kv_heads,
-                                  seq, dim, causal, window, scale, s);
+                                  seq, seq_kv, dim, causal, window, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

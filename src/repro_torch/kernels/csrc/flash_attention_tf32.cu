@@ -9,6 +9,12 @@
 //                                 h / (Hq / Hkv)), causal, an optional
 //                                 sliding window, a ragged tail.
 //
+// q has Sq rows and k, v Skv keys; they differ only without a mask
+// (cross-attention: whisper's 448 decoder tokens against its 1500 encoder
+// frames; the wrapper refuses a causal or windowed call at Sq != Skv).
+// Query tiles run over Sq, key tiles over Skv, and keys at or past Skv are
+// masked and zero-filled.
+//
 // q, k, v and out are float32 (B, H, S, D) views with a contiguous last
 // dimension, every other stride a multiple of 4 elements and 16-byte
 // aligned starts (cp.async copies 16 bytes), D % 8 == 0 and D <= 256: the
@@ -245,7 +251,7 @@ struct Params {
   float* out;
   long long qs_b, qs_h, qs_s, ks_b, ks_h, ks_s, vs_b, vs_h, vs_s;
   long long os_b, os_h, os_s;   // strides in elements
-  int group, seq, dim, causal, window;
+  int group, seq, seq_kv, dim, causal, window;
   float scale_log2;             // scale * log2(e)
 };
 
@@ -275,7 +281,7 @@ flash_attention_tf32_kernel(const Params prm) {
 
   // the KV tiles the Pallas predicate keeps: causal k_start <= last query
   // row of the tile; window k_start + BK - 1 > q0 - window
-  const int n_tiles = (prm.seq + BK - 1) / BK;
+  const int n_tiles = (prm.seq_kv + BK - 1) / BK;
   int t_end = n_tiles;
   if (prm.causal) t_end = min(n_tiles, (q0 + L::kBQ - 1) / BK + 1);
   int t_begin = 0;
@@ -288,9 +294,9 @@ flash_attention_tf32_kernel(const Params prm) {
                          prm.dim, tid);
   if (t_begin < t_end) {
     load_rows<L::kThreads>(stages, L::kQK, kg, prm.ks_s, t_begin * BK, BK,
-                           prm.seq, prm.dim, tid);
+                           prm.seq_kv, prm.dim, tid);
     load_rows<L::kThreads>(stages + L::kK, L::kVS, vg, prm.vs_s,
-                           t_begin * BK, BK, prm.seq, prm.dim, tid);
+                           t_begin * BK, BK, prm.seq_kv, prm.dim, tid);
   }
   cp_async_commit();
   // Q, K and V columns past dim read as zeros (every k8 step of S and
@@ -334,9 +340,9 @@ flash_attention_tf32_kernel(const Params prm) {
     if (tt + 1 < t_end) {
       float* next = stages + ((i + 1) & 1) * L::kStage;
       load_rows<L::kThreads>(next, L::kQK, kg, prm.ks_s, (tt + 1) * BK, BK,
-                             prm.seq, prm.dim, tid);
+                             prm.seq_kv, prm.dim, tid);
       load_rows<L::kThreads>(next + L::kK, L::kVS, vg, prm.vs_s,
-                             (tt + 1) * BK, BK, prm.seq, prm.dim, tid);
+                             (tt + 1) * BK, BK, prm.seq_kv, prm.dim, tid);
       cp_async_commit();
     }
     const int k0 = tt * BK;
@@ -375,7 +381,7 @@ flash_attention_tf32_kernel(const Params prm) {
     // scale (into the log2 domain) and mask; accumulator element e of
     // n-tile n is row row0 + 8 (e / 2), key k0 + 8 n + 2 t + (e % 2)
     const bool edge = (prm.causal && k0 + BK - 1 > q0) ||
-                      k0 + BK > prm.seq ||
+                      k0 + BK > prm.seq_kv ||
                       (prm.window > 0 &&
                        k0 <= q0 + L::kBQ - 1 - prm.window);
     float mx[2] = {kNegInf, kNegInf};
@@ -387,7 +393,7 @@ flash_attention_tf32_kernel(const Params prm) {
         if (edge) {
           const int key = k0 + 8 * n + 2 * t + (e & 1);
           const int row = row0 + 8 * (e >> 1);
-          bool keep = key < prm.seq;
+          bool keep = key < prm.seq_kv;
           if (prm.causal) keep = keep && key <= row;
           if (prm.window > 0) keep = keep && key > row - prm.window;
           x = keep ? x : kNegInf;
@@ -491,16 +497,18 @@ extern "C" {
 // that order; the last dimension of each is contiguous.  q, k and v start
 // 16-byte aligned with their first three strides multiples of 4; out
 // 8-byte aligned with even strides.  window: 0 = none, else >= 1 keys.
+// seq: query rows, seq_kv: keys (equal when causal or windowed).
 // Query tiles go on grid.x, heads on grid.y and the batch on grid.z (up
 // to 65535 each: the wrapper checks).  8 <= dim <= 256, dim % 8 == 0,
 // n_heads divisible by n_kv_heads.
 int flash_attention_tf32_forward(const void* q, const void* k, const void* v,
                                  void* out, const long long* strides,
                                  int batch, int n_heads, int n_kv_heads,
-                                 int seq, int dim, int causal, int window,
-                                 float scale, void* stream) {
+                                 int seq, int seq_kv, int dim, int causal,
+                                 int window, float scale, void* stream) {
   if (dim < 8 || dim > kMaxDim || dim % 8 || n_kv_heads < 1 ||
-      n_heads % n_kv_heads != 0 || window < 0 || seq < 1 || batch < 1) {
+      n_heads % n_kv_heads != 0 || window < 0 || seq < 1 || seq_kv < 1 ||
+      batch < 1 || (seq != seq_kv && (causal || window))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* ptrs[3] = {q, k, v};
@@ -533,6 +541,7 @@ int flash_attention_tf32_forward(const void* q, const void* k, const void* v,
   prm.os_s = strides[11];
   prm.group = n_heads / n_kv_heads;
   prm.seq = seq;
+  prm.seq_kv = seq_kv;
   prm.dim = dim;
   prm.causal = causal;
   prm.window = window;

@@ -9,6 +9,12 @@
 //                                  h / (Hq / Hkv)), causal, an optional
 //                                  sliding window, a ragged tail.
 //
+// q has Sq rows and k, v Skv keys; they differ only without a mask
+// (cross-attention: whisper's decode token against its 1500 encoder frames;
+// the wrapper refuses a causal or windowed call at Sq != Skv).  Query tiles
+// run over Sq, key tiles and the K / V tensor maps over Skv, and keys at
+// or past Skv are masked.
+//
 // q, k, v and out are bfloat16 (B, H, S, D) views with a contiguous last
 // dimension and every other stride a multiple of 8 elements (TMA takes
 // 16-byte strides), D % 8 == 0 and D <= 256: the wrapper
@@ -148,7 +154,8 @@ __device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
 struct Params {
   bf16* out;
   long long os_b, os_h, os_s;   // out strides in elements
-  int n_heads, n_kv_heads, group, head_blocks, seq, dim, causal, window;
+  int n_heads, n_kv_heads, group, head_blocks, seq, seq_kv, dim, causal;
+  int window;
   float scale_log2;             // scale * log2(e)
 };
 
@@ -181,7 +188,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   // the KV tiles the Pallas predicate keeps: causal k_start <= last query
   // row of the tile; window k_start + BK - 1 > q0 - window
-  const int n_tiles = (prm.seq + BK - 1) / BK;
+  const int n_tiles = (prm.seq_kv + BK - 1) / BK;
   int t_end = n_tiles;
   if (prm.causal) t_end = min(n_tiles, (q0 + kBQ - 1) / BK + 1);
   int t_begin = 0;
@@ -266,7 +273,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::fence_regs(sc);
 
     // scale (into the log2 domain) and mask
-    const bool edge = (prm.causal && k0 + BK - 1 > q0) || k0 + BK > prm.seq ||
+    const bool edge = (prm.causal && k0 + BK - 1 > q0) ||
+                      k0 + BK > prm.seq_kv ||
                       (prm.window > 0 && k0 <= q0 + kBQ - 1 - prm.window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -277,7 +285,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if (edge) {
           const int key = k0 + 8 * j + 2 * t4 + (e & 1);
           const int row = row0 + 8 * (e >> 1);
-          bool keep = key < prm.seq;
+          bool keep = key < prm.seq_kv;
           if (prm.causal) keep = keep && key <= row;
           if (prm.window > 0) keep = keep && key > row - prm.window;
           v = keep ? v : kNegInf;
@@ -411,17 +419,20 @@ extern "C" {
 
 // strides: 12 element strides, (batch, head, seq) for q, k, v and out in
 // that order; the last dimension of each is contiguous.  window: 0 = none,
-// else >= 1 keys.  split_p: 1 = P V from P_hi + P_lo (the kernel), 0 = from
+// else >= 1 keys.  seq: query rows, seq_kv: keys (equal when causal or
+// windowed).  split_p: 1 = P V from P_hi + P_lo (the kernel), 0 = from
 // P rounded to bfloat16 (only 64 < D <= 128 with Hq / Hkv >= 2).  Query
 // tiles go on grid.x, (KV head, head block) on grid.y and the batch on
 // grid.z (up to 65535 each: the wrapper checks).
 int flash_attention_wgmma_forward(const void* q, const void* k, const void* v,
                                   void* out, const long long* strides,
                                   int batch, int n_heads, int n_kv_heads,
-                                  int seq, int dim, int causal, int window,
-                                  int split_p, float scale, void* stream) {
+                                  int seq, int seq_kv, int dim, int causal,
+                                  int window, int split_p, float scale,
+                                  void* stream) {
   if (dim < 8 || dim > kMaxDim || dim % 8 || n_kv_heads < 1 ||
-      n_heads % n_kv_heads != 0 || window < 0 || seq < 1 || batch < 1) {
+      n_heads % n_kv_heads != 0 || window < 0 || seq < 1 || seq_kv < 1 ||
+      batch < 1 || (seq != seq_kv && (causal || window))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int dp = (dim + 63) / 64 * 64;
@@ -431,12 +442,13 @@ int flash_attention_wgmma_forward(const void* q, const void* k, const void* v,
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   const int heads[3] = {n_heads, n_kv_heads, n_kv_heads};
+  const int lens[3] = {seq, seq_kv, seq_kv};
   const uint32_t rows[3] = {static_cast<uint32_t>(kBQ),
                             static_cast<uint32_t>(bk),
                             static_cast<uint32_t>(bk)};
   for (int i = 0; i < 3; ++i) {
     const uint64_t dims[4] = {static_cast<uint64_t>(dim),
-                              static_cast<uint64_t>(seq),
+                              static_cast<uint64_t>(lens[i]),
                               static_cast<uint64_t>(heads[i]),
                               static_cast<uint64_t>(batch)};
     const uint64_t bytes[3] = {static_cast<uint64_t>(strides[3 * i + 2]) * 2,
@@ -457,6 +469,7 @@ int flash_attention_wgmma_forward(const void* q, const void* k, const void* v,
   prm.group = group;
   prm.head_blocks = (group + nc - 1) / nc;
   prm.seq = seq;
+  prm.seq_kv = seq_kv;
   prm.dim = dim;
   prm.causal = causal;
   prm.window = window;

@@ -2,11 +2,14 @@
 
 ``flash_attention(q, k, v, causal=, window=, scale=)`` computes softmax
 attention with GQA head sharing in the reference's ``(B, H, S, D)``
-layout: q ``(B, Hq, S, D)``, k and v ``(B, Hkv, S, D)``, ``Hq % Hkv == 0``,
-query head ``h`` reading KV head ``h // (Hq / Hkv)``.  ``causal`` keeps
-keys at or before the query; ``window`` (None, or at least 1) keeps only
-the last ``window`` keys of each query.  Arithmetic is float32 and the
-output has q's dtype.
+layout: q ``(B, Hq, Sq, D)``, k and v ``(B, Hkv, Skv, D)``, ``Hq % Hkv ==
+0``, query head ``h`` reading KV head ``h // (Hq / Hkv)``.  ``causal``
+keeps keys at or before the query; ``window`` (None, or at least 1) keeps
+only the last ``window`` keys of each query.  ``Sq != Skv`` is
+cross-attention (whisper's decoder against its encoder frames) and is
+taken only with ``causal=False`` and no window: the reference's causal
+mask has no offset, and it never asks for one.  Arithmetic is float32 and
+the output has q's dtype.
 
 On CUDA tensors it launches one of three kernels that replace the Pallas
 ``repro.kernels.flash_attention.flash_attention_pallas``, chosen by
@@ -85,14 +88,14 @@ def _tma_view(t: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
 _PLAIN_BLOCK_ELEMS = 2 ** 28
 
 
-def _check_shapes(q, k, v, window) -> None:
+def _check_shapes(q, k, v, causal, window) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} has shape {tuple(t.shape)}; expected "
                              f"(B, H, S, D)")
     b, hq, s, d = q.shape
-    hkv = k.shape[1]
-    if v.shape != k.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d):
+    hkv, skv = k.shape[1], k.shape[2]
+    if v.shape != k.shape or (k.shape[0], k.shape[3]) != (b, d):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not match")
     if hkv == 0 or hq % hkv:
@@ -100,29 +103,37 @@ def _check_shapes(q, k, v, window) -> None:
     if window is not None and window < 1:
         raise ValueError(f"window is {window}; pass None for no window (a "
                          f"window of 0 would mask every key)")
+    if skv != s and (causal or window is not None):
+        raise ValueError(f"q's {s} rows and k's {skv} keys do not match: "
+                         f"a causal or windowed call takes Sq == Skv "
+                         f"(cross-attention passes causal=False and no "
+                         f"window)")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           scale: float | None = None) -> torch.Tensor:
     """Plain-torch version: dense masked softmax in float32, output in q's
-    dtype (``repro.kernels.ref.flash_attention_ref``)."""
-    _check_shapes(q, k, v, window)
+    dtype (``repro.kernels.ref.flash_attention_ref``; q ``(B, Hq, Sq,
+    D)`` against k, v ``(B, Hkv, Skv, D)``)."""
+    _check_shapes(q, k, v, causal, window)
     b, hq, s, d = q.shape
+    skv = k.shape[2]
     group = hq // k.shape[1]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     kq = k.float().repeat_interleave(group, dim=1)
     vq = v.float().repeat_interleave(group, dim=1)
     out = torch.empty_like(q)
-    rows = max(1, min(s, _PLAIN_BLOCK_ELEMS // max(1, b * hq * s)))
-    kpos = torch.arange(s, device=q.device)[None, :]
+    rows = max(1, min(s, _PLAIN_BLOCK_ELEMS // max(1, b * hq * skv)))
+    kpos = torch.arange(skv, device=q.device)[None, :]
     for r0 in range(0, s, rows):
         r1 = min(s, r0 + rows)
         logits = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:r1].float(),
                               kq) * scale
         qpos = torch.arange(r0, r1, device=q.device)[:, None]
-        mask = torch.ones((r1 - r0, s), dtype=torch.bool, device=q.device)
+        mask = torch.ones((r1 - r0, skv), dtype=torch.bool,
+                          device=q.device)
         if causal:
             mask &= kpos <= qpos
         if window is not None:
@@ -142,8 +153,8 @@ def _launch_simt(q, k, v, out, causal: bool, window: int | None,
     with torch.cuda.device(q.device):
         err = _build.library().flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            k.shape[1], s, d, int(causal), window or 0, float(scale),
-            _DTYPE_CODES[q.dtype], stream_of(q.device))
+            k.shape[1], s, k.shape[2], d, int(causal), window or 0,
+            float(scale), _DTYPE_CODES[q.dtype], stream_of(q.device))
     _build.check(err, "flash_attention_forward")
 
 
@@ -162,9 +173,9 @@ def _launch_wgmma(q, k, v, out, causal: bool, window: int | None,
     with torch.cuda.device(q.device):
         err = _build.library().flash_attention_wgmma_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            (ctypes.c_longlong * 12)(*strides), b, hq, k.shape[1], s, d,
-            int(causal), window or 0, int(split_p), float(scale),
-            stream_of(q.device))
+            (ctypes.c_longlong * 12)(*strides), b, hq, k.shape[1], s,
+            k.shape[2], d, int(causal), window or 0, int(split_p),
+            float(scale), stream_of(q.device))
     _build.check(err, "flash_attention_wgmma_forward")
 
 
@@ -180,8 +191,9 @@ def _launch_tf32(q, k, v, out, causal: bool, window: int | None,
     with torch.cuda.device(q.device):
         err = _build.library().flash_attention_tf32_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            (ctypes.c_longlong * 12)(*strides), b, hq, k.shape[1], s, d,
-            int(causal), window or 0, float(scale), stream_of(q.device))
+            (ctypes.c_longlong * 12)(*strides), b, hq, k.shape[1], s,
+            k.shape[2], d, int(causal), window or 0, float(scale),
+            stream_of(q.device))
     _build.check(err, "flash_attention_tf32_forward")
 
 
@@ -192,7 +204,8 @@ _LAUNCH = {"simt": _launch_simt, "wgmma": _launch_wgmma,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
-    """q (B, Hq, S, D); k, v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype.
+    """q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
+    dtype; ``Sq != Skv`` only with ``causal=False`` and no window.
 
     CUDA tensors launch the kernel :func:`flash_attention_route` names
     (``launches`` counts every launch, ``launches_by_route`` each route's):
@@ -213,7 +226,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      scale=scale)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
-    _check_shapes(q, k, v, window)
+    _check_shapes(q, k, v, causal, window)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}; expected {dev}")

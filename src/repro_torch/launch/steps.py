@@ -121,7 +121,8 @@ def make_train_step(cfg: ModelCfg, opt_cfg: AdamWCfg | None = None):
 def make_prefill_step(cfg: ModelCfg):
     """``prefill_step(model, batch) -> (B, vocab)`` logits of each
     sequence's last position; every layer's attention goes through the
-    flash-attention kernel."""
+    flash-attention kernel.  The batch's ``vision_embeds`` or ``frames``
+    pass through to the model with its tokens."""
     def prefill_step(model: M.LM, batch: dict) -> torch.Tensor:
         return M.forward(model, batch, last_only=True)[:, -1, :]
 
@@ -147,26 +148,27 @@ def input_specs(cfg: ModelCfg, cell: ShapeCell) -> dict:
     """``meta`` tensors of every model input of the cell, in the
     reference's shapes and dtypes:
 
-    train:   {batch: {tokens, labels}}
-    prefill: {batch: {tokens}}
+    train:   {batch: {tokens, labels[, vision_embeds | frames]}}
+    prefill: {batch: {tokens[, vision_embeds | frames]}}
     decode:  {cache, tokens, pos}, the cache as ``models.model.init_cache``
-             makes it (``k``, ``v``; an SSM stack's ``ssm.{ssd, conv}``
-             and a hybrid's ``shared_k``, ``shared_v``)
+             makes it (``k``, ``v``; an encoder-decoder's ``mem_k``,
+             ``mem_v``; an SSM stack's ``ssm.{ssd, conv}`` and a hybrid's
+             ``shared_k``, ``shared_v``)
 
-    Vision tokens and encoder frames (ROADMAP items 9d, 9c) raise
-    ``NotImplementedError``.
+    ``vision_embeds`` (B, vision_tokens, d_model) and ``frames`` (B,
+    enc_frames, d_model) are bfloat16, the stub frontends' outputs.
     """
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: encoder frames as inputs (ROADMAP item 9c)")
-    if cfg.vision_tokens > 0:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: vision tokens as inputs (ROADMAP item 9d)")
     b, s = cell.global_batch, cell.seq_len
     if cell.kind in ("train", "prefill"):
         batch = {"tokens": _meta((b, s), torch.int32)}
         if cell.kind == "train":
             batch["labels"] = _meta((b, s), torch.int32)
+        if cfg.vision_tokens > 0:
+            batch["vision_embeds"] = _meta((b, cfg.vision_tokens,
+                                            cfg.d_model), torch.bfloat16)
+        if cfg.enc_dec:
+            batch["frames"] = _meta((b, cfg.enc_frames, cfg.d_model),
+                                    torch.bfloat16)
         return {"batch": batch}
     # decode: a cache sized to seq_len, one new token
     return {"cache": M.map_specs(M.cache_specs(cfg, b, s), _meta),

@@ -131,8 +131,18 @@ def build(args: argparse.Namespace, cfg: ModelCfg | None = None) -> Run:
                          global_batch=args.global_batch, seed=0)
 
     def batches(i: int) -> dict:
-        return {k: torch.from_numpy(v).to(dev)
-                for k, v in stream.batch(i).items()}
+        out = {k: torch.from_numpy(v).to(dev)
+               for k, v in stream.batch(i).items()}
+        # the stub frontends' inputs are zeros, as in the reference
+        n = out["tokens"].shape[0]
+        if cfg.vision_tokens > 0:
+            out["vision_embeds"] = torch.zeros(
+                (n, cfg.vision_tokens, cfg.d_model), dtype=torch.bfloat16,
+                device=dev)
+        if cfg.enc_dec:
+            out["frames"] = torch.zeros((n, cfg.enc_frames, cfg.d_model),
+                                        dtype=torch.bfloat16, device=dev)
+        return out
 
     loop = TrainLoop(TrainLoopCfg(ckpt_dir=args.ckpt_dir,
                                   ckpt_every=args.ckpt_every,

@@ -1,11 +1,11 @@
 """GQA attention: prefill through the flash-attention kernel, training
-through the chunked attention, cached decode.
+through the chunked attention, cached decode, cross-attention.
 
-The port's counterpart of ``repro.models.attention`` for decoder-only
-models: ``attn_init``, ``_project_qkv``, ``_chunked_attention``,
-``attn_apply`` and ``attn_decode``.  The reference computes full-sequence
-attention with its pure-XLA ``_chunked_attention``, the same function its
-Pallas ``flash_attention`` kernel computes.  Here ``attn_apply`` calls the
+The port's counterpart of ``repro.models.attention``: ``attn_init``,
+``_project_qkv``, ``_chunked_attention``, ``attn_apply``, ``attn_decode``,
+``cross_memory`` and ``cross_attn_apply``.  The reference computes
+full-sequence attention with its pure-XLA ``_chunked_attention``, the same
+function its Pallas ``flash_attention`` kernel computes.  Here ``attn_apply`` calls the
 port's counterpart of that kernel (``repro_torch.kernels.flash_attention``,
 which launches on the card) for prefill; with ``train=True`` it calls
 ``_chunked_attention`` in differentiable torch ops, as the reference
@@ -13,9 +13,10 @@ trains through its XLA version: the flash kernel has no backward, in
 either package.  Decode attends one query per row against the KV cache
 with ``_chunked_attention``, as the reference does in XLA.
 
-Supports qk-norm (qwen3) and sliding windows with gemma3's per-layer
-local/global mix (window 0 = global).  M-RoPE and cross-attention
-(``cross_attn_apply``, ``cross_memory``) wait for their families.
+Supports qk-norm (qwen3), sliding windows with gemma3's per-layer
+local/global mix (window 0 = global), M-RoPE (qwen2-vl: positions
+(B, S, 3)) and cross-attention (whisper's decoder against its encoder's
+memory, through the flash kernel at ``Sq != Skv`` in prefill and decode).
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelCfg
-from repro_torch.models.layers import (apply_rope, init_rms, normal_init,
-                                       rms_norm)
+from repro_torch.models.layers import (apply_mrope, apply_rope, init_rms,
+                                       normal_init, rms_norm)
 
 NEG_INF = -1e30
 
@@ -46,16 +47,17 @@ def attn_init(gen: torch.Generator, cfg: ModelCfg,
 
 def _project_qkv(p: dict, cfg: ModelCfg, x: torch.Tensor,
                  positions: torch.Tensor):
-    """x (B, S, D) -> q (B, S, Hq, hd), k and v (B, S, Hkv, hd)."""
+    """x (B, S, D) -> q (B, S, Hq, hd), k and v (B, S, Hkv, hd);
+    ``positions`` (B, S), or (B, S, 3) with ``cfg.mrope``."""
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
     k = torch.einsum("bsd,dhe->bshe", x, p["wk"])
     v = torch.einsum("bsd,dhe->bshe", x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    rope = apply_mrope if cfg.mrope else apply_rope
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
 
 
 def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -145,12 +147,17 @@ def attn_decode(p: dict, cfg: ModelCfg, x: torch.Tensor,
 
     x: (B, 1, D); cache_{k,v}: (B, S_cache, Hkv, hd), written in place (the
     reference returns new arrays); pos: (B,) integer, tokens already in
-    the cache.  RoPE and the ``onehot`` write use each row's own position;
+    the cache.  RoPE and the ``onehot`` write use each row's own position
+    (M-RoPE at ``(p, p, p)``: decode emits text tokens, as in the
+    reference);
     ``dus`` writes every row at ``pos[0]`` (clamped into the cache, as XLA's
     ``dynamic_update_slice``); the attention mask of every row uses
     ``pos[0]``, as in the reference.
     """
-    q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None])
+    positions = pos[:, None]
+    if cfg.mrope:
+        positions = positions[..., None].expand(*positions.shape, 3)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
     s_cache = cache_k.shape[1]
     if cfg.cache_update == "dus":
         start = pos[0].clamp(0, s_cache - 1).reshape(1).long()
@@ -167,3 +174,42 @@ def attn_decode(p: dict, cfg: ModelCfg, x: torch.Tensor,
                              q_offset=pos[0], window=window, causal=True,
                              chunk=cfg.attn_chunk, kv_len_valid=pos[0] + 1)
     return torch.einsum("bshe,hed->bsd", out, p["wo"]), cache_k, cache_v
+
+
+def cross_memory(p: dict, cfg: ModelCfg, memory: torch.Tensor):
+    """Cross-attention K and V (B, Sm, Hkv, hd) from the encoder's memory
+    (B, Sm, D), in the type the two promote to: whisper's float32 memory
+    against bfloat16 weights gives float32, as in the reference."""
+    dt = torch.promote_types(memory.dtype, p["wk"].dtype)
+    m = memory.to(dt)
+    k = torch.einsum("bsd,dhe->bshe", m, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhe->bshe", m, p["wv"].to(dt))
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return k, v
+
+
+def cross_attn_apply(p: dict, cfg: ModelCfg, x: torch.Tensor,
+                     memory_k: torch.Tensor, memory_v: torch.Tensor,
+                     train: bool = False) -> torch.Tensor:
+    """x (B, Sq, D) queries against memory_{k,v} (B, Sm, Hkv, hd), no mask.
+
+    Prefill and decode run the flash kernel at ``Sq != Skv`` (non-causal,
+    no window); ``train`` runs ``_chunked_attention`` as the reference
+    does, its clamp of a ragged last chunk included.  The attention
+    computes in the type q and the memory promote to (bfloat16 queries
+    against whisper's float32 memory: float32, the ``tf32x3`` route) and
+    returns q's dtype, as the reference's does."""
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if train:
+        out = _chunked_attention(q, memory_k, memory_v, q_offset=0, window=0,
+                                 causal=False, chunk=cfg.attn_chunk)
+    else:
+        dt = torch.promote_types(q.dtype, memory_k.dtype)
+        out = flash_attention(q.to(dt).transpose(1, 2),
+                              memory_k.to(dt).transpose(1, 2),
+                              memory_v.to(dt).transpose(1, 2),
+                              causal=False).transpose(1, 2).to(q.dtype)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])

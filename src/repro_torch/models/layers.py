@@ -2,7 +2,7 @@
 the LogicNet-FFN.
 
 The port's counterparts of ``repro.models.layers`` (``rms_norm``,
-``init_rms``, ``rope_freqs``, ``apply_rope``, ``ffn_init`` /
+``init_rms``, ``rope_freqs``, ``apply_rope``, ``apply_mrope``, ``ffn_init`` /
 ``ffn_apply``, ``logicnet_ffn_init`` / ``logicnet_ffn_apply``,
 ``embed_init``, ``embed_lookup``, ``lm_logits``), with the reference's
 layouts and its points of rounding to the compute dtype.
@@ -48,11 +48,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, device=x.device)             # (D/2,)
     angles = positions[..., None].float() * freqs             # (B, S, D/2)
+    return _rotate(x, angles)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """The two halves of the head dim of ``x`` (B, S, H, D) rotated by
+    ``angles`` (B, S, D/2), in float32; returns ``x``'s dtype."""
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_sections(head_dim: int, sections=(16, 24, 24)) -> list[int]:
+    """Frequency slots of each M-RoPE stream (t, h, w): ``sections`` (the
+    published half-dims for head_dim 128) scaled by ``half // total``, at
+    least 1 each, the last taking what the first two leave: ``[16, 24,
+    24]`` at 128, ``[2, 3, 3]`` at 16."""
+    half = head_dim // 2
+    total = sum(sections)
+    sec = [max(1, s * half // total) for s in sections]
+    sec[-1] = half - sec[0] - sec[1]
+    return sec
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE: x (B, S, H, D); positions (B, S, 3) integer, the
+    (t, h, w) streams.  Frequency slot ``j`` takes its angle from the
+    stream :func:`mrope_sections` gives it, then the rotation of
+    :func:`apply_rope`."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)             # (D/2,)
+    stream = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(mrope_sections(d, sections), device=x.device))
+    pos = positions.index_select(-1, stream).float()           # (B, S, D/2)
+    return _rotate(x, pos * freqs)
 
 
 def normal_init(shape, std: float, gen: torch.Generator,

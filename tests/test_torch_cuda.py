@@ -1047,6 +1047,35 @@ def test_flash_attention_f32_windows(dev, window, causal, shape):
                               window=window) == "tf32x3"
 
 
+@pytest.mark.parametrize("sq,skv", [(1, 1500), (65, 250), (448, 1500),
+                                    (250, 65), (1, 1), (130, 64)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
+@pytest.mark.parametrize("d,dtype,route", [
+    (64, torch.bfloat16, "wgmma"), (128, torch.bfloat16, "wgmma"),
+    (64, torch.float32, "tf32x3"), (128, torch.float32, "tf32x3"),
+    (12, torch.bfloat16, "simt"), (12, torch.float32, "simt")])
+def test_flash_attention_cross_lengths(dev, sq, skv, hq, hkv, d, dtype,
+                                       route):
+    """Sq != Skv (cross-attention: whisper's 448 decoder tokens or one
+    decode token against 1500 frames), non-causal, on every route: query
+    tiles over Sq, key tiles and masks over Skv, on the transposed
+    (B, S, H, D) views ``cross_attn_apply`` passes; within FLASH_TOL (and
+    FLASH_GATE on wgmma)."""
+    rng = np.random.default_rng(sq * skv + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, n, h, d)).astype(
+        np.float32)).to(device=dev, dtype=dtype).transpose(1, 2)
+        for n, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+    assert _flash_route_check(q, k, v, causal=False) == route
+
+
+@pytest.mark.parametrize("kw", [{"causal": True}, {"causal": False,
+                                                   "window": 8}])
+def test_flash_attention_refuses_masked_cross_lengths(dev, kw):
+    q, k, v = _qkv(dev, 1, 2, 2, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        flash_attention(q[:, :, :16], k, v, **kw)
+
+
 @pytest.mark.parametrize("s", [65, 250, 1000])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -332,7 +332,7 @@ def test_serve_cli_on_the_cpu(monkeypatch, capsys):
 
 
 # ---------------------------------------------------------------------------
-# configs, init, weight carry, unported families
+# configs, init, weight carry
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", RC.ARCH_IDS)
@@ -348,21 +348,6 @@ def test_configs_equal_reference(arch):
     assert PC.ARCH_IDS == RC.ARCH_IDS
     assert ({k: dataclasses.asdict(v) for k, v in PC.SHAPES.items()}
             == {k: dataclasses.asdict(v) for k, v in RC.SHAPES.items()})
-
-
-UNPORTED = {"whisper-medium": "9c", "qwen2-vl-2b": "9d"}
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_family_raises_naming_its_roadmap_item(arch):
-    cfg = PC.get_smoke_config(arch)           # the registry never raises
-    match = f"ROADMAP item {UNPORTED[arch]}"
-    with pytest.raises(NotImplementedError, match=match):
-        M.init_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match=match):
-        M.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        M.from_reference(cfg, {}, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-27b",

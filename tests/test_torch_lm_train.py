@@ -463,7 +463,8 @@ def test_abstract_params_are_the_init_names_and_shapes():
 @pytest.mark.parametrize("shape", sorted(RC.SHAPES))
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-27b",
                                   "olmoe-1b-7b", "mamba2-370m",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "whisper-medium",
+                                  "qwen2-vl-2b"])
 def test_input_specs_match_the_reference(arch, shape):
     cfg, rcfg = PC.get_config(arch), RC.get_config(arch)
     want = {jax.tree_util.keystr(p): (tuple(v.shape), str(np.dtype(v.dtype)))
@@ -481,13 +482,6 @@ def test_input_specs_match_the_reference(arch, shape):
 
     walk(steps.input_specs(cfg, PC.SHAPES[shape]))
     assert got == want
-
-
-@pytest.mark.parametrize("arch,item", [("whisper-medium", "9c"),
-                                       ("qwen2-vl-2b", "9d")])
-def test_input_specs_name_the_unported_inputs(arch, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        steps.input_specs(PC.get_smoke_config(arch), PC.SHAPES["train_4k"])
 
 
 def test_entry_points_default_to_the_card():

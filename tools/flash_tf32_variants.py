@@ -122,8 +122,8 @@ def main() -> None:
         strides = [x for _, sts in views for x in sts] + \
             list(out.stride()[:3])
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 (ctypes.c_longlong * 12)(*strides), b, hq, hkv, s, d, 1, 0,
-                 float(d ** -0.5), stream_of(dev))
+                 (ctypes.c_longlong * 12)(*strides), b, hq, hkv, s, s, d, 1,
+                 0, float(d ** -0.5), stream_of(dev))
         if err:
             raise SystemExit(f"launch failed: cudaError_t {err}")
         return out

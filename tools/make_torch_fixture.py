@@ -54,6 +54,19 @@ compared with, from fixed seeds:
   (the top-k experts, int8, in its order): ``prefill_topi`` (layers, 2,
   64, K) of the ``prefill`` run and ``decode_topi`` (layers, 2, 12, K) of
   the ``decode`` run, recorded in those same runs (:func:`router_choices`);
+* ``lm_smoke_encdec_vlm.npz`` (compressed) — for the whisper-medium and
+  qwen2-vl-2b smoke configs: the params and tokens ``(2, 64)`` as above,
+  seeded bfloat16 inputs of the stub frontends (``frames`` (2, 16, 64) for
+  whisper, ``vision_embeds`` (2, 16, 64) for qwen2-vl, stored as float32),
+  and at each compute dtype: ``forward`` logits on all 64 positions
+  (``prefill``; qwen2-vl's also without ``vision_embeds``,
+  ``prefill_text``), whisper's encoder memory (``memory``: the float32
+  output of ``_forward_encoder``), and 8 teacher-forced ``decode_step``
+  logits (``decode``) with their greedy tokens (``decode_tokens``) from a
+  cache whose ``k`` / ``v`` are held in the compute dtype and whose
+  ``mem_k`` / ``mem_v`` (bfloat16, as ``init_cache`` makes them) hold each
+  decoder layer's ``cross_memory`` of that memory, as the reference's
+  ``_forward_encdec`` computes them: nothing in the reference fills them;
 * ``model_d_ref.npz`` (compressed) — fpga4hep model D (Table 6.1: 16 ->
   64 -> 32 -> 32 sparse at fan-in 5, 2-bit codes, then a sparse 5-neuron
   head at fan-in 6 with 4-bit outputs; full widths) generated as model A
@@ -71,8 +84,9 @@ interpret mode)::
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/make_torch_fixture.py
 
 ``--only model_d`` writes ``model_d_ref.npz`` alone, ``--only
-lm_moe_ssm`` ``lm_smoke_moe_ssm.npz`` (regenerating ``model_a_l3.npz``
-rewrites its pass timings).
+lm_moe_ssm`` ``lm_smoke_moe_ssm.npz`` and ``--only lm_encdec_vlm``
+``lm_smoke_encdec_vlm.npz`` (regenerating ``model_a_l3.npz`` rewrites
+its pass timings).
 
 ``tests/test_torch_engine.py`` regenerates each in memory and asserts
 they equal the committed files, so the fixture cannot drift from the
@@ -99,6 +113,9 @@ LM_ARCHS = ("qwen3-1.7b", "gemma3-27b")
 LM_MOE_SSM_NAME = "lm_smoke_moe_ssm.npz"
 LM_MOE_SSM_ARCHS = ("olmoe-1b-7b", "qwen3-moe-235b-a22b", "mamba2-370m",
                     "zamba2-2.7b")
+LM_ENCDEC_VLM_NAME = "lm_smoke_encdec_vlm.npz"
+LM_ENCDEC_VLM_ARCHS = ("whisper-medium", "qwen2-vl-2b")
+LM_ENCDEC_DECODE = 8
 KV_LEAVES = ("k", "v", "shared_k", "shared_v")
 LM_DTYPES = ("float32", "bfloat16")
 LM_SEQ = 64            # a multiple of both smoke configs' attn_chunk
@@ -415,6 +432,100 @@ def build_lm_moe_ssm() -> dict[str, np.ndarray]:
     return build_lm(LM_MOE_SSM_ARCHS, fixture_config)
 
 
+def frontend_inputs(cfg, rows: int, seed: int = 2) -> dict[str, np.ndarray]:
+    """Seeded bfloat16 outputs of the stub frontends (as float32 arrays):
+    ``frames`` (rows, enc_frames, d_model) for an encoder-decoder,
+    ``vision_embeds`` (rows, vision_tokens, d_model) for a VLM."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.enc_dec:
+        out["frames"] = (cfg.enc_frames, cfg.d_model)
+    if cfg.vision_tokens > 0:
+        out["vision_embeds"] = (cfg.vision_tokens, cfg.d_model)
+    return {k: np.asarray(jnp.asarray(rng.standard_normal(
+        (rows, *shape)), jnp.bfloat16), np.float32)
+        for k, shape in out.items()}
+
+
+def reference_cross_memory(params, cfg, memory):
+    """Each decoder layer's ``cross_memory`` of the encoder's ``memory``,
+    stacked over layers, as the reference's ``_forward_encdec`` computes
+    them (its layer weights cast to the compute dtype first)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import attention as ATT
+    from repro.models import model as M
+
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = M._cast_weights(jax.tree.map(lambda a: a[i],
+                                          params["dec_layers"]),
+                             jnp.dtype(cfg.compute_dtype))
+        k, v = ATT.cross_memory(lp["xattn"], cfg, memory)
+        ks.append(k)
+        vs.append(v)
+    return jnp.stack(ks), jnp.stack(vs)
+
+
+def build_lm_encdec_vlm() -> dict[str, np.ndarray]:
+    """The arrays of ``lm_smoke_encdec_vlm.npz``, nothing written."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config
+    from repro.models import model as M
+
+    out = {}
+    for arch in LM_ENCDEC_VLM_ARCHS:
+        base = get_smoke_config(arch)
+        params = M.init_params(base, jax.random.PRNGKey(0))
+        for name, a in flatten_params(params).items():
+            out[f"{arch}.params.{name}"] = a
+        tokens = np.random.default_rng(1).integers(
+            0, base.vocab, (2, LM_SEQ)).astype(np.int32)
+        out[f"{arch}.tokens"] = tokens
+        inputs = frontend_inputs(base, 2)
+        for k, v in inputs.items():
+            out[f"{arch}.{k}"] = v
+        batch = {"tokens": jnp.asarray(tokens),
+                 **{k: jnp.asarray(v, jnp.bfloat16)
+                    for k, v in inputs.items()}}
+        for cd in LM_DTYPES:
+            cfg = dataclasses.replace(base, compute_dtype=cd)
+            fwd = jax.jit(lambda p, b, cfg=cfg: M.forward(p, cfg, b)[0])
+            out[f"{arch}.{cd}.prefill"] = np.asarray(fwd(params, batch),
+                                                     np.float32)
+            if cfg.vision_tokens > 0:
+                out[f"{arch}.{cd}.prefill_text"] = np.asarray(
+                    fwd(params, {"tokens": batch["tokens"]}), np.float32)
+            cache = M.init_cache(cfg, 2, LM_ENCDEC_DECODE)
+            cache = {k: v.astype(cd) if k in KV_LEAVES else v
+                     for k, v in cache.items()}
+            if cfg.enc_dec:
+                memory = jax.jit(lambda p, f, cfg=cfg: M._forward_encoder(
+                    p, cfg, f.astype(cd)))(params, batch["frames"])
+                out[f"{arch}.{cd}.memory"] = np.asarray(memory, np.float32)
+                mk, mv = reference_cross_memory(params, cfg, memory)
+                cache["mem_k"] = mk.astype(cache["mem_k"].dtype)
+                cache["mem_v"] = mv.astype(cache["mem_v"].dtype)
+            dec = jax.jit(lambda p, c, t, pos, cfg=cfg: M.decode_step(
+                p, cfg, c, t, pos))
+            steps = []
+            for t in range(LM_ENCDEC_DECODE):
+                logits, cache = dec(params, cache, tokens[:, t:t + 1],
+                                    jnp.full((2,), t, jnp.int32))
+                steps.append(np.asarray(logits[:, 0], np.float32))
+            out[f"{arch}.{cd}.decode"] = np.stack(steps, axis=1)
+            out[f"{arch}.{cd}.decode_tokens"] = np.argmax(
+                out[f"{arch}.{cd}.decode"], axis=-1).astype(np.int32)
+    return out
+
+
 def write_model_d(directory: str = FIXTURE_DIR) -> str:
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, MODEL_D_NAME)
@@ -429,6 +540,13 @@ def write_lm_moe_ssm(directory: str = FIXTURE_DIR) -> str:
     return path
 
 
+def write_lm_encdec_vlm(directory: str = FIXTURE_DIR) -> str:
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, LM_ENCDEC_VLM_NAME)
+    np.savez_compressed(path, **build_lm_encdec_vlm())
+    return path
+
+
 def write(directory: str = FIXTURE_DIR) -> tuple[str, ...]:
     os.makedirs(directory, exist_ok=True)
     mixed, ref = build()
@@ -440,7 +558,7 @@ def write(directory: str = FIXTURE_DIR) -> tuple[str, ...]:
     lm_path = os.path.join(directory, LM_NAME)
     np.savez_compressed(lm_path, **build_lm())
     return (art, ref_path, train_path, lm_path, write_lm_moe_ssm(directory),
-            write_model_d(directory))
+            write_lm_encdec_vlm(directory), write_model_d(directory))
 
 
 def main() -> None:
@@ -448,10 +566,12 @@ def main() -> None:
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--out", default=FIXTURE_DIR,
                     help="directory to write the .npz files into")
-    ap.add_argument("--only", choices=("model_d", "lm_moe_ssm"),
+    ap.add_argument("--only", choices=("model_d", "lm_moe_ssm",
+                                       "lm_encdec_vlm"),
                     help="write this fixture alone")
     args = ap.parse_args()
-    only = {"model_d": write_model_d, "lm_moe_ssm": write_lm_moe_ssm}
+    only = {"model_d": write_model_d, "lm_moe_ssm": write_lm_moe_ssm,
+            "lm_encdec_vlm": write_lm_encdec_vlm}
     paths = ((only[args.only](args.out),) if args.only
              else write(args.out))
     for path in paths:

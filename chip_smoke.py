@@ -380,6 +380,39 @@ pass:
     apart (``launches_moe_checks``, ...), and the phase under
     ``lm_families``.
 
+17. **the families trained** (the wgmma masked matmul on the LogicNet
+    paths; the others launch no kernel of the repo: a MoE layer takes
+    ``moe`` before the LogicNet-FFN, mamba2 has no FFN, whisper's layers
+    call the dense FFN, and training attention is the chunked form, as
+    the reference's).  (a) Every run of ``lm_smoke_train.npz``
+    (:func:`train_runs`: the ten zoo archs at smoke size, and qwen3-1.7b,
+    zamba2-2.7b and qwen2-vl-2b with ``LogicNetFFNCfg()``) at float32
+    and bfloat16 compute: the reference's init carried in with
+    ``from_reference``, the step-0 gradient norm and 5 AdamW steps on the
+    card (:func:`train_five_steps`), held by :func:`train_check` to the
+    CPU tests' gates (losses rtol 1e-3, the norm 1e-5 / 0.05, final
+    float32 parameters 1e-5 but for the eps-conditioned elements, masks
+    and pruned weights; a MoE bfloat16 step past its gate only at or
+    after a step whose expert sets differ from the record's); a LogicNet
+    run's 6 masked products a layer and pass on ``ffma`` (float32) or
+    ``wgmma`` (bfloat16).  (b) ``FT_FULL``: olmoe-1b-7b (cut to 8
+    layers: 16 are 111 GB of float32 states), mamba2-370m, zamba2-2.7b
+    and qwen2-vl-2b with the LogicNet-FFN, whisper-medium, at full width
+    through ``train.build`` and ``loop.run`` at the launcher's defaults
+    (qwen2-vl's vision embeddings seeded, :func:`seeded_vision`),
+    every launch counter at 0 first and each state freed before the next:
+    the LogicNet runs' first 3 losses within ``LM_PARITY_RTOL`` of the
+    plain version's, their masks held after step 1 and exactly
+    :func:`masked_matmul_per_step` launches a step (81 and 252), all
+    wgmma; olmoe's dropped (token, k) pairs a step; finite losses, the
+    ``[train]`` line, host ms over steps 4-6, :func:`step_profile` (2
+    measured steps) and ``max_memory_allocated``; no checkpoint.  (c) 14a's check and times
+    at zamba2's (2048 x 2560 x 10240) and qwen2-vl's (8192 x 1536 x
+    8960) FFN products and their input gradients.  The wgmma record
+    carries the launches (``launches_train_zamba2``,
+    ``launches_train_qwen2_vl``, ``launches_train_smoke_by_route``), (c)
+    under ``shapes_train_*`` and the rest under ``train_families``.
+
 Every device time is ``torch.profiler``'s sum of the measured calls'
 kernel records, taken only from a trace that holds all of them and, for
 device-bound calls (the flash shapes, the 4096^3 masked matmuls), reads at
@@ -3459,23 +3492,26 @@ def bf16_tile_accumulated(torch, x, w, mask, tile: int = FFN_CONTROL_TILE):
     return acc
 
 
-def ffn_masked_matmul_phase(torch, dev) -> dict:
-    """Phase 14a: the wgmma masked matmul at the LogicNet-FFN's shapes
-    against its plain version, timed beside ``torch.mm(x, w * mask)`` and
-    the bound."""
+def ffn_masked_matmul_phase(torch, dev, d_model: int = 2048,
+                            d_ff: int = 6144, cases=FFN_CASES,
+                            tag: str = "14a") -> dict:
+    """Phase 14a (and 17c at other widths): the wgmma masked matmul at a
+    LogicNet-FFN's shapes (``d_model`` x ``d_ff``, its fan-in-16 masks;
+    ``cases`` as ``FFN_CASES``) against its plain version, timed beside
+    ``torch.mm(x, w * mask)`` and the bound."""
     from repro_torch.kernels.masked_matmul import (masked_matmul,
                                                    masked_matmul_plain)
     from repro_torch.models.config import LogicNetFFNCfg
     from repro_torch.models.layers import logicnet_masks
 
     mask_in, mask_out = (m.to(device=dev, dtype=torch.bfloat16)
-                         for m in logicnet_masks(2048, 6144,
+                         for m in logicnet_masks(d_model, d_ff,
                                                  LogicNetFFNCfg()))
     masks = {"in": mask_in, "out": mask_out,
              "in_t": mask_in.t().contiguous(),
              "out_t": mask_out.t().contiguous()}
     rec, err, control = {}, 0.0, {}
-    for i, (name, m, which) in enumerate(FFN_CASES):
+    for i, (name, m, which) in enumerate(cases):
         mask = masks[which]
         k, n = mask.shape
         g = torch.Generator(device=dev).manual_seed(100 + i)
@@ -3487,13 +3523,13 @@ def ffn_masked_matmul_phase(torch, dev) -> dict:
         want = masked_matmul_plain(x, w, mask)
         torch.cuda.synchronize()
         if masked_matmul.launches_by_route["wgmma"] != before["wgmma"] + 1:
-            fail(f"phase 14a masked_matmul {name} {m}x{k}x{n}: not one "
+            fail(f"phase {tag} masked_matmul {name} {m}x{k}x{n}: not one "
                  f"wgmma launch ({masked_matmul.launches_by_route})")
         limit = ffn_limit(torch, want)
         diff = (got.float() - want.float()).abs()
         share = float((diff / limit).max())
         if share > 1:
-            fail(f"phase 14a masked_matmul {name} {m}x{k}x{n}: max |kernel "
+            fail(f"phase {tag} masked_matmul {name} {m}x{k}x{n}: max |kernel "
                  f"- plain| {float(diff.max())}, {share:.3g} of the limit "
                  f"({FFN_STEPS} bfloat16 step + {FFN_ATOL_SHARE} of the "
                  f"output's rms)")
@@ -3502,7 +3538,7 @@ def ffn_masked_matmul_phase(torch, dev) -> dict:
                - want.float()).abs() > limit
         control[name] = int(bad.sum())
         if not control[name]:
-            fail(f"phase 14a masked_matmul {name} {m}x{k}x{n}: the gate "
+            fail(f"phase {tag} masked_matmul {name} {m}x{k}x{n}: the gate "
                  f"passes the control that accumulates in bfloat16")
         rms = float(want.float().square().mean().sqrt())
         big = m > 4
@@ -3529,7 +3565,7 @@ def ffn_masked_matmul_phase(torch, dev) -> dict:
                     f"shape{sfx}": [m, k, n],
                     f"limit_share{sfx}": share,
                     f"control_beyond{sfx}": control[name]})
-        log(f"phase 14a masked_matmul {name} {m}x{k}x{n} bfloat16 (wgmma, "
+        log(f"phase {tag} masked_matmul {name} {m}x{k}x{n} bfloat16 (wgmma, "
             f"fan-in-16 mask): max |kernel - plain| {float(diff.max()):.3g}, "
             f"{share:.3g} of the limit (output rms {rms:.4g}); the "
             f"bfloat16-accumulating control beyond it at {control[name]} "
@@ -4926,6 +4962,560 @@ def lm_encdec_phases(torch, dev) -> dict:
     return out
 
 
+# -- phase 17: the families trained: every zoo arch at smoke size against
+# the reference's training record, the five families at full width --------
+
+TRAIN_RECORD = "lm_smoke_train.npz"
+# the fixtures that hold each arch's smoke init (the training record holds
+# phi3-mini-3.8b's and starcoder2-15b's itself, and its LogicNet runs'
+# masks: their other leaves are the arch's)
+INIT_FIXTURES = {"lm_smoke.npz": ("qwen3-1.7b", "gemma3-27b"),
+                 "lm_smoke_moe_ssm.npz": ("olmoe-1b-7b",
+                                          "qwen3-moe-235b-a22b",
+                                          "mamba2-370m", "zamba2-2.7b"),
+                 "lm_smoke_encdec_vlm.npz": ("whisper-medium",
+                                             "qwen2-vl-2b")}
+FT_ARCHS = ("qwen3-1.7b", "gemma3-27b", "phi3-mini-3.8b", "starcoder2-15b",
+            "olmoe-1b-7b", "qwen3-moe-235b-a22b", "mamba2-370m",
+            "zamba2-2.7b", "whisper-medium", "qwen2-vl-2b")
+FT_LOGICNET = ("qwen3-1.7b", "zamba2-2.7b", "qwen2-vl-2b")
+LOGICNET_SUFFIX = "+logicnet"
+# the record's runs: 5 steps of AdamW (lr 3e-4, weight decay 0.01,
+# cosine_schedule(1, 5)) on TokenStream(seed=0) batches of 4 x 64
+FT_STEPS, FT_BATCH, FT_SEQ = 5, 4, 64
+FT_LR, FT_DECAY = 3e-4, 0.01
+# 17a's gates (the CPU tests hold the port to the same): losses, the
+# step-0 global gradient norm, the final float32 parameters
+FT_LOSS_RTOL = 1e-3
+FT_NORM_RTOL = {"float32": 1e-5, "bfloat16": 0.05}
+FT_PARAM_ATOL = 1e-5
+# AdamW's first step moves an element by lr * g / (|g| + eps), eps 1e-8,
+# g its clipped gradient.  Where g is not 0 but |g| is below
+# FT_EPS_CONDITIONED (10 eps) that move follows g's own float32 rounding:
+# a gradient of 2e-8 that another summation order reads as 5e-9 moves the
+# element by 0.25 lr more (7.5e-5; on the CPU qwen3-1.7b misses 1e-5 by
+# this at 1 of 90 496 elements, zamba2-2.7b at 1 of 170 144; 17-817
+# elements a run are so conditioned).  Such elements are held to two
+# first-step moves (the move's sign may flip with g's); every other
+# element, a zero gradient's included, to FT_PARAM_ATOL
+FT_EPS_CONDITIONED = 1e-7
+FT_CONDITIONED_ATOL = 2 * FT_LR
+# 17b: the five families at full width through train.build + loop.run,
+# the launcher's defaults (lr 3e-4, remat "full", bfloat16 compute) but
+# for these: (arch, --logicnet-ffn, batch, seq, the config's cut)
+FT_FULL = (("olmoe-1b-7b", False, 8, 256, {"n_layers": 8}),
+           ("mamba2-370m", False, 8, 256, {}),
+           ("zamba2-2.7b", True, 8, 256, {}),
+           ("whisper-medium", False, 8, 448, {}),
+           ("qwen2-vl-2b", True, 8, 1024, {}))
+# 17b feeds qwen2-vl-2b seeded standard-normal bfloat16 vision embeddings
+# (seed VISION_SEED + step) in place of the launcher's zeros: at 28
+# layers a zero row's rms_norm Jacobian, (1 + scale) / sqrt(eps) = 1000,
+# grows the gradient at the 256 vision positions about 10^3-fold a layer
+# back, and it overflows by layer 14 in the reference as in the port
+# (ROADMAP §3), so the first AdamW step writes NaN into every parameter
+VISION_SEED = 1000
+# steps 1-3 checked (parity, masks, launches; they also warm the caching
+# allocator), 4-6 timed on the host clock, 7-10 traced (1 lead, 2
+# measured, 1 after): 14b's 16 steps would take the script past 1.5x its
+# earlier wall time (whisper's steps take 2.7 s)
+FT_HOST_STEPS = (3, 6)
+FT_PROFILE_LEAD = 1
+FT_PROFILE_ITERS = 2
+FT_FULL_STEPS = FT_HOST_STEPS[1] + FT_PROFILE_LEAD + FT_PROFILE_ITERS + 1
+# 17c: the masked matmul at the two new FFN shapes, (name, M, mask) as
+# 14a's FFN_CASES at each model's M (batch x seq tokens)
+FT_FFN_SHAPES = {"zamba2-2.7b": (2560, 10240, 8 * 256),
+                 "qwen2-vl-2b": (1536, 8960, 8 * 1024)}
+FT_FFN_CASES = ("wi", "wo", "dx_wi", "dx_wo")
+
+
+def train_runs() -> list:
+    """``(run, arch, logicnet)`` of every run of the training record."""
+    return ([(a, a, False) for a in FT_ARCHS]
+            + [(a + LOGICNET_SUFFIX, a, True) for a in FT_LOGICNET])
+
+
+def train_record() -> dict:
+    """``lm_smoke_train.npz`` as a dict, each run's initial parameters
+    under ``<run>.params.`` taken from the fixture that holds its arch's
+    (a LogicNet run's masks from the record itself)."""
+    import numpy as np
+    with np.load(FIXTURE / TRAIN_RECORD) as z:
+        fx = {k: z[k] for k in z.files}
+    for name, archs in INIT_FIXTURES.items():
+        with np.load(FIXTURE / name) as z:
+            for k in z.files:
+                if k.split(".params.")[0] in archs and ".params." in k:
+                    fx[k] = z[k]
+    for run, arch, logicnet in train_runs():
+        if logicnet:
+            pre = f"{arch}.params."
+            for k in [k for k in fx if k.startswith(pre)]:
+                fx[f"{run}.params.{k[len(pre):]}"] = fx[k]
+    return fx
+
+
+def train_arrays(fx: dict, run: str) -> dict:
+    """A run's initial parameters, as ``from_reference`` takes them."""
+    pre = f"{run}.params."
+    return {k[len(pre):]: v for k, v in fx.items() if k.startswith(pre)}
+
+
+def train_config(arch: str, logicnet: bool, dtype: str, capacity=None):
+    """The port's smoke config of a run at ``dtype`` compute (and, for a
+    MoE, the record's ``capacity`` factor)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.config import LogicNetFFNCfg
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype)
+    if logicnet:
+        cfg = dataclasses.replace(cfg, logicnet_ffn=LogicNetFFNCfg())
+    if cfg.moe is not None and capacity is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(capacity)))
+    return cfg
+
+
+def train_batch(torch, cfg, step: int, dev) -> dict:
+    """Step ``step``'s batch of the record's runs on ``dev``: the
+    launcher's (``TokenStream(seed=0)`` at 4 x 64, zero bfloat16
+    ``frames`` / ``vision_embeds`` where the model reads them)."""
+    from repro_torch.launch import train
+    return train.token_batches(cfg, FT_SEQ, FT_BATCH, dev)(step)
+
+
+def train_five_steps(torch, cfg, arrays: dict, dev) -> dict:
+    """The port's side of a run: the reference's init carried in
+    (``from_reference``), the step-0 global gradient norm (masks'
+    gradients included) and the elements whose clipped step-0 gradient
+    lies below ``FT_EPS_CONDITIONED``, then ``FT_STEPS`` steps of
+    ``launch.steps.make_train_step`` with the record's AdamW, a MoE's
+    router choices recorded step by step."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import (AdamWCfg, cosine_schedule, global_norm,
+                                   init_opt_state)
+    model = M.from_reference(cfg, arrays, device=dev)
+    params = {n: p.detach().clone().requires_grad_()
+              for n, p in model.named_parameters()}
+    del model
+    loss = M.loss_fn(params, cfg, train_batch(torch, cfg, 0, dev))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    norm = float(global_norm(grads))
+    scale = min(1.0, 1.0 / max(norm, 1e-12))
+    conditioned = {n: (g != 0) & (g.abs() * scale < FT_EPS_CONDITIONED)
+                   for n, g in zip(params, grads)}
+    del loss, grads
+    state = {"params": params, "opt": init_opt_state(params)}
+    step = steps.make_train_step(cfg, AdamWCfg(
+        lr=FT_LR, weight_decay=FT_DECAY,
+        schedule=cosine_schedule(1, FT_STEPS)))
+    losses, routes = [], []
+    for i in range(FT_STEPS):
+        with record_routing() as rec:
+            state, loss = step(state, train_batch(torch, cfg, i, dev))
+        losses.append(float(loss))
+        if cfg.moe is not None:
+            routes.append(route_sets(rec, (FT_BATCH, FT_SEQ)))
+    return {"losses": losses, "grad_norm0": norm,
+            "conditioned": conditioned, "params": state["params"],
+            "routes": routes if cfg.moe is not None else None}
+
+
+def stacked_port(cfg, params: dict, name: str):
+    """The port's parameters under the reference's name ``name`` as one
+    numpy array, a stacked list's layers stacked again."""
+    import numpy as np
+
+    from repro_torch.models import model as M
+    stack, _, rest = name.partition(".")
+    if stack not in M._STACKED:
+        return params[name].detach().float().cpu().numpy()
+    return np.stack([params[f"{stack}.{i}.{rest}"].detach().float().cpu()
+                     .numpy() for i in range(M.stacked_layers(cfg, stack))])
+
+
+def masked_init(arrays: dict) -> dict:
+    """The reference's initial arrays with each LogicNet weight times its
+    sibling mask (``logicnet_mask_fn``): the base of the record's
+    ``delta`` (AdamW zeroes a pruned weight in its first step)."""
+    from repro_torch.optim.adamw import logicnet_mask_fn
+    out = dict(arrays)
+    for name, a in arrays.items():
+        mask = logicnet_mask_fn(name, arrays)
+        if mask is not None:
+            out[name] = a * mask
+    return out
+
+
+def first_differing_step(got_routes, topi):
+    """The first step whose expert sets differ from the record's (its
+    ``topi``, (steps, layers, B, S, K)) at some position in some layer,
+    else None."""
+    for i, sets in enumerate(got_routes):
+        if routes_differ(sets, fixture_route_sets(topi[i])).any():
+            return i
+    return None
+
+
+def unexplained_steps(rtol, limit: float, first) -> list:
+    """Steps (0-based) whose reading ``rtol`` passes ``limit`` with no
+    differing expert set at or before them (``first``: the first step with
+    one, or None), as :func:`lm_check_routes` takes positions."""
+    return [i for i, r in enumerate(rtol)
+            if r > limit and (first is None or i < first)]
+
+
+def pruned_and_fan_in(params: dict, fan_in: int) -> list:
+    """The LogicNet weights (by name) with a pruned weight not 0 or a mask
+    column not summing to ``fan_in``."""
+    from repro_torch.optim.adamw import logicnet_mask_fn
+    bad = []
+    for name, w in params.items():
+        m = logicnet_mask_fn(name, params)
+        if m is None:
+            continue
+        if bool((w[m == 0] != 0).any()) or bool((m.sum(0) != min(
+                fan_in, m.shape[0])).any()):
+            bad.append(name)
+    return bad
+
+
+def train_check(run: str, dtype: str, cfg, got: dict, fx: dict) -> dict:
+    """17a's gates for one run (the CPU tests apply the same): losses
+    within ``FT_LOSS_RTOL``, the step-0 gradient norm within
+    ``FT_NORM_RTOL``, at float32 every final parameter within
+    ``FT_PARAM_ATOL`` of the record's (``FT_CONDITIONED_ATOL`` where the
+    step-0 gradient is eps-conditioned), a LogicNet run's pruned weights 0
+    and mask columns at their fan-in.  A MoE run at bfloat16, where one
+    bfloat16 step of noise can settle a near-tie of two router logits the
+    other way, sets aside the steps from the first whose expert sets
+    differ from the record's (reported): a reading past its gate there is
+    not a failure, and the readings returned are over the other steps.
+    float32 holds every step.  Returns the readings; fails on a miss."""
+    import numpy as np
+    name = f"{run} {dtype}"
+    first = None
+    if got["routes"] is not None:
+        first = first_differing_step(got["routes"], fx[f"{run}.{dtype}.topi"])
+    aside = first if dtype == "bfloat16" else None
+    want = fx[f"{run}.{dtype}.losses"]
+    losses = np.asarray(got["losses"])
+    if losses.shape != want.shape or not np.isfinite(losses).all():
+        fail(f"phase 17a {name}: losses {got['losses']}")
+    rtol = np.abs(losses - want) / np.abs(want)
+    held = FT_STEPS if aside is None else aside
+    out = {"losses": got["losses"], "routes_differ_from_step": first,
+           "steps_held": held, "loss_rtol": float(rtol[:held].max(
+               initial=0.0)), "loss_rtol_all": float(rtol.max())}
+    missed = unexplained_steps(rtol, FT_LOSS_RTOL, aside)
+    if missed:
+        fail(f"phase 17a {name}: losses {got['losses']} against the "
+             f"reference's {want.tolist()}: rtol {rtol.tolist()} beyond "
+             f"{FT_LOSS_RTOL} at steps {[i + 1 for i in missed]}")
+    w = float(fx[f"{run}.{dtype}.grad_norm0"])
+    out["norm_rtol"] = abs(got["grad_norm0"] - w) / w
+    if unexplained_steps([out["norm_rtol"]], FT_NORM_RTOL[dtype], aside):
+        fail(f"phase 17a {name}: step-0 gradient norm "
+             f"{got['grad_norm0']} against the reference's {w}: rtol "
+             f"{out['norm_rtol']} beyond {FT_NORM_RTOL[dtype]}")
+    if cfg.logicnet_ffn is not None:
+        bad = pruned_and_fan_in(got["params"], cfg.logicnet_ffn.fan_in)
+        if bad:
+            fail(f"phase 17a {name}: pruned weights not 0 or mask columns "
+                 f"off their fan-in in {bad}")
+    if dtype != "float32":
+        return out
+    base = masked_init(train_arrays(fx, run))
+    pre = f"{run}.float32.delta."
+    err = cond_err = 0.0
+    n_cond = n_elems = 0
+    for key in (k for k in fx if k.startswith(pre)):
+        ref_name = key[len(pre):]
+        want_p = base[ref_name] + fx[key].astype(np.float32)
+        got_p = stacked_port(cfg, got["params"], ref_name)
+        cond = stacked_port(cfg, {n: c.float() for n, c in
+                                  got["conditioned"].items()},
+                            ref_name).astype(bool)
+        if got_p.shape != want_p.shape:
+            fail(f"phase 17a {name}: {ref_name} {got_p.shape} against "
+                 f"{want_p.shape}")
+        diff = np.abs(got_p - want_p)
+        err = max(err, float(diff[~cond].max(initial=0.0)))
+        cond_err = max(cond_err, float(diff[cond].max(initial=0.0)))
+        n_cond += int(cond.sum())
+        n_elems += diff.size
+    out.update({"param_err": err, "conditioned": n_cond,
+                "conditioned_err": cond_err, "elements": n_elems})
+    if err > FT_PARAM_ATOL or cond_err > FT_CONDITIONED_ATOL:
+        fail(f"phase 17a {name}: final parameters {err} from the "
+             f"reference's (limit {FT_PARAM_ATOL}), the {n_cond} "
+             f"eps-conditioned elements {cond_err} (limit "
+             f"{FT_CONDITIONED_ATOL})")
+    return out
+
+
+def train_smoke_phase(torch, dev) -> dict:
+    """Phase 17a: every run of the training record on the card."""
+    from repro_torch.kernels.masked_matmul import masked_matmul
+    fx = train_record()
+    out = {}
+    for run, arch, logicnet in train_runs():
+        for dtype in ("float32", "bfloat16"):
+            cfg = train_config(arch, logicnet, dtype,
+                               fx.get(f"{run}.{dtype}.capacity_factor"))
+            before = dict(masked_matmul.launches_by_route)
+            got = train_five_steps(torch, cfg, train_arrays(fx, run), dev)
+            launched = {k: v - before.get(k, 0) for k, v in
+                        masked_matmul.launches_by_route.items()
+                        if v != before.get(k, 0)}
+            # the LogicNet products: 3 a layer forward and 3 input
+            # gradients, in the step-0 gradient and each step (smoke
+            # configs do not remat), every one on wgmma at bfloat16
+            want = (0 if not logicnet else
+                    6 * attention_layers(cfg) * (FT_STEPS + 1))
+            route = "wgmma" if dtype == "bfloat16" else "ffma"
+            if sum(launched.values()) != want or (
+                    want and launched.get(route) != want):
+                fail(f"phase 17a {run} {dtype}: masked_matmul launched "
+                     f"{launched}, not {want} on {route}")
+            rec = train_check(run, dtype, cfg, got, fx)
+            rec["masked_matmul_launches"] = launched
+            out[f"{run}.{dtype}"] = rec
+            held = (f"max rtol {rec['loss_rtol']:.3g} over steps 1-"
+                    f"{rec['steps_held']}" if rec["steps_held"] else
+                    "no step held")
+            log(f"phase 17a {run} {dtype}: losses {rec['losses']} ({held}"
+                + (f"; expert sets differ from the reference's from step "
+                   f"{rec['routes_differ_from_step'] + 1}, all steps' max "
+                   f"rtol {rec['loss_rtol_all']:.3g}"
+                   if rec["routes_differ_from_step"] is not None else "")
+                + f"), step-0 gradient norm rtol {rec['norm_rtol']:.3g}"
+                + (f", final parameters within {rec['param_err']:.3g} "
+                   f"({rec['conditioned']} of {rec['elements']} "
+                   f"eps-conditioned, within {rec['conditioned_err']:.3g})"
+                   if "param_err" in rec else "")
+                + (f"; masked_matmul {launched}" if launched else ""))
+    return out
+
+
+def full_train_args(tmp: str, arch: str, logicnet: bool, batch: int,
+                    seq: int):
+    """``launch.train``'s flags for a 17b run (no checkpoint is written:
+    ``--ckpt-every`` lies past the last step)."""
+    from repro_torch.launch import train
+    return train.parse_args(
+        ["--full", "--arch", arch, "--steps", str(FT_FULL_STEPS),
+         "--global-batch", str(batch), "--seq", str(seq), "--ckpt-dir",
+         tmp, "--ckpt-every", str(10 * FT_FULL_STEPS)]
+        + ["--logicnet-ffn"] * logicnet)
+
+
+def seeded_vision(torch, batches, dev):
+    """``batches`` (a run's ``batches(step)``) with seeded standard-normal
+    bfloat16 ``vision_embeds`` (``VISION_SEED + step``) in place of the
+    launcher's zeros; other batches as they are."""
+    def get(step: int) -> dict:
+        out = batches(step)
+        if "vision_embeds" in out:
+            g = torch.Generator(device=dev).manual_seed(VISION_SEED + step)
+            out["vision_embeds"] = torch.randn(
+                out["vision_embeds"].shape, generator=g,
+                device=dev).bfloat16()
+        return out
+    return get
+
+
+def full_train_config(args, cut: dict):
+    """A 17b run's config: the flags', with its cut (olmoe's depth)."""
+    import dataclasses
+
+    from repro_torch.launch import train
+    return dataclasses.replace(train.config(args), **cut)
+
+
+def masked_matmul_per_step(cfg) -> int:
+    """Masked-matmul launches a training step at remat "full": 3 forward,
+    3 recomputed, 3 input gradients at each LogicNet-FFN (each layer of a
+    decoder, each site of a hybrid's shared layer); 0 without one."""
+    if cfg.logicnet_ffn is None or cfg.moe is not None or cfg.enc_dec:
+        return 0
+    return LM_MM_PER_LAYER_STEP * attention_layers(cfg)
+
+
+def full_train_phase(torch, dev, tmp: str, arch: str, logicnet: bool,
+                     batch: int, seq: int, cut: dict) -> dict:
+    """Phase 17b for one family at full width."""
+    import gc
+
+    from repro_torch.kernels.masked_matmul import masked_matmul
+    from repro_torch.launch import train
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models import moe
+
+    args = full_train_args(tmp, arch, logicnet, batch, seq)
+    cfg = full_train_config(args, cut)
+    per_step = masked_matmul_per_step(cfg)
+    plain_losses = None
+    if per_step:
+        # the parity run: every FFN product on the plain version
+        model_layers.MaskedMatmulFn = PlainMaskedMatmul
+        try:
+            reset_all()
+            plain = train.build(args, cfg)
+            plain.loop.run(seeded_vision(torch, plain.batches, dev),
+                           LM_PARITY_STEPS)
+            plain_losses = [l for _, l in plain.loop.metrics]
+            if masked_matmul.launches:
+                fail(f"phase 17b {arch} parity run launched masked_matmul "
+                     f"{masked_matmul.launches} times")
+        finally:
+            from repro_torch.kernels.masked_matmul import MaskedMatmulFn
+            model_layers.MaskedMatmulFn = MaskedMatmulFn
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the main path: every launch counter at 0
+    reset_all()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.build(args, cfg)
+    run.batches = seeded_vision(torch, run.batches, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    loop = run.loop
+    n_params = sum(p.numel() for p in loop.state["params"].values())
+    n_masks = sum(p.numel() for n, p in loop.state["params"].items()
+                  if "mask" in n)
+    rec = {"arch": arch, "logicnet_ffn": logicnet, "batch": batch,
+           "seq": seq, "cut": cut, "layers": cfg.n_layers,
+           "n_params": n_params, "n_mask_params": n_masks,
+           "build_s": build_s, "masked_matmul_per_step": per_step}
+    with record_routing() as routes:
+        loop.run(run.batches, 1)
+        if len(loop.metrics) != 1:
+            fail(f"phase 17b {arch}: step 1's loss was not finite")
+        if masked_matmul.launches != per_step or (
+                per_step and masked_matmul.launches_by_route["wgmma"]
+                != per_step):
+            fail(f"phase 17b {arch} step 1 launched masked_matmul "
+                 f"{masked_matmul.launches_by_route}, not {per_step} on "
+                 f"wgmma")
+        if per_step:
+            bad = pruned_and_fan_in(loop.state["params"],
+                                    cfg.logicnet_ffn.fan_in)
+            if bad:
+                fail(f"phase 17b {arch}: after step 1 a pruned weight is "
+                     f"not 0 or a mask column is off its fan-in in {bad}")
+        loop.run(run.batches, FT_HOST_STEPS[1])
+    losses = [l for _, l in loop.metrics]
+    if plain_losses is not None:
+        if len(plain_losses) != LM_PARITY_STEPS:
+            fail(f"phase 17b {arch}: the parity run's losses "
+                 f"{plain_losses}: a step was not finite")
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(losses[:LM_PARITY_STEPS], plain_losses))
+        if not rel <= LM_PARITY_RTOL:
+            fail(f"phase 17b {arch} losses {losses[:LM_PARITY_STEPS]} "
+                 f"against the plain version's {plain_losses}: rtol {rel} "
+                 f"beyond {LM_PARITY_RTOL}")
+        rec.update({"plain_losses": plain_losses, "parity_rtol": rel})
+    if cfg.moe is not None:
+        # each step's forward calls (remat records its recomputation too)
+        calls = 2 if cfg.remat != "none" else 1
+        per_call = drops_per_call(routes, cfg)
+        span = calls * cfg.n_layers
+        per_step_drops = [sum(per_call[i:i + cfg.n_layers])
+                          for i in range(0, len(per_call), span)]
+        rec["drops_per_step"] = per_step_drops
+        rec["pairs_per_step"] = batch * seq * cfg.moe.top_k * cfg.n_layers
+    del routes
+    host_ms = 1e3 * statistics.mean(run.step_s[FT_HOST_STEPS[0]:
+                                                FT_HOST_STEPS[1]])
+    prof = step_profile(torch, lambda: loop.run(run.batches, loop.step + 1),
+                        iters=FT_PROFILE_ITERS, lead=FT_PROFILE_LEAD)
+    loop.run(run.batches, FT_FULL_STEPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l for _, l in loop.metrics]
+    launches = masked_matmul.launches
+    if launches != per_step * loop.step or (
+            per_step and masked_matmul.launches_by_route["wgmma"]
+            != launches):
+        fail(f"phase 17b {arch}: {launches} masked_matmul launches in "
+             f"{loop.step} steps ({masked_matmul.launches_by_route}); "
+             f"expected {per_step} a step, all wgmma")
+    if len(losses) != FT_FULL_STEPS or not all(
+            l == l and abs(l) < float("inf") for l in losses):
+        fail(f"phase 17b {arch}: losses {losses}")
+    line = train.summary(run)
+    print(line, flush=True)
+    rec.update({"losses": losses, "launches": launches,
+                "launches_by_route": dict(masked_matmul.launches_by_route),
+                "step_ms": host_ms, "profile": prof, "peak_bytes": peak,
+                "train_line": line, "steps": loop.step})
+    cut_note = f", cut by {cut}" if cut else ""
+    log(f"phase 17b {arch}{' --logicnet-ffn' if logicnet else ''} at full "
+        f"width ({cfg.n_layers} layers{cut_note}, batch {batch} x seq "
+        f"{seq}): {n_params} float32 parameters "
+        f"({n_masks} of them masks), state built in {build_s:.2f} s; "
+        f"masked_matmul {launches} launches in {loop.step} steps "
+        f"({per_step} a step)"
+        + (f"; losses {losses[:LM_PARITY_STEPS]} against {plain_losses} "
+           f"with every FFN product on the plain version (max rtol "
+           f"{rec['parity_rtol']:.3g}, limit {LM_PARITY_RTOL}); pruned "
+           f"weights 0 and mask columns at fan-in after step 1"
+           if plain_losses is not None else "")
+        + (f"; (token, k) pairs dropped a step {rec['drops_per_step']} of "
+           f"{rec['pairs_per_step']} (capacity "
+           f"{cfg.moe.capacity_factor}, group {moe.GROUP_TOKENS})"
+           if cfg.moe is not None else "")
+        + f"; {host_ms:.3f} ms a step on the host clock (synchronised, "
+        f"steps {FT_HOST_STEPS[0] + 1}-{FT_HOST_STEPS[1]}); profiled "
+        f"steps: {prof['host_ms']:.3f} ms host, {prof['device_ms']:.3f} "
+        f"ms device, idle {prof['idle_share'] * 100:.1f} %, "
+        f"{prof['kernels_per_step']} kernels a step, device ms by kind "
+        f"{prof['device_ms_by_kind']}; top kernels (ms): "
+        f"{prof['top_kernels']}; peak {peak / 1e9:.3f} GB allocated "
+        f"({torch.cuda.get_device_name(0)})")
+    del run, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_families_phase(torch, dev) -> dict:
+    """Phase 17: (a) the training record's runs, (b) the five families
+    at full width, (c) the masked matmul at their FFN shapes."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"smoke": train_smoke_phase(torch, dev), "full": {}, "seconds": {}}
+    out["seconds"]["17a"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="lm_train_families_")
+    try:
+        for arch, logicnet, batch, seq, cut in FT_FULL:
+            t0 = time.perf_counter()
+            out["full"][arch] = full_train_phase(torch, dev, tmp, arch,
+                                                 logicnet, batch, seq, cut)
+            out["seconds"][arch] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    out["ffn_times"] = {
+        arch: ffn_masked_matmul_phase(
+            torch, dev, d_model, d_ff,
+            tuple((name, m, which) for name, _, which in FFN_CASES
+                  if name in FT_FFN_CASES), tag="17c")
+        for arch, (d_model, d_ff, m) in FT_FFN_SHAPES.items()}
+    out["seconds"]["17c"] = time.perf_counter() - t0
+    log(f"phase 17 wall seconds: {out['seconds']}")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5548,6 +6138,22 @@ def main() -> None:
                               if v["route"] == "wgmma"}
     tf_rec["cross_shapes"] = {k: v for k, v in encdec["flash"].items()
                               if v["route"] == "tf32x3"}
+
+    # -- phase 17: the families trained; the LogicNet-FFN's products on
+    # the wgmma route at zamba2's and qwen2-vl's widths
+    trained = train_families_phase(torch, dev)
+    ffn_rec = next(r for r in records
+                   if r["name"] == "masked_matmul_wgmma_forward")
+    for key, arch in (("zamba2", "zamba2-2.7b"), ("qwen2_vl", "qwen2-vl-2b")):
+        ffn_rec[f"launches_train_{key}"] = trained["full"][arch]["launches"]
+        ffn_rec[f"shapes_train_{key}"] = trained["ffn_times"][arch]
+    smoke_routes: dict[str, int] = {}
+    for r in trained["smoke"].values():
+        for route, n in r["masked_matmul_launches"].items():
+            smoke_routes[route] = smoke_routes.get(route, 0) + n
+    ffn_rec["launches_train_smoke_by_route"] = smoke_routes
+    ffn_rec["train_families"] = {k: v for k, v in trained.items()
+                                 if k != "ffn_times"}
 
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

@@ -87,6 +87,14 @@ def restore_model(cfg: ModelCfg, directory: str, device=None
     return int(tree["step"]), model_from_state(cfg, tree["state"])
 
 
+def decays(name: str, p: torch.Tensor) -> bool:
+    """AdamW's weight-decay rule (rank >= 2) read on the reference's
+    leaves, which stack each list's layers: so a layer's vectors (its
+    norms, an SSM's ``a_log``, ``d_skip`` and ``dt_bias``) decay, and a
+    hybrid's shared layer's vectors, one layer's, do not."""
+    return M.reference_ndim(name, p) >= 2
+
+
 def make_train_step(cfg: ModelCfg, opt_cfg: AdamWCfg | None = None):
     """``train_step(state, batch) -> (state, loss)``: the loss and the
     gradient of every parameter (masks included), then one AdamW update
@@ -112,7 +120,7 @@ def make_train_step(cfg: ModelCfg, opt_cfg: AdamWCfg | None = None):
         if not bool(torch.isfinite(loss)):
             return state, loss
         adamw_update(opt_cfg, params, dict(zip(params, grads)),
-                     state["opt"], mask_fn=mask_fn)
+                     state["opt"], mask_fn=mask_fn, decay_fn=decays)
         return state, loss
 
     return train_step

@@ -17,6 +17,17 @@ FFN, whose products then run the masked-matmul kernel on the card.
     PYTHONPATH=src python -m repro_torch.launch.train --full \\
         --logicnet-ffn --steps 10
 
+    # the other families: zamba2's shared block with the LogicNet-FFN
+    # (also mamba2-370m and whisper-medium --seq 448; olmoe-1b-7b fits
+    # one card only with its depth cut)
+    PYTHONPATH=src python -m repro_torch.launch.train --full \\
+        --arch zamba2-2.7b --logicnet-ffn --steps 10
+
+qwen2-vl-2b's batches carry zero vision embeddings, as the reference's
+launcher makes them; at its full 28 layers their rows' gradient
+overflows in both packages (a zero row's ``rms_norm`` Jacobian is
+1 / sqrt(eps)), so the first step writes NaN into the parameters.
+
 The reference's ``--model-parallel`` and ``--grad-rs`` shard over a JAX
 mesh (ROADMAP item 10); they are not ported, and one process trains on
 one device.
@@ -101,6 +112,30 @@ class Run:
     step_s: list        # host seconds of each step, synchronised
 
 
+def token_batches(cfg: ModelCfg, seq: int, global_batch: int, dev):
+    """``batches(step)``: ``TokenStream(seed=0)``'s batch of that step on
+    ``dev``, with the stub frontends' inputs, zero bfloat16
+    ``vision_embeds`` / ``frames``, where the model reads them, as the
+    reference's launcher feeds them."""
+    stream = TokenStream(vocab=cfg.vocab, seq_len=seq,
+                         global_batch=global_batch, seed=0)
+
+    def batches(i: int) -> dict:
+        out = {k: torch.from_numpy(v).to(dev)
+               for k, v in stream.batch(i).items()}
+        n = out["tokens"].shape[0]
+        if cfg.vision_tokens > 0:
+            out["vision_embeds"] = torch.zeros(
+                (n, cfg.vision_tokens, cfg.d_model), dtype=torch.bfloat16,
+                device=dev)
+        if cfg.enc_dec:
+            out["frames"] = torch.zeros((n, cfg.enc_frames, cfg.d_model),
+                                        dtype=torch.bfloat16, device=dev)
+        return out
+
+    return batches
+
+
 def build(args: argparse.Namespace, cfg: ModelCfg | None = None) -> Run:
     """The config (``cfg``, else the flags' :func:`config`), a state from
     seed 0 on the device, the train step (its host time recorded, the
@@ -127,23 +162,7 @@ def build(args: argparse.Namespace, cfg: ModelCfg | None = None) -> Run:
         step_s.append(time.perf_counter() - t0)
         return out
 
-    stream = TokenStream(vocab=cfg.vocab, seq_len=args.seq,
-                         global_batch=args.global_batch, seed=0)
-
-    def batches(i: int) -> dict:
-        out = {k: torch.from_numpy(v).to(dev)
-               for k, v in stream.batch(i).items()}
-        # the stub frontends' inputs are zeros, as in the reference
-        n = out["tokens"].shape[0]
-        if cfg.vision_tokens > 0:
-            out["vision_embeds"] = torch.zeros(
-                (n, cfg.vision_tokens, cfg.d_model), dtype=torch.bfloat16,
-                device=dev)
-        if cfg.enc_dec:
-            out["frames"] = torch.zeros((n, cfg.enc_frames, cfg.d_model),
-                                        dtype=torch.bfloat16, device=dev)
-        return out
-
+    batches = token_batches(cfg, args.seq, args.global_batch, dev)
     loop = TrainLoop(TrainLoopCfg(ckpt_dir=args.ckpt_dir,
                                   ckpt_every=args.ckpt_every,
                                   async_save=True), step_fn, state)

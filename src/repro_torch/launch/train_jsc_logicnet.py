@@ -18,10 +18,13 @@ artifact and check it against the table codes::
     # a few steps on the CPU (plain PyTorch versions of the kernels)
     python -m repro_torch.launch.train_jsc_logicnet --steps 5 --device cpu
 
-``--out`` writes the serving artifact only; the Verilog that
-``examples/train_jsc_logicnet.py`` also writes there comes from
-``repro_torch.core.logicnet.to_verilog`` (or ``core.verilog.
-generate_verilog`` of a compile result's netlist).
+``--out`` writes the Verilog netlist there as
+``examples/train_jsc_logicnet.py`` does, under its file names:
+``core.verilog.generate_verilog`` of the compile result's netlist, or
+without the compiler (``--optimize-level 0``)
+``core.logicnet.to_verilog`` of the trained network; with
+``--pipeline-registers`` a register stage after each layer.  Beside it
+goes the serving artifact ``logicnet_<model>.npz``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import numpy as np
 CLASSES = ["g", "q", "W", "Z", "t"]
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> list:
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -47,8 +50,10 @@ def main(argv=None) -> None:
                     help="truth-table compiler level (0 disables; see "
                     "repro_torch.compile)")
     ap.add_argument("--out", default=None,
-                    help="directory for the serving artifact "
-                    "logicnet_<model>.npz")
+                    help="directory for the Verilog files and the serving "
+                    "artifact logicnet_<model>.npz")
+    ap.add_argument("--pipeline-registers", action="store_true",
+                    help="register each layer's outputs in the Verilog")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                     "kernels' plain PyTorch versions)")
@@ -59,20 +64,25 @@ def main(argv=None) -> None:
 
     cfg = fpga4hep.MODELS[args.model]()
     x, y = jet_substructure_data(8000, seed=0)
-    run(cfg, (x[:7000], y[:7000], x[7000:], y[7000:]), name=args.model,
-        classes=CLASSES, method=args.method, steps=args.steps,
-        seed=args.seed, optimize_level=args.optimize_level, out=args.out,
-        device=args.device)
+    return run(cfg, (x[:7000], y[:7000], x[7000:], y[7000:]),
+               name=args.model,
+               classes=CLASSES, method=args.method, steps=args.steps,
+               seed=args.seed, optimize_level=args.optimize_level,
+               out=args.out, verilog=True,
+               pipeline=args.pipeline_registers, device=args.device)
 
 
 def run(cfg, data, *, name: str, classes, method: str = "apriori",
         steps: int = 600, lr: float = 1e-2, seed: int = 0,
         optimize_level: int = 2, out: str | None = None,
-        device=None) -> None:
+        verilog: bool = False, pipeline: bool = False,
+        device=None) -> list:
     """Train ``cfg`` on ``data`` (train and held-out arrays), report
     per-class AUC-ROC and accuracy, verify the tables (and, at an
     ``optimize_level``, the compiled ones), build and check the serving
-    artifact, and write it to ``out/logicnet_<name>.npz``."""
+    artifact, and write the artifact ``logicnet_<name>.npz`` to ``out``,
+    with ``verilog`` the Verilog files beside it (register stages with
+    ``pipeline``).  Returns the trained network's truth tables."""
     import torch
 
     from repro_torch import engine
@@ -134,9 +144,19 @@ def run(cfg, data, *, name: str, classes, method: str = "apriori",
 
     if out:
         os.makedirs(out, exist_ok=True)
+        if verilog:
+            from repro_torch.core.verilog import generate_verilog
+            files = (generate_verilog(opt.netlist, pipeline=pipeline)
+                     if opt is not None else
+                     LN.to_verilog(res.model, pipeline=pipeline))
+            for fname, text in files.items():
+                with open(os.path.join(out, fname), "w") as f:
+                    f.write(text)
+            print(f"wrote {len(files)} Verilog files to {out}")
         apath = net.save(os.path.join(out, f"logicnet_{name}.npz"))
         print(f"wrote serving artifact {apath} (python -m "
               f"repro_torch.launch.serve --lut --artifact {apath} serves it)")
+    return tables
 
 
 if __name__ == "__main__":

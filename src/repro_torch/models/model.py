@@ -372,6 +372,14 @@ def stacked_layers(cfg: ModelCfg, stack: str) -> int:
     return cfg.n_enc_layers if stack == "enc_layers" else cfg.n_layers
 
 
+def reference_ndim(name: str, t: torch.Tensor) -> int:
+    """The rank of the reference's leaf that holds parameter ``name``: one
+    more than ``t``'s for a layer of a stacked list (``layers.3.ln1`` is a
+    row of the reference's ``(L, d)`` ``layers.ln1``), ``t``'s own
+    otherwise (a hybrid's ``shared_attn.ln1`` is one layer's)."""
+    return t.dim() + (name.split(".", 1)[0] in _STACKED)
+
+
 def param_tree(cfg: ModelCfg, params: dict) -> dict:
     """A flat ``{name: tensor}`` dict (``layers.3.ffn.wo``) as the nested
     tree the forward reads: ``{"embed": {...}, "final_norm": ...,

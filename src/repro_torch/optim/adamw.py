@@ -7,7 +7,9 @@ into its updated value, keeping pruned weights exactly zero.
 * m/v moments in float32 regardless of the parameter's dtype.
 * Name-based policies over a ``{name: tensor}`` dict of parameters:
   ``freeze_fn(name) -> bool`` skips a leaf (default: any name mentioning
-  'mask'); ``mask_fn(name, params) -> tensor | None`` gives a leaf's mask.
+  'mask'); ``mask_fn(name, params) -> tensor | None`` gives a leaf's mask;
+  ``decay_fn(name, p) -> bool`` says whether it takes weight decay
+  (default: the reference's rule, ``p.dim() >= 2``).
 * Parameters, moments and the step count are updated in place; the step
   count and every per-step scalar stay on the parameters' device, so an
   update never waits for the card.
@@ -37,6 +39,12 @@ def default_freeze(name: str) -> bool:
     return "mask" in name
 
 
+def default_decay(name: str, p: torch.Tensor) -> bool:
+    """The reference's weight-decay rule: matrices and higher-rank leaves
+    decay, vectors and scalars do not."""
+    return p.dim() >= 2
+
+
 def init_opt_state(params: dict[str, torch.Tensor]) -> dict:
     """Zero moments for every parameter and a 0 step count (int32)."""
     dev = next(iter(params.values())).device
@@ -59,8 +67,11 @@ def adamw_update(cfg: AdamWCfg, params: dict[str, torch.Tensor],
                  grads: dict[str, torch.Tensor], state: dict,
                  mask_fn: Callable[[str, dict], torch.Tensor | None]
                  | None = None,
-                 freeze_fn: Callable[[str], bool] = default_freeze) -> None:
+                 freeze_fn: Callable[[str], bool] = default_freeze,
+                 decay_fn: Callable[[str, torch.Tensor], bool] | None = None
+                 ) -> None:
     """One AdamW step over ``params`` in place (moments and step too)."""
+    decay_fn = decay_fn or default_decay
     with torch.no_grad():
         state["step"] += 1
         step = state["step"].float()
@@ -83,7 +94,7 @@ def adamw_update(cfg: AdamWCfg, params: dict[str, torch.Tensor],
             m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
             v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
             delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-            if cfg.weight_decay > 0 and p.dim() >= 2:
+            if cfg.weight_decay > 0 and decay_fn(name, p):
                 delta = delta + cfg.weight_decay * p.float()
             new_p = p.float() - lr * delta
             if mask is not None:

@@ -518,3 +518,177 @@ def test_device_ms_takes_the_run_after_the_spin_kernel(cs):
     long = calls(spin_end + 10, 200)
     last = calls(long[-1].end + 30_000, 1)
     assert cs.measured_run(lead + long + last, spin_end)[1] == long
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the families trained
+# ---------------------------------------------------------------------------
+
+def test_full_training_runs_are_the_launchers_with_the_stated_cuts(cs,
+                                                                   tmp_path):
+    """17b's runs are ``launch.train --full --arch ...`` at its defaults
+    (lr 3e-4, remat "full", bfloat16 compute, ``LogicNetFFNCfg()`` where
+    asked), no checkpoint before the last step; the only cuts are
+    olmoe-1b-7b's depth (16 -> 8 layers) and the batch and sequence of
+    each run (qwen2-vl-2b: 8 x 1024, 256 vision positions and 768 text;
+    whisper-medium: 8 x 448, its text context)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import LogicNetFFNCfg
+    runs = {arch: (logicnet, b, s, cut)
+            for arch, logicnet, b, s, cut in cs.FT_FULL}
+    assert runs == {"olmoe-1b-7b": (False, 8, 256, {"n_layers": 8}),
+                    "mamba2-370m": (False, 8, 256, {}),
+                    "zamba2-2.7b": (True, 8, 256, {}),
+                    "whisper-medium": (False, 8, 448, {}),
+                    "qwen2-vl-2b": (True, 8, 1024, {})}
+    for arch, (logicnet, b, s, cut) in runs.items():
+        args = cs.full_train_args(str(tmp_path), arch, logicnet, b, s)
+        cfg = cs.full_train_config(args, cut)
+        want = get_config(arch)
+        if logicnet:
+            want = dataclasses.replace(want, logicnet_ffn=LogicNetFFNCfg())
+        assert cfg == dataclasses.replace(want, **cut)
+        assert (args.lr, args.global_batch, args.seq) == (3e-4, b, s)
+        assert args.ckpt_every > cs.FT_FULL_STEPS and not args.resume
+        assert cfg.remat == "full" and cfg.compute_dtype == "bfloat16"
+    assert cs.full_train_config(
+        cs.full_train_args(str(tmp_path), "olmoe-1b-7b", False, 8, 256),
+        runs["olmoe-1b-7b"][3]).n_layers == 8
+    vlm = get_config("qwen2-vl-2b")
+    assert runs["qwen2-vl-2b"][2] - vlm.vision_tokens == 768
+    assert runs["whisper-medium"][2] <= get_config("whisper-medium").attn_chunk
+
+
+def test_expected_masked_matmul_launches_from_the_config(cs):
+    """9 masked products a LogicNet-FFN and step at remat "full" (3
+    forward, 3 recomputed, 3 input gradients): qwen2-vl-2b's 28 layers
+    252, zamba2-2.7b's shared block at its 9 sites 81; none where the
+    reference's LogicNet-FFN never runs (a MoE layer takes ``moe``
+    first, mamba2 has no FFN, whisper's layers call the dense FFN)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import LogicNetFFNCfg
+
+    def with_ffn(arch):
+        return dataclasses.replace(get_config(arch),
+                                   logicnet_ffn=LogicNetFFNCfg())
+    assert cs.masked_matmul_per_step(with_ffn("qwen2-vl-2b")) == 252
+    assert cs.masked_matmul_per_step(with_ffn("zamba2-2.7b")) == 81
+    assert cs.masked_matmul_per_step(with_ffn("qwen3-1.7b")) == 252
+    for arch in ("olmoe-1b-7b", "mamba2-370m", "whisper-medium"):
+        assert cs.masked_matmul_per_step(with_ffn(arch)) == 0
+        assert cs.masked_matmul_per_step(get_config(arch)) == 0
+    assert cs.masked_matmul_per_step(get_config("zamba2-2.7b")) == 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "qwen2-vl-2b"])
+def test_masked_matmul_calls_a_remat_step_make(cs, arch, monkeypatch):
+    """The count the constant stands for, taken on the CPU: a remat
+    "full" training step of the smoke config with the LogicNet-FFN calls
+    the masked-matmul wrapper 9 times a FFN site (the wrapper launches the
+    kernel on the card wherever it is called on a CUDA tensor)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import masked_matmul as mm_mod
+    from repro_torch.launch import steps
+    from repro_torch.models.config import LogicNetFFNCfg
+    cfg = dataclasses.replace(get_smoke_config(arch), remat="full",
+                              logicnet_ffn=LogicNetFFNCfg())
+    calls = []
+    real = mm_mod.masked_matmul
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(mm_mod, "masked_matmul", counted)
+    state = steps.make_train_state(cfg, seed=0, device="cpu")
+    batch = cs.train_batch(torch, cfg, 0, torch.device("cpu"))
+    steps.make_train_step(cfg)(state, batch)
+    assert len(calls) == cs.masked_matmul_per_step(cfg) == \
+        9 * cs.attention_layers(cfg)
+
+
+def test_moe_bfloat16_steps_are_set_aside_after_a_differing_expert_set(cs):
+    """A loss past its gate passes only at or after the first step whose
+    expert sets differ from the record's; the steps before it, and every
+    step where none differs, are held."""
+    import numpy as np
+    topi = np.zeros((5, 2, 1, 3, 2), np.int8)
+    topi[..., 1] = 1
+    same = [cs.fixture_route_sets(topi[i]) for i in range(5)]
+    assert cs.first_differing_step(same, topi) is None
+    moved = [s.copy() for s in [np.stack(x) for x in same]]
+    moved[2][1, 0, 2] = [0, 3]                 # step 3, layer 2, position 3
+    assert cs.first_differing_step([list(m) for m in moved], topi) == 2
+    rtol = [1e-5, 2e-3, 1e-5, 5e-3, 1e-5]
+    assert cs.unexplained_steps(rtol, 1e-3, None) == [1, 3]
+    assert cs.unexplained_steps(rtol, 1e-3, 2) == [1]
+    assert cs.unexplained_steps(rtol, 1e-3, 1) == []
+    assert cs.unexplained_steps([0.06], 0.05, 0) == []
+    assert cs.unexplained_steps([0.06], 0.05, None) == [0]
+
+
+def test_train_check_refuses_a_miss(cs):
+    """17a's gate function on a made-up float32 run of the record's
+    shapes: the port's own readings pass; a loss off by 2e-3, a parameter
+    off by 2e-5, or a pruned weight left standing each fail."""
+    import copy
+
+    import torch
+    fx = cs.train_record()
+    run = "qwen3-1.7b+logicnet"
+    cfg = cs.train_config("qwen3-1.7b", True, "float32")
+    got = cs.train_five_steps(torch, cfg, cs.train_arrays(fx, run),
+                              torch.device("cpu"))
+    rec = cs.train_check(run, "float32", cfg, got, fx)
+    assert rec["param_err"] <= cs.FT_PARAM_ATOL and rec["conditioned"] > 0
+    bad = copy.deepcopy(got)
+    bad["losses"][3] *= 1.002
+    with pytest.raises(SystemExit):
+        cs.train_check(run, "float32", cfg, bad, fx)
+    bad = copy.deepcopy(got)
+    w = bad["params"]["layers.1.attn.wq"]
+    with torch.no_grad():
+        w[0, 0, 0] += 2e-5
+    bad["conditioned"]["layers.1.attn.wq"][0, 0, 0] = False
+    with pytest.raises(SystemExit):
+        cs.train_check(run, "float32", cfg, bad, fx)
+    bad = copy.deepcopy(got)
+    m = bad["params"]["layers.0.ffn.mask_in"]
+    w = bad["params"]["layers.0.ffn.wi_up"]
+    with torch.no_grad():
+        w[m == 0] = 1e-3
+    with pytest.raises(SystemExit):
+        cs.train_check(run, "bfloat16", cfg, bad, {
+            **fx, f"{run}.bfloat16.losses": fx[f"{run}.float32.losses"],
+            f"{run}.bfloat16.grad_norm0": fx[f"{run}.float32.grad_norm0"]})
+
+
+def test_seeded_vision_replaces_only_the_zero_vision_embeddings(cs):
+    """17b's qwen2-vl batches: the launcher's tokens and labels, seeded
+    standard-normal bfloat16 vision embeddings a step (the same for the
+    parity run and the main one); a batch without them is untouched."""
+    import torch
+    dev = torch.device("cpu")
+
+    def batches(step):
+        return {"tokens": torch.full((2, 8), step),
+                "vision_embeds": torch.zeros((2, 4, 6),
+                                             dtype=torch.bfloat16)}
+    a, b = (cs.seeded_vision(torch, batches, dev) for _ in range(2))
+    x0, x1 = a(0), a(1)
+    assert torch.equal(x0["tokens"], batches(0)["tokens"])
+    assert x0["vision_embeds"].dtype == torch.bfloat16
+    assert float(x0["vision_embeds"].float().std()) > 0.5
+    assert torch.equal(x0["vision_embeds"], b(0)["vision_embeds"])
+    assert not torch.equal(x0["vision_embeds"], x1["vision_embeds"])
+    plain = cs.seeded_vision(torch, lambda s: {"tokens": torch.ones(2)},
+                             dev)
+    assert plain(3).keys() == {"tokens"}

@@ -421,8 +421,17 @@ def test_training_attention_matches_the_kernel_path():
         A.attn_apply(p, cfg, xg, pos, window=0)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-27b",
+                                  "olmoe-1b-7b", "mamba2-370m",
+                                  "zamba2-2.7b", "whisper-medium",
+                                  "qwen2-vl-2b"])
 def test_abstract_params_match_the_reference(arch):
+    """Names and shapes at full width, with and without the LogicNet-FFN
+    (a MoE layer and whisper's layers take none; zamba2's shared block
+    takes one set of masks): the reference's stacked lists
+    (``layers``, ``ssm_layers``, ``enc_layers`` over ``n_enc_layers``,
+    ``dec_layers``) as the port's per-layer names, a hybrid's
+    ``shared_attn`` and whisper's ``pos_emb_enc`` as they are."""
     cfg = PC.get_config(arch)
     rcfg = RC.get_config(arch)
     for logicnet in (False, True):
@@ -436,15 +445,20 @@ def test_abstract_params_match_the_reference(arch):
         want = {".".join(k.key for k in path): leaf.shape for path, leaf in
                 tree_flatten_with_path(RS.abstract_params(rcfg))[0]}
         for name, shape in want.items():
-            if name.startswith("layers."):
-                assert shape[0] == cfg.n_layers
-                for i in range(cfg.n_layers):
-                    assert tuple(got[name.replace(
-                        "layers.", f"layers.{i}.", 1)].shape) == shape[1:]
+            stack, _, rest = name.partition(".")
+            if stack in M._STACKED:
+                n = M.stacked_layers(cfg, stack)
+                assert shape[0] == n
+                for i in range(n):
+                    assert tuple(got[f"{stack}.{i}.{rest}"].shape) == \
+                        shape[1:]
             else:
                 assert tuple(got[name].shape) == shape
-        assert len(got) == sum(cfg.n_layers if n.startswith("layers.")
-                               else 1 for n in want)
+        assert len(got) == sum(
+            M.stacked_layers(cfg, n.split(".")[0])
+            if n.split(".")[0] in M._STACKED else 1 for n in want)
+        assert any("mask" in n for n in got) == any("mask" in n
+                                                    for n in want)
     state = steps.abstract_train_state(cfg)
     assert sorted(state["opt"]["m"]) == sorted(got)
     assert state["opt"]["step"].dtype == torch.int32

@@ -323,3 +323,33 @@ def test_model_a_sop_rtl_equals_case_form(model_a):
         o_sop = PV.evaluate_verilog(sop, word, n_layers=n_layers)
         assert o_sop == PV.evaluate_verilog(case, word, n_layers=n_layers)
         assert _out_codes(o_sop, last.bw_out, last.out_features) == list(row)
+
+
+@pytest.mark.parametrize("level,pipeline", [(2, False), (2, True),
+                                            (0, False), (0, True)])
+def test_jsc_launcher_out_writes_the_references_verilog(tmp_path, capsys,
+                                                        level, pipeline):
+    """``train_jsc_logicnet --out`` writes the Verilog files that
+    ``examples/train_jsc_logicnet.py`` writes, under the same names and
+    equal in text to the reference's for the same tables: a compile
+    result's netlist (``--optimize-level 2``, the default) or, without
+    the compiler, ``logicnet.to_verilog``'s; with
+    ``--pipeline-registers`` a register stage a layer."""
+    from repro.core.truth_table import LayerTruthTable
+    from repro_torch.launch import train_jsc_logicnet
+
+    tables = train_jsc_logicnet.main(
+        ["--model", "A", "--steps", "3", "--device", "cpu", "--out",
+         str(tmp_path), "--optimize-level", str(level)]
+        + ["--pipeline-registers"] * pipeline)
+    ref = [LayerTruthTable(np.asarray(t.table), np.asarray(t.indices),
+                           t.bw_in, t.bw_out) for t in tables]
+    netlist = (JC.optimize(ref, level, in_features=16).netlist if level
+               else JNL.build_netlist(ref, 16))
+    want = JV.generate_verilog(netlist, pipeline)
+    got = {p.name: p.read_text() for p in tmp_path.glob("*.v")}
+    assert sorted(got) == sorted(want) and len(want) > 1
+    for name, text in want.items():
+        assert got[name] == text, name
+    assert f"wrote {len(want)} Verilog files" in capsys.readouterr().out
+    assert (tmp_path / "logicnet_A.npz").is_file()

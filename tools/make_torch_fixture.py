@@ -67,6 +67,31 @@ compared with, from fixed seeds:
   ``mem_k`` / ``mem_v`` (bfloat16, as ``init_cache`` makes them) hold each
   decoder layer's ``cross_memory`` of that memory, as the reference's
   ``_forward_encdec`` computes them: nothing in the reference fills them;
+* ``lm_smoke_train.npz`` (compressed) — the reference's training record
+  for every LM arch of the zoo at its smoke config (``LM_TRAIN_ARCHS``),
+  and with ``LogicNetFFNCfg()`` for qwen3-1.7b, zamba2-2.7b and
+  qwen2-vl-2b (``<arch>+logicnet``): five steps of
+  ``repro.launch.steps.make_train_step`` (AdamW lr 3e-4, weight decay
+  0.01, ``cosine_schedule(1, 5)``) from ``init_params`` at PRNGKey(0) on
+  ``TokenStream(seed=0)`` batches of 4 x 64 (:func:`train_batch`: zero
+  ``frames`` / ``vision_embeds``, as the reference's launcher feeds
+  them), at float32 and bfloat16 compute (``<run>.<dtype>.`` prefix; a
+  MoE run at bfloat16 at :func:`fixture_config`'s capacity E / k).  Each
+  holds the five ``losses``, ``grad_norm0`` (the global gradient norm at
+  step 0, mask gradients included), a MoE run's router choices at every
+  step (``topi``, int8 (steps, layers, 4, 64, K), recorded by
+  :func:`router_choices`) and its ``capacity_factor``, and at float32 the
+  final parameters as ``delta.<name>``: the float16 of final less initial
+  (a LogicNet weight's initial times its mask, :func:`masked_init`) for
+  every leaf but the masks, which do not move.  float16 keeps 11
+  significant bits, so a parameter that moved by d is stored within
+  2^-12 d (5 AdamW steps move one by at most about 2e-3: within 5e-7;
+  the builder asserts ``LM_TRAIN_DELTA_ERR``, a tenth of the 1e-5 the
+  port's final parameters are held to).  Initial parameters
+  (``<run>.params.<name>``) are stored only where no other fixture holds
+  them: phi3-mini-3.8b's and starcoder2-15b's in full, and a LogicNet
+  run's masks (its other leaves are its arch's: the reference's
+  LogicNet-FFN init draws the dense FFN's weights and adds the masks);
 * ``model_d_ref.npz`` (compressed) — fpga4hep model D (Table 6.1: 16 ->
   64 -> 32 -> 32 sparse at fan-in 5, 2-bit codes, then a sparse 5-neuron
   head at fan-in 6 with 4-bit outputs; full widths) generated as model A
@@ -84,9 +109,10 @@ interpret mode)::
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/make_torch_fixture.py
 
 ``--only model_d`` writes ``model_d_ref.npz`` alone, ``--only
-lm_moe_ssm`` ``lm_smoke_moe_ssm.npz`` and ``--only lm_encdec_vlm``
-``lm_smoke_encdec_vlm.npz`` (regenerating ``model_a_l3.npz`` rewrites
-its pass timings).
+lm_moe_ssm`` ``lm_smoke_moe_ssm.npz``, ``--only lm_encdec_vlm``
+``lm_smoke_encdec_vlm.npz`` and ``--only lm_train``
+``lm_smoke_train.npz`` (regenerating ``model_a_l3.npz`` rewrites its
+pass timings).
 
 ``tests/test_torch_engine.py`` regenerates each in memory and asserts
 they equal the committed files, so the fixture cannot drift from the
@@ -116,6 +142,20 @@ LM_MOE_SSM_ARCHS = ("olmoe-1b-7b", "qwen3-moe-235b-a22b", "mamba2-370m",
 LM_ENCDEC_VLM_NAME = "lm_smoke_encdec_vlm.npz"
 LM_ENCDEC_VLM_ARCHS = ("whisper-medium", "qwen2-vl-2b")
 LM_ENCDEC_DECODE = 8
+LM_TRAIN_NAME = "lm_smoke_train.npz"
+LM_TRAIN_ARCHS = ("qwen3-1.7b", "gemma3-27b", "phi3-mini-3.8b",
+                  "starcoder2-15b", "olmoe-1b-7b", "qwen3-moe-235b-a22b",
+                  "mamba2-370m", "zamba2-2.7b", "whisper-medium",
+                  "qwen2-vl-2b")
+LM_TRAIN_LOGICNET = ("qwen3-1.7b", "zamba2-2.7b", "qwen2-vl-2b")
+LOGICNET_SUFFIX = "+logicnet"
+LM_TRAIN_STEPS = 5
+LM_TRAIN_BATCH = 4
+LM_TRAIN_LR = 3e-4
+LM_TRAIN_DECAY = 0.01
+# the most a stored float16 delta may differ from the float32 one: a
+# tenth of the 1e-5 the port's final parameters are held to
+LM_TRAIN_DELTA_ERR = 1e-6
 KV_LEAVES = ("k", "v", "shared_k", "shared_v")
 LM_DTYPES = ("float32", "bfloat16")
 LM_SEQ = 64            # a multiple of both smoke configs' attn_chunk
@@ -526,6 +566,121 @@ def build_lm_encdec_vlm() -> dict[str, np.ndarray]:
     return out
 
 
+def train_runs() -> list[tuple[str, str, bool]]:
+    """``(run, arch, logicnet)`` of every run of ``lm_smoke_train.npz``."""
+    return ([(a, a, False) for a in LM_TRAIN_ARCHS]
+            + [(a + LOGICNET_SUFFIX, a, True) for a in LM_TRAIN_LOGICNET])
+
+
+def train_batch(cfg, step: int) -> dict[str, np.ndarray]:
+    """Step ``step``'s batch: ``TokenStream(seed=0)``'s tokens and labels
+    (4 x 64) and, as the reference's launcher adds them, zero ``frames``
+    / ``vision_embeds`` (float32 here; bfloat16 zeros in the step)."""
+    from repro.data import TokenStream
+
+    out = dict(TokenStream(vocab=cfg.vocab, seq_len=LM_SEQ,
+                           global_batch=LM_TRAIN_BATCH, seed=0).batch(step))
+    if cfg.vision_tokens > 0:
+        out["vision_embeds"] = np.zeros(
+            (LM_TRAIN_BATCH, cfg.vision_tokens, cfg.d_model), np.float32)
+    if cfg.enc_dec:
+        out["frames"] = np.zeros(
+            (LM_TRAIN_BATCH, cfg.enc_frames, cfg.d_model), np.float32)
+    return out
+
+
+def masked_init(init: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Flattened initial parameters with each LogicNet weight times its
+    sibling mask (``repro_torch.optim.adamw.logicnet_mask_fn``'s rule):
+    the base a run's ``delta`` is taken from (AdamW zeroes a pruned
+    weight in its first step, so its delta from the dense init would be
+    the whole weight)."""
+    from repro_torch.optim.adamw import logicnet_mask_fn
+
+    out = dict(init)
+    for name, a in init.items():
+        mask = logicnet_mask_fn(name, init)
+        if mask is not None:
+            out[name] = a * mask
+    return out
+
+
+def build_lm_train(runs=None) -> dict[str, np.ndarray]:
+    """The arrays of ``lm_smoke_train.npz`` (with ``runs``, a list of run
+    names, only theirs), nothing written."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config
+    from repro.launch import steps as S
+    from repro.models import model as M
+    from repro.models.config import LogicNetFFNCfg
+    from repro.optim import adamw as A
+
+    held = set(LM_ARCHS + LM_MOE_SSM_ARCHS + LM_ENCDEC_VLM_ARCHS)
+    opt = A.AdamWCfg(lr=LM_TRAIN_LR, weight_decay=LM_TRAIN_DECAY,
+                     schedule=A.cosine_schedule(1, LM_TRAIN_STEPS))
+    out = {}
+    for run, arch, logicnet in train_runs():
+        if runs is not None and run not in runs:
+            continue
+        base = get_smoke_config(arch)
+        if logicnet:
+            base = dataclasses.replace(base, logicnet_ffn=LogicNetFFNCfg())
+        params = M.init_params(base, jax.random.PRNGKey(0))
+        init = flatten_params(params)
+        for name, a in init.items():
+            if (logicnet and "mask" in name) or (not logicnet
+                                                 and arch not in held):
+                out[f"{run}.params.{name}"] = a
+        for cd in LM_DTYPES:
+            cfg = fixture_config(base, cd)
+            batches = [{k: jnp.asarray(v, jnp.bfloat16)
+                        if v.dtype == np.float32 else jnp.asarray(v)
+                        for k, v in train_batch(cfg, i).items()}
+                       for i in range(LM_TRAIN_STEPS)]
+            grads = jax.jit(jax.grad(lambda p, b, cfg=cfg: M.loss_fn(
+                p, cfg, b)))(params, batches[0])
+            out[f"{run}.{cd}.grad_norm0"] = np.float32(A.global_norm(grads))
+            step = jax.jit(S.make_train_step(cfg, opt))
+            state = {"params": params, "opt": A.init_opt_state(params)}
+            losses = []
+            record = (router_choices() if cfg.moe is not None
+                      else contextlib.nullcontext([]))
+            with record as routes:
+                for b in batches:
+                    state, loss = step(state, b)
+                    losses.append(float(loss))
+            out[f"{run}.{cd}.losses"] = np.asarray(losses, np.float32)
+            if cfg.moe is not None:
+                out[f"{run}.{cd}.capacity_factor"] = np.float32(
+                    cfg.moe.capacity_factor)
+                out[f"{run}.{cd}.topi"] = np.stack(routes).reshape(
+                    LM_TRAIN_STEPS, cfg.n_layers, LM_TRAIN_BATCH, LM_SEQ,
+                    cfg.moe.top_k).astype(np.int8)
+            if cd != "float32":
+                continue
+            start = masked_init(init)
+            for name, a in flatten_params(state["params"]).items():
+                if "mask" in name:
+                    assert np.array_equal(a, init[name]), name
+                    continue
+                delta = a - start[name]
+                out[f"{run}.float32.delta.{name}"] = half = delta.astype(
+                    np.float16)
+                assert np.abs(half - delta).max() <= LM_TRAIN_DELTA_ERR, name
+    return out
+
+
+def write_lm_train(directory: str = FIXTURE_DIR) -> str:
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, LM_TRAIN_NAME)
+    np.savez_compressed(path, **build_lm_train())
+    return path
+
+
 def write_model_d(directory: str = FIXTURE_DIR) -> str:
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, MODEL_D_NAME)
@@ -558,7 +713,8 @@ def write(directory: str = FIXTURE_DIR) -> tuple[str, ...]:
     lm_path = os.path.join(directory, LM_NAME)
     np.savez_compressed(lm_path, **build_lm())
     return (art, ref_path, train_path, lm_path, write_lm_moe_ssm(directory),
-            write_lm_encdec_vlm(directory), write_model_d(directory))
+            write_lm_encdec_vlm(directory), write_model_d(directory),
+            write_lm_train(directory))
 
 
 def main() -> None:
@@ -567,11 +723,12 @@ def main() -> None:
     ap.add_argument("--out", default=FIXTURE_DIR,
                     help="directory to write the .npz files into")
     ap.add_argument("--only", choices=("model_d", "lm_moe_ssm",
-                                       "lm_encdec_vlm"),
+                                       "lm_encdec_vlm", "lm_train"),
                     help="write this fixture alone")
     args = ap.parse_args()
     only = {"model_d": write_model_d, "lm_moe_ssm": write_lm_moe_ssm,
-            "lm_encdec_vlm": write_lm_encdec_vlm}
+            "lm_encdec_vlm": write_lm_encdec_vlm,
+            "lm_train": write_lm_train}
     paths = ((only[args.only](args.out),) if args.only
              else write(args.out))
     for path in paths:

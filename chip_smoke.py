@@ -5516,6 +5516,310 @@ def train_families_phase(torch, dev) -> dict:
     return out
 
 
+# -- phase 18: the mesh path (torch.distributed, DTensor) on one card ------
+# 18a: launch.train --full --logicnet-ffn --model-parallel 1 --grad-rs
+# (8 x 256, the launcher's defaults) against the same steps unsharded
+MESH_STEPS = 3
+# 18d: the dry-run's cells traced on both production meshes
+MESH_DRYRUN = (("qwen3-1.7b", "train_4k", False),
+               ("qwen3-1.7b", "train_4k", True))
+MESH_DRYRUN_TIMEOUT_S = 300
+MESH_SERVE_TIMEOUT_S = 300
+
+
+def mesh_train_args(tmp: str, steps: int, mesh: bool):
+    """18a's flags: phase 14's, and on the mesh ``--model-parallel 1
+    --grad-rs``."""
+    from repro_torch.launch import train
+    extra = ["--model-parallel", "1", "--grad-rs"] if mesh else []
+    return train.parse_args(["--full", "--logicnet-ffn", "--steps",
+                             str(steps), "--ckpt-dir", tmp,
+                             "--ckpt-every", "1000"] + extra)
+
+
+def mesh_param(p):
+    """A parameter of a (1, 1) mesh's state as a plain tensor (its one
+    shard is the whole)."""
+    return p.to_local() if hasattr(p, "to_local") else p
+
+
+def mesh_dryrun_check(rec: dict) -> list:
+    """What a production-mesh dry-run record of phase 18d lacks: ``ok``,
+    FLOPs and collectives above 0, the mesh's ranks, and on the multi-pod
+    mesh the ``pod`` axis on weights."""
+    bad = []
+    if rec.get("status") != "ok":
+        bad.append(f"status {rec.get('status')}: {rec.get('error')}")
+        return bad
+    if not rec.get("cost", {}).get("flops", 0) > 0:
+        bad.append("no FLOPs")
+    if not rec.get("collectives", {}).get("total", 0) > 0:
+        bad.append("no collectives")
+    want = 512 if rec.get("mesh") == "2x16x16" else 256
+    if rec.get("chips") != want:
+        bad.append(f"{rec.get('chips')} ranks, not {want}")
+    if rec.get("mesh") == "2x16x16" and not rec.get("pod_on_weights"):
+        bad.append("the pod axis shards no weight")
+    return bad
+
+
+def mesh_train_phase(torch, dev, tmp: str) -> dict:
+    """18a: qwen3-1.7b with the LogicNet-FFN trained 3 steps unsharded,
+    then on a (1, 1) mesh with ``--grad-rs``: losses and final parameters
+    bit for bit, 252 wgmma masked-matmul launches a step, the masks kept
+    after step 1; host ms a step beside the unsharded path's."""
+    import gc
+
+    from repro_torch.kernels.masked_matmul import masked_matmul
+    from repro_torch.launch import train
+
+    reset_all()
+    run = train.build(mesh_train_args(tmp, MESH_STEPS, mesh=False))
+    run.loop.run(run.batches, MESH_STEPS)
+    plain_losses = [l for _, l in run.loop.metrics]
+    plain_ms = 1e3 * statistics.mean(run.step_s[1:])
+    plain = {n: p.detach().cpu() for n, p in run.loop.state["params"].items()}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset_all()
+    t0 = time.perf_counter()
+    run = train.build(mesh_train_args(tmp, MESH_STEPS, mesh=True))
+    build_s = time.perf_counter() - t0
+    cfg, loop = run.cfg, run.loop
+    if run.mesh is None or run.mesh.size() != 1:
+        fail(f"phase 18a: the run is not on a one-rank mesh ({run.mesh})")
+    per_step = LM_MM_PER_LAYER_STEP * cfg.n_layers
+    loop.run(run.batches, 1)
+    if masked_matmul.launches != per_step:
+        fail(f"phase 18a step 1 launched masked_matmul "
+             f"{masked_matmul.launches} times, not {per_step}")
+    p = {n: mesh_param(t) for n, t in loop.state["params"].items()}
+    for i in range(cfg.n_layers):
+        for wname, mname in (("wi_gate", "mask_in"), ("wi_up", "mask_in"),
+                             ("wo", "mask_out")):
+            w, m = p[f"layers.{i}.ffn.{wname}"], p[f"layers.{i}.ffn.{mname}"]
+            if bool((w[m == 0] != 0).any()) or bool(
+                    (m.sum(0) != cfg.logicnet_ffn.fan_in).any()):
+                fail(f"phase 18a layer {i} {wname}: a pruned weight is not "
+                     f"0 after step 1, or a mask column does not sum to "
+                     f"{cfg.logicnet_ffn.fan_in}")
+    loop.run(run.batches, MESH_STEPS)
+    torch.cuda.synchronize()
+    launches = masked_matmul.launches
+    by_route = dict(masked_matmul.launches_by_route)
+    if launches != per_step * MESH_STEPS or by_route["wgmma"] != launches:
+        fail(f"phase 18a: {launches} masked_matmul launches in "
+             f"{MESH_STEPS} steps ({by_route}); expected {per_step} a "
+             f"step, all wgmma")
+    losses = [l for _, l in loop.metrics]
+    if losses != plain_losses:
+        fail(f"phase 18a: losses on the mesh {losses} differ from the "
+             f"unsharded path's {plain_losses}")
+    differ = [n for n, t in loop.state["params"].items()
+              if not torch.equal(mesh_param(t).detach().cpu(), plain[n])]
+    if differ:
+        fail(f"phase 18a: {len(differ)} parameters differ from the "
+             f"unsharded path's after {MESH_STEPS} steps: {differ[:4]}")
+    mesh_ms = 1e3 * statistics.mean(run.step_s[1:])
+    line = train.summary(run)
+    print(line, flush=True)
+    log(f"phase 18a {cfg.arch_id} --full --logicnet-ffn --model-parallel 1 "
+        f"--grad-rs on {train.describe(run.mesh)}: losses {losses} and all "
+        f"{len(plain)} parameters bit for bit the unsharded path's; "
+        f"masked_matmul {launches} launches ({per_step} a step, "
+        f"{by_route}); host ms a step (steps 2-{MESH_STEPS}, synchronised) "
+        f"{mesh_ms:.1f} on the mesh against {plain_ms:.1f} unsharded; "
+        f"mesh state built in {build_s:.2f} s "
+        f"({torch.cuda.get_device_name(0)})")
+    out = {"launches": launches, "launches_by_route": by_route,
+           "steps": MESH_STEPS, "losses": losses,
+           "step_ms": mesh_ms, "unsharded_step_ms": plain_ms,
+           "build_s": build_s, "train_line": line}
+    del run, loop, p, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_prefill_phase(torch, dev) -> dict:
+    """18b: qwen3-1.7b at full width, a 4 x 2048 prefill through
+    ``make_prefill_step`` unsharded and on the (1, 1) mesh: 28 wgmma flash
+    launches and the same logits bit for bit."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.ctx import activation_sharding
+
+    cfg = get_config("qwen3-1.7b")
+    b, s = PREFILL_SHAPE
+    rng = np.random.default_rng(18)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    prefill = steps.make_prefill_step(cfg)
+    model = steps.init_params(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        want = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    mesh = make_host_mesh(1)
+    policy = SH.ShardingPolicy()
+    params = SH.distribute({n: p.detach() for n, p in
+                            model.named_parameters()}, mesh, policy)
+    mesh_model = M.LM(cfg, M.param_tree(cfg, params))
+    batch = SH.distribute_by_specs(
+        {"tokens": tokens}, SH.batch_specs(policy, mesh,
+                                           {"tokens": tokens}), mesh)
+    reset_all()
+    t0 = time.perf_counter()
+    with torch.no_grad(), activation_sharding(
+            mesh, SH.activation_rules(policy)):
+        got = prefill(mesh_model, batch).full_tensor()
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    by_route = dict(flash_attention.launches_by_route)
+    if launches != cfg.n_layers or by_route["wgmma"] != launches:
+        fail(f"phase 18b: {launches} flash launches ({by_route}) for a "
+             f"{b} x {s} prefill on the mesh; expected {cfg.n_layers}, "
+             f"all wgmma")
+    if not torch.equal(got, want):
+        fail(f"phase 18b: the mesh prefill's logits differ from the "
+             f"unsharded one's (max |diff| "
+             f"{(got.float() - want.float()).abs().max().item()})")
+    log(f"phase 18b {cfg.arch_id} prefill {b} x {s} on the (1, 1) mesh: "
+        f"{launches} flash launches ({by_route}), logits bit for bit the "
+        f"unsharded prefill's; {mesh_s:.3f} s on the host clock (first "
+        f"mesh call) ({torch.cuda.get_device_name(0)})")
+    out = {"launches": launches, "launches_by_route": by_route,
+           "mesh_first_s": mesh_s}
+    del model, mesh_model, params, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_tokens_line(stdout: str) -> str | None:
+    """The ``[serve] tokens`` line of ``launch.serve``'s LM mode."""
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith("[serve] tokens ")]
+    return lines[-1] if lines else None
+
+
+def mesh_serve_phase(torch, dev) -> dict:
+    """18c: ``python -m repro_torch.launch.serve --arch qwen3-1.7b --full``
+    at its defaults (4 slots, cache 128, 32 steps), unsharded and with
+    ``--model-parallel 1``: the same tokens."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("WORLD_SIZE", None)
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "qwen3-1.7b", "--full"]
+    out = {}
+    for key, extra in (("unsharded", []), ("mesh", ["--model-parallel",
+                                                    "1"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + extra, cwd=ROOT, env=env,
+                              capture_output=True, text=True,
+                              timeout=MESH_SERVE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"phase 18c serve {' '.join(extra)}: rc "
+                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        line = next((ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("[serve] qwen3")), None)
+        out[key] = {"line": line, "tokens": serve_tokens_line(proc.stdout),
+                    "wall_s": wall}
+        print(line, flush=True)
+    if out["mesh"]["tokens"] is None or \
+            out["mesh"]["tokens"] != out["unsharded"]["tokens"]:
+        fail(f"phase 18c: the mesh's tokens {out['mesh']['tokens']} differ "
+             f"from the unsharded run's {out['unsharded']['tokens']}")
+    log(f"phase 18c serve --arch qwen3-1.7b --full (4 slots, cache 128, 32 "
+        f"steps): the same 128 tokens with and without --model-parallel 1; "
+        f"process wall s {out['unsharded']['wall_s']:.1f} / "
+        f"{out['mesh']['wall_s']:.1f} ({torch.cuda.get_device_name(0)})")
+    return out
+
+
+MESH_DRYRUN_SCRIPT = """
+import json, sys, time
+from repro_torch.launch import dryrun
+args = dryrun.parse_args([])
+out = []
+for arch, shape, mp in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, mp, args)
+    rec["cell_s"] = time.perf_counter() - t0
+    out.append(rec)
+print(json.dumps(out))
+"""
+
+
+def mesh_dryrun_phase(torch) -> dict:
+    """18d: ``dryrun.run_cell`` of qwen3-1.7b x train_4k on 16x16 and
+    2x16x16 in a process of its own (the fake process group): both ``ok``
+    with collectives, the pod axis on weights in the multi-pod cell; the
+    seconds of each (host, abstract: no card)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("WORLD_SIZE", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", MESH_DRYRUN_SCRIPT,
+         json.dumps(MESH_DRYRUN)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=MESH_DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 18d dry-run: rc {proc.returncode}\n"
+             f"{proc.stderr[-3000:]}")
+    recs = json.loads(proc.stdout.strip().splitlines()[-1])
+    for rec in recs:
+        bad = mesh_dryrun_check(rec)
+        if bad:
+            fail(f"phase 18d {rec['arch']} x {rec['shape']} x "
+                 f"{rec['mesh']}: {'; '.join(bad)}")
+        log(f"phase 18d dry-run {rec['arch']} x {rec['shape']} x "
+            f"{rec['mesh']}: ok, {rec['chips']} fake ranks, per-device "
+            f"flops {rec['cost']['flops']:.4e}, collectives "
+            f"{rec['collectives']['total']:.4e} B, argument bytes "
+            f"{rec['memory']['argument_bytes']}, {rec['cell_s']:.1f} s "
+            f"(abstract: meta tensors, fake ranks)")
+    return {"cells": [{k: r.get(k) for k in
+                       ("arch", "shape", "mesh", "chips", "status",
+                        "cell_s", "trace_s", "cost", "memory",
+                        "collectives", "pod_on_weights")} for r in recs],
+            "wall_s": wall}
+
+
+def mesh_phases(torch, dev) -> dict:
+    """Phase 18: the mesh path on a (1, 1) mesh of this card (18a-18c)
+    and the production-mesh dry-run (18d)."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mesh_train_")
+    try:
+        out = {"train": mesh_train_phase(torch, dev, tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["prefill"] = mesh_prefill_phase(torch, dev)
+    # the one-rank group 18a and 18b started, torn down before the
+    # subprocesses start their own
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    out["serve"] = mesh_serve_phase(torch, dev)
+    out["dryrun"] = mesh_dryrun_phase(torch)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 18 in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6154,6 +6458,15 @@ def main() -> None:
     ffn_rec["launches_train_smoke_by_route"] = smoke_routes
     ffn_rec["train_families"] = {k: v for k, v in trained.items()
                                  if k != "ffn_times"}
+
+    # -- phase 18: the mesh path (torch.distributed, DTensor) on a (1, 1)
+    # mesh of this card, and the production-mesh dry-run
+    mesh = mesh_phases(torch, dev)
+    ffn_rec["launches_mesh"] = mesh["train"]["launches"]
+    ffn_rec["launches_mesh_by_route"] = mesh["train"]["launches_by_route"]
+    fa_rec["launches_mesh"] = mesh["prefill"]["launches"]
+    fa_rec["launches_mesh_by_route"] = mesh["prefill"]["launches_by_route"]
+    ffn_rec["mesh"] = mesh
 
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 
@@ -20,3 +23,27 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device=\"cpu\" to run the "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+_ABSTRACT = threading.local()
+
+
+@contextlib.contextmanager
+def abstract_run():
+    """Inside, a kernel wrapper given ``meta`` tensors computes its plain
+    version on them (shapes and dtypes, no storage, no launch): the
+    dry-run traces a step so.  Outside, ``meta`` tensors raise, as any
+    device but ``cuda`` and ``cpu`` does."""
+    prev = getattr(_ABSTRACT, "on", False)
+    _ABSTRACT.on = True
+    try:
+        yield
+    finally:
+        _ABSTRACT.on = prev
+
+
+def plain_device(dev: torch.device) -> bool:
+    """True where a kernel wrapper runs its plain version: the CPU, and
+    ``meta`` inside :func:`abstract_run`."""
+    return dev.type == "cpu" or (dev.type == "meta"
+                                 and getattr(_ABSTRACT, "on", False))

@@ -93,6 +93,22 @@ def _leaves(tree: Any, path: str = ""):
         yield path, tree
 
 
+_KEY = re.compile(r"""\[(?:'([^']*)'|"([^"]*)"|(\d+))\]""")
+
+
+def path_keys(path: str) -> list[str]:
+    """The keys of a leaf's keystr path, in order, an index as its digits
+    (``['state']['params']['layers.0.attn.wq']`` -> ``['state', 'params',
+    'layers.0.attn.wq']``): the inverse of how :func:`_leaves` writes
+    them.  A path of another form raises."""
+    keys = [m.group(1) if m.group(1) is not None else
+            m.group(2) if m.group(2) is not None else m.group(3)
+            for m in _KEY.finditer(path)]
+    if "".join(m.group(0) for m in _KEY.finditer(path)) != path:
+        raise ValueError(f"not a checkpoint leaf path: {path!r}")
+    return keys
+
+
 def _rebuild(tree: Any, fn: Callable, path: str = "") -> Any:
     """``tree`` with every leaf replaced by ``fn(path, leaf)``."""
     if isinstance(tree, dict):
@@ -103,12 +119,27 @@ def _rebuild(tree: Any, fn: Callable, path: str = "") -> Any:
     return None if tree is None else fn(path, tree)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group,
+    or a process outside any."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _host(path: str, leaf: Any, copy: bool) -> np.ndarray:
     """A leaf as a host numpy array of an accepted dtype; with ``copy`` it
     never shares memory with the leaf (``Tensor.numpy`` of a CPU tensor
     does)."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        if _is_dtensor(leaf):
+            # a mesh's shards, gathered whole (every rank takes part)
+            leaf = leaf.full_tensor()
         if leaf.dtype not in (torch.float32, torch.int32, torch.int64):
             raise TypeError(f"checkpoint leaf {path} has dtype {leaf.dtype}; "
                             f"checkpoints hold float32, int32 or int64 "
@@ -200,8 +231,11 @@ class CheckpointManager:
     def save(self, step: int, tree: Any) -> None:
         """Snapshot ``tree`` to host memory now (a copy: the caller may
         update its tensors in place as soon as this returns), then write
-        it, on a thread when ``async_save``."""
+        it, on a thread when ``async_save``.  On a mesh every rank gathers
+        the DTensors whole and rank 0 alone writes."""
         arrays = _rebuild(tree, lambda p, leaf: _host(p, leaf, copy=True))
+        if not _writes():
+            return
         if self.async_save:
             self.wait()
             self._thread = threading.Thread(

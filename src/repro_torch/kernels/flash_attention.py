@@ -45,8 +45,10 @@ import ctypes
 
 import torch
 
+from repro_torch._device import plain_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.lut_lookup import stream_of
+from repro_torch.parallel.local import any_dtensor, head_parallel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DIM = 256
@@ -126,6 +128,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vq = v.float().repeat_interleave(group, dim=1)
     out = torch.empty_like(q)
     rows = max(1, min(s, _PLAIN_BLOCK_ELEMS // max(1, b * hq * skv)))
+    if q.device.type == "meta":
+        rows = s            # shapes only: one block
     kpos = torch.arange(skv, device=q.device)[None, :]
     for r0 in range(0, s, rows):
         r1 = min(s, r0 + rows)
@@ -211,17 +215,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``launches`` counts every launch, ``launches_by_route`` each route's):
     float32 or bfloat16, one dtype and one device for all three, the last
     dimension contiguous, ``D <= 256``.  CPU tensors run
-    :func:`flash_attention_plain`.  Inputs that require grad raise on both
-    devices: the kernel has no backward, and its output would silently
-    cut the graph.
+    :func:`flash_attention_plain` (``meta`` tensors inside
+    ``_device.abstract_run``, the dry-run's, its shapes).  DTensors
+    (heads sharded on the model axis, batch on the others) run the kernel
+    on each rank's local heads (``parallel.local.head_parallel``, which
+    gives each rank the kv heads its q heads read).  Inputs that require
+    grad raise on both devices: the kernel has no backward, and its
+    output would silently cut the graph.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise ValueError("flash_attention has no backward: q, k or v "
                          "requires grad (train through attn_apply(..., "
                          "train=True), the chunked attention, or call it "
                          "under torch.no_grad())")
+    if any_dtensor(q, k, v):
+        return head_parallel(
+            lambda ql, kl, vl: flash_attention(ql, kl, vl, causal=causal,
+                                               window=window, scale=scale),
+            q, k, v, head_dim=1)
     dev = q.device
-    if dev.type == "cpu":
+    if plain_device(dev):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
     if dev.type != "cuda":

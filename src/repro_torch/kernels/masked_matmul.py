@@ -40,8 +40,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch._device import plain_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.lut_lookup import require, stream_of
+from repro_torch.parallel.local import any_dtensor, matmul_shards
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_N = 64
@@ -161,10 +163,18 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
     (``launches`` counts every launch, ``launches_by_route`` each route's):
     float32 or bfloat16, one dtype for all operands, contiguous;
     ``transposed`` only on the ``ffma`` route (float32).  CPU tensors run
-    :func:`masked_matmul_plain`.
+    :func:`masked_matmul_plain` (``meta`` tensors inside
+    ``_device.abstract_run``, the dry-run's, its shapes).  DTensors run
+    the kernel on local shards (``parallel.local.matmul_shards``): a
+    column-sharded w gives columns, a row-sharded one a partial sum, a
+    batch-sharded x rows.
     """
+    if any_dtensor(x, w, mask, b):
+        return matmul_shards(
+            lambda *a: masked_matmul(*a, transposed=transposed),
+            x, w, mask, b, transposed=transposed)
     dev = x.device
-    if dev.type == "cpu":
+    if plain_device(dev):
         return masked_matmul_plain(x, w, mask, b, transposed=transposed)
     if dev.type != "cuda":
         raise ValueError(f"masked_matmul runs on cuda or cpu, not {dev}")
@@ -227,6 +237,19 @@ class MaskedMatmulFn(torch.autograd.Function):
     parameters whose gradient counts in the clipped global norm, though
     AdamW never updates them.
     """
+
+    @classmethod
+    def apply(cls, x, w, mask, b=None):
+        """On DTensors, the function itself (forward and backward, so
+        every product a kernel launch) runs on local shards
+        (``parallel.local.matmul_shards``)."""
+        if any_dtensor(x, w, mask, b):
+            def local(*args):
+                return super(MaskedMatmulFn, cls).apply(*args)
+            return matmul_shards(local, x, w, mask, b)
+        if b is None:
+            return super().apply(x, w, mask)
+        return super().apply(x, w, mask, b)
 
     @staticmethod
     def forward(ctx, x, w, mask, b=None):

@@ -1,9 +1,12 @@
-"""Serving launcher: ``python -m repro_torch.launch.serve --lut``.
+"""Serving launcher: ``python -m repro_torch.launch.serve``.
 
-Loads a saved ``CompiledLUTNet`` artifact (either package's), or without
-``--artifact`` compiles generated fpga4hep model A through the truth-table
-compiler (``--optimize-level``, default 3; ``--autotune`` times every plan
-variant on the device and serves the winner), and drives it through the
+Two serving stacks behind one CLI, as the reference's.
+
+* ``--lut`` — loads a saved ``CompiledLUTNet`` artifact (either
+package's), or without ``--artifact`` compiles generated fpga4hep model
+A through the truth-table compiler (``--optimize-level``, default 3;
+``--autotune`` times every plan variant on the device and serves the
+winner), and drives it through the
 ``repro_torch.serve`` micro-batching tier under closed-loop
 (or ``--open-loop RPS``) load, reporting p50/p99 latency, QPS, batch
 occupancy and the compile-once counters, with the reference CLI's report
@@ -29,17 +32,119 @@ lines::
     # quick smoke on the CPU (plain PyTorch versions of the kernels)
     python -m repro_torch.launch.serve --lut --smoke --device cpu
 
-The LM decode demo of ``repro.launch.serve`` is
-``repro_torch.launch.serve_lm``.  Exits non-zero if the compile-once
-contract is broken in steady state.
+  Exits non-zero if the compile-once contract is broken in steady state.
+
+* default (no ``--lut``) — the LM decode demo (:func:`_run_lm`): batched
+  greedy decode of ``--arch`` (the smoke config, or ``--full``'s
+  published one), weights from seed 0, ``--slots`` rows from a ones token
+  at position 0 for ``--steps`` steps against a ``--cache-len`` cache,
+  and the reference's ``[serve] ... ms/step`` line.  ``--model-parallel
+  N`` (or a start under ``torchrun``) puts the weights and the cache on a
+  ``(world // N, N)`` mesh by the sharding rules; otherwise it runs on one
+  device.  The continuous-batching LM server is ``launch.serve_lm``::
+
+      python -m repro_torch.launch.serve --arch qwen3-1.7b --full
+      python -m repro_torch.launch.serve --arch qwen3-1.7b --full \
+          --model-parallel 1
+      python -m repro_torch.launch.serve --arch qwen3-1.7b --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import signal
 import threading
+import time
+
+
+def lm_decode(args: argparse.Namespace, cfg=None, model=None,
+              on_token=None) -> dict:
+    """The LM mode's decode loop: ``{"cfg", "tokens": (steps, slots)
+    greedy tokens, "logits": each step's (slots, vocab) logits when
+    ``on_token`` is None, "ms_per_step", "mesh"}``; ``on_token(step,
+    logits)`` sees each step's logits instead of keeping them.  ``cfg``
+    and ``model`` (its weights; the flags' config at seed 0 by default)
+    let a caller serve other weights through the same loop."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import (describe, make_host_mesh,
+                                         mesh_device, under_torchrun)
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.ctx import activation_sharding
+
+    if cfg is None:
+        cfg = (get_config(args.arch) if args.full
+               else get_smoke_config(args.arch))
+    mesh = None
+    if args.model_parallel is not None or under_torchrun():
+        mesh = make_host_mesh(args.model_parallel or 1, device=args.device)
+        dev = mesh_device(mesh)
+    else:
+        from repro_torch._device import resolve_device
+        dev = resolve_device(args.device)
+    if model is None:
+        model = S.init_params(cfg, seed=0, device=dev)
+    cache = M.init_cache(cfg, args.slots, args.cache_len, device=dev)
+    ctx = None
+    if mesh is not None:
+        policy = SH.ShardingPolicy()
+        params = SH.distribute(
+            {n: p.detach() for n, p in model.named_parameters()}, mesh,
+            policy)
+        model = M.LM(cfg, M.param_tree(cfg, params))
+        cache = SH.distribute_by_specs(
+            cache, SH.cache_specs(policy, mesh, cache), mesh)
+        ctx = activation_sharding(mesh, SH.activation_rules(policy))
+    step = S.make_decode_step(cfg)
+    tok = torch.ones((args.slots, 1), dtype=torch.int32, device=dev)
+    pos = torch.zeros((args.slots,), dtype=torch.int32, device=dev)
+    if mesh is not None:
+        tok = SH.distribute_by_specs(
+            {"tokens": tok}, SH.batch_specs(policy, mesh, {"tokens": tok}),
+            mesh)["tokens"]
+    tokens, logits_out = [], []
+    t0 = time.perf_counter()
+    with torch.no_grad(), (ctx or contextlib.nullcontext()):
+        for i in range(args.steps):
+            logits, cache = step(model, cache, tok, pos)
+            if mesh is not None:
+                logits = logits.full_tensor()
+            if on_token is not None:
+                on_token(i, logits)
+            else:
+                logits_out.append(logits)
+            nxt = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            tokens.append(nxt[:, 0])
+            tok = nxt
+            if mesh is not None:
+                tok = SH.distribute_by_specs(
+                    {"tokens": tok}, SH.batch_specs(policy, mesh,
+                                                    {"tokens": tok}),
+                    mesh)["tokens"]
+            pos = pos + 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    return {"cfg": cfg, "tokens": torch.stack(tokens).cpu(),
+            "logits": logits_out,
+            "ms_per_step": 1e3 * dt / max(args.steps, 1),
+            "mesh": describe(mesh) if mesh is not None else None}
+
+
+def _run_lm(args: argparse.Namespace) -> None:
+    """Batched LM decode demo (the pre-LUT serving loop): the reference's
+    ``[serve]`` line (a one-device run names no mesh)."""
+    out = lm_decode(args, on_token=lambda i, lg: None)
+    where = (f" on mesh {out['mesh']}" if out["mesh"] is not None
+             else " on one device")
+    print(f"[serve] {out['cfg'].arch_id}: {args.steps} decode steps x "
+          f"{args.slots} slots{where} ({out['ms_per_step']:.1f} ms/step)")
+    print("[serve] tokens " + json.dumps(out["tokens"].tolist()))
 
 
 def _print_report(rep, st: dict) -> None:
@@ -255,9 +360,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--lut", action="store_true", required=True,
+    ap.add_argument("--lut", action="store_true",
                     help="serve a CompiledLUTNet through the micro-batching "
-                    "tier (the only mode of this launcher; LMs: serve_lm)")
+                    "tier (without it: the LM decode demo)")
     ap.add_argument("--artifact", default=None, metavar="NPZ",
                     help="saved CompiledLUTNet .npz to serve (default: "
                     "compile generated fpga4hep model A)")
@@ -315,7 +420,22 @@ def main(argv=None) -> None:
     ap.add_argument("--report-every-s", type=float, default=5.0,
                     help="periodic one-line stats report interval while "
                     "the load runs (0 disables)")
-    _run_lut(ap.parse_args(argv))
+    # LM mode
+    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--full", action="store_true",
+                    help="the architecture's full published config "
+                    "(default: its smoke config)")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--model-parallel", type=int, default=None,
+                    help="decode on a (world // N, N) mesh (default: one "
+                    "device, unless under torchrun)")
+    args = ap.parse_args(argv)
+    if args.lut:
+        _run_lut(args)
+    else:
+        _run_lm(args)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelCfg
 from repro_torch.optim.adamw import (AdamWCfg, adamw_update, init_opt_state,
                                      logicnet_mask_fn)
+from repro_torch.parallel.local import is_dtensor, local_tensor
 
 
 def init_params(cfg: ModelCfg, seed: int = 0, device=None) -> M.LM:
@@ -95,7 +96,17 @@ def decays(name: str, p: torch.Tensor) -> bool:
     return M.reference_ndim(name, p) >= 2
 
 
-def make_train_step(cfg: ModelCfg, opt_cfg: AdamWCfg | None = None):
+def grad_shardings(state_shardings: dict) -> dict:
+    """The parameters' placements out of :func:`parallel.sharding.
+    shardings_for_tree` of a train state (``{"params.<name>": placements,
+    "opt.m.<name>": ...}``): ``{name: placements}``, what
+    :func:`make_train_step` takes as ``grad_shardings``."""
+    return {n.split(".", 1)[1]: pl for n, pl in state_shardings.items()
+            if n.startswith("params.")}
+
+
+def make_train_step(cfg: ModelCfg, opt_cfg: AdamWCfg | None = None,
+                    grad_shardings: dict | None = None):
     """``train_step(state, batch) -> (state, loss)``: the loss and the
     gradient of every parameter (masks included), then one AdamW update
     in place (the LogicNet masks applied to their weights' gradients and
@@ -108,6 +119,14 @@ def make_train_step(cfg: ModelCfg, opt_cfg: AdamWCfg | None = None):
     the loop reads it anyway) and, when it is not finite, returns the
     state untouched: parameters, moments and step count bit for bit as
     they were.
+
+    On a mesh (DTensor parameters) each gradient comes back in the
+    placements its backward gave it (a replicated leaf's as a partial sum
+    over the batch axes); AdamW's per-leaf arithmetic then redistributes
+    it where it meets the parameter.  With ``grad_shardings`` (``{name:
+    placements}``, :func:`grad_shardings`) each gradient is redistributed
+    to its parameter's placements first: the reduce-scatter of the
+    reference's ``--grad-rs``.  The NaN guard reads the loss whole.
     """
     opt_cfg = opt_cfg or AdamWCfg(lr=3e-4)
     mask_fn = logicnet_mask_fn if cfg.logicnet_ffn is not None else None
@@ -116,9 +135,14 @@ def make_train_step(cfg: ModelCfg, opt_cfg: AdamWCfg | None = None):
         params = state["params"]
         loss = M.loss_fn(params, cfg, batch)
         grads = torch.autograd.grad(loss, list(params.values()))
-        loss = loss.detach()
-        if not bool(torch.isfinite(loss)):
+        loss = local_tensor(loss.detach())
+        # a meta loss (the dry-run's) has no value to read
+        if loss.device.type != "meta" and not bool(torch.isfinite(loss)):
             return state, loss
+        if grad_shardings is not None:
+            grads = [g.redistribute(g.device_mesh, grad_shardings[n])
+                     if is_dtensor(g) else g
+                     for n, g in zip(params, grads)]
         adamw_update(opt_cfg, params, dict(zip(params, grads)),
                      state["opt"], mask_fn=mask_fn, decay_fn=decays)
         return state, loss

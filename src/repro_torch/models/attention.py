@@ -17,6 +17,11 @@ Supports qk-norm (qwen3), sliding windows with gemma3's per-layer
 local/global mix (window 0 = global), M-RoPE (qwen2-vl: positions
 (B, S, 3)) and cross-attention (whisper's decoder against its encoder's
 memory, through the flash kernel at ``Sq != Skv`` in prefill and decode).
+
+On a mesh (DTensor weights, heads sharded on the model axis) every
+attention, the kernel's and the chunked one, runs on each rank's own
+heads through ``parallel.local.head_parallel``, which hands each rank the
+kv heads its q heads read (the GQA grouping a sharded head axis splits).
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.layers import (apply_mrope, apply_rope, init_rms,
                                        normal_init, rms_norm)
+from repro_torch.parallel.local import (contract_heads, head_parallel,
+                                        local_tensor, project_heads,
+                                        replicate_like)
 
 NEG_INF = -1e30
 
@@ -49,9 +57,9 @@ def _project_qkv(p: dict, cfg: ModelCfg, x: torch.Tensor,
                  positions: torch.Tensor):
     """x (B, S, D) -> q (B, S, Hq, hd), k and v (B, S, Hkv, hd);
     ``positions`` (B, S), or (B, S, 3) with ``cfg.mrope``."""
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
-    k = torch.einsum("bsd,dhe->bshe", x, p["wk"])
-    v = torch.einsum("bsd,dhe->bshe", x, p["wv"])
+    q = project_heads(x, p["wq"])
+    k = project_heads(x, p["wk"])
+    v = project_heads(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -130,14 +138,16 @@ def attn_apply(p: dict, cfg: ModelCfg, x: torch.Tensor,
     """
     q, k, v = _project_qkv(p, cfg, x, positions)
     if train:
-        out = _chunked_attention(q, k, v, q_offset=0, window=window,
-                                 causal=causal, chunk=cfg.attn_chunk)
+        out = head_parallel(
+            lambda ql, kl, vl: _chunked_attention(
+                ql, kl, vl, q_offset=0, window=window, causal=causal,
+                chunk=cfg.attn_chunk), q, k, v, head_dim=2)
     else:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=window if window > 0 else None
                               ).transpose(1, 2)
-    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return contract_heads(out, p["wo"])
 
 
 def attn_decode(p: dict, cfg: ModelCfg, x: torch.Tensor,
@@ -154,6 +164,7 @@ def attn_decode(p: dict, cfg: ModelCfg, x: torch.Tensor,
     ``dynamic_update_slice``); the attention mask of every row uses
     ``pos[0]``, as in the reference.
     """
+    pos = local_tensor(pos)
     positions = pos[:, None]
     if cfg.mrope:
         positions = positions[..., None].expand(*positions.shape, 3)
@@ -166,14 +177,16 @@ def attn_decode(p: dict, cfg: ModelCfg, x: torch.Tensor,
     else:
         # the one-hot blend: a row whose position lies outside the cache
         # writes nothing
-        hit = (torch.arange(s_cache, device=pos.device)[None, :]
-               == pos[:, None])[:, :, None, None]
+        hit = replicate_like((torch.arange(s_cache, device=pos.device)[
+            None, :] == pos[:, None])[:, :, None, None], cache_k)
         cache_k.copy_(torch.where(hit, k_new.to(cache_k.dtype), cache_k))
         cache_v.copy_(torch.where(hit, v_new.to(cache_v.dtype), cache_v))
-    out = _chunked_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
-                             q_offset=pos[0], window=window, causal=True,
-                             chunk=cfg.attn_chunk, kv_len_valid=pos[0] + 1)
-    return torch.einsum("bshe,hed->bsd", out, p["wo"]), cache_k, cache_v
+    out = head_parallel(
+        lambda ql, kl, vl: _chunked_attention(
+            ql, kl, vl, q_offset=pos[0], window=window, causal=True,
+            chunk=cfg.attn_chunk, kv_len_valid=pos[0] + 1),
+        q, cache_k.to(q.dtype), cache_v.to(q.dtype), head_dim=2)
+    return contract_heads(out, p["wo"]), cache_k, cache_v
 
 
 def cross_memory(p: dict, cfg: ModelCfg, memory: torch.Tensor):
@@ -182,8 +195,8 @@ def cross_memory(p: dict, cfg: ModelCfg, memory: torch.Tensor):
     against bfloat16 weights gives float32, as in the reference."""
     dt = torch.promote_types(memory.dtype, p["wk"].dtype)
     m = memory.to(dt)
-    k = torch.einsum("bsd,dhe->bshe", m, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhe->bshe", m, p["wv"].to(dt))
+    k = project_heads(m, p["wk"].to(dt))
+    v = project_heads(m, p["wv"].to(dt))
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return k, v
@@ -200,16 +213,18 @@ def cross_attn_apply(p: dict, cfg: ModelCfg, x: torch.Tensor,
     computes in the type q and the memory promote to (bfloat16 queries
     against whisper's float32 memory: float32, the ``tf32x3`` route) and
     returns q's dtype, as the reference's does."""
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    q = project_heads(x, p["wq"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     if train:
-        out = _chunked_attention(q, memory_k, memory_v, q_offset=0, window=0,
-                                 causal=False, chunk=cfg.attn_chunk)
+        out = head_parallel(
+            lambda ql, kl, vl: _chunked_attention(
+                ql, kl, vl, q_offset=0, window=0, causal=False,
+                chunk=cfg.attn_chunk), q, memory_k, memory_v, head_dim=2)
     else:
         dt = torch.promote_types(q.dtype, memory_k.dtype)
         out = flash_attention(q.to(dt).transpose(1, 2),
                               memory_k.to(dt).transpose(1, 2),
                               memory_v.to(dt).transpose(1, 2),
                               causal=False).transpose(1, 2).to(q.dtype)
-    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return contract_heads(out, p["wo"])

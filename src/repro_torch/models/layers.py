@@ -20,6 +20,8 @@ from repro_torch.core.quantize import QuantizerCfg, quantize
 from repro_torch.core.sparsity import apriori_mask
 from repro_torch.kernels.masked_matmul import MaskedMatmulFn
 from repro_torch.models.config import LogicNetFFNCfg
+from repro_torch.parallel.local import (any_dtensor, gather_fsdp,
+                                        replicate_like, vocab_embed)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -54,8 +56,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     """The two halves of the head dim of ``x`` (B, S, H, D) rotated by
     ``angles`` (B, S, D/2), in float32; returns ``x``'s dtype."""
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    cos = replicate_like(torch.cos(angles)[:, :, None, :], x)
+    sin = replicate_like(torch.sin(angles)[:, :, None, :], x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -81,9 +83,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     :func:`apply_rope`."""
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, device=x.device)             # (D/2,)
-    stream = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(mrope_sections(d, sections), device=x.device))
+    stream = torch.tensor([i for i, n in enumerate(mrope_sections(
+        d, sections)) for _ in range(n)], device=x.device)
     pos = positions.index_select(-1, stream).float()           # (B, S, D/2)
     return _rotate(x, pos * freqs)
 
@@ -170,9 +171,16 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,
 
 
 def embed_lookup(p: dict, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """On a mesh, the vocab-parallel lookup (``parallel.local.
+    vocab_embed``) of the table gathered over the FSDP axes."""
+    if any_dtensor(p["tok"], tokens):
+        return vocab_embed(gather_fsdp(p["tok"]),
+                           tokens.long()).to(compute_dtype)
     return p["tok"][tokens.long()].to(compute_dtype)
 
 
 def lm_logits(p: dict, h: torch.Tensor, compute_dtype) -> torch.Tensor:
-    w = p.get("head", p["tok"]).to(compute_dtype)
+    """On a mesh the head is gathered over the FSDP axes and stays
+    vocab-sharded: the logits come out sharded over the vocab."""
+    w = gather_fsdp(p.get("head", p["tok"]).to(compute_dtype))
     return h @ w.t()

@@ -66,6 +66,9 @@ from repro_torch.models.layers import (embed_init, embed_lookup, ffn_apply,
                                        logicnet_ffn_apply, logicnet_ffn_init,
                                        logicnet_masks, normal_init,
                                        rms_norm)
+from repro_torch.parallel.ctx import constrain
+from repro_torch.parallel.local import (gather_fsdp, replicate_like,
+                                        vocab_gather)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -239,12 +242,15 @@ def _cast_tree(tree: dict, cdt: torch.dtype) -> dict:
 def cast_weights(tree, cdt: torch.dtype):
     """Matrix leaves (2-D and up) to ``cdt``; 1-D leaves (norm scales,
     biases, ``a_log``, ...) stay float32 for numerics, as the reference's
-    ``_cast_weights``.  Under autograd the cast is part of the graph."""
+    ``_cast_weights``.  Under autograd the cast is part of the graph.  On
+    a mesh each cast matrix is gathered over the FSDP axes
+    (``parallel.local.gather_fsdp``): the layer that casts its weights
+    gathers them, and its backward reduce-scatters their gradients."""
     if isinstance(tree, dict):
         return {k: cast_weights(v, cdt) for k, v in tree.items()}
     if isinstance(tree, list):
         return [cast_weights(v, cdt) for v in tree]
-    return tree.to(cdt) if tree.dim() >= 2 else tree
+    return gather_fsdp(tree.to(cdt)) if tree.dim() >= 2 else tree
 
 
 def _decoder_layer_init(gen: torch.Generator, cfg: ModelCfg, dtype,
@@ -502,19 +508,31 @@ def _ffn(p: dict, cfg: ModelCfg, x: torch.Tensor):
     return ffn_apply(p["ffn"], x, cfg.act_fn), None
 
 
+_ACT = ("act_batch", None, "act_embed")
+
+
+def _add(h: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The residual ``h + a``, ``a`` constrained to the residual stream's
+    layout first: on a mesh a row-parallel product's partial sum is
+    reduced here (DTensor's own choice at the add keeps it partial and
+    drags it through the next norm)."""
+    return h + constrain(a, _ACT)
+
+
 def _attn_block(p: dict, cfg: ModelCfg, h: torch.Tensor,
                 positions: torch.Tensor, window: int, train: bool = False):
     """A decoder layer: ``(h, the MoE aux loss or None)``."""
+    h = constrain(h, _ACT)
     a = ATT.attn_apply(p["attn"], cfg, rms_norm(h, p["ln1"], cfg.norm_eps),
                        positions, window=window, train=train)
-    h = h + a
+    h = _add(h, a)
     f, aux = _ffn(p, cfg, rms_norm(h, p["ln2"], cfg.norm_eps))
-    return h + f, aux
+    return _add(h, f), aux
 
 
 def _ssm_block(p: dict, cfg: ModelCfg, h: torch.Tensor) -> torch.Tensor:
-    return h + SSM.ssm_apply(p["ssm"], cfg, rms_norm(h, p["ln"],
-                                                     cfg.norm_eps))
+    return _add(h, SSM.ssm_apply(p["ssm"], cfg, rms_norm(h, p["ln"],
+                                                         cfg.norm_eps)))
 
 
 def _forward_decoder(cfg: ModelCfg, w: dict, h: torch.Tensor,
@@ -525,7 +543,7 @@ def _forward_decoder(cfg: ModelCfg, w: dict, h: torch.Tensor,
     for p, window in zip(w["layers"], layer_windows(cfg)):
         h, a = attn_layer(p, h, positions, window)
         if a is not None:
-            aux = aux + a
+            aux = replicate_like(aux, a) + a
     return h, aux
 
 
@@ -551,11 +569,12 @@ def _encoder_block(p: dict, cfg: ModelCfg, h: torch.Tensor,
     compute reads its bfloat16 weights widened)."""
     p = cast_weights(p, torch.promote_types(h.dtype,
                                             _dtype(cfg.compute_dtype)))
-    h = h + ATT.attn_apply(p["attn"], cfg, rms_norm(h, p["ln1"],
-                                                    cfg.norm_eps),
-                           positions, window=0, causal=False, train=train)
-    return h + ffn_apply(p["ffn"], rms_norm(h, p["ln2"], cfg.norm_eps),
-                         cfg.act_fn)
+    h = _add(h, ATT.attn_apply(p["attn"], cfg, rms_norm(h, p["ln1"],
+                                                        cfg.norm_eps),
+                               positions, window=0, causal=False,
+                               train=train))
+    return _add(h, ffn_apply(p["ffn"], rms_norm(h, p["ln2"], cfg.norm_eps),
+                             cfg.act_fn))
 
 
 def _cross_block(p: dict, cfg: ModelCfg, h: torch.Tensor,
@@ -564,15 +583,16 @@ def _cross_block(p: dict, cfg: ModelCfg, h: torch.Tensor,
     """An encoder-decoder's decoder layer: causal self-attention, then
     cross-attention to ``memory`` (its K and V projected here), then the
     FFN."""
-    h = h + ATT.attn_apply(p["attn"], cfg, rms_norm(h, p["ln1"],
-                                                    cfg.norm_eps),
-                           positions, window=0, causal=True, train=train)
+    h = _add(h, ATT.attn_apply(p["attn"], cfg, rms_norm(h, p["ln1"],
+                                                        cfg.norm_eps),
+                               positions, window=0, causal=True,
+                               train=train))
     mk, mv = ATT.cross_memory(p["xattn"], cfg, memory)
-    h = h + ATT.cross_attn_apply(p["xattn"], cfg,
-                                 rms_norm(h, p["ln2"], cfg.norm_eps), mk, mv,
-                                 train=train)
-    return h + ffn_apply(p["ffn"], rms_norm(h, p["ln3"], cfg.norm_eps),
-                         cfg.act_fn)
+    h = _add(h, ATT.cross_attn_apply(p["xattn"], cfg,
+                                     rms_norm(h, p["ln2"], cfg.norm_eps),
+                                     mk, mv, train=train))
+    return _add(h, ffn_apply(p["ffn"], rms_norm(h, p["ln3"], cfg.norm_eps),
+                             cfg.act_fn))
 
 
 def _forward_encoder(cfg: ModelCfg, w: dict, frames: torch.Tensor,
@@ -580,7 +600,8 @@ def _forward_encoder(cfg: ModelCfg, w: dict, frames: torch.Tensor,
     """The encoder's memory (B, F, D): ``frames`` plus the float32
     ``pos_emb_enc`` (so float32, as in the reference), ``enc_layer(p, h,
     positions)`` for each layer, then ``enc_final_norm``."""
-    h = frames + w["pos_emb_enc"][None, :frames.shape[1], :]
+    h = constrain(frames + w["pos_emb_enc"][None, :frames.shape[1], :],
+                  _ACT)
     b, f = frames.shape[:2]
     positions = torch.arange(f, device=frames.device).expand(b, f)
     for p in w["enc_layers"]:
@@ -622,6 +643,7 @@ def _decoder(cfg: ModelCfg, w: dict, batch: dict, last_only: bool,
         h = torch.cat([batch["vision_embeds"].to(cdt),
                        h[:, cfg.vision_tokens:]], dim=1)
     positions = _positions(cfg, tokens)
+    h = constrain(h, ("act_batch", None, "act_embed"))
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.is_ssm:
         h = _forward_ssm(cfg, w, h, positions, blocks["attn"],
@@ -636,7 +658,9 @@ def _decoder(cfg: ModelCfg, w: dict, batch: dict, last_only: bool,
     h = rms_norm(h, w["final_norm"], cfg.norm_eps)
     if last_only:
         h = h[:, -1:, :]
-    return lm_logits(w["embed"], h, cdt), aux
+    logits = constrain(lm_logits(w["embed"], h, cdt),
+                       ("act_batch", None, "act_vocab"))
+    return logits, aux
 
 
 def _serve_blocks(cfg: ModelCfg) -> dict:
@@ -718,15 +742,17 @@ def loss_fn(params: dict, cfg: ModelCfg, batch: dict) -> torch.Tensor:
     """Mean next-token cross-entropy over the labels >= 0, from float32
     logits (logsumexp less the gold logit), plus 0.01 x the MoE
     load-balancing loss summed over layers, as the reference's
-    ``loss_fn``."""
+    ``loss_fn``.  On a mesh the logits stay sharded over the vocab: the
+    gold logit is a vocab-parallel gather (``parallel.local.
+    vocab_gather``)."""
     logits, aux = train_forward(params, cfg, batch, with_aux=True)
     logits = logits.float()
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    gold = vocab_gather(logits, labels.clamp(min=0))
     mask = (labels >= 0).float()
     nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll + 0.01 * aux
+    return nll + 0.01 * replicate_like(aux, nll)
 
 
 def cache_specs(cfg: ModelCfg, batch: int, max_seq: int) -> dict:
@@ -785,7 +811,8 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor,
     cfg = model.cfg
     cdt = _dtype(cfg.compute_dtype)
     w = model.compute_params()
-    h = embed_lookup(w["embed"], tokens, cdt)
+    h = constrain(embed_lookup(w["embed"], tokens, cdt),
+                  ("act_batch", None, "act_embed"))
     if cfg.is_ssm:
         every = _attn_every(cfg)
         for i, p in enumerate(w["ssm_layers"]):
@@ -795,17 +822,17 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor,
                 a, _, _ = ATT.attn_decode(sp["attn"], cfg, hn,
                                           cache["shared_k"][site],
                                           cache["shared_v"][site], pos)
-                h = h + a
+                h = _add(h, a)
                 # the reference's hybrid decode runs the plain SwiGLU here
-                h = h + ffn_apply(sp["ffn"], rms_norm(h, sp["ln2"],
-                                                      cfg.norm_eps),
-                                  cfg.act_fn)
+                h = _add(h, ffn_apply(sp["ffn"], rms_norm(h, sp["ln2"],
+                                                          cfg.norm_eps),
+                                      cfg.act_fn))
             state = {k: v[i] for k, v in cache["ssm"].items()}
             y, new = SSM.ssm_decode(p["ssm"], cfg,
                                     rms_norm(h, p["ln"], cfg.norm_eps), state)
             for k, v in new.items():
                 state[k].copy_(v)
-            h = h + y
+            h = _add(h, y)
     else:
         for i, (p, window) in enumerate(zip(w.get("dec_layers",
                                                   w.get("layers")),
@@ -813,22 +840,24 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor,
             hn = rms_norm(h, p["ln1"], cfg.norm_eps)
             a, _, _ = ATT.attn_decode(p["attn"], cfg, hn, cache["k"][i],
                                       cache["v"][i], pos, window=window)
-            h = h + a
+            h = _add(h, a)
             if cfg.enc_dec:
                 # the memory's K and V from the cache, in h's dtype, as the
                 # reference reads them
                 hn = rms_norm(h, p["ln2"], cfg.norm_eps)
-                h = h + ATT.cross_attn_apply(
+                h = _add(h, ATT.cross_attn_apply(
                     p["xattn"], cfg, hn, cache["mem_k"][i].to(h.dtype),
-                    cache["mem_v"][i].to(h.dtype))
-                h = h + ffn_apply(p["ffn"], rms_norm(h, p["ln3"],
-                                                     cfg.norm_eps),
-                                  cfg.act_fn)
+                    cache["mem_v"][i].to(h.dtype)))
+                h = _add(h, ffn_apply(p["ffn"], rms_norm(h, p["ln3"],
+                                                         cfg.norm_eps),
+                                      cfg.act_fn))
             else:
-                h = h + _ffn(p, cfg, rms_norm(h, p["ln2"],
-                                              cfg.norm_eps))[0]
+                h = _add(h, _ffn(p, cfg, rms_norm(h, p["ln2"],
+                                                  cfg.norm_eps))[0])
     h = rms_norm(h, w["final_norm"], cfg.norm_eps)
-    return lm_logits(w["embed"], h, cdt), cache
+    logits = constrain(lm_logits(w["embed"], h, cdt),
+                       ("act_batch", None, "act_vocab"))
+    return logits, cache
 
 
 def write_cross_memory(model: LM, cache: dict, frames: torch.Tensor,

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.layers import normal_init
+from repro_torch.parallel.local import any_dtensor, data_parallel, gather_fsdp
 
 GROUP_TOKENS = 1024  # GShard group size: bounds the (G_s, E, C) tensors
 
@@ -58,15 +59,23 @@ def _router(p: dict, x: torch.Tensor, cfg: ModelCfg):
     (B, S, K) float32, aux)``, aux the Switch load-balancing loss
     ``E * sum_e f_e * p_e`` (float32, 0-d)."""
     logits = x.float() @ p["router"].float()                 # (B, S, E)
+    e = cfg.moe.n_experts
+    topi, weights, onehot = _top_k(logits, cfg)
+    probs = torch.softmax(logits, dim=-1)
+    frac = onehot.sum(2).reshape(-1, e).mean(0)
+    aux = e * torch.sum(frac * probs.reshape(-1, e).mean(0))
+    return topi, weights, aux
+
+
+def _top_k(logits: torch.Tensor, cfg: ModelCfg):
+    """``(topi, weights, onehot)`` of router logits (B, S, E): each
+    token's own choice, the choices' one-hot (B, S, K, E) in float32."""
     k, e = cfg.moe.top_k, cfg.moe.n_experts
     topv, topi = torch.sort(logits, dim=-1, descending=True, stable=True)
     topv, topi = topv[..., :k], topi[..., :k]
     weights = torch.softmax(topv, dim=-1)
-    probs = torch.softmax(logits, dim=-1)
     onehot = F.one_hot(topi, e).float()                      # (B,S,K,E)
-    frac = onehot.sum(2).reshape(-1, e).mean(0)
-    aux = e * torch.sum(frac * probs.reshape(-1, e).mean(0))
-    return topi, weights, aux
+    return topi, weights, onehot
 
 
 def _expert_ffn(p: dict, xs: torch.Tensor, act=F.silu) -> torch.Tensor:
@@ -75,9 +84,12 @@ def _expert_ffn(p: dict, xs: torch.Tensor, act=F.silu) -> torch.Tensor:
     return torch.bmm(h, p["wo"])
 
 
-def _groups(cfg: ModelCfg, tokens: int) -> tuple[int, int, int]:
-    """(group size, groups, capacity) of the grouped dispatches."""
-    gs = min(GROUP_TOKENS, tokens)
+def _groups(cfg: ModelCfg, tokens: int,
+            group: int | None = None) -> tuple[int, int, int]:
+    """(group size, groups, capacity) of the grouped dispatches; ``group``
+    overrides the size (a mesh rank's share of the groups keeps the whole
+    batch's size)."""
+    gs = group or min(GROUP_TOKENS, tokens)
     assert tokens % gs == 0, (tokens, gs)
     return gs, tokens // gs, capacity(cfg, gs)
 
@@ -105,15 +117,15 @@ def dense_keep(topi: torch.Tensor, n_experts: int, cap: int):
     return onehot, pos, keep
 
 
-def moe_apply_dense(p: dict, cfg: ModelCfg, x: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_apply_dense(p: dict, cfg: ModelCfg, x: torch.Tensor, routed=None,
+                    group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """GShard dense dispatch: tokens in groups of ``GROUP_TOKENS``, each
     group dispatched into (E, C) buffers by one-hot products; a (token, k)
     pair past its expert's capacity is dropped."""
     b, s, d = x.shape
     e = cfg.moe.n_experts
-    gs, n_g, cap = _groups(cfg, b * s)
-    topi, weights, aux = _router(p, x, cfg)
+    gs, n_g, cap = _groups(cfg, b * s, group)
+    topi, weights, aux = _route(p, x, cfg, routed)
     k = topi.shape[-1]
     flat_w = weights.reshape(n_g, gs, k).to(x.dtype)
     onehot, pos, keep = dense_keep(topi.reshape(n_g, gs, k), e, cap)
@@ -140,7 +152,7 @@ def moe_apply_dense(p: dict, cfg: ModelCfg, x: torch.Tensor
     return out.reshape(b, s, d).to(x.dtype), aux
 
 
-def moe_apply_sorted(p: dict, cfg: ModelCfg, x: torch.Tensor
+def moe_apply_sorted(p: dict, cfg: ModelCfg, x: torch.Tensor, routed=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort-based ragged dispatch, one group over all tokens (the
     reference's global variant, kept for the record): capacity
@@ -149,7 +161,7 @@ def moe_apply_sorted(p: dict, cfg: ModelCfg, x: torch.Tensor
     e = cfg.moe.n_experts
     tokens = b * s
     cap = capacity(cfg, tokens)
-    topi, weights, aux = _router(p, x, cfg)
+    topi, weights, aux = _route(p, x, cfg, routed)
     k = topi.shape[-1]
     flat_i = topi.reshape(tokens * k)
     flat_w = weights.reshape(tokens * k)
@@ -172,15 +184,16 @@ def moe_apply_sorted(p: dict, cfg: ModelCfg, x: torch.Tensor
     return out.reshape(b, s, d), aux
 
 
-def moe_apply_sorted_local(p: dict, cfg: ModelCfg, x: torch.Tensor
+def moe_apply_sorted_local(p: dict, cfg: ModelCfg, x: torch.Tensor,
+                           routed=None, group=None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort-based ragged dispatch within each group of ``GROUP_TOKENS``
     tokens: the dense path's groups and capacity (so the same kept pairs),
     gathers and scatter-adds in place of the one-hot products."""
     b, s, d = x.shape
     e = cfg.moe.n_experts
-    gs, n_g, cap = _groups(cfg, b * s)
-    topi, weights, aux = _router(p, x, cfg)
+    gs, n_g, cap = _groups(cfg, b * s, group)
+    topi, weights, aux = _route(p, x, cfg, routed)
     k = topi.shape[-1]
     flat_i = topi.reshape(n_g, gs * k)
     flat_w = weights.reshape(n_g, gs * k).to(x.dtype)
@@ -212,10 +225,59 @@ def moe_apply_sorted_local(p: dict, cfg: ModelCfg, x: torch.Tensor
     return out.reshape(b, s, d), aux
 
 
+def _route(p: dict, x: torch.Tensor, cfg: ModelCfg, routed):
+    """``_router``'s ``(topi, weights, aux)``, or, given ``routed``
+    ``(topi, weights)`` (a mesh rank's share of choices made whole),
+    those with aux None."""
+    if routed is None:
+        return _router(p, x, cfg)
+    return (*routed, None)
+
+
+_DISPATCH = {"dense": moe_apply_dense, "sorted": moe_apply_sorted,
+             "sorted_local": moe_apply_sorted_local}
+
+
+def _moe_apply_mesh(p: dict, cfg: ModelCfg, x: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN on a mesh (DTensor weights): the router's product and
+    its load-balancing loss as DTensor ops over the whole batch, each
+    token's top-k on its rank's rows, then the dispatch on each rank's
+    token groups with the expert weights whole (``parallel.local.
+    data_parallel``).  A rank takes a share of the batch only where its
+    tokens are whole groups of the full batch's size (the global
+    ``sorted`` dispatch never shards), so every kept pair is the one the
+    whole batch keeps.  Experts are not sharded over the model axis
+    (there is no expert parallelism): each rank runs every expert on its
+    tokens."""
+    b, s, _ = x.shape
+    e = cfg.moe.n_experts
+    logits = x.float() @ gather_fsdp(p["router"]).float()
+    topi, weights, onehot = data_parallel(
+        lambda lg, _: _top_k(lg, cfg), logits, {}, n_out=3)
+    probs = torch.softmax(logits, dim=-1)
+    # means over (B, S) in place of the reshape to (B * S, E): DTensor's
+    # backward of that view fails on the batch-sharded gradient
+    frac = onehot.sum(2).mean(dim=(0, 1))
+    aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
+    dispatch = _DISPATCH.get(cfg.moe.dispatch, moe_apply_dense)
+    gs = min(GROUP_TOKENS, b * s)
+
+    def local(xl, w, ti, tw):
+        kw = {} if dispatch is moe_apply_sorted else {"group": gs}
+        return dispatch(w, cfg, xl, routed=(ti, tw), **kw)[0]
+
+    def whole_groups(n: int) -> bool:
+        return dispatch is not moe_apply_sorted and (b // n * s) % gs == 0
+
+    experts = {k: p[k] for k in ("wi_gate", "wi_up", "wo")}
+    out = data_parallel(local, x, experts, topi, weights,
+                        shards_ok=whole_groups)
+    return out, aux
+
+
 def moe_apply(p: dict, cfg: ModelCfg, x: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    if cfg.moe.dispatch == "sorted":
-        return moe_apply_sorted(p, cfg, x)
-    if cfg.moe.dispatch == "sorted_local":
-        return moe_apply_sorted_local(p, cfg, x)
-    return moe_apply_dense(p, cfg, x)
+    if any_dtensor(x, *p.values()):
+        return _moe_apply_mesh(p, cfg, x)
+    return _DISPATCH.get(cfg.moe.dispatch, moe_apply_dense)(p, cfg, x)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.layers import init_rms, normal_init, rms_norm
+from repro_torch.parallel.local import data_parallel
 
 
 def _dims(cfg: ModelCfg):
@@ -147,7 +148,14 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 
 def ssm_apply(p: dict, cfg: ModelCfg, u: torch.Tensor) -> torch.Tensor:
-    """Full-sequence mamba2 block; u: (B, S, D)."""
+    """Full-sequence mamba2 block; u: (B, S, D).  On a mesh (DTensor
+    weights) each rank scans its own sequences with the block's weights
+    whole (``parallel.local.data_parallel``): the block is not
+    tensor-parallel."""
+    return data_parallel(lambda x, w: _ssm_apply(w, cfg, x), u, p)
+
+
+def _ssm_apply(p: dict, cfg: ModelCfg, u: torch.Tensor) -> torch.Tensor:
     ssm = cfg.ssm
     d_in, n_heads, _ = _dims(cfg)
     z, x, b, c, dt = _split_proj(cfg, u @ p["in_proj"])
@@ -191,7 +199,15 @@ def ssm_decode_state(cfg: ModelCfg, batch: int, device=None) -> dict:
 
 def ssm_decode(p: dict, cfg: ModelCfg, u: torch.Tensor, state: dict
                ) -> tuple[torch.Tensor, dict]:
-    """One-token step; u: (B, 1, D) -> (out (B, 1, D), new state)."""
+    """One-token step; u: (B, 1, D) -> (out (B, 1, D), new state).  On a
+    mesh each rank steps its own rows, as :func:`ssm_apply` scans them."""
+    y, ssd, conv = data_parallel(
+        lambda x, w, s0, c0: _ssm_decode(w, cfg, x, {"ssd": s0, "conv": c0}),
+        u, p, state["ssd"], state["conv"], n_out=3)
+    return y, {"ssd": ssd, "conv": conv}
+
+
+def _ssm_decode(p: dict, cfg: ModelCfg, u: torch.Tensor, state: dict):
     ssm = cfg.ssm
     d_in, n_heads, _ = _dims(cfg)
     z, x, b, c, dt = _split_proj(cfg, u @ p["in_proj"])
@@ -215,4 +231,4 @@ def ssm_decode(p: dict, cfg: ModelCfg, u: torch.Tensor, state: dict
     y = y + xh * p["d_skip"][None, :, None]
     y = y.reshape(bs, 1, d_in).to(u.dtype) * F.silu(z)
     y = rms_norm(y, p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], {"ssd": new_ssd, "conv": new_conv}
+    return y @ p["out_proj"], new_ssd, new_conv

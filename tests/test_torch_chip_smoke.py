@@ -692,3 +692,65 @@ def test_seeded_vision_replaces_only_the_zero_vision_embeddings(cs):
     plain = cs.seeded_vision(torch, lambda s: {"tokens": torch.ones(2)},
                              dev)
     assert plain(3).keys() == {"tokens"}
+
+
+# -- phase 18: the mesh path's rules -----------------------------------------
+
+def _dryrun_record(**kw):
+    rec = {"arch": "qwen3-1.7b", "shape": "train_4k", "mesh": "16x16",
+           "status": "ok", "chips": 256, "cost": {"flops": 1.0},
+           "collectives": {"total": 2.0}, "pod_on_weights": False}
+    rec.update(kw)
+    return rec
+
+
+@pytest.mark.parametrize("change,want", [
+    ({}, []),
+    ({"mesh": "2x16x16", "chips": 512, "pod_on_weights": True}, []),
+    ({"status": "FAILED", "error": "boom"}, ["status FAILED: boom"]),
+    ({"cost": {"flops": 0.0}}, ["no FLOPs"]),
+    ({"collectives": {"total": 0.0}}, ["no collectives"]),
+    ({"chips": 8}, ["8 ranks, not 256"]),
+    ({"mesh": "2x16x16", "chips": 512}, ["the pod axis shards no weight"]),
+])
+def test_mesh_dryrun_check(cs, change, want):
+    """Phase 18d refuses a production-mesh cell that failed, traced no
+    FLOPs or collectives, ran on another number of ranks, or (multi-pod)
+    left the pod axis off the weights."""
+    assert cs.mesh_dryrun_check(_dryrun_record(**change)) == want
+
+
+def test_mesh_dryrun_check_on_a_real_record(tmp_path):
+    """A record ``launch.dryrun`` writes for a skipped cell has no mesh
+    fields: the check refuses it (phase 18d's cells all run)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-1.7b", "--shape", "long_500k", "--out", str(tmp_path)],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    rec = json.loads((tmp_path / "qwen3-1.7b__long_500k__16x16.json")
+                     .read_text())
+    assert rec["status"] == "skipped"
+    spec = importlib.util.spec_from_file_location("chip_smoke_rules", _PATH)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.mesh_dryrun_check(rec) == ["status skipped: None"]
+
+
+def test_serve_tokens_line(cs):
+    out = ("[serve] qwen3-1.7b: 32 decode steps x 4 slots on one device "
+           "(9.1 ms/step)\n[serve] tokens [[1, 2], [3, 4]]\n")
+    assert cs.serve_tokens_line(out) == "[serve] tokens [[1, 2], [3, 4]]"
+    assert cs.serve_tokens_line("[serve] qwen3-1.7b: ...") is None
+
+
+def test_mesh_param_reads_a_one_rank_shard(cs):
+    import torch
+    t = torch.arange(4.0)
+    assert cs.mesh_param(t) is t

@@ -242,3 +242,124 @@ def test_cli_smoke_on_cpu(tmp_path):
     with open(report) as fh:
         rep = json.load(fh)
     assert rep["n_requests"] == 16 and rep["n_clients"] == 4
+
+
+# ---------------------------------------------------------------------------
+# The LM mode of ``serve`` (no --lut): the reference's ``_run_lm`` loop
+# ---------------------------------------------------------------------------
+
+LM_STEPS = 8
+
+
+def _ref_lm_loop(rcfg, params, slots: int, cache_len: int, steps: int):
+    """The reference's ``repro.launch.serve._run_lm`` decode loop on one
+    device: ones at position 0, then greedy, every step's logits kept."""
+    import jax
+    import jax.numpy as jnp
+    from repro.launch import steps as RS
+    from repro.models import model as RM
+    step = jax.jit(RS.make_decode_step(rcfg))
+    cache = RM.init_cache(rcfg, slots, cache_len)
+    tok = jnp.ones((slots, 1), jnp.int32)
+    pos = jnp.zeros((slots,), jnp.int32)
+    logits_all, tokens = [], []
+    for _ in range(steps):
+        logits, cache = step(params, cache, tok, pos)
+        logits_all.append(np.asarray(logits.astype(jnp.float32)))
+        tok = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
+        tokens.append(np.asarray(tok[:, 0]))
+        pos = pos + 1
+    return np.stack(logits_all), np.stack(tokens)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-27b"])
+def test_lm_mode_matches_reference_decode_loop(arch, compute_dtype):
+    """``serve``'s LM mode (``lm_decode``, what ``_run_lm`` prints) from
+    the reference's smoke parameters (``lm_smoke.npz`` through
+    ``from_reference``) against the reference's decode loop, 8 steps of 4
+    slots on a 128 cache: logits within 1e-4 at float32 compute, 0.05 at
+    bfloat16; tokens equal but at a reference near-tie, after which a row
+    is no longer compared (its inputs differ)."""
+    import argparse
+    import dataclasses
+    import importlib.util
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as RC
+    from repro_torch import configs as PC
+    from repro_torch.launch import serve as port_serve
+    from repro_torch.models import model as M
+    from torch_port_util import FIXTURE_DIR, ROOT
+
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_fixture", os.path.join(ROOT, "tools",
+                                           "make_torch_fixture.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    cs_spec = importlib.util.spec_from_file_location(
+        "chip_smoke_rules", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(cs_spec)
+    cs_spec.loader.exec_module(cs)
+    with np.load(os.path.join(FIXTURE_DIR, tool.LM_NAME)) as z:
+        pre = f"{arch}.params."
+        flat = {k[len(pre):]: z[k] for k in z.files if k.startswith(pre)}
+    rcfg = dataclasses.replace(RC.get_smoke_config(arch),
+                               compute_dtype=compute_dtype)
+    cfg = dataclasses.replace(PC.get_smoke_config(arch),
+                              compute_dtype=compute_dtype)
+    params = jax.tree.map(jnp.asarray, tool.unflatten_params(flat))
+    want_logits, want_tokens = _ref_lm_loop(rcfg, params, 4, 128, LM_STEPS)
+    args = argparse.Namespace(arch=arch, full=False, slots=4, cache_len=128,
+                              steps=LM_STEPS, model_parallel=None,
+                              device="cpu")
+    model = M.from_reference(cfg, flat, device="cpu")
+    out = port_serve.lm_decode(args, cfg=cfg, model=model)
+    got_logits = np.stack([lg.float().numpy() for lg in out["logits"]])
+    got_tokens = out["tokens"].numpy()
+    tol = ({"atol": 1e-4, "rtol": 1e-4} if compute_dtype == "float32"
+           else {"atol": 0.05, "rtol": 0.05})
+    live = np.ones(4, bool)
+    # the rows start alike (ones at 0), so one near-tie parts all of them
+    for t in range(LM_STEPS):
+        np.testing.assert_allclose(got_logits[t][live], want_logits[t][live],
+                                   **tol, err_msg=f"step {t}")
+        _, outside = cs.token_disagreements(
+            got_tokens[t][live], want_logits[t][live],
+            want_tokens[t][live], **tol)
+        assert outside == 0, f"step {t}: a token off a near-tie"
+        live &= got_tokens[t] == want_tokens[t]
+        if not live.any():
+            break
+
+
+def test_lm_mode_cli_and_lut_mode_on_the_cpu(tmp_path):
+    """``serve`` without ``--lut`` runs the LM mode (the reference's
+    ``[serve] ... ms/step`` line) and ``--model-parallel 1`` decodes the
+    same tokens on a one-rank mesh; ``--lut`` still serves as before."""
+    import subprocess
+    import sys
+    from torch_port_util import SRC
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    env.pop("WORLD_SIZE", None)
+
+    def run(*flags):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *flags,
+             "--device", "cpu"], env=env, capture_output=True, text=True,
+            timeout=240)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        return proc.stdout
+
+    one = run("--steps", "4")
+    mesh = run("--steps", "4", "--model-parallel", "1")
+    assert "[serve] qwen3-1.7b-smoke: 4 decode steps x 4 slots on one " \
+           "device" in one
+    assert "on mesh {'data': 1, 'model': 1}" in mesh
+    tokens = [ln for ln in one.splitlines() if ln.startswith("[serve] tok")]
+    assert tokens and tokens == [ln for ln in mesh.splitlines()
+                                 if ln.startswith("[serve] tok")]
+    lut = run("--lut", "--smoke")
+    assert "compile-once contract: retraces=0 compiler_runs=0" in lut

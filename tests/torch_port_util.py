@@ -235,3 +235,38 @@ def with_table_offset(slabs, pad=1):
     fields = {f.name: getattr(slabs, f.name)
               for f in dataclasses.fields(slabs) if f.init}
     return type(slabs)(**{**fields, "table_slab": view})
+
+
+def rank_env() -> dict:
+    """The environment of a test's subprocess: the port on the path, one
+    OpenMP thread, and no ``torchrun`` world (a process group is started
+    by the script itself)."""
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    env.pop("WORLD_SIZE", None)
+    return env
+
+
+def run_ranks(code: str, args: list, world: int, store: str,
+              timeout: float) -> None:
+    """``code`` in ``world`` processes at once, rank ``r`` given ``args``
+    then ``r``, ``world`` and ``store`` (a ``FileStore`` path: the ranks
+    rendezvous through it, no TCP port); every rank must exit 0 within
+    ``timeout`` seconds, and none is left running."""
+    import subprocess
+    import sys
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, *map(str, args), str(r), str(world),
+         store], env=rank_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=timeout)
+            errs.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rc, err in errs:
+        assert rc == 0, err[-3000:]

@@ -413,6 +413,29 @@ pass:
     ``launches_train_qwen2_vl``, ``launches_train_smoke_by_route``), (c)
     under ``shapes_train_*`` and the rest under ``train_families``.
 
+18. **the mesh path on a (1, 1) mesh** (:func:`mesh_phases`): training,
+    a prefill and ``serve`` bit for bit the unsharded path's, and the
+    dry-run's qwen3-1.7b cells on both production meshes.
+
+19. **the work spread as the reference spreads it** (:func:`ep_tp_phases`;
+    the card is one, so the spread runs over repeated or one-rank
+    devices).  (a) Model A level 3 served by a tier on ``TIER_DEVICES``
+    (two replicas of ``cuda:0``) and by one on one device, on 64 ragged
+    requests: codes bit for bit ``net(codes)``'s, ``sharded``, no build
+    or compiler run after warmup, each replica's launches by route (one
+    ``smem`` launch a shard), wall s in turns.  (b) olmoe-1b-7b, a 4 x
+    2048 prefill unsharded and then on a (1, 1) NCCL mesh through the
+    expert-parallel dispatch: logits and every layer's kept (token, k)
+    pairs bit for bit, 16 wgmma flash launches.  (c) mamba2-370m the
+    same way through the head-parallel block, prefill and 8 greedy
+    decode steps: logits, tokens and the final SSD state and conv ring
+    bit for bit.  (d) The dry-run's olmoe-1b-7b and mamba2-370m x
+    train_4k cells at 16x16: ``ok``, TFLOP and collective GB a device
+    beside the readings with the weights gathered whole.  The mixed LUT
+    record carries 19a's launches (``launches_tier_replicas``,
+    ``..._by_replica``), the flash record 19b's (``launches_ep_mesh``),
+    and the phase is under the mixed record's ``spread``.
+
 Every device time is ``torch.profiler``'s sum of the measured calls'
 kernel records, taken only from a trace that holds all of them and, for
 device-bound calls (the flash shapes, the 4096^3 masked matmuls), reads at
@@ -436,6 +459,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()   # the script's start, for its total
 FIXTURE = ROOT / "tests" / "fixtures" / "torch_port"
 BATCHES = (0, 1, 16, 1000, 4096)
 TIME_BATCHES = (16, 4096)
@@ -5820,6 +5844,498 @@ def mesh_phases(torch, dev) -> dict:
     return out
 
 
+# -- phase 19: the work spread as the reference spreads it, on one card --
+# 19a: model A level 3 served by a tier on two replicas of this card (the
+# device repeated: the machine has one) against a tier on one
+TIER_DEVICES = ("cuda:0", "cuda:0")
+TIER_REQUESTS = 64
+# 19c: greedy decode steps after the prefill; host ms a step is the mean
+# of the steps after the first EP_TP_DECODE_WARM
+EP_TP_DECODE_STEPS = 8
+EP_TP_DECODE_WARM = 2
+EP_TP_CACHE = 16
+# 19d: the dry-run's olmoe and mamba2 train_4k cells at 16x16, beside the
+# readings of them when the mesh path gathered the experts and the SSM
+# projections whole at every layer (per device TFLOP, collective GB;
+# PERF.md section 6)
+EP_TP_DRYRUN = (("olmoe-1b-7b", "train_4k", False),
+                ("mamba2-370m", "train_4k", False))
+GATHERED_WHOLE = {"olmoe-1b-7b": (813.7, 94.11), "mamba2-370m": (200.0, 3.107)}
+
+
+def tier_shard_check(outs, want, st_one, st_two, seen) -> list:
+    """What 19a's two tiers lack: every output equal to ``net(codes)``'s
+    (and so to each other's), the one-device tier unsharded, the
+    two-replica one sharded over 2 entries with an even bucket, no kernel
+    build or compiler run after warmup in either, and each replica's
+    launches (``seen``, one dict a replica, of the served requests) all on
+    the ``smem`` route of the mixed kernel, one a batch."""
+    import numpy as np
+    bad = []
+    for name, got in outs.items():
+        differ = sum(not np.array_equal(g, w) for g, w in zip(got, want))
+        if differ or len(got) != len(want):
+            bad.append(f"{name}: {differ} of {len(want)} outputs differ "
+                       f"from net(codes)")
+    if st_one["sharded"] or st_one["n_devices"] != 1:
+        bad.append(f"the one-device tier: {st_one['n_devices']} devices, "
+                   f"sharded {st_one['sharded']}")
+    if not st_two["sharded"] or st_two["n_devices"] != 2 or \
+            st_two["bucket_unit"] % 2:
+        bad.append(f"the two-replica tier: {st_two['n_devices']} devices, "
+                   f"sharded {st_two['sharded']}, bucket unit "
+                   f"{st_two['bucket_unit']}")
+    for name, st in (("one", st_one), ("two", st_two)):
+        if st["retraces_after_warmup"] or st["compiler_runs_after_warmup"]:
+            bad.append(f"{name}: {st['retraces_after_warmup']} builds, "
+                       f"{st['compiler_runs_after_warmup']} compiler runs "
+                       f"after warmup")
+    for i, d in enumerate(seen):
+        if d != {"lut_network_mixed/smem": st_two["batches"]}:
+            bad.append(f"replica {i} launched {d}, not one "
+                       f"lut_network_mixed/smem a batch "
+                       f"({st_two['batches']})")
+    return bad
+
+
+@contextlib.contextmanager
+def count_replica_launches(replicas):
+    """While active, each replica's forward (``_apply``: the tier calls it
+    once a row shard) adds the LUT kernel launches it makes,
+    ``{"<wrapper>/<route>": n}``, to its own dict of the list this
+    yields, one a replica."""
+    from repro_torch.kernels.lut_lookup import lut_lookup
+    from repro_torch.kernels.lut_network import lut_network, lut_network_mixed
+
+    def now():
+        return {f"{w.__name__}/{route}": n
+                for w in (lut_network_mixed, lut_network, lut_lookup)
+                for route, n in w.launches_by_route.items()}
+
+    def counting(inner, seen):
+        def apply(codes):
+            before = now()
+            out = inner(codes)
+            for key, n in now().items():
+                if n != before[key]:
+                    seen[key] = seen.get(key, 0) + n - before[key]
+            return out
+        return apply
+
+    # the engine's nets are frozen dataclasses: set and drop the
+    # instance's own ``_apply`` past their ``__setattr__``
+    seen = [{} for _ in replicas]
+    for net, d in zip(replicas, seen):
+        object.__setattr__(net, "_apply", counting(net._apply, d))
+    try:
+        yield seen
+    finally:
+        for net in replicas:
+            object.__delattr__(net, "_apply")
+
+
+def tier_replicas_phase(torch, dev) -> dict:
+    """19a: model A level 3 (``model_a_l3.npz``) served by a tier on
+    ``TIER_DEVICES`` and by one on this card alone, on the same 64 ragged
+    requests (1-8 rows): codes bit for bit ``net(codes)``'s, the sharded
+    tier's stats, no build or compiler run after warmup, each replica's
+    launches by route; wall s of each, twice, in turns (host clock)."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch import engine, serve
+    from repro_torch.kernels.lut_network import lut_network_mixed
+    net = engine.load(str(FIXTURE / "model_a_l3.npz"), device=dev)
+    rng = np.random.default_rng(19)
+    reqs = [rng.integers(0, 8, (int(k), net.n_in), dtype=np.int32)
+            for k in rng.integers(1, 9, TIER_REQUESTS)]
+    want = [net(r).cpu().numpy() for r in reqs]
+    torch.cuda.synchronize()
+
+    async def run(devices):
+        cfg = serve.TierConfig(max_batch_rows=32, flush_deadline_s=0.002,
+                               devices=devices)
+        async with serve.ServingTier(net, cfg) as tier:
+            with count_replica_launches(tier.replicas) as seen:
+                reset_counts(lut_network_mixed)
+                t0 = time.perf_counter()
+                outs = await asyncio.gather(*[tier.infer(r) for r in reqs])
+                wall = time.perf_counter() - t0
+                launches = lut_network_mixed.launches
+                by_route = dict(lut_network_mixed.launches_by_route)
+        return outs, tier.stats(), seen, wall, launches, by_route
+
+    # in turns (one, two, two, one): the first run warms the host's path
+    one = asyncio.run(run((str(dev),)))
+    two = asyncio.run(run(TIER_DEVICES))
+    two_s = [two[3], asyncio.run(run(TIER_DEVICES))[3]]
+    one_s = [one[3], asyncio.run(run((str(dev),)))[3]]
+    bad = tier_shard_check({"one device": one[0], "two replicas": two[0]},
+                           want, one[1], two[1], two[2])
+    if two[4] != 2 * two[1]["batches"] or two[5]["smem"] != two[4]:
+        bad.append(f"lut_network_mixed launched {two[4]} times "
+                   f"({two[5]}) for {two[1]['batches']} batches on 2 "
+                   f"replicas")
+    if bad:
+        fail("phase 19a: " + "; ".join(bad))
+    st = two[1]
+    log(f"phase 19a model A level 3 through the tier on {TIER_DEVICES}: "
+        f"{TIER_REQUESTS} requests ({sum(r.shape[0] for r in reqs)} rows) "
+        f"bit for bit net(codes)'s and the one-device tier's; "
+        f"{st['batches']} batches, bucket unit {st['bucket_unit']}, "
+        f"sharded {st['sharded']}, builds / compiler runs after warmup "
+        f"{st['retraces_after_warmup']} / "
+        f"{st['compiler_runs_after_warmup']}; lut_network_mixed "
+        f"{two[4]} launches ({two[5]}), by replica {two[2]}; wall s in "
+        f"turns {one_s[0]:.4f}, {two_s[0]:.4f}, {two_s[1]:.4f}, "
+        f"{one_s[1]:.4f} (one device, two replicas, two, one; host clock, "
+        f"{torch.cuda.get_device_name(0)})")
+    return {"launches": two[4], "launches_by_route": two[5],
+            "by_replica": two[2], "batches": st["batches"],
+            "bucket_unit": st["bucket_unit"], "wall_s_one": one_s,
+            "wall_s_two": two_s}
+
+
+@contextlib.contextmanager
+def record_top_k():
+    """While active, every call of the port's MoE top-k (``moe._top_k``:
+    inside the router on one device, on each rank's rows on a mesh)
+    appends its chosen experts (detached) to the list this yields."""
+    from repro_torch.models import moe
+    rec: list = []
+    inner = moe._top_k
+
+    def top_k(logits, cfg):
+        out = inner(logits, cfg)
+        rec.append(out[0].detach())
+        return out
+
+    moe._top_k = top_k
+    try:
+        yield rec
+    finally:
+        moe._top_k = inner
+
+
+def kept_pairs(torch, topi, cfg):
+    """The (token, k) pairs the grouped dispatch keeps of one call's
+    choices, as a (G, S, K) mask."""
+    from repro_torch.models import moe
+    k = cfg.moe.top_k
+    flat = topi.reshape(-1, k)
+    gs = min(moe.GROUP_TOKENS, flat.shape[0])
+    return moe.dense_keep(flat.reshape(-1, gs, k), cfg.moe.n_experts,
+                          moe.capacity(cfg, gs))[2].any(-1)
+
+
+def one_rank_mesh_model(cfg, model, mesh, policy):
+    """``model``'s parameters on the (1, 1) mesh (their storage shared: one
+    rank's shard is the tensor itself), as a model."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as SH
+    params = SH.distribute({n: p.detach() for n, p in
+                            model.named_parameters()}, mesh, policy)
+    return M.LM(cfg, M.param_tree(cfg, params))
+
+
+def on_device(torch, dev, fn):
+    """``fn()`` (``torch.cuda`` bookkeeping: a sync, a peak reading) on a
+    CUDA device; 0 on the CPU, where the CPU tests run 19b and 19c's
+    comparisons."""
+    return fn() if dev.type == "cuda" else 0
+
+
+def ep_moe_run(torch, dev, mesh, cfg, shape) -> tuple[list, dict]:
+    """19b's runs: ``cfg``'s prefill of ``shape`` unsharded, then (the
+    first model's cast dropped: at full width both do not fit with their
+    activations) on ``mesh`` through the expert-parallel dispatch, every
+    counter at 0 first: ``(what differs: logits, a layer's choices or
+    kept (token, k) pairs; readings)``."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.ctx import activation_sharding
+
+    b, s = shape
+    tokens = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab, (b, s))).to(dev)
+    prefill = steps.make_prefill_step(cfg)
+    on_device(torch, dev, torch.cuda.reset_peak_memory_stats)
+    model = steps.init_params(cfg, seed=0, device=dev)
+    with torch.no_grad(), record_top_k() as plain_routes:
+        want = prefill(model, {"tokens": tokens})
+    peak_plain = on_device(torch, dev, torch.cuda.max_memory_allocated)
+    model._cast = None
+    gc.collect()
+    on_device(torch, dev, torch.cuda.empty_cache)
+    on_device(torch, dev, torch.cuda.reset_peak_memory_stats)
+    policy = SH.ShardingPolicy()
+    mesh_model = one_rank_mesh_model(cfg, model, mesh, policy)
+    batch = SH.distribute_by_specs(
+        {"tokens": tokens}, SH.batch_specs(policy, mesh,
+                                           {"tokens": tokens}), mesh)
+    reset_all()
+    t0 = time.perf_counter()
+    with torch.no_grad(), record_top_k() as mesh_routes, \
+            activation_sharding(mesh, SH.activation_rules(policy)):
+        got = prefill(mesh_model, batch).full_tensor()
+    on_device(torch, dev, torch.cuda.synchronize)
+    info = {"launches": flash_attention.launches,
+            "launches_by_route": dict(flash_attention.launches_by_route),
+            "mesh_first_s": time.perf_counter() - t0,
+            "peak_bytes_unsharded": peak_plain,
+            "peak_bytes_mesh": on_device(torch, dev,
+                                         torch.cuda.max_memory_allocated),
+            "pairs": cfg.n_layers * b * s * cfg.moe.top_k, "kept_pairs": 0}
+    bad = []
+    if not torch.equal(got, want):
+        bad.append(f"logits (max |diff| "
+                   f"{(got.float() - want.float()).abs().max().item()})")
+    if len(mesh_routes) != cfg.n_layers or len(plain_routes) != cfg.n_layers:
+        bad.append(f"{len(plain_routes)} / {len(mesh_routes)} router calls, "
+                   f"not {cfg.n_layers}")
+    for i, (a, c) in enumerate(zip(plain_routes, mesh_routes)):
+        ka, kc = kept_pairs(torch, a, cfg), kept_pairs(torch, c, cfg)
+        if not torch.equal(a.reshape(c.shape), c) or not torch.equal(ka, kc):
+            bad.append(f"layer {i}'s kept (token, k) pairs")
+        info["kept_pairs"] += int(ka.sum())
+    del model, mesh_model, want, got, plain_routes, mesh_routes
+    gc.collect()
+    on_device(torch, dev, torch.cuda.empty_cache)
+    return bad, info
+
+
+def ep_moe_phase(torch, dev, mesh) -> dict:
+    """19b: olmoe-1b-7b at full width, a 4 x 2048 prefill unsharded and on
+    the (1, 1) mesh through the expert-parallel dispatch, one after the
+    other: logits and every layer's kept (token, k) pairs bit for bit;
+    16 wgmma flash launches on the mesh."""
+    from repro_torch.configs import get_config
+    cfg = get_config("olmoe-1b-7b")
+    bad, out = ep_moe_run(torch, dev, mesh, cfg, PREFILL_SHAPE)
+    if out["launches"] != cfg.n_layers or \
+            out["launches_by_route"]["wgmma"] != cfg.n_layers:
+        bad.append(f"{out['launches']} flash launches "
+                   f"({out['launches_by_route']}) on the mesh, not "
+                   f"{cfg.n_layers} wgmma")
+    if bad:
+        fail("phase 19b: the expert-parallel prefill's " + ", ".join(bad)
+             + " differ from the unsharded one's")
+    b, s = PREFILL_SHAPE
+    log(f"phase 19b {cfg.arch_id} prefill {b} x {s} on the (1, 1) mesh, "
+        f"experts sharded over model ({cfg.moe.n_experts} a rank here): "
+        f"logits bit for bit the unsharded prefill's, the same "
+        f"{out['kept_pairs']} of {out['pairs']} (token, k) pairs kept in "
+        f"{cfg.n_layers} layers; {out['launches']} flash launches "
+        f"({out['launches_by_route']}); one after the other, peak "
+        f"{out['peak_bytes_unsharded'] / 1e9:.2f} GB unsharded, "
+        f"{out['peak_bytes_mesh'] / 1e9:.2f} GB on the mesh; "
+        f"{out['mesh_first_s']:.3f} s on the host clock (first mesh call) "
+        f"({torch.cuda.get_device_name(0)})")
+    return out
+
+
+def greedy_decode(torch, cfg, model, cache, first, steps_n: int,
+                  mesh=None, policy=None, step_s=None):
+    """``steps_n`` greedy steps from ``first`` (B, 1) at positions 0, 1,
+    ..., as ``launch.serve.lm_decode`` feeds them (on a mesh the tokens
+    laid out by ``batch_specs``, the logits gathered whole): the tokens
+    (B, steps_n) and the cache.  With a list ``step_s``, each step's
+    seconds on the host clock, synchronised, are appended to it."""
+    from repro_torch.launch import steps
+    from repro_torch.parallel import sharding as SH
+    step = steps.make_decode_step(cfg)
+    tok, out = first, []
+    pos = torch.zeros((first.shape[0],), dtype=torch.int32,
+                      device=first.device)
+    for _ in range(steps_n):
+        t0 = time.perf_counter()
+        if mesh is not None:
+            tok = SH.distribute_by_specs(
+                {"tokens": tok}, SH.batch_specs(policy, mesh,
+                                                {"tokens": tok}),
+                mesh)["tokens"]
+        logits, cache = step(model, cache, tok, pos)
+        if mesh is not None:
+            logits = logits.full_tensor()
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        out.append(tok)
+        pos = pos + 1
+        if step_s is not None:
+            if first.device.type == "cuda":
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    return torch.cat(out, dim=1), cache
+
+
+def tp_ssm_run(torch, dev, mesh, cfg, shape, decode_steps: int
+               ) -> tuple[list, dict]:
+    """19c's runs: ``cfg``'s prefill of ``shape`` and ``decode_steps``
+    greedy steps unsharded and on ``mesh`` through the head-parallel
+    block (the decode state laid out by ``cache_specs``): ``(what
+    differs: logits, tokens, the final SSD state or conv ring;
+    readings)``."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.ctx import activation_sharding
+    from repro_torch.parallel.local import local_tensor
+
+    b, s = shape
+    tokens = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab, (b, s))).to(dev)
+    prefill = steps.make_prefill_step(cfg)
+    model = steps.init_params(cfg, seed=0, device=dev)
+    plain_s, mesh_s = [], []
+    with torch.no_grad():
+        want = prefill(model, {"tokens": tokens})
+        want_toks, want_cache = greedy_decode(
+            torch, cfg, model, M.init_cache(cfg, b, EP_TP_CACHE, dev),
+            want.argmax(-1, keepdim=True).to(torch.int32), decode_steps,
+            step_s=plain_s)
+    policy = SH.ShardingPolicy()
+    mesh_model = one_rank_mesh_model(cfg, model, mesh, policy)
+    batch = SH.distribute_by_specs(
+        {"tokens": tokens}, SH.batch_specs(policy, mesh,
+                                           {"tokens": tokens}), mesh)
+    cache = M.init_cache(cfg, b, EP_TP_CACHE, dev)
+    cache = SH.distribute_by_specs(cache, SH.cache_specs(policy, mesh,
+                                                         cache), mesh)
+    reset_all()
+    t0 = time.perf_counter()
+    with torch.no_grad(), activation_sharding(
+            mesh, SH.activation_rules(policy)):
+        got = prefill(mesh_model, batch).full_tensor()
+        toks, cache = greedy_decode(
+            torch, cfg, mesh_model, cache,
+            got.argmax(-1, keepdim=True).to(torch.int32), decode_steps,
+            mesh, policy, step_s=mesh_s)
+    on_device(torch, dev, torch.cuda.synchronize)
+    warm = min(EP_TP_DECODE_WARM, decode_steps - 1)
+    info = {"tokens": toks.tolist(), "mesh_first_s": time.perf_counter() - t0,
+            "placements": {k: str(tuple(v.placements))
+                           for k, v in cache["ssm"].items()},
+            "decode_host_ms_unsharded": 1e3 * statistics.mean(
+                plain_s[warm:]),
+            "decode_host_ms_mesh": 1e3 * statistics.mean(mesh_s[warm:])}
+    bad = []
+    if not torch.equal(got, want):
+        bad.append(f"prefill logits (max |diff| "
+                   f"{(got.float() - want.float()).abs().max().item()})")
+    if not torch.equal(toks, want_toks):
+        bad.append(f"tokens {toks.tolist()} against {want_toks.tolist()}")
+    for key in ("ssd", "conv"):
+        if not torch.equal(local_tensor(cache["ssm"][key]),
+                           want_cache["ssm"][key]):
+            bad.append(f"the final {key} state")
+    del model, mesh_model, want, got, cache, want_cache
+    gc.collect()
+    on_device(torch, dev, torch.cuda.empty_cache)
+    return bad, info
+
+
+def tp_ssm_phase(torch, dev, mesh) -> dict:
+    """19c: mamba2-370m at full width, a 4 x 2048 prefill and 8 greedy
+    decode steps unsharded and on the (1, 1) mesh through the
+    head-parallel block: logits, tokens and the final SSD state and conv
+    ring bit for bit."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-370m")
+    bad, out = tp_ssm_run(torch, dev, mesh, cfg, PREFILL_SHAPE,
+                          EP_TP_DECODE_STEPS)
+    if bad:
+        fail("phase 19c: the head-parallel path's " + ", ".join(bad)
+             + " differ from the unsharded path's")
+    b, s = PREFILL_SHAPE
+    log(f"phase 19c {cfg.arch_id} prefill {b} x {s} and "
+        f"{EP_TP_DECODE_STEPS} greedy decode steps on the (1, 1) mesh, "
+        f"heads over model (all 32 on the one rank here): logits, "
+        f"{b * EP_TP_DECODE_STEPS} tokens and the final SSD state and conv "
+        f"ring bit for bit the unsharded path's (state placements "
+        f"{out['placements']}); {out['mesh_first_s']:.3f} s on the host "
+        f"clock (first mesh calls); a decode step "
+        f"{out['decode_host_ms_mesh']:.3f} ms on the mesh, "
+        f"{out['decode_host_ms_unsharded']:.3f} ms unsharded (host clock, "
+        f"synchronised, mean of steps {EP_TP_DECODE_WARM + 1}-"
+        f"{EP_TP_DECODE_STEPS}) ({torch.cuda.get_device_name(0)})")
+    return out
+
+
+def ep_tp_dryrun_line(rec: dict) -> str:
+    """19d's line for one dry-run record: per device TFLOP and collective
+    GB beside the figures with the weights gathered whole."""
+    tflop = rec["cost"]["flops"] / 1e12
+    coll = rec["collectives"]["total"] / 1e9
+    was = GATHERED_WHOLE[rec["arch"]]
+    kinds = ", ".join(f"{k} {rec['collectives'][k] / 1e9:.4g}"
+                      for k in ("all-gather", "all-reduce", "reduce-scatter",
+                                "all-to-all") if k in rec["collectives"])
+    return (f"{rec['arch']} x {rec['shape']} x {rec['mesh']}: ok, per "
+            f"device {tflop:.4g} TFLOP (weights gathered whole: {was[0]}), "
+            f"collectives {coll:.4g} GB ({kinds}; gathered whole: "
+            f"{was[1]}), "
+            f"{rec['cell_s']:.1f} s")
+
+
+def ep_tp_dryrun_phase(torch) -> dict:
+    """19d: ``dryrun.run_cell`` of olmoe-1b-7b and mamba2-370m x train_4k
+    at 16x16 (fake ranks, meta tensors) in a process of its own: ``ok``,
+    and fewer FLOPs a device than with the weights gathered whole."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("WORLD_SIZE", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", MESH_DRYRUN_SCRIPT, json.dumps(EP_TP_DRYRUN)],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=MESH_DRYRUN_TIMEOUT_S)
+    if proc.returncode != 0:
+        fail(f"phase 19d dry-run: rc {proc.returncode}\n"
+             f"{proc.stderr[-3000:]}")
+    recs = json.loads(proc.stdout.strip().splitlines()[-1])
+    for rec in recs:
+        bad = mesh_dryrun_check(rec)
+        if not bad and rec["cost"]["flops"] / 1e12 >= \
+                GATHERED_WHOLE[rec["arch"]][0]:
+            bad.append("no fewer FLOPs a device than with the weights "
+                       "gathered whole")
+        if bad:
+            fail(f"phase 19d {rec['arch']} x {rec['shape']} x "
+                 f"{rec['mesh']}: {'; '.join(bad)}")
+        log(f"phase 19d dry-run {ep_tp_dryrun_line(rec)} (abstract: meta "
+            f"tensors, fake ranks)")
+    return {"cells": [{k: r.get(k) for k in
+                       ("arch", "shape", "mesh", "chips", "status",
+                        "cell_s", "cost", "collectives")} for r in recs]}
+
+
+def ep_tp_phases(torch, dev) -> dict:
+    """Phase 19: the tier's replicas (19a), the expert-parallel MoE (19b)
+    and the head-parallel SSM (19c) on a (1, 1) mesh of this card, and
+    the dry-run's cells (19d)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    out = {"tier": tier_replicas_phase(torch, dev)}
+    mesh = make_host_mesh(1)
+    out["moe"] = ep_moe_phase(torch, dev, mesh)
+    out["ssm"] = tp_ssm_phase(torch, dev, mesh)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    out["dryrun"] = ep_tp_dryrun_phase(torch)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 19 in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6468,6 +6984,17 @@ def main() -> None:
     fa_rec["launches_mesh_by_route"] = mesh["prefill"]["launches_by_route"]
     ffn_rec["mesh"] = mesh
 
+    # -- phase 19: the tier's data-parallel replicas, the expert-parallel
+    # MoE and the head-parallel SSM on a (1, 1) mesh, the dry-run's cells
+    spread = ep_tp_phases(torch, dev)
+    mixed_rec["launches_tier_replicas"] = spread["tier"]["launches"]
+    mixed_rec["launches_tier_replicas_by_replica"] = spread["tier"][
+        "by_replica"]
+    fa_rec["launches_ep_mesh"] = spread["moe"]["launches"]
+    fa_rec["launches_ep_mesh_by_route"] = spread["moe"]["launches_by_route"]
+    mixed_rec["spread"] = spread
+
+    log(f"chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -165,7 +165,8 @@ def _print_report(rep, st: dict) -> None:
         print(f"[serve --lut] {st['batches']} batches, occupancy "
               f"{st['batch_occupancy']:.2f} (mean "
               f"{st['mean_batch_rows']:.1f} rows), "
-              f"flushes={st['flush_causes']}, {st['n_devices']} device(s)")
+              f"flushes={st['flush_causes']}, {st['n_devices']} device(s)"
+              f"{' sharded' if st['sharded'] else ''}")
     for stage in ("queue_wait", "assembly", "device"):
         leg = rep.breakdown.get(stage)
         if leg and leg["count"]:

@@ -24,11 +24,16 @@ from repro_torch.parallel.local import (any_dtensor, gather_fsdp,
                                         replicate_like, vocab_embed)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             mean_sq=None) -> torch.Tensor:
     """Computed in float32, returned in ``x``'s dtype; ``scale`` is added
-    to 1 (zeros at init)."""
+    to 1 (zeros at init).  ``mean_sq``, if given, maps the mean of squares
+    of ``x``'s last dimension to the one to normalise by (a tensor-
+    parallel rank's share of it summed over its group)."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
+    if mean_sq is not None:
+        var = mean_sq(var)
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale)).to(x.dtype)
 
 

@@ -118,10 +118,14 @@ def dense_keep(topi: torch.Tensor, n_experts: int, cap: int):
 
 
 def moe_apply_dense(p: dict, cfg: ModelCfg, x: torch.Tensor, routed=None,
-                    group=None) -> tuple[torch.Tensor, torch.Tensor]:
+                    group=None, first: int = 0
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """GShard dense dispatch: tokens in groups of ``GROUP_TOKENS``, each
     group dispatched into (E, C) buffers by one-hot products; a (token, k)
-    pair past its expert's capacity is dropped."""
+    pair past its expert's capacity is dropped.  ``p``'s experts may be a
+    slice, experts ``first`` on (a mesh rank's): the capacity rule still
+    reads every expert's choices, the buffers and products hold only the
+    slice's, and the output is their share of the sum."""
     b, s, d = x.shape
     e = cfg.moe.n_experts
     gs, n_g, cap = _groups(cfg, b * s, group)
@@ -129,34 +133,37 @@ def moe_apply_dense(p: dict, cfg: ModelCfg, x: torch.Tensor, routed=None,
     k = topi.shape[-1]
     flat_w = weights.reshape(n_g, gs, k).to(x.dtype)
     onehot, pos, keep = dense_keep(topi.reshape(n_g, gs, k), e, cap)
-    sel = torch.where(keep, onehot, 0.0).to(x.dtype)          # (G,S,K,E)
+    el = p["wi_gate"].shape[0]
+    sel = torch.where(keep, onehot, 0.0)[..., first:first + el].to(
+        x.dtype)                                               # (G,S,K,E)
     pos_sel = (pos * onehot).sum(-1).int()                   # (G,S,K)
     cap_oh = F.one_hot(pos_sel.clamp(0, cap - 1).long(), cap).to(x.dtype)
     # dispatch "gske,gskc->gsec"; combine "gsk,gske,gskc->gsec" as the
     # weight times the selection (exact: sel is 0 or 1) then the same
     # product.  A token picks an expert once, so each (e, c) sums one term
-    sel_t = sel.reshape(n_g * gs, k, e).transpose(1, 2)      # (GS, E, K)
+    sel_t = sel.reshape(n_g * gs, k, el).transpose(1, 2)     # (GS, E, K)
     cap_f = cap_oh.reshape(n_g * gs, k, cap)
-    dispatch = torch.bmm(sel_t, cap_f).reshape(n_g, gs, e * cap)
-    comb_t = (flat_w[..., None] * sel).reshape(n_g * gs, k, e).transpose(1, 2)
-    combine = torch.bmm(comb_t, cap_f).reshape(n_g, gs, e * cap)
+    dispatch = torch.bmm(sel_t, cap_f).reshape(n_g, gs, el * cap)
+    comb_t = (flat_w[..., None] * sel).reshape(n_g * gs, k, el).transpose(1, 2)
+    combine = torch.bmm(comb_t, cap_f).reshape(n_g, gs, el * cap)
     xg = x.reshape(n_g, gs, d)
     # "gsec,gsd->egcd"
     expert_in = torch.bmm(dispatch.transpose(1, 2), xg)      # (G, E*C, D)
-    expert_in = expert_in.reshape(n_g, e, cap, d).transpose(0, 1).reshape(
-        e, n_g * cap, d)
+    expert_in = expert_in.reshape(n_g, el, cap, d).transpose(0, 1).reshape(
+        el, n_g * cap, d)
     expert_out = _expert_ffn(p, expert_in)                   # (E, G*C, D)
-    expert_out = expert_out.reshape(e, n_g, cap, d).transpose(0, 1).reshape(
-        n_g, e * cap, d)
+    expert_out = expert_out.reshape(el, n_g, cap, d).transpose(0, 1).reshape(
+        n_g, el * cap, d)
     out = torch.bmm(combine, expert_out)                     # "gsec,egcd->gsd"
     return out.reshape(b, s, d).to(x.dtype), aux
 
 
-def moe_apply_sorted(p: dict, cfg: ModelCfg, x: torch.Tensor, routed=None
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_apply_sorted(p: dict, cfg: ModelCfg, x: torch.Tensor, routed=None,
+                     first: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort-based ragged dispatch, one group over all tokens (the
     reference's global variant, kept for the record): capacity
-    ``int(capacity_factor * tokens * k / e)``."""
+    ``int(capacity_factor * tokens * k / e)``; ``p``'s experts a slice
+    from ``first`` as in :func:`moe_apply_dense`."""
     b, s, d = x.shape
     e = cfg.moe.n_experts
     tokens = b * s
@@ -170,13 +177,12 @@ def moe_apply_sorted(p: dict, cfg: ModelCfg, x: torch.Tensor, routed=None
     sorted_e, sorted_t, sorted_w = flat_i[order], tok_id[order], flat_w[order]
     same = torch.cumsum(F.one_hot(sorted_e, e), dim=0)
     rank = same.gather(1, sorted_e[:, None])[:, 0] - 1
-    keep = rank < cap
-    slot = (sorted_e * cap + rank).clamp(0, e * cap - 1)
+    keep, slot, el = _slots(p, sorted_e, rank, cap, first, e)
     xf = x.reshape(tokens, d)
-    slab = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device)
+    slab = torch.zeros((el * cap, d), dtype=x.dtype, device=x.device)
     slab.index_add_(0, slot, torch.where(keep[:, None], xf[sorted_t], 0))
-    expert_out = _expert_ffn(p, slab.reshape(e, cap, d))
-    flat_out = expert_out.reshape(e * cap, d)
+    expert_out = _expert_ffn(p, slab.reshape(el, cap, d))
+    flat_out = expert_out.reshape(el * cap, d)
     contrib = torch.where(keep[:, None],
                           flat_out[slot] * sorted_w[:, None].to(x.dtype), 0)
     out = torch.zeros((tokens, d), dtype=x.dtype, device=x.device)
@@ -185,11 +191,12 @@ def moe_apply_sorted(p: dict, cfg: ModelCfg, x: torch.Tensor, routed=None
 
 
 def moe_apply_sorted_local(p: dict, cfg: ModelCfg, x: torch.Tensor,
-                           routed=None, group=None
+                           routed=None, group=None, first: int = 0
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort-based ragged dispatch within each group of ``GROUP_TOKENS``
     tokens: the dense path's groups and capacity (so the same kept pairs),
-    gathers and scatter-adds in place of the one-hot products."""
+    gathers and scatter-adds in place of the one-hot products; ``p``'s
+    experts a slice from ``first`` as in :func:`moe_apply_dense`."""
     b, s, d = x.shape
     e = cfg.moe.n_experts
     gs, n_g, cap = _groups(cfg, b * s, group)
@@ -205,24 +212,36 @@ def moe_apply_sorted_local(p: dict, cfg: ModelCfg, x: torch.Tensor,
     sorted_w = flat_w.gather(1, order)
     same = torch.cumsum(F.one_hot(sorted_e, e), dim=1)
     rank = same.gather(2, sorted_e[:, :, None])[:, :, 0] - 1
-    keep = rank < cap
-    slot = (sorted_e * cap + rank).clamp(0, e * cap - 1)
+    keep, slot, el = _slots(p, sorted_e, rank, cap, first, e)
     xg = x.reshape(n_g, gs, d)
     gathered = xg.gather(1, sorted_t[:, :, None].expand(-1, -1, d))
     gathered = torch.where(keep[:, :, None], gathered, 0)
-    slab = torch.zeros((n_g, e * cap, d), dtype=x.dtype, device=x.device)
+    slab = torch.zeros((n_g, el * cap, d), dtype=x.dtype, device=x.device)
     slab.scatter_add_(1, slot[:, :, None].expand(-1, -1, d), gathered)
     # "gecd,edf->gecf" and "gecf,efd->gecd": each expert's slabs of every
     # group in one product
-    slab = slab.reshape(n_g, e, cap, d).transpose(0, 1).reshape(
-        e, n_g * cap, d)
-    expert_out = _expert_ffn(p, slab).reshape(e, n_g, cap, d)
-    flat_out = expert_out.transpose(0, 1).reshape(n_g, e * cap, d)
+    slab = slab.reshape(n_g, el, cap, d).transpose(0, 1).reshape(
+        el, n_g * cap, d)
+    expert_out = _expert_ffn(p, slab).reshape(el, n_g, cap, d)
+    flat_out = expert_out.transpose(0, 1).reshape(n_g, el * cap, d)
     back = flat_out.gather(1, slot[:, :, None].expand(-1, -1, d))
     contrib = torch.where(keep[:, :, None], back * sorted_w[:, :, None], 0)
     out = torch.zeros((n_g, gs, d), dtype=x.dtype, device=x.device)
     out.scatter_add_(1, sorted_t[:, :, None].expand(-1, -1, d), contrib)
     return out.reshape(b, s, d), aux
+
+
+def _slots(p: dict, sorted_e, rank, cap: int, first: int, e: int):
+    """The sorted dispatches' ``(keep, slot, experts)`` for ``p``'s
+    experts, a slice from ``first``: a pair is kept where its expert is
+    in the slice and it is within capacity, its slot counted from the
+    slice's first expert."""
+    el = p["wi_gate"].shape[0]
+    keep = rank < cap
+    if el != e:
+        keep = keep & (sorted_e >= first) & (sorted_e < first + el)
+    slot = ((sorted_e - first) * cap + rank).clamp(0, el * cap - 1)
+    return keep, slot, el
 
 
 def _route(p: dict, x: torch.Tensor, cfg: ModelCfg, routed):
@@ -240,16 +259,31 @@ _DISPATCH = {"dense": moe_apply_dense, "sorted": moe_apply_sorted,
 
 def _moe_apply_mesh(p: dict, cfg: ModelCfg, x: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The MoE FFN on a mesh (DTensor weights): the router's product and
-    its load-balancing loss as DTensor ops over the whole batch, each
-    token's top-k on its rank's rows, then the dispatch on each rank's
-    token groups with the expert weights whole (``parallel.local.
-    data_parallel``).  A rank takes a share of the batch only where its
-    tokens are whole groups of the full batch's size (the global
-    ``sorted`` dispatch never shards), so every kept pair is the one the
-    whole batch keeps.  Experts are not sharded over the model axis
-    (there is no expert parallelism): each rank runs every expert on its
-    tokens."""
+    """The MoE FFN on a mesh (DTensor weights), expert-parallel: the
+    router's product and its load-balancing loss as DTensor ops over the
+    whole batch, each token's top-k on its rank's rows, then the dispatch
+    on each rank's token groups and its own experts
+    (``parallel.local.data_parallel`` with the experts' placement kept).
+
+    The rules shard the expert dimension over the model axis (EP) and
+    ``d_model`` over the FSDP axes, which the layer's cast gathers
+    (``cast_weights``): a rank holds E / M experts whole, never the
+    others.  The activations keep the batch over ``data`` and replicate
+    it over ``model``, so every model rank already holds the tokens its
+    experts read: no token travels for the dispatch (no all-to-all).  The
+    capacity rule reads every expert's choices on every rank, so the kept
+    (token, k) pairs are the whole batch's; each rank dispatches only the
+    pairs its experts take, runs those experts and combines them, a
+    partial sum over the model axis that the residual add reduces (as a
+    row-parallel FFN's output).  A rank takes a share of the batch only
+    where its tokens are whole groups of the full batch's size (the
+    global ``sorted`` dispatch, one group of every token, never shards
+    its batch; it takes the same expert slice).  Where the model axis
+    does not divide the experts they stay whole on every rank, each
+    running all of them."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.parallel.local import tp_group, tp_placement
     b, s, _ = x.shape
     e = cfg.moe.n_experts
     logits = x.float() @ gather_fsdp(p["router"]).float()
@@ -262,17 +296,22 @@ def _moe_apply_mesh(p: dict, cfg: ModelCfg, x: torch.Tensor
     aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
     dispatch = _DISPATCH.get(cfg.moe.dispatch, moe_apply_dense)
     gs = min(GROUP_TOKENS, b * s)
+    experts = {k: p[k] for k in ("wi_gate", "wi_up", "wo")}
+    ep = all(tp_placement(w) == Shard(0) for w in experts.values())
+    coord, size, _ = tp_group(p["wi_gate"])
+    first = coord * (e // size) if ep else 0
 
     def local(xl, w, ti, tw):
         kw = {} if dispatch is moe_apply_sorted else {"group": gs}
-        return dispatch(w, cfg, xl, routed=(ti, tw), **kw)[0]
+        return dispatch(w, cfg, xl, routed=(ti, tw), first=first, **kw)[0]
 
     def whole_groups(n: int) -> bool:
         return dispatch is not moe_apply_sorted and (b // n * s) % gs == 0
 
-    experts = {k: p[k] for k in ("wi_gate", "wi_up", "wo")}
     out = data_parallel(local, x, experts, topi, weights,
-                        shards_ok=whole_groups)
+                        shards_ok=whole_groups,
+                        tp=[Shard(0)] * 3 + [Replicate()] * 2 if ep else None,
+                        tp_out=Partial() if ep else None)
     return out, aux
 
 

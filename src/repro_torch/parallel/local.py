@@ -403,43 +403,182 @@ def matmul_shards(fn, x, w, mask, b=None, transposed: bool = False):
     return _local_map(fn, outp, tuple(ins), tuple(grads), mesh)(*args)
 
 
+def tp_placement(t: torch.Tensor):
+    """``t``'s placement on the tensor-parallel mesh dimension:
+    ``Replicate()`` for a plain tensor or a mesh without one."""
+    from torch.distributed.tensor import Replicate
+    if not is_dtensor(t) or TP_AXIS not in t.device_mesh.mesh_dim_names:
+        return Replicate()
+    return t.placements[t.device_mesh.mesh_dim_names.index(TP_AXIS)]
+
+
+def tp_group(t: torch.Tensor) -> tuple:
+    """``(coordinate, size, process group)`` of this rank on ``t``'s
+    tensor-parallel mesh dimension; ``(0, 1, None)`` for a plain tensor or
+    a mesh without one."""
+    if not is_dtensor(t) or TP_AXIS not in t.device_mesh.mesh_dim_names:
+        return 0, 1, None
+    mesh = t.device_mesh
+    i = mesh.mesh_dim_names.index(TP_AXIS)
+    return _coord(mesh, i), mesh.size(i), mesh.get_group(i)
+
+
+class _TPSum(torch.autograd.Function):
+    """The all-reduce (sum) over the tensor-parallel group, whose
+    gradient is the all-reduce of the gradient: every rank's output reads
+    the sum, so each rank's part feeds every rank's loss."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), ctx.group), None
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+    out = funcol.all_reduce(x, "sum", group)
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
+
+
+def tp_sum(x: torch.Tensor, tp: tuple) -> torch.Tensor:
+    """``x`` (a local tensor inside a ``local_map``) summed over the
+    tensor-parallel group ``tp`` (:func:`tp_group`'s triple); ``x`` itself
+    on a one-rank group."""
+    return x if tp[1] == 1 else _TPSum.apply(x, tp[2])
+
+
+class Regroup:
+    """Each rank's entries ``want[rank]`` (global indices along one
+    dimension, ascending) of a tensor of ``length`` entries there that
+    each rank of a tensor-parallel group of ``len(want)`` ranks holds an
+    even, contiguous share of, or holds whole.  Built once a layout (this
+    rank's index lists, the all-to-all's sizes, and their index tensors
+    a device, kept): a call is then one ``index_select`` and, from a
+    share, one all-to-all.
+
+    From a share, each rank sends every other rank the entries of its
+    share that rank wants (an entry several ranks want goes to each) and
+    receives its own, so no rank holds the whole tensor; the gradient goes
+    back the same way, summed where an entry went to several ranks.  An
+    SSM block's packed projections shard evenly, not at head boundaries:
+    this is how a rank gathers its heads' columns."""
+
+    def __init__(self, length: int, want, rank: int):
+        if any(list(w) != sorted(w) for w in want):
+            raise ValueError("Regroup takes each rank's entries ascending")
+        size = len(want)
+        mine = list(want[rank])
+        self.length = length
+        # from the whole tensor: None where the rank wants every entry
+        self._mine = None if mine == list(range(length)) else mine
+        self._send = None
+        if length % size == 0:
+            n = length // size
+            lo = rank * n
+            send, self._send_sizes = [], []
+            for w in want:
+                part = [c - lo for c in w if lo <= c < lo + n]
+                send += part
+                self._send_sizes.append(len(part))
+            self._send = send
+            self._recv_sizes = [sum(1 for c in mine if c // n == q)
+                                for q in range(size)]
+        self._index = {}
+
+    def _indices(self, which: str, device) -> torch.Tensor:
+        key = (which, str(device))
+        if key not in self._index:
+            self._index[key] = torch.tensor(
+                self._mine if which == "mine" else self._send,
+                dtype=torch.long, device=device)
+        return self._index[key]
+
+    def __call__(self, t: torch.Tensor, dim: int, group) -> torch.Tensor:
+        """This rank's entries of ``t`` (its local tensor inside a
+        ``local_map``: the whole tensor or its share along ``dim``) over
+        the process group ``group``."""
+        dim = dim % t.dim()
+        if t.shape[dim] == self.length:
+            return t if self._mine is None else t.index_select(
+                dim, self._indices("mine", t.device))
+        import torch.distributed._functional_collectives as funcol
+        buf = t.movedim(dim, 0).index_select(
+            0, self._indices("send", t.device)).contiguous()
+        # the entries arrive source by source, each source's ascending: in
+        # ascending order, as ``want[rank]`` lists them
+        got = funcol.all_to_all_single_autograd(
+            buf, list(self._recv_sizes), list(self._send_sizes), group)
+        return got.movedim(0, dim)
+
+
 def data_parallel(fn, x: torch.Tensor, params: dict, *extra,
-                  n_out: int = 1, shards_ok=None):
+                  n_out: int = 1, shards_ok=None, tp=None, tp_out=None):
     """``fn(x, params, *extra)`` with ``x`` and ``extra`` (batch first)
     batch-sharded over the mesh dimensions but the tensor-parallel one
     (each while the batch divides, and ``shards_ok(n)``, if given, holds
     for the number of batch shards ``n``) and ``params`` (a flat dict)
-    replicated: a block whose work is independent a sequence (an SSM's
-    scan, a MoE's dispatch of its token groups) on each rank's sequences,
-    its weights whole.  Returns ``fn``'s output (``n_out`` tensors, batch
-    first) placed as x; the weights' gradients are partial sums over the
-    batch axes."""
+    replicated over them: a block whose work is independent a sequence
+    (an SSM's scan, a MoE's dispatch of its token groups) on each rank's
+    sequences.  Returns ``fn``'s output (``n_out`` tensors, batch first)
+    placed as x over those dimensions; the weights' gradients are partial
+    sums over the batch axes.
+
+    On the tensor-parallel dimension ``x`` is replicated, and ``tp`` gives
+    the placement of each of ``params`` then ``extra`` there, ``tp_out``
+    that of each output (one placement, or a sequence of ``n_out``); both
+    default to ``Replicate()``: the weights gathered whole, each rank
+    computing the whole output.  With ``Shard`` weights, ``fn`` runs on
+    this rank's share (its experts, its heads) and an output it gives as a
+    partial sum is declared ``Partial()``; the gradient of every input
+    replicated there is then a partial sum too (each rank's share of the
+    work reads it), and a sharded input's is sharded as the input."""
     if not any_dtensor(x, *params.values(), *extra):
         return fn(x, params, *extra)
     from torch.distributed.tensor import Partial, Replicate, Shard
     ref = next(t for t in (x, *params.values(), *extra) if is_dtensor(t))
     mesh = ref.device_mesh
-    xp, wg = [], []
+    n_in = len(params) + len(extra)
+    tp = list(tp) if tp is not None else [Replicate()] * n_in
+    outs = (list(tp_out) if isinstance(tp_out, (list, tuple)) else
+            [tp_out or Replicate()] * n_out)
+    partial = any(p.is_partial() for p in outs)
+    batch_in = [False] + [False] * len(params) + [True] * len(extra)
+    ins = [[] for _ in range(n_in + 1)]
+    grads = [[] for _ in range(n_in + 1)]
+    outp = [[] for _ in range(n_out)]
     shards = 1
     for i in range(mesh.ndim):
+        if mesh.mesh_dim_names[i] == TP_AXIS:
+            for j, pl in enumerate([Replicate()] + tp):
+                ins[j].append(pl)
+                grads[j].append(Partial() if partial and not pl.is_shard()
+                                else pl)
+            for j, pl in enumerate(outs):
+                outp[j].append(pl)
+            continue
         n = shards * mesh.size(i)
-        if (mesh.mesh_dim_names[i] != TP_AXIS and x.shape[0] % n == 0
-                and (shards_ok is None or shards_ok(n))):
+        batch = (x.shape[0] % n == 0
+                 and (shards_ok is None or shards_ok(n)))
+        if batch:
             shards = n
-            xp.append(Shard(0))
-            wg.append(Partial())
-        else:
-            xp.append(Replicate())
-            wg.append(Replicate())
-    rep = [Replicate()] * mesh.ndim
+        for j in range(n_in + 1):
+            rows = j == 0 or batch_in[j]
+            ins[j].append(Shard(0) if batch and rows else Replicate())
+            grads[j].append(Shard(0) if batch and rows else
+                            Partial() if batch else Replicate())
+        for j in range(n_out):
+            outp[j].append(Shard(0) if batch else Replicate())
     names = list(params)
 
     def local(xl, *rest):
         p = dict(zip(names, rest[:len(names)]))
         return fn(xl, p, *rest[len(names):])
 
-    outp = xp if n_out == 1 else tuple([xp] * n_out)
-    ins = (xp,) + (rep,) * len(names) + (xp,) * len(extra)
-    grads = (xp,) + (wg,) * len(names) + (xp,) * len(extra)
+    out_pl = outp[0] if n_out == 1 else tuple(outp)
     args = [replicate_like(t, ref) for t in (x, *params.values(), *extra)]
-    return _local_map(local, outp, ins, grads, mesh)(*args)
+    return _local_map(local, out_pl, tuple(ins), tuple(grads), mesh)(*args)

@@ -1,4 +1,4 @@
-"""Async micro-batching serving tier over ``CompiledLUTNet`` on one device.
+"""Async micro-batching serving tier over ``CompiledLUTNet`` replicas.
 
 The port of ``repro.serve.tier``.  Per-request work is a few thousand
 table lookups, so the host-side request loop — not the kernel — is where a
@@ -9,9 +9,13 @@ serving stack squanders the hardware.  This module is the request side of
   code batch) are coalesced into ``block_b``-bucketed batches and flushed
   either when ``max_batch_rows`` rows have accumulated or when the oldest
   request has waited ``flush_deadline_s`` (size-or-deadline flush);
-* **one device** — every batch runs as one engine call on the artifact's
-  device (the reference's ``shard_map`` over several devices has no
-  counterpart here yet);
+* **data-parallel replicas** — the tier holds one replica of the artifact
+  on each of ``TierConfig.devices`` (every visible card by default) and
+  splits each padded batch into one equal row shard a device, every
+  shard launched (each on its replica's own CUDA stream) before any is
+  waited on, the outputs joined in row order: the reference's
+  ``shard_map`` over ``("data",)``.  One device runs the engine call as
+  it is;
 * **backpressure** — the queue is bounded at ``max_queue_rows`` queued
   rows; a request that would overflow it is rejected immediately with
   :class:`TierOverloaded` instead of growing an unbounded backlog;
@@ -48,8 +52,12 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import dataclasses
 import itertools
+import math
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -157,14 +165,22 @@ class TierConfig:
       :class:`TierOverloaded`.
     * ``request_timeout_s`` — per-request launch deadline; ``None``
       disables timeouts.
-    * ``warmup`` — run every batch bucket once in ``start()`` so steady
-      state builds nothing.
+    * ``devices`` — torch devices for data-parallel batch sharding, one
+      replica of the artifact and one row shard an entry (None: every
+      visible CUDA device, or the artifact's own device when it is on
+      the CPU).  One device means no sharding at all.  A device may
+      repeat (``("cpu",) * 4``, ``("cuda:0", "cuda:0")``): torch has no
+      multi-device CPU, and on a one-card machine the split runs only
+      so; each entry holds a replica and a CUDA stream of its own.
+    * ``warmup`` — run every batch bucket once in ``start()`` (on every
+      replica) so steady state builds nothing.
     """
 
     max_batch_rows: int | None = None
     flush_deadline_s: float = 0.005
     max_queue_rows: int = 4096
     request_timeout_s: float | None = None
+    devices: tuple | None = None
     warmup: bool = True
 
 
@@ -185,8 +201,8 @@ class ServingTier:
     ``await tier.infer(codes)`` calls, then ``await tier.stop()``.
     ``infer`` accepts ``(rows, n_in)`` or a single ``(n_in,)`` row and
     returns the matching ``(rows, n_out)`` / ``(n_out,)`` int32 numpy
-    output, bit-exact with ``net(codes)``.  Batches run on the artifact's
-    device (``net.device``).
+    output, bit-exact with ``net(codes)``.  Batches run on the replicas
+    of ``TierConfig.devices``.
     """
 
     def __init__(self, net, config: TierConfig | None = None):
@@ -201,9 +217,20 @@ class ServingTier:
         self._max_batch = cfg.max_batch_rows or block_b
         if self._max_batch <= 0:
             raise ValueError("max_batch_rows must be positive")
-        self._device = getattr(net, "device", torch.device("cpu"))
-        # batches are padded to a multiple of block_b, the engine's bucket
-        self._bucket_unit = block_b
+        own = getattr(net, "device", torch.device("cpu"))
+        devices = tuple(torch.device(d) for d in cfg.devices or (
+            [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if own.type == "cuda" else [own]))
+        if not devices:
+            raise ValueError("TierConfig.devices is empty")
+        self._devices = devices
+        self._replicas = _replicas(net, devices)
+        self._sharded = len(devices) > 1
+        self._streams = [torch.cuda.Stream(d) if self._sharded
+                         and d.type == "cuda" else None for d in devices]
+        # batches are padded to a multiple of this unit: block_b keeps the
+        # engine on its bucket, len(devices) the row shards equal
+        self._bucket_unit = math.lcm(block_b, len(devices))
         self._pending: collections.deque[_Request] = collections.deque()
         self._queued_rows = 0
         self._wake = asyncio.Event()
@@ -235,12 +262,26 @@ class ServingTier:
                 [batch, np.zeros((padded_rows - rows, batch.shape[1]),
                                  dtype=batch.dtype)], axis=0)
         t_dispatch = time.perf_counter()
-        out = _to_numpy(self._net(batch))[:rows]
+        if not self._sharded:
+            out = _to_numpy(self._replicas[0](batch))[:rows]
+            return out, padded_rows, t_dispatch, time.perf_counter()
+        # every shard launched before any is waited on: each replica's
+        # engine forward (no padding: the shard is the bucket's share),
+        # enqueued on its own stream
+        outs = []
+        for net, stream, shard in zip(self._replicas, self._streams,
+                                      np.split(batch, len(self._replicas))):
+            with _on(stream):
+                outs.append(net._apply(torch.from_numpy(shard).to(
+                    net.device)))
+        out = np.concatenate([_fetch(o, stream) for o, stream in
+                              zip(outs, self._streams)])[:rows]
         return out, padded_rows, t_dispatch, time.perf_counter()
 
     def _sync(self) -> None:
-        if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+        for dev in set(self._devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -460,9 +501,13 @@ class ServingTier:
         ``batch_occupancy`` is served rows / padded batch capacity — the
         fraction of kernel work doing real requests rather than bucket
         padding.  ``retraces_after_warmup`` (kernel-library builds, the
-        port's counterpart of jit traces) and ``compiler_runs_after_warmup``
-        are the compile-once serving contract and must stay exactly 0 in
-        steady state.  The same counters live in the process metrics
+        port's counterpart of jit traces; the library is one a process,
+        so the count covers every replica) and
+        ``compiler_runs_after_warmup`` are the compile-once serving
+        contract and must stay exactly 0 in steady state.  ``n_devices``
+        counts the entries of ``TierConfig.devices``, ``sharded`` whether
+        there is more than one, ``bucket_unit`` the row multiple batches
+        pad to.  The same counters live in the process metrics
         registry (``repro_torch.obs``, labeled per tier); this dict is the
         flat view of this tier's slice of it, with the reference's keys.
         """
@@ -491,8 +536,8 @@ class ServingTier:
             "rejected": int(m.rejected.value),
             "timed_out": int(m.timed_out.value),
             "queued_rows": self._queued_rows,
-            "n_devices": 1,
-            "sharded": False,
+            "n_devices": len(self._devices),
+            "sharded": self._sharded,
             "bucket_unit": self._bucket_unit,
             "max_batch_rows": self._max_batch,
             "retraces_after_warmup": retraces,
@@ -527,6 +572,12 @@ class ServingTier:
         """The most recent completed request spans (bounded ring)."""
         return list(self._recent_spans)
 
+    @property
+    def replicas(self) -> tuple:
+        """The replicas, one an entry of ``TierConfig.devices``; a sharded
+        batch calls each one's ``_apply`` once, on its row shard."""
+        return tuple(self._replicas)
+
 
 async def serve_once(net, requests, config: TierConfig | None = None
                      ) -> list[np.ndarray]:
@@ -546,6 +597,44 @@ def run_requests(net, requests, config: TierConfig | None = None
                  ) -> list[np.ndarray]:
     """Blocking wrapper over :func:`serve_once` for sync callers/tests."""
     return asyncio.run(serve_once(net, requests, config))
+
+
+def _replicas(net, devices) -> list:
+    """One replica of ``net`` a device of ``devices``: ``net`` itself for
+    the first entry on its own device, every other a copy made by the
+    engine's own artifact path (``save``, then ``load(..., device=)``),
+    so each holds the same slabs, plan and kernel route, and a repeated
+    device holds one a entry."""
+    own = _device_key(getattr(net, "device", torch.device("cpu")))
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = None
+        for dev in devices:
+            if _device_key(dev) == own and net not in out:
+                out.append(net)
+                continue
+            path = path or net.save(os.path.join(tmp, "replica.npz"))
+            out.append(rengine.load(path, device=dev))
+    return out
+
+
+def _device_key(dev: torch.device) -> str:
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def _on(stream):
+    """``torch.cuda.stream(stream)``, or nothing for a CPU replica."""
+    return contextlib.nullcontext() if stream is None else \
+        torch.cuda.stream(stream)
+
+
+def _fetch(out: torch.Tensor, stream) -> np.ndarray:
+    """A shard's output copied to the host on its replica's stream (the
+    copy waits for the forward there)."""
+    with _on(stream):
+        return _to_numpy(out)
 
 
 def _to_numpy(out) -> np.ndarray:

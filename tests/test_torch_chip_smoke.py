@@ -754,3 +754,138 @@ def test_mesh_param_reads_a_one_rank_shard(cs):
     import torch
     t = torch.arange(4.0)
     assert cs.mesh_param(t) is t
+
+
+# -- phase 19: the tier's replicas, the expert- and head-parallel blocks --
+
+def test_count_replica_launches_diffs_each_replica(cs):
+    """19a's launch record: each replica's forward counts the launches it
+    makes, by wrapper and route, and the wrapping goes when it ends."""
+    from repro_torch.kernels.lut_network import lut_network_mixed
+
+    class Replica:
+        def __init__(self, n):
+            self.n = n
+
+        def _apply(self, codes):
+            lut_network_mixed.launches_by_route["smem"] += self.n
+            return codes
+
+    reps = [Replica(1), Replica(2)]
+    saved = dict(lut_network_mixed.launches_by_route)
+    try:
+        with cs.count_replica_launches(reps) as seen:
+            for r in reps * 2:
+                assert r._apply(7) == 7
+    finally:
+        lut_network_mixed.launches_by_route.update(saved)
+    assert seen == [{"lut_network_mixed/smem": 2},
+                    {"lut_network_mixed/smem": 4}]
+    assert all("_apply" not in vars(r) for r in reps)
+
+
+def test_tier_shard_check_on_a_cpu_tier(cs):
+    """19a's comparisons on a CPU tier with two replicas (the card's run
+    uses two of cuda:0): the outputs, stats and compile-once contract
+    pass; the CPU's plain versions launch no kernel, so only each
+    replica's launch record is refused, and a changed output is named."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch import engine, serve
+    net = engine.load(str(cs.FIXTURE / "model_a_l3.npz"), device="cpu")
+    rng = np.random.default_rng(19)
+    reqs = [rng.integers(0, 8, (int(k), net.n_in), dtype=np.int32)
+            for k in rng.integers(1, 9, 12)]
+    want = [net(r).numpy() for r in reqs]
+
+    async def run(devices):
+        cfg = serve.TierConfig(max_batch_rows=32, flush_deadline_s=0.002,
+                               devices=devices)
+        async with serve.ServingTier(net, cfg) as tier:
+            with cs.count_replica_launches(tier.replicas) as seen:
+                outs = await asyncio.gather(*[tier.infer(r) for r in reqs])
+            assert all("_apply" not in vars(r) for r in tier.replicas)
+        return outs, tier.stats(), seen
+
+    one, two = asyncio.run(run(("cpu",))), asyncio.run(run(("cpu", "cpu")))
+    n = two[1]["batches"]
+    assert two[2] == [{}, {}]
+    assert cs.tier_shard_check({"one": one[0], "two": two[0]}, want, one[1],
+                               two[1], two[2]) == [
+        f"replica {i} launched {{}}, not one lut_network_mixed/smem a "
+        f"batch ({n})" for i in range(2)]
+    smem = [{"lut_network_mixed/smem": n}] * 2
+    assert cs.tier_shard_check({"two": two[0]}, want, one[1], two[1],
+                               smem) == []
+    bad = [o.copy() for o in two[0]]
+    bad[3][0, 0] += 1
+    assert cs.tier_shard_check({"two": bad}, want, one[1], two[1],
+                               smem) == [
+        f"two: 1 of {len(reqs)} outputs differ from net(codes)"]
+    assert cs.tier_shard_check({"two": two[0]}, want, two[1], one[1],
+                               smem)[:2] == [
+        "the one-device tier: 2 devices, sharded True",
+        f"the two-replica tier: 1 devices, sharded False, bucket unit "
+        f"{one[1]['bucket_unit']}"]
+
+
+def test_ep_tp_dryrun_line(cs):
+    rec = _dryrun_record(arch="olmoe-1b-7b", cell_s=12.25,
+                         cost={"flops": 5.0e13},
+                         collectives={"total": 2.5e10, "all-gather": 1e9,
+                                      "all-reduce": 2.4e10})
+    assert cs.ep_tp_dryrun_line(rec) == (
+        "olmoe-1b-7b x train_4k x 16x16: ok, per device 50 TFLOP (weights "
+        "gathered whole: 813.7), collectives 25 GB (all-gather 1, "
+        "all-reduce 24; gathered whole: 94.11), 12.2 s")
+
+
+RUNS_19 = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[1])
+import importlib.util
+spec = importlib.util.spec_from_file_location("cs", sys.argv[2])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch.mesh import make_host_mesh
+cpu = torch.device("cpu")
+mesh = make_host_mesh(1, device="cpu")
+bad, info = cs.ep_moe_run(torch, cpu, mesh, get_smoke_config("olmoe-1b-7b"),
+                          (2, 64))
+assert bad == [], bad
+assert 0 < info["kept_pairs"] <= info["pairs"] == 2 * 2 * 64 * 2, info
+bad, info = cs.tp_ssm_run(torch, cpu, mesh, get_smoke_config("mamba2-370m"),
+                          (2, 32), 3)
+assert bad == [], bad
+assert len(info["tokens"]) == 2 and len(info["tokens"][0]) == 3, info
+# the stacked (L, B, H, P, N) state: rows on data, heads on model
+assert info["placements"]["ssd"] == "(Shard(dim=1), Shard(dim=2))", info
+dist.destroy_process_group()
+print("RUNS_19_OK")
+"""
+
+
+def test_ep_tp_runs_on_a_one_rank_cpu_mesh():
+    """19b's and 19c's runs at smoke size on a one-rank gloo mesh of the
+    CPU (a process of its own): the expert-parallel prefill's logits and
+    kept pairs, and the head-parallel prefill's logits, 3 greedy tokens
+    and final SSD state and conv ring, bit for bit the unsharded path's;
+    the state on ``cache_specs``' placements."""
+    import os
+    import subprocess
+    import sys
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               OMP_NUM_THREADS="1")
+    env.pop("WORLD_SIZE", None)
+    proc = subprocess.run([sys.executable, "-c", RUNS_19, str(root / "src"),
+                           str(_PATH)], env=env, capture_output=True,
+                          text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RUNS_19_OK" in proc.stdout

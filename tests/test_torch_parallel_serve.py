@@ -11,17 +11,22 @@ path and 4 rank processes (rendezvousing through a ``FileStore`` under
   seed-0 weights, laid out by the sharding rules (the attention through
   ``flash_attention`` on each rank's heads, the GQA kv heads sliced by
   rank where they cannot shard; whisper's encoder and cross-attention,
-  qwen2-vl's M-RoPE, the SSM scan and the MoE dispatch on each rank's
-  rows);
+  qwen2-vl's M-RoPE, the SSM scan on each rank's rows and, where the
+  model axis divides them, its own heads, the MoE dispatch on each rank's
+  rows and its own experts);
 * ``launch.serve.lm_decode``, the LM mode of ``serve``: 6 greedy steps of
   4 slots on a 64-entry cache laid out by ``cache_specs`` (kv heads
-  sliced from a sharded cache, the SSM state stepped on each rank's rows,
-  the new entries copied into the sharded caches).
+  sliced from a sharded cache, the SSM state stepped on each rank's rows
+  and heads, the new entries copied into the sharded caches).
 
 Prefill and decode logits must agree within 1e-5, and the tokens must be
 equal.  qwen3-1.7b smoke runs on (2, 2) (its 2 kv heads on the 2-way
 model axis) and on (1, 4) (the 4 q heads sharded, the kv heads and the
-cache's heads replicated); the other families on (2, 2).
+cache's heads replicated); the other families on (2, 2); olmoe-1b-7b
+(4 experts, one a rank) and mamba2-370m (8 heads, two a rank) also on
+(1, 4), where the expert-parallel MoE and the head-parallel SSM block
+(its projections regrouped to each rank's heads by an all-to-all) run
+with no data axis to share the work.
 """
 
 import numpy as np
@@ -92,7 +97,8 @@ if mesh is not None:
 WORLD = 4
 TIMEOUT_S = 240
 CASES = [("qwen3-1.7b", 2), ("qwen3-1.7b", 4), ("olmoe-1b-7b", 2),
-         ("zamba2-2.7b", 2), ("whisper-medium", 2), ("qwen2-vl-2b", 2)]
+         ("zamba2-2.7b", 2), ("whisper-medium", 2), ("qwen2-vl-2b", 2),
+         ("olmoe-1b-7b", 4), ("mamba2-370m", 4)]
 
 
 @pytest.mark.parametrize("arch,model_parallel", CASES)

@@ -18,10 +18,12 @@ this mesh every kernel wrapper runs its plain version (CPU shards).
 * The other families on (2, 2), the blocks that take their own road on
   a mesh: olmoe-1b-7b's MoE (``models.moe._moe_apply_mesh``: the
   router's statistics over the whole batch, each data rank dispatching
-  its own token groups, the experts gathered whole), mamba2-370m's and
-  zamba2-2.7b's SSM scan (``parallel.local.data_parallel``) and zamba2's
-  shared attention block, whisper-medium's encoder and cross-attention,
-  and qwen2-vl-2b's M-RoPE and vision rows.  Their parameters are held
+  its own token groups to its model rank's own experts), mamba2-370m's
+  and zamba2-2.7b's SSM block (each rank scanning its rows and heads,
+  ``models.ssm.HeadPlan``) and zamba2's shared attention block,
+  whisper-medium's encoder and cross-attention, and qwen2-vl-2b's M-RoPE
+  and vision rows; olmoe and mamba2 also on (1, 4), one expert and two
+  SSM heads a rank.  Their parameters are held
   to 1e-5 but for the elements whose clipped first gradient is not 0 but
   below 1e-7: AdamW's first move of such an element, ``lr * g / (|g| +
   1e-8)``, follows g's own float32 rounding, which the sharded products'
@@ -126,6 +128,7 @@ TIMEOUT_S = 240
 QWEN3 = "qwen3-1.7b"
 FAMILIES = ["olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b", "whisper-medium",
             "qwen2-vl-2b"]
+EP_TP = ["olmoe-1b-7b", "mamba2-370m"]
 
 
 def _run_plain(tmp_path, arch: str = QWEN3) -> dict:
@@ -185,10 +188,15 @@ def test_one_rank_mesh_gives_the_plain_bits(plain, tmp_path):
         assert (got[name] == plain[name]).all(), name
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_family_mesh_step_equals_one_process(tmp_path, arch):
+@pytest.mark.parametrize("arch,model", [
+    *(pytest.param(arch, 2, id=arch) for arch in FAMILIES),
+    *(pytest.param(arch, 4, id=f"{arch}-1x4") for arch in EP_TP)])
+def test_family_mesh_step_equals_one_process(tmp_path, arch, model):
+    """(2, 2) for every family; (1, 4) for the MoE (one expert a rank) and
+    the SSM (two heads a rank), whose blocks then run on each rank's
+    experts or heads alone."""
     want, cond = _split(_run_plain(tmp_path, arch))
-    got = _run_mesh(tmp_path, "mesh", 2, arch=arch)
+    got = _run_mesh(tmp_path, "mesh", model, arch=arch)
     got.pop("placed")
     np.testing.assert_allclose(got.pop("losses"), want.pop("losses"),
                                rtol=0, atol=1e-5)

@@ -225,6 +225,49 @@ def test_load_generators(net):
     assert all(2 <= r.shape[0] <= 4 and r.max() < 8 for r in reqs)
 
 
+@pytest.mark.parametrize("n_dev", [4])
+def test_multi_device_sharded_serving(n_dev):
+    """``tests/test_serve.py``'s sharded tier on the port: four CPU
+    replicas (torch has no multi-device CPU, so the device repeats; the
+    first entry serves the artifact itself, the others copies the engine
+    loaded), each padded batch split into four row shards.  Outputs stay
+    bit-exact with ``net(codes)`` and the reference engine's, and the
+    steady state builds and compiles nothing."""
+    rng = np.random.default_rng(0)
+    layers = []
+    for a, b in zip((12, 20, 16), (20, 16, 8)):
+        idx = np.stack([np.sort(rng.choice(a, 3, replace=False))
+                        for _ in range(b)]).astype(np.int32)
+        tab = rng.integers(0, 4, (b, 2 ** 6), dtype=np.int32)
+        layers.append((idx, tab, 2))
+    net = engine.compile_network(layers, optimize_level=3, in_features=12,
+                                 block_b=8, device="cpu")
+    jnet = jengine.compile_network(layers, optimize_level=3, in_features=12,
+                                   block_b=8)
+    reqs = [rng.integers(0, 4, (int(k), 12), dtype=np.int32)
+            for k in rng.integers(1, 7, 30)]
+
+    async def main():
+        cfg = serve.TierConfig(max_batch_rows=32, flush_deadline_s=0.002,
+                               devices=("cpu",) * n_dev)
+        async with serve.ServingTier(net, cfg) as tier:
+            st0 = tier.stats()
+            assert st0["n_devices"] == n_dev and st0["sharded"]
+            assert st0["bucket_unit"] % n_dev == 0
+            assert tier._replicas[0] is net
+            assert len({id(r) for r in tier._replicas}) == n_dev
+            outs = await asyncio.gather(*[tier.infer(r) for r in reqs])
+            return outs, tier.stats()
+
+    outs, stats = asyncio.run(main())
+    for r, o in zip(reqs, outs):
+        np.testing.assert_array_equal(o, net(r).numpy())
+        np.testing.assert_array_equal(o, np.asarray(jnet(r)))
+    assert stats["retraces_after_warmup"] == 0
+    assert stats["compiler_runs_after_warmup"] == 0
+    assert stats["batches"] < stats["requests"]
+
+
 def test_cli_smoke_on_cpu(tmp_path):
     report = os.path.join(tmp_path, "report.json")
     env = dict(os.environ, OMP_NUM_THREADS="1",

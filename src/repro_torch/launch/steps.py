@@ -25,6 +25,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ShapeCell
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelCfg
+from repro_torch.obs.trace import span
 from repro_torch.optim.adamw import (AdamWCfg, adamw_update, init_opt_state,
                                      logicnet_mask_fn)
 from repro_torch.parallel.local import is_dtensor, local_tensor
@@ -127,25 +128,38 @@ def make_train_step(cfg: ModelCfg, opt_cfg: AdamWCfg | None = None,
     placements}``, :func:`grad_shardings`) each gradient is redistributed
     to its parameter's placements first: the reduce-scatter of the
     reference's ``--grad-rs``.  The NaN guard reads the loss whole.
+
+    Step spans (``obs.trace.span``) name ``train_step`` and, inside it,
+    ``forward``, ``backward``, ``nan_guard`` and ``adamw``.
     """
     opt_cfg = opt_cfg or AdamWCfg(lr=3e-4)
     mask_fn = logicnet_mask_fn if cfg.logicnet_ffn is not None else None
 
-    def train_step(state: dict, batch: dict):
+    def step(state: dict, batch: dict):
         params = state["params"]
-        loss = M.loss_fn(params, cfg, batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with span("forward"):
+            loss = M.loss_fn(params, cfg, batch)
+        with span("backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
         loss = local_tensor(loss.detach())
-        # a meta loss (the dry-run's) has no value to read
-        if loss.device.type != "meta" and not bool(torch.isfinite(loss)):
+        with span("nan_guard"):
+            # a meta loss (the dry-run's) has no value to read
+            bad = loss.device.type != "meta" and not bool(
+                torch.isfinite(loss))
+        if bad:
             return state, loss
         if grad_shardings is not None:
             grads = [g.redistribute(g.device_mesh, grad_shardings[n])
                      if is_dtensor(g) else g
                      for n, g in zip(params, grads)]
-        adamw_update(opt_cfg, params, dict(zip(params, grads)),
-                     state["opt"], mask_fn=mask_fn, decay_fn=decays)
+        with span("adamw"):
+            adamw_update(opt_cfg, params, dict(zip(params, grads)),
+                         state["opt"], mask_fn=mask_fn, decay_fn=decays)
         return state, loss
+
+    def train_step(state: dict, batch: dict):
+        with span("train_step"):
+            return step(state, batch)
 
     return train_step
 
@@ -154,9 +168,11 @@ def make_prefill_step(cfg: ModelCfg):
     """``prefill_step(model, batch) -> (B, vocab)`` logits of each
     sequence's last position; every layer's attention goes through the
     flash-attention kernel.  The batch's ``vision_embeds`` or ``frames``
-    pass through to the model with its tokens."""
+    pass through to the model with its tokens.  A call is the step span
+    ``prefill_step``."""
     def prefill_step(model: M.LM, batch: dict) -> torch.Tensor:
-        return M.forward(model, batch, last_only=True)[:, -1, :]
+        with span("prefill_step"):
+            return M.forward(model, batch, last_only=True)[:, -1, :]
 
     return prefill_step
 

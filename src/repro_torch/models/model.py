@@ -31,6 +31,11 @@ reference's ``layers.attn.wq[i]``, ``ssm_layers.<i>.ssm.in_proj`` its
   layer runs under ``torch.utils.checkpoint`` when ``cfg.remat`` asks for
   it; attention runs the differentiable chunked form.
 
+Step spans (``obs.trace.span``, one check while off) name each decoder
+layer's ``attn`` and ``ffn`` (each with its norm), the ``head`` (final
+norm and logits) and the ``loss``; a recomputed layer opens its spans
+again.
+
 The MoE layers' load-balancing loss is summed over layers as the
 reference's layer scan carries it (:func:`forward` with ``with_aux``),
 and :func:`loss_fn` adds 0.01 x that sum.
@@ -66,6 +71,7 @@ from repro_torch.models.layers import (embed_init, embed_lookup, ffn_apply,
                                        logicnet_ffn_apply, logicnet_ffn_init,
                                        logicnet_masks, normal_init,
                                        rms_norm)
+from repro_torch.obs.trace import span
 from repro_torch.parallel.ctx import constrain
 from repro_torch.parallel.local import (gather_fsdp, replicate_like,
                                         vocab_gather)
@@ -523,10 +529,13 @@ def _attn_block(p: dict, cfg: ModelCfg, h: torch.Tensor,
                 positions: torch.Tensor, window: int, train: bool = False):
     """A decoder layer: ``(h, the MoE aux loss or None)``."""
     h = constrain(h, _ACT)
-    a = ATT.attn_apply(p["attn"], cfg, rms_norm(h, p["ln1"], cfg.norm_eps),
-                       positions, window=window, train=train)
+    with span("attn"):
+        a = ATT.attn_apply(p["attn"], cfg,
+                           rms_norm(h, p["ln1"], cfg.norm_eps), positions,
+                           window=window, train=train)
     h = _add(h, a)
-    f, aux = _ffn(p, cfg, rms_norm(h, p["ln2"], cfg.norm_eps))
+    with span("ffn"):
+        f, aux = _ffn(p, cfg, rms_norm(h, p["ln2"], cfg.norm_eps))
     return _add(h, f), aux
 
 
@@ -655,11 +664,12 @@ def _decoder(cfg: ModelCfg, w: dict, batch: dict, last_only: bool,
             h = blocks["cross"](p, h, positions, memory)
     else:
         h, aux = _forward_decoder(cfg, w, h, positions, blocks["attn"])
-    h = rms_norm(h, w["final_norm"], cfg.norm_eps)
-    if last_only:
-        h = h[:, -1:, :]
-    logits = constrain(lm_logits(w["embed"], h, cdt),
-                       ("act_batch", None, "act_vocab"))
+    with span("head"):
+        h = rms_norm(h, w["final_norm"], cfg.norm_eps)
+        if last_only:
+            h = h[:, -1:, :]
+        logits = constrain(lm_logits(w["embed"], h, cdt),
+                           ("act_batch", None, "act_vocab"))
     return logits, aux
 
 
@@ -746,13 +756,14 @@ def loss_fn(params: dict, cfg: ModelCfg, batch: dict) -> torch.Tensor:
     gold logit is a vocab-parallel gather (``parallel.local.
     vocab_gather``)."""
     logits, aux = train_forward(params, cfg, batch, with_aux=True)
-    logits = logits.float()
-    labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = vocab_gather(logits, labels.clamp(min=0))
-    mask = (labels >= 0).float()
-    nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll + 0.01 * replicate_like(aux, nll)
+    with span("loss"):
+        logits = logits.float()
+        labels = batch["labels"].long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = vocab_gather(logits, labels.clamp(min=0))
+        mask = (labels >= 0).float()
+        nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return nll + 0.01 * replicate_like(aux, nll)
 
 
 def cache_specs(cfg: ModelCfg, batch: int, max_seq: int) -> dict:

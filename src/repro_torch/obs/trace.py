@@ -19,14 +19,52 @@ Marking costs one ``perf_counter()`` call and a list append — cheap
 enough to stay on unconditionally.  Finished spans
 feed stage histograms in the metrics registry; the tier keeps the last
 few in a ring for debugging (``ServingTier.recent_spans()``).
+
+Step spans name the parts of the LM train and prefill steps
+(``train_step``, ``forward``, ``backward``, ``nan_guard``, ``adamw``,
+``prefill_step``; inside the model ``attn``, ``ffn``, ``head``, ``loss``).
+``with span(name):`` is free while spans are off, the default: it returns
+one shared no-op context after one module-level check.  Inside
+``spans_enabled()`` it opens a ``torch.profiler.record_function`` range,
+so a profiler that records CPU activity puts the span on the same
+timeline as the kernels it launched (a Chrome or TensorBoard trace shows
+it); without a profiler the range records nothing.  Spans add no device
+work and change no number.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 # the serving tier's request lifecycle, in order
 REQUEST_STAGES = ("enqueue", "flush", "dispatch", "done")
+
+_NO_SPAN = contextlib.nullcontext()
+# ``torch.profiler.record_function`` while spans are on, else None
+_record = None
+
+
+def span(name: str):
+    """A context naming a part of a step: the shared no-op while spans are
+    off, else a ``record_function`` range called ``name``."""
+    if _record is None:
+        return _NO_SPAN
+    return _record(name)
+
+
+@contextlib.contextmanager
+def spans_enabled():
+    """Turn step spans on, for every thread of the process, inside the
+    ``with`` block (autograd's threads open the spans of a recomputed
+    layer too)."""
+    global _record
+    from torch.profiler import record_function
+    before, _record = _record, record_function
+    try:
+        yield
+    finally:
+        _record = before
 
 
 class Span:

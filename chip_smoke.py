@@ -323,7 +323,14 @@ pass:
     (:func:`bf16_tile_accumulated`); event and device time beside
     ``torch.mm(x, w * mask)`` (``library_ms``: the FFN has no bias) and
     the bound (bytes moved once; the kept products, 2 M nnz(mask), and the
-    dense ones beside it).  (b) With every launch counter at 0, the
+    dense ones beside it).  (f) The FFN's fused ``wi`` stage without grad
+    at M = 8192 (:func:`ffn_fused_phase`): ``quant_relu`` and
+    ``masked_matmul_swiglu_quant`` equal the composed path's ``xq`` and
+    ``hq`` bit for bit; event and device time beside the bound, the plain
+    version, the library yardstick (``torch.mm`` of the masked weights,
+    ``F.silu`` and ``core.quantize``), the composed path (two wgmma masked
+    matmuls and the elementwise passes) and one plain wgmma masked matmul
+    on the same operands.  (b) With every launch counter at 0, the
     launcher's run: after step 1 every pruned weight of every layer's
     three FFN matrices is 0 and every mask column sums to 16; exactly 252
     masked-matmul launches a step (28 layers x (3 forward + 3 recomputed
@@ -332,9 +339,10 @@ pass:
     plain version (``PlainMaskedMatmul``); host ms a step, and a
     ``torch.profiler`` trace (:func:`step_profile`, through
     :func:`trace_accepted`) of device ms a step and the idle share;
-    ``max_memory_allocated``.  (c) The trained model's prefill (4 x 2048:
-    84 masked-matmul and 28 flash launches, all wgmma) and
-    ``serve_lm.serve`` at its defaults (84 masked-matmul launches a
+    ``max_memory_allocated``.  (c) The trained model's prefill (4 x 2048,
+    without grad: 28 masked-matmul launches (``wo``), 28 of the fused
+    ``wi`` stage, 28 input quantizers and 28 flash launches, all wgmma)
+    and ``serve_lm.serve`` at its defaults (the same 28 + 28 + 28 a
     decode step).  (d) Checkpoint and restart at full width cut to 2
     layers: 5 steps with a checkpoint at 3 (async), a run restored from
     it (``--resume``) equal bit for bit to the file and to the live state
@@ -3417,7 +3425,9 @@ LM_PARITY_RTOL = 1e-3
 # 9 masked products a layer and step: 3 forward, 3 recomputed by remat,
 # 3 input gradients; 3 a layer and decode step
 LM_MM_PER_LAYER_STEP = 9
-LM_MM_PER_LAYER_DECODE = 3
+# without grad a LogicNet-FFN launches one masked matmul (wo), one fused wi
+# stage and one input quantizer
+LM_MM_PER_LAYER_DECODE = 1
 # 14d: the depth cut to 2 layers at full width (a 28-layer state is about
 # 29 GB of float32 parameters, moments and masks on disk; 2 layers about
 # 5.5 GB), 5 steps, a checkpoint at step 3
@@ -3463,9 +3473,10 @@ def all_wrappers():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.lut_lookup import lut_lookup
     from repro_torch.kernels.lut_network import lut_network, lut_network_mixed
-    from repro_torch.kernels.masked_matmul import masked_matmul
+    from repro_torch.kernels.masked_matmul import (
+        masked_matmul, masked_matmul_swiglu_quant, quant_relu)
     return (lut_network_mixed, lut_network, lut_lookup, masked_matmul,
-            flash_attention)
+            masked_matmul_swiglu_quant, quant_relu, flash_attention)
 
 
 def reset_all() -> None:
@@ -3600,6 +3611,116 @@ def ffn_masked_matmul_phase(torch, dev, d_model: int = 2048,
             f"({moved} B, {ops} flop of kept products; dense products "
             f"{rec[f'bound_ms_dense{sfx}']:.6f} ms)")
     rec["max_abs_err"] = err
+    return rec
+
+
+def ffn_fused_phase(torch, dev, d_model: int = 2048, d_ff: int = 6144,
+                    m: int = PREFILL_SHAPE[0] * PREFILL_SHAPE[1],
+                    iters: int = 20) -> dict:
+    """Phase 14f: the LogicNet-FFN's ``wi`` stage without grad at the LM
+    prefill's M, fused (``quant_relu``, then
+    ``masked_matmul_swiglu_quant``) against the composed path (the
+    quantizers of ``core.quantize``, two wgmma masked matmuls, ``F.silu``
+    and the product): ``xq`` and ``hq`` bit for bit, then event and device
+    time of each kernel beside its bound, its plain version, the library
+    yardstick and the composed steps it replaces, and one plain wgmma
+    masked matmul on the same operands (row 4's kernel, unchanged)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.quantize import QuantizerCfg, quantize
+    from repro_torch.kernels import masked_matmul as MM
+    from repro_torch.models.config import LogicNetFFNCfg
+    from repro_torch.models.layers import logicnet_masks
+
+    cfg = LogicNetFFNCfg()
+    q = QuantizerCfg(cfg.bw, cfg.max_val)
+    mask = logicnet_masks(d_model, d_ff, cfg)[0].to(dev, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(300)
+    x = (torch.randn((m, d_model), generator=g, device=dev) * 1.5).bfloat16()
+    wg, wu = ((torch.randn((d_model, d_ff), generator=g, device=dev) * 0.5
+               ).bfloat16() for _ in range(2))
+
+    def quant_composed(v):
+        return quantize(q, v.float()).value.to(v.dtype)
+
+    def wi_composed(xq):
+        return quant_composed(F.silu(MM.masked_matmul(xq, wg, mask))
+                              * MM.masked_matmul(xq, wu, mask))
+
+    def wi_fused(xq):
+        return MM.masked_matmul_swiglu_quant(xq, wg, wu, mask, q)
+
+    def wi_library(xq):
+        return quant_composed(F.silu(torch.mm(xq, wg * mask))
+                              * torch.mm(xq, wu * mask))
+
+    before = (MM.quant_relu.launches,
+              MM.masked_matmul_swiglu_quant.launches_by_route["wgmma"])
+    xq = MM.quant_relu(x, q)
+    hq = wi_fused(xq)
+    torch.cuda.synchronize()
+    if (MM.quant_relu.launches,
+            MM.masked_matmul_swiglu_quant.launches_by_route["wgmma"]) != (
+            before[0] + 1, before[1] + 1):
+        fail("phase 14f: the fused wi stage did not launch its two kernels")
+    bits = {}
+    for name, got, want in (("xq", xq, quant_composed(x)),
+                            ("hq", hq, wi_composed(xq))):
+        bits[name] = int((got.view(torch.int16)
+                          != want.view(torch.int16)).sum())
+        if bits[name]:
+            fail(f"phase 14f: the fused {name} differs from the composed "
+                 f"path's at {bits[name]} of {want.numel()} elements")
+    nnz = int(mask.count_nonzero())
+    times: dict = {}
+
+    def timed(f):
+        if f not in times:
+            times[f] = cuda_ms(f, iters)
+        return times[f]
+
+    def quant_plain():
+        return MM.quant_relu_plain(x, q)
+
+    rec = {"shape": [m, d_model, d_ff], "bits_differ": bits,
+           "levels": torch.bincount(torch.round(
+               hq.float() / q.step).long().flatten()).tolist()}
+    for name, fn, plain, library, composed, moved, ops, dense in (
+            ("wi", lambda: wi_fused(xq),
+             lambda: MM.masked_matmul_swiglu_quant_plain(xq, wg, wu, mask,
+                                                         q),
+             lambda: wi_library(xq), lambda: wi_composed(xq),
+             nbytes(xq, wg, wu, mask) + m * d_ff * 2, 4 * m * nnz,
+             4 * m * d_model * d_ff),
+            # the quantizer's plain version is the composed path's, and no
+            # other library call computes it: one timing serves all three
+            ("quant", lambda: MM.quant_relu(x, q), quant_plain, quant_plain,
+             quant_plain, 2 * nbytes(x), 0, 0)):
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FLOPS_PER_S["bfloat16"] * 1e3
+        r = {"ms": cuda_ms(fn, iters),
+             "device_ms": device_ms(fn, iters, device_bound=name == "wi"),
+             "plain_ms": timed(plain), "library_ms": timed(library),
+             "composed_ms": timed(composed),
+             "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "bound_ms_dense": max(bytes_ms, dense / FLOPS_PER_S[
+                 "bfloat16"] * 1e3)}
+        rec[name] = r
+        log(f"phase 14f {name} {m}x{d_model}x{d_ff}: {r['ms']:.5f} ms/call, "
+            f"device {r['device_ms']} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}; dense products {r['bound_ms_dense']:.6f}), "
+            f"plain {r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} "
+            f"ms, composed path {r['composed_ms']:.5f} ms "
+            f"({r['composed_ms'] / r['ms']:.2f}x); bit for bit the "
+            f"composed path's")
+    one = {"ms": cuda_ms(lambda: MM.masked_matmul(xq, wg, mask), iters),
+           "device_ms": device_ms(lambda: MM.masked_matmul(xq, wg, mask),
+                                  iters, device_bound=True)}
+    rec["masked_matmul_wgmma"] = one
+    log(f"phase 14f masked_matmul_wgmma {m}x{d_model}x{d_ff} on the same "
+        f"operands: {one['ms']:.5f} ms/call, device {one['device_ms']} ms; "
+        f"hq levels {rec['levels']}")
     return rec
 
 
@@ -3865,8 +3986,13 @@ def lm_trained_serving_phase(torch, dev, cfg, model) -> dict:
     import numpy as np
 
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.masked_matmul import masked_matmul
+    from repro_torch.kernels.masked_matmul import (
+        masked_matmul, masked_matmul_swiglu_quant, quant_relu)
     from repro_torch.launch import serve_lm, steps
+
+    def fused_counts():
+        return (masked_matmul_swiglu_quant.launches_by_route["wgmma"],
+                quant_relu.launches)
 
     b, s = PREFILL_SHAPE
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
@@ -3877,9 +4003,11 @@ def lm_trained_serving_phase(torch, dev, cfg, model) -> dict:
     per_fwd = LM_MM_PER_LAYER_DECODE * cfg.n_layers
     if (masked_matmul.launches != per_fwd
             or masked_matmul.launches_by_route["wgmma"] != per_fwd
+            or fused_counts() != (cfg.n_layers, cfg.n_layers)
             or flash_attention.launches_by_route["wgmma"] != cfg.n_layers):
         fail(f"phase 14c prefill: masked_matmul "
-             f"{masked_matmul.launches_by_route}, flash "
+             f"{masked_matmul.launches_by_route}, fused wi and input "
+             f"quantizer {fused_counts()}, flash "
              f"{flash_attention.launches_by_route}")
     if logits.shape != (b, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
@@ -3889,12 +4017,15 @@ def lm_trained_serving_phase(torch, dev, cfg, model) -> dict:
     torch.cuda.synchronize()
     mm = masked_matmul.launches
     if (len(res.done) != 12 or mm != per_fwd * res.steps
-            or masked_matmul.launches_by_route["wgmma"] != mm):
+            or masked_matmul.launches_by_route["wgmma"] != mm
+            or fused_counts() != (mm, mm)):
         fail(f"phase 14c decode: {len(res.done)} of 12 requests, masked_"
-             f"matmul {masked_matmul.launches_by_route} in {res.steps} "
-             f"steps (expected {per_fwd} a step, all wgmma)")
+             f"matmul {masked_matmul.launches_by_route}, fused wi and "
+             f"input quantizer {fused_counts()} in {res.steps} steps "
+             f"(expected {per_fwd} of each a step, all wgmma)")
     log(f"phase 14c trained model: prefill {b} x {s} tokens launched "
-        f"masked_matmul {per_fwd} times and flash {cfg.n_layers} (all "
+        f"masked_matmul {per_fwd} times, the fused wi stage and the input "
+        f"quantizer {cfg.n_layers} each and flash {cfg.n_layers} (all "
         f"wgmma), finite logits; served {len(res.done)} requests, "
         f"{res.tokens} tokens in {res.steps} decode steps "
         f"({1e3 * res.seconds / res.steps:.3f} ms a step), masked_matmul "
@@ -4059,6 +4190,7 @@ def lm_train_phases(torch, dev) -> dict:
            "source": MM_WGMMA_SOURCE,
            "replaces": "src/repro/kernels/masked_matmul.py:23"}
     rec.update(ffn_masked_matmul_phase(torch, dev))
+    rec["swiglu_quant"] = ffn_fused_phase(torch, dev)
     tmp = tempfile.mkdtemp(prefix="lm_train_")
     try:
         train_out, cfg, model = lm_train_phase(torch, dev, tmp)

@@ -31,9 +31,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every entry point: pointers and the stream as c_void_p, sizes
-# as c_int, scales as c_float (an unset argtype would pass a Python int as a
-# 32-bit int and cut the pointer)
+# as c_int (an element count as c_longlong), scales as c_float (rounded to
+# nearest from the Python float, as a float32 tensor holds it; an unset
+# argtype would pass a Python int as a 32-bit int and cut the pointer)
 _SIGNATURES = {
     "lut_mixed_forward": (_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P,
                           _I, _I, _I, _P, _P),
@@ -49,6 +51,9 @@ _SIGNATURES = {
     "lut_layer_smem_bytes": (_I, _I, _I, _I, _I, _I, _I, _I),
     "masked_matmul_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "masked_matmul_wgmma_forward": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "masked_matmul_swiglu_quant_wgmma_forward": (_P, _P, _P, _P, _I, _I, _I,
+                                                 _F, _F, _P, _P),
+    "quant_relu_bf16_forward": (_P, _L, _F, _F, _P, _P),
     "masked_matmul_ffma_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                    _P),
     "flash_attention_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -1,12 +1,12 @@
 // Building blocks of the Hopper (sm_90a) tensor-core kernels: TMA tile
 // loads through a CUtensorMap, mbarriers, wgmma shared-memory descriptors
 // for the 128-byte swizzle, the wgmma fences, and the wgmma instructions
-// the kernels issue.  Used by masked_matmul_wgmma.cu and
-// flash_attention_wgmma.cu (flash_attention.cu takes only
-// allow_dynamic_smem; lut_fused_smem.cu the mbarriers, the 1-D bulk copy
-// and allow_dynamic_smem); header only, nothing here allocates.  The wgmma
-// wrappers below are regular and written out in full: inline asm needs
-// every accumulator register named.
+// the kernels issue.  Used by masked_matmul_wgmma.cu,
+// masked_matmul_swiglu_quant_wgmma.cu and flash_attention_wgmma.cu
+// (flash_attention.cu takes only allow_dynamic_smem; lut_fused_smem.cu the
+// mbarriers, the 1-D bulk copy and allow_dynamic_smem); header only,
+// nothing here allocates.  The wgmma wrappers below are regular and
+// written out in full: inline asm needs every accumulator register named.
 //
 // Shared-memory tiles.  Every operand tile is stored as TMA writes it with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bfloat16 (128 bytes), 8-row atoms

@@ -34,20 +34,36 @@ through the transposed read, else on transposed copies); ``dw = (x^T @
 dy) * mask``, the mask's ``dmask = (x^T @ dy) * w`` (from the same
 product, when the mask requires grad) and ``db = dy.sum(0)`` stay torch
 ops, as the reference leaves its gradient to XLA's autodiff of plain jnp.
+
+The LogicNet-FFN's ``wi`` stage without grad has a path of its own, chosen
+by :func:`logicnet_ffn_route`: :func:`quant_relu` quantizes the FFN's input
+in one pass (``quant_relu_bf16_forward``) and
+:func:`masked_matmul_swiglu_quant` computes ``Q(silu(xq @ (w_gate * mask))
+* (xq @ (w_up * mask)))`` in one launch
+(``masked_matmul_swiglu_quant_wgmma_forward``), both in
+``csrc/masked_matmul_swiglu_quant_wgmma.cu``, with every rounding of the
+composed path, so their outputs equal it bit for bit.
 """
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch._device import plain_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.lut_lookup import require, stream_of
 from repro_torch.parallel.local import any_dtensor, matmul_shards
 
+if TYPE_CHECKING:
+    from repro_torch.core.quantize import QuantizerCfg
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_N = 64
 _WGMMA_TILE = (256, 128)
+_SWIGLU_TILE = (256, 64)        # hq rows x columns a block of the fused kernel
 # the ffma kernel's tiles (M, N) by name, in the order of its tile argument
 FFMA_TILES = {"large": (128, 256), "small": (32, 32)}
 _SMS = 132                      # an H100 SXM's streaming multiprocessors
@@ -276,3 +292,135 @@ class MaskedMatmulFn(torch.autograd.Function):
         if need_b:
             db = dy.sum(0)
         return (dx, dw, dmask, db)[:n_in]
+
+
+def logicnet_ffn_route(device_type: str, dtype: torch.dtype, k: int, n: int,
+                       bit_width: int, act_fn: str, *, dtensor: bool,
+                       needs_grad: bool) -> str:
+    """Which path a LogicNet-FFN's ``wi`` stage takes, from its operands'
+    device type and dtype, ``w_gate``'s (K, N), the quantizer's bit width,
+    the activation, whether an operand is a DTensor and whether a gradient
+    is to be taken (grad enabled and an operand requires it):
+    ``"fused"`` (:func:`quant_relu`, then
+    :func:`masked_matmul_swiglu_quant`) for bfloat16 on CUDA on the
+    ``wgmma`` route of :func:`masked_matmul_route`, a QuantReLU
+    (``bit_width >= 2``), SiLU, no DTensor and no gradient; else
+    ``"composed"``: the quantizers and the two masked products of
+    :class:`MaskedMatmulFn` one by one, whose backward training needs."""
+    fused = (device_type == "cuda" and not dtensor and not needs_grad
+             and masked_matmul_route(dtype, k, n) == "wgmma"
+             and bit_width >= 2 and act_fn == "silu")
+    return "fused" if fused else "composed"
+
+
+def quant_relu_plain(x: torch.Tensor, q: QuantizerCfg) -> torch.Tensor:
+    """Plain-torch version: ``quantize(q, x)``'s forward value in float32,
+    returned in ``x``'s dtype."""
+    # imported here: repro_torch.core imports this module
+    from repro_torch.core.quantize import quantize
+    return quantize(q, x.float()).value.to(x.dtype)
+
+
+def quant_relu(x: torch.Tensor, q: QuantizerCfg) -> torch.Tensor:
+    """The QuantReLU's forward value of ``x`` (``q.bit_width >= 2``), in
+    ``x``'s dtype.  CUDA tensors: bfloat16, contiguous, one
+    ``quant_relu_bf16_forward`` launch (``quant_relu.launches``); CPU
+    tensors (``meta`` inside ``_device.abstract_run``) run
+    :func:`quant_relu_plain`."""
+    dev = x.device
+    if plain_device(dev):
+        return quant_relu_plain(x, q)
+    if dev.type != "cuda":
+        raise ValueError(f"quant_relu runs on cuda or cpu, not {dev}")
+    if q.bit_width < 2:
+        raise ValueError(f"quant_relu is the QuantReLU (bit_width >= 2), "
+                         f"not bit_width {q.bit_width}")
+    require(x, "x", (torch.bfloat16,), x.dim(), dev)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    if x.data_ptr() % _TMA_ALIGN:
+        x = x.clone()
+    with torch.cuda.device(dev):
+        err = _build.library().quant_relu_bf16_forward(
+            x.data_ptr(), x.numel(), q.max_val, q.step, out.data_ptr(),
+            stream_of(dev))
+    _build.check(err, "quant_relu_bf16_forward")
+    quant_relu.launches += 1
+    return out
+
+
+quant_relu.launches = 0
+
+
+def masked_matmul_swiglu_quant_plain(x: torch.Tensor, w_gate: torch.Tensor,
+                                     w_up: torch.Tensor, mask: torch.Tensor,
+                                     q: QuantizerCfg) -> torch.Tensor:
+    """Plain-torch version: ``Q(silu(x @ (w_gate * mask)) * (x @ (w_up *
+    mask)))``, each product from :func:`masked_matmul_plain`, SiLU and the
+    product in ``x``'s dtype, ``Q`` by :func:`quant_relu_plain`."""
+    h = (F.silu(masked_matmul_plain(x, w_gate, mask))
+         * masked_matmul_plain(x, w_up, mask))
+    return quant_relu_plain(h, q)
+
+
+def masked_matmul_swiglu_quant(x: torch.Tensor, w_gate: torch.Tensor,
+                               w_up: torch.Tensor, mask: torch.Tensor,
+                               q: QuantizerCfg) -> torch.Tensor:
+    """``Q(silu(x (M, K) @ (w_gate * mask)) * (x @ (w_up * mask))) -> (M,
+    N)``: the LogicNet-FFN's ``wi`` stage, ``Q`` the QuantReLU ``q``
+    (``bit_width >= 2``).
+
+    CUDA tensors: bfloat16, contiguous, K and N multiples of 8 (the
+    ``wgmma`` route); one ``masked_matmul_swiglu_quant_wgmma_forward``
+    launch (``launches``, ``launches_by_route``), equal bit for bit to the
+    composed path on the card (the two products by :func:`masked_matmul`,
+    then ``F.silu``, the product and ``core.quantize``).  CPU tensors
+    (``meta`` inside ``_device.abstract_run``) run
+    :func:`masked_matmul_swiglu_quant_plain`.  No gradient:
+    :func:`logicnet_ffn_route` sends only calls without one here."""
+    dev = x.device
+    if plain_device(dev):
+        return masked_matmul_swiglu_quant_plain(x, w_gate, w_up, mask, q)
+    if dev.type != "cuda":
+        raise ValueError(f"masked_matmul_swiglu_quant runs on cuda or cpu, "
+                         f"not {dev}")
+    dtypes = (torch.bfloat16,)
+    require(x, "x", dtypes, 2, dev)
+    require(w_gate, "w_gate", dtypes, 2, dev)
+    require(w_up, "w_up", dtypes, 2, dev)
+    require(mask, "mask", dtypes, 2, dev)
+    (m_dim, k_dim), n_dim = x.shape, mask.shape[1]
+    if mask.shape[0] != k_dim or w_gate.shape != mask.shape \
+            or w_up.shape != mask.shape:
+        raise ValueError(f"x {tuple(x.shape)}, w_gate {tuple(w_gate.shape)}, "
+                         f"w_up {tuple(w_up.shape)} and mask "
+                         f"{tuple(mask.shape)} do not chain")
+    if masked_matmul_route(x.dtype, k_dim, n_dim) != "wgmma":
+        raise ValueError(f"K = {k_dim} and N = {n_dim} must be multiples "
+                         f"of 8 (the wgmma route)")
+    if q.bit_width < 2:
+        raise ValueError(f"the quantizer is the QuantReLU (bit_width >= "
+                         f"2), not bit_width {q.bit_width}")
+    if (-(-m_dim // _SWIGLU_TILE[0]) * -(-n_dim // _SWIGLU_TILE[1])
+            > _MAX_GRID_X):
+        raise ValueError(f"({m_dim}, {n_dim}) exceeds the kernel's grid "
+                         f"({_MAX_GRID_X} tiles of {_SWIGLU_TILE})")
+    out = torch.empty((m_dim, n_dim), dtype=x.dtype, device=dev)
+    if m_dim == 0 or n_dim == 0:
+        return out
+    x, w_gate, w_up, mask = (t if t.data_ptr() % _TMA_ALIGN == 0
+                             else t.clone() for t in (x, w_gate, w_up, mask))
+    with torch.cuda.device(dev):
+        err = _build.library().masked_matmul_swiglu_quant_wgmma_forward(
+            x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            mask.data_ptr(), m_dim, n_dim, k_dim, q.max_val, q.step,
+            out.data_ptr(), stream_of(dev))
+    _build.check(err, "masked_matmul_swiglu_quant_wgmma_forward")
+    masked_matmul_swiglu_quant.launches += 1
+    masked_matmul_swiglu_quant.launches_by_route["wgmma"] += 1
+    return out
+
+
+masked_matmul_swiglu_quant.launches = 0
+masked_matmul_swiglu_quant.launches_by_route = {"wgmma": 0}

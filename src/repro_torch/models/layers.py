@@ -18,7 +18,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.quantize import QuantizerCfg, quantize
 from repro_torch.core.sparsity import apriori_mask
-from repro_torch.kernels.masked_matmul import MaskedMatmulFn
+from repro_torch.kernels.masked_matmul import (MaskedMatmulFn,
+                                               logicnet_ffn_route,
+                                               masked_matmul_swiglu_quant,
+                                               quant_relu)
 from repro_torch.models.config import LogicNetFFNCfg
 from repro_torch.parallel.local import (any_dtensor, gather_fsdp,
                                         replicate_like, vocab_embed)
@@ -152,19 +155,41 @@ def logicnet_ffn_apply(p: dict, x: torch.Tensor, cfg: LogicNetFFNCfg,
     """``quantize(h) @ (wo * mask_out)`` with ``h = act(xq @ (wi_gate *
     mask_in)) * (xq @ (wi_up * mask_in))`` and ``xq = quantize(x)``: the
     quantizers run in float32 and their outputs return to ``x``'s dtype,
-    as in the reference.  Each masked product is one
-    :class:`MaskedMatmulFn` call on the (rows, features) view of its
-    operand, so on the card every product (and its input gradient) is a
-    masked-matmul kernel launch."""
-    act = _ACTS[act_fn]
+    as in the reference.  The ``wo`` product is one
+    :class:`MaskedMatmulFn` call on the (rows, features) view of ``hq``.
+    The ``wi`` stage takes the path ``kernels.masked_matmul.
+    logicnet_ffn_route`` names (``logicnet_ffn_apply.paths`` counts each
+    call's): ``"fused"`` (bfloat16 on the card without a gradient to take)
+    is two launches, the input quantizer and the fused products, SiLU and
+    quantizer; ``"composed"`` (training, float32, the CPU, meshes, other
+    activations or quantizers) runs each step as its own op, each masked
+    product a :class:`MaskedMatmulFn` call, so on the card every product
+    (and its input gradient) is a masked-matmul kernel launch.  Both give
+    the same ``hq`` bit for bit."""
     q = QuantizerCfg(cfg.bw, cfg.max_val)
     lead = x.shape[:-1]
-    xq = quantize(q, x.float()).value.to(x.dtype).reshape(-1, x.shape[-1])
-    h = act(MaskedMatmulFn.apply(xq, p["wi_gate"], p["mask_in"])) \
-        * MaskedMatmulFn.apply(xq, p["wi_up"], p["mask_in"])
-    hq = quantize(q, h.float()).value.to(x.dtype)
+    ops = (x, p["wi_gate"], p["wi_up"], p["mask_in"])
+    route = logicnet_ffn_route(
+        x.device.type, x.dtype, *p["wi_gate"].shape, q.bit_width, act_fn,
+        dtensor=any_dtensor(*ops),
+        needs_grad=(torch.is_grad_enabled()
+                    and any(t.requires_grad for t in ops)))
+    logicnet_ffn_apply.paths[route] += 1
+    if route == "fused":
+        hq = masked_matmul_swiglu_quant(
+            quant_relu(x.reshape(-1, x.shape[-1]), q), p["wi_gate"],
+            p["wi_up"], p["mask_in"], q)
+    else:
+        act = _ACTS[act_fn]
+        xq = quantize(q, x.float()).value.to(x.dtype).reshape(-1, x.shape[-1])
+        h = act(MaskedMatmulFn.apply(xq, p["wi_gate"], p["mask_in"])) \
+            * MaskedMatmulFn.apply(xq, p["wi_up"], p["mask_in"])
+        hq = quantize(q, h.float()).value.to(x.dtype)
     return MaskedMatmulFn.apply(hq, p["wo"], p["mask_out"]).reshape(
         *lead, p["wo"].shape[1])
+
+
+logicnet_ffn_apply.paths = {"fused": 0, "composed": 0}
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,

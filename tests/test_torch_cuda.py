@@ -855,7 +855,8 @@ def test_lm_training_step_at_full_width(dev):
     depth cut to 2 layers: 18 masked-matmul launches (2 layers x 3
     products x forward, remat's recompute and dx), all wgmma; a finite
     loss; pruned weights 0 and 16 ones a mask column after it; then one
-    decode step of the trained model: 6 launches."""
+    decode step of the trained model, without grad: 2 masked-matmul
+    launches (``wo``), 2 fused ``wi`` launches and 2 input quantizers."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -885,14 +886,159 @@ def test_lm_training_step_at_full_width(dev):
             assert bool((mask.sum(0) == 16).all())
     model = steps.model_from_state(cfg, state)
     cache = M.init_cache(cfg, 4, 16, device=dev)
-    before = masked_matmul.launches_by_route["wgmma"]
+    before = (masked_matmul.launches_by_route["wgmma"],
+              MM.masked_matmul_swiglu_quant.launches, MM.quant_relu.launches)
     logits, _ = steps.make_decode_step(cfg)(
         model, cache, torch.ones((4, 1), dtype=torch.int32, device=dev),
         torch.zeros(4, dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
-    assert masked_matmul.launches_by_route["wgmma"] == before + 6
+    assert (masked_matmul.launches_by_route["wgmma"],
+            MM.masked_matmul_swiglu_quant.launches,
+            MM.quant_relu.launches) == tuple(b + 2 for b in before)
     assert logits.shape == (4, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
+
+
+def _ffn_case(dev, d_model, d_ff, m, seed):
+    """A LogicNet-FFN at these widths (its fan-in-16 masks) in bfloat16
+    on the card and an input of ``m`` rows; the seed sets the input's
+    scale (0.75, 1.5 or 3), so the hidden activations fall in the
+    quantizer's range, past its top and near each of its levels."""
+    from repro_torch.models.config import LogicNetFFNCfg
+    from repro_torch.models.layers import logicnet_masks
+    masks = [t.to(dev, torch.bfloat16) for t in logicnet_masks(
+        d_model, d_ff, LogicNetFFNCfg())]
+    g = torch.Generator(device=dev).manual_seed(1000 * seed + d_ff + m)
+    p = {"wi_gate": (torch.randn((d_model, d_ff), generator=g, device=dev)
+                     * 0.5).bfloat16(),
+         "wi_up": (torch.randn((d_model, d_ff), generator=g, device=dev)
+                   * 0.5).bfloat16(),
+         "wo": (torch.randn((d_ff, d_model), generator=g, device=dev)
+                / 4).bfloat16(),
+         "mask_in": masks[0], "mask_out": masks[1]}
+    scale = 0.75 * 2 ** seed
+    x = (torch.randn((m, d_model), generator=g, device=dev) * scale
+         ).bfloat16()
+    return p, x
+
+
+def _hq_composed(p, x, q):
+    """The composed ``wi`` stage: the quantizers of ``core.quantize``, the
+    two masked products on the wgmma route, ``F.silu`` and the product."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.quantize import quantize
+    xq = quantize(q, x.float()).value.to(x.dtype)
+    h = (F.silu(masked_matmul(xq, p["wi_gate"], p["mask_in"]))
+         * masked_matmul(xq, p["wi_up"], p["mask_in"]))
+    return quantize(q, h.float()).value.to(x.dtype)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("d_model,d_ff,m", [
+    (2048, 6144, 8192), (2048, 6144, 5632), (2048, 6144, 4),
+    (2048, 6144, 1000), (2560, 10240, 4096), (1536, 8960, 4096)])
+def test_fused_ffn_equals_composed_bit_for_bit(dev, d_model, d_ff, m, seed):
+    """The fused ``wi`` stage (``quant_relu``, then
+    ``masked_matmul_swiglu_quant``) gives the composed path's ``hq`` bit
+    for bit, and ``logicnet_ffn_apply`` the same output after ``wo`` on
+    either path: without grad it takes the fused path (one launch of each
+    kernel, one masked matmul), with an input that requires grad the
+    composed one (three masked matmuls), qwen3-1.7b's, zamba2-2.7b's and
+    qwen2-vl-2b's widths, M ragged and at 4 decode slots."""
+    from repro_torch.core.quantize import QuantizerCfg
+    from repro_torch.models import layers as L
+    from repro_torch.models.config import LogicNetFFNCfg
+
+    cfg = LogicNetFFNCfg()
+    q = QuantizerCfg(cfg.bw, cfg.max_val)
+    p, x = _ffn_case(dev, d_model, d_ff, m, seed)
+    fused, quant = (MM.masked_matmul_swiglu_quant.launches,
+                    MM.quant_relu.launches)
+    hq = MM.masked_matmul_swiglu_quant(MM.quant_relu(x, q), p["wi_gate"],
+                                       p["wi_up"], p["mask_in"], q)
+    want = _hq_composed(p, x, q)
+    torch.cuda.synchronize()
+    assert (MM.masked_matmul_swiglu_quant.launches,
+            MM.quant_relu.launches) == (fused + 1, quant + 1)
+    assert hq.shape == (m, d_ff) and hq.dtype == torch.bfloat16
+    assert torch.equal(hq.view(torch.int16), want.view(torch.int16))
+    levels = torch.bincount(torch.round(want.float() / q.step).long().flatten(),
+                            minlength=q.n_levels)
+    assert int((levels > 0).sum()) >= q.n_levels // 2 or m == 4
+
+    paths = dict(L.logicnet_ffn_apply.paths)
+    mm, fused = masked_matmul.launches, MM.masked_matmul_swiglu_quant.launches
+    with torch.no_grad():
+        out_fused = L.logicnet_ffn_apply(p, x[None], cfg)
+    torch.cuda.synchronize()
+    assert (masked_matmul.launches - mm,
+            MM.masked_matmul_swiglu_quant.launches - fused) == (1, 1)
+    out_composed = L.logicnet_ffn_apply(p, x[None].clone().requires_grad_(),
+                                        cfg)
+    torch.cuda.synchronize()
+    assert (masked_matmul.launches - mm,
+            MM.masked_matmul_swiglu_quant.launches - fused) == (4, 1)
+    assert L.logicnet_ffn_apply.paths == {
+        "fused": paths["fused"] + 1, "composed": paths["composed"] + 1}
+    assert torch.equal(out_fused.view(torch.int16),
+                       out_composed.detach().view(torch.int16))
+
+
+def test_quant_relu_kernel_equals_quantize_on_edges(dev):
+    """The input quantizer's kernel against ``core.quantize`` on the card:
+    every finite bfloat16 value from -8 to 8, the bfloat16 neighbours of
+    each level's midpoint, -0, the infinities, NaN, lengths with a ragged
+    tail past a multiple of 8, and views 2 bytes past a 16-byte boundary
+    (the wrapper copies them); bit for bit, and NaN where ``quantize``
+    gives NaN; -0 comes out +0."""
+    from repro_torch.core.quantize import QuantizerCfg
+    for q in (QuantizerCfg(4, 4.0), QuantizerCfg(2, 1.0)):
+        step = float(torch.tensor(q.step, dtype=torch.float32))
+        grid = torch.arange(-32768, 32768, dtype=torch.int32).to(
+            torch.int16).view(torch.bfloat16)
+        grid = grid[grid.float().abs() <= 8]
+        mids = torch.tensor([step * (k + 0.5) for k in range(q.n_levels)]
+                            ).bfloat16().view(torch.int16)
+        near = torch.stack([mids, mids + 1, mids - 1]).view(torch.bfloat16)
+        special = torch.tensor([-0.0, 0.0, float("inf"), float("-inf"),
+                                float("nan")], dtype=torch.bfloat16)
+        x = torch.cat([grid, near.flatten(), special]).to(dev)
+        for n in (x.numel(), x.numel() - 3, 13):
+            for off in (0, 1):
+                xin = x[off:n + off]
+                before = MM.quant_relu.launches
+                got = MM.quant_relu(xin, q)
+                want = MM.quant_relu_plain(xin, q)
+                torch.cuda.synchronize()
+                assert MM.quant_relu.launches == before + 1
+                nan = torch.isnan(want)
+                assert torch.equal(torch.isnan(got), nan)
+                assert torch.equal(got[~nan].view(torch.int16),
+                                   want[~nan].view(torch.int16))
+                assert not bool(torch.signbit(got[~nan]).any())
+
+
+def test_fused_ffn_refuses_what_the_kernel_cannot_take(dev):
+    from repro_torch.core.quantize import QuantizerCfg
+    q = QuantizerCfg(4, 4.0)
+    x = torch.zeros((16, 64), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((64, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        MM.masked_matmul_swiglu_quant(x.float(), w, w, w, q)
+    with pytest.raises(ValueError, match="chain"):
+        MM.masked_matmul_swiglu_quant(x, w, w[:, :64].contiguous(), w, q)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        MM.masked_matmul_swiglu_quant(x[:, :60].contiguous(),
+                                      w[:60].contiguous(),
+                                      w[:60].contiguous(),
+                                      w[:60].contiguous(), q)
+    with pytest.raises(ValueError, match="QuantReLU"):
+        MM.masked_matmul_swiglu_quant(x, w, w, w, QuantizerCfg(1, 1.0))
+    with pytest.raises(ValueError, match="QuantReLU"):
+        MM.quant_relu(x, QuantizerCfg(1, 1.0))
+    with pytest.raises(ValueError, match="contiguous"):
+        MM.quant_relu(x.t(), q)
 
 
 def test_masked_matmul_refuses_what_the_kernel_cannot_take(dev):

@@ -40,12 +40,16 @@ NEG_INF = -1e30
 
 
 def attn_init(gen: torch.Generator, cfg: ModelCfg,
-              dtype=torch.float32) -> dict:
+              dtype=torch.float32, d_in: int = 0) -> dict:
+    """q, k and v read ``d_in`` features (default ``d_model``; Zamba2's
+    shared block reads ``2 * d_model``), ``wo`` writes ``d_model``; every
+    projection normal x 1/sqrt(d_in)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    s = 1.0 / d ** 0.5
-    p = {"wq": normal_init((d, cfg.n_heads, hd), s, gen, dtype),
-         "wk": normal_init((d, cfg.n_kv_heads, hd), s, gen, dtype),
-         "wv": normal_init((d, cfg.n_kv_heads, hd), s, gen, dtype),
+    d_in = d_in or d
+    s = 1.0 / d_in ** 0.5
+    p = {"wq": normal_init((d_in, cfg.n_heads, hd), s, gen, dtype),
+         "wk": normal_init((d_in, cfg.n_kv_heads, hd), s, gen, dtype),
+         "wv": normal_init((d_in, cfg.n_kv_heads, hd), s, gen, dtype),
          "wo": normal_init((cfg.n_heads, hd, d), s, gen, dtype)}
     if cfg.qk_norm:
         p["q_norm"] = init_rms(hd, gen.device)
@@ -70,10 +74,12 @@ def _project_qkv(p: dict, cfg: ModelCfg, x: torch.Tensor,
 
 def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        q_offset, window: int, causal: bool, chunk: int,
-                       kv_len_valid=None) -> torch.Tensor:
+                       kv_len_valid=None, scale: float | None = None
+                       ) -> torch.Tensor:
     """Online softmax over KV chunks, in float32; output in q's dtype.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).  ``window`` 0 = global.
+    The scores are scaled by ``scale`` (default 1/sqrt(D)).
     ``q_offset`` and ``kv_len_valid`` (valid cache slots; None = all) may be
     0-d tensors.  As in the reference, where ``chunk`` does not divide
     ``Skv`` the last chunk's slice is clamped to end at ``Skv`` (XLA's
@@ -82,7 +88,8 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
-    scale = 1.0 / d ** 0.5
+    if scale is None:
+        scale = 1.0 / d ** 0.5
     qf = (q.float() * scale).reshape(b, sq, hkv, group, d)
     chunk = min(chunk, skv)
     n_chunks = -(-skv // chunk)
@@ -123,12 +130,14 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attn_apply(p: dict, cfg: ModelCfg, x: torch.Tensor,
                positions: torch.Tensor, window: int = 0,
-               causal: bool = True, train: bool = False) -> torch.Tensor:
+               causal: bool = True, train: bool = False,
+               scale: float | None = None) -> torch.Tensor:
     """Full-sequence attention: prefill through the flash kernel, or with
     ``train`` through the differentiable ``_chunked_attention`` in chunks
     of ``cfg.attn_chunk`` keys (the flash kernel raises on inputs that
     require grad; the chunked form computes the true function where the
-    chunk divides the sequence or is at least as long, ROADMAP §3).
+    chunk divides the sequence or is at least as long, ROADMAP §3).  Both
+    scale the scores by ``scale`` (default 1/sqrt(head_dim)).
 
     The model holds heads as (B, S, H, D); the kernel takes (B, H, S, D)
     views, so q, k and v go in as transposed views, without copies, and the
@@ -141,12 +150,12 @@ def attn_apply(p: dict, cfg: ModelCfg, x: torch.Tensor,
         out = head_parallel(
             lambda ql, kl, vl: _chunked_attention(
                 ql, kl, vl, q_offset=0, window=window, causal=causal,
-                chunk=cfg.attn_chunk), q, k, v, head_dim=2)
+                chunk=cfg.attn_chunk, scale=scale), q, k, v, head_dim=2)
     else:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
-                              window=window if window > 0 else None
-                              ).transpose(1, 2)
+                              window=window if window > 0 else None,
+                              scale=scale).transpose(1, 2)
     return contract_heads(out, p["wo"])
 
 

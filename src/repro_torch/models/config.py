@@ -29,6 +29,9 @@ class SSMCfg:
     conv_width: int = 4
     chunk: int = 256
     n_groups: int = 1
+    # the gated RMSNorm over each of the n_groups groups of d_in / n_groups
+    # channels (Zamba2's Mamba2 layers), not over all of d_in at once
+    grouped_norm: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +44,69 @@ class LogicNetFFNCfg:
     max_val: float = 4.0
 
 
+# Zamba2's own config.json keys, which a configuration file may carry
+# beside the port's fields: the benchmark's zamba2-7b file holds its
+# source's config whole.  ``hybrid_layer_ids``, ``num_mem_blocks``,
+# ``adapter_rank`` and ``rope_theta`` are the port's fields themselves.
+# Each checked key that is given must read what the port runs
+# (:func:`zamba2_source_values`); the recorded ones only initialise
+# weights or bound inference, and are kept as given.
+ZAMBA2_CHECKED_KEYS = (
+    "add_bias_linear", "attention_head_dim", "attention_hidden_size",
+    "chunk_size", "ffn_hidden_size", "hidden_act", "hidden_size",
+    "intermediate_size", "kv_channels", "layers_block_type", "mamba_d_conv",
+    "mamba_d_state", "mamba_expand", "mamba_headdim", "mamba_ngroups",
+    "model_type", "n_mamba_heads", "num_attention_heads",
+    "num_hidden_layers", "num_key_value_heads", "num_query_groups",
+    "rms_norm_eps", "time_step_limit", "use_conv_bias", "use_long_context",
+    "use_mem_rope", "use_shared_attention_adapter", "use_shared_mlp_adapter",
+    "vocab_size")
+ZAMBA2_RECORDED_KEYS = ("max_position_embeddings", "num_logits_to_keep",
+                        "time_step_floor", "time_step_max", "time_step_min")
+ZAMBA2_SOURCE_KEYS = ZAMBA2_CHECKED_KEYS + ZAMBA2_RECORDED_KEYS
+
+# None: not given
+_Zamba2SourceKeys = dataclasses.make_dataclass(
+    "_Zamba2SourceKeys",
+    [(k, object, dataclasses.field(default=None))
+     for k in ZAMBA2_SOURCE_KEYS],
+    frozen=True, kw_only=True)
+
+
+def zamba2_source_values(cfg: "ModelCfg") -> dict:
+    """What each of ``ZAMBA2_CHECKED_KEYS`` reads, in transformers'
+    ``Zamba2Config``, for the model the port runs from ``cfg``."""
+    d, s, ids = cfg.d_model, cfg.ssm, set(cfg.hybrid_layer_ids)
+    out = {
+        "add_bias_linear": False, "use_conv_bias": True,
+        "use_long_context": False, "use_mem_rope": True,
+        "use_shared_attention_adapter": False,
+        "use_shared_mlp_adapter": cfg.adapter_rank > 0,
+        "time_step_limit": None,       # softplus(dt + dt_bias) unclamped
+        "hidden_act": {"gelu_exact": "gelu", "gelu": "gelu_pytorch_tanh",
+                       "silu": "silu"}.get(cfg.act_fn),
+        "hidden_size": d, "num_hidden_layers": cfg.n_layers,
+        "num_attention_heads": cfg.n_heads,
+        "num_key_value_heads": cfg.n_kv_heads,
+        "num_query_groups": cfg.n_kv_heads,
+        "attention_head_dim": cfg.resolved_head_dim,
+        "attention_hidden_size": 2 * d, "kv_channels": d // cfg.n_heads,
+        "ffn_hidden_size": cfg.d_ff, "intermediate_size": cfg.d_ff,
+        "vocab_size": cfg.vocab, "rms_norm_eps": cfg.norm_eps,
+        "layers_block_type": tuple("hybrid" if i in ids else "mamba"
+                                   for i in range(cfg.n_layers))}
+    if s is not None:
+        out.update(mamba_d_state=s.d_state, mamba_headdim=s.head_dim,
+                   mamba_expand=s.expand, mamba_d_conv=s.conv_width,
+                   mamba_ngroups=s.n_groups, chunk_size=s.chunk,
+                   n_mamba_heads=s.expand * d // s.head_dim)
+        if cfg.has_shared_blocks and s.grouped_norm:
+            out["model_type"] = "zamba2"
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
-class ModelCfg:
+class ModelCfg(_Zamba2SourceKeys):
     arch_id: str
     n_layers: int
     d_model: int
@@ -67,6 +131,16 @@ class ModelCfg:
     # hybrid (zamba2): one *shared* attention block every `attn_every` SSM
     # layers (weight re-use across sites, as in the paper).
     hybrid_attn_every: int = 0
+    # Zamba2's own layout (Zamba2-7B; the keys are its config's): before
+    # each SSM layer of ``hybrid_layer_ids`` one of ``num_mem_blocks``
+    # shared transformer blocks, in turn, reads the residual stream
+    # concatenated with the embedding; each such site has its own rank
+    # ``adapter_rank`` LoRA on the block's MLP and its own output linear,
+    # whose result enters only that SSM layer's input.  Empty: no such
+    # sites (``hybrid_attn_every`` gives the reference's hybrid).
+    hybrid_layer_ids: tuple = ()
+    num_mem_blocks: int = 0
+    adapter_rank: int = 0
 
     # enc-dec (whisper)
     enc_dec: bool = False
@@ -100,6 +174,30 @@ class ModelCfg:
     # step, the lowered serve_step shape).
     cache_update: str = "onehot"
 
+    def __post_init__(self):
+        # a JSON list arrives as a list; the config stays hashable
+        for k in ("hybrid_layer_ids",) + ZAMBA2_SOURCE_KEYS:
+            if isinstance(getattr(self, k), list):
+                object.__setattr__(self, k, tuple(getattr(self, k)))
+        ids = self.hybrid_layer_ids
+        if ids and not (self.is_ssm and self.hybrid_attn_every == 0
+                        and self.num_mem_blocks > 0
+                        and list(ids) == sorted(set(ids))
+                        and 0 <= ids[0] and ids[-1] < self.n_layers):
+            raise ValueError(
+                f"hybrid_layer_ids {ids} need an SSM stack of more than "
+                f"{ids[-1]} layers, no hybrid_attn_every and "
+                f"num_mem_blocks > 0, each id once in order")
+        given = {k: getattr(self, k) for k in ZAMBA2_CHECKED_KEYS
+                 if getattr(self, k) is not None}
+        if given:
+            want = zamba2_source_values(self)
+            bad = {k: (v, want.get(k)) for k, v in given.items()
+                   if k not in want or v != want[k]}
+            if bad:
+                raise ValueError(f"source keys that differ from the model "
+                                 f"run, (given, run): {bad}")
+
     @property
     def fit_unroll(self) -> int:
         """Second unroll point u2 for the cost fit (must divide the layer
@@ -127,6 +225,11 @@ class ModelCfg:
         return self.is_ssm and self.hybrid_attn_every > 0
 
     @property
+    def has_shared_blocks(self) -> bool:
+        """Zamba2's layout: shared blocks at ``hybrid_layer_ids``."""
+        return bool(self.hybrid_layer_ids)
+
+    @property
     def sub_quadratic(self) -> bool:
         """Eligible for the long_500k cell (SSM state decode)."""
         return self.is_ssm
@@ -143,6 +246,13 @@ class ModelCfg:
                         + nh)
                    + d_in * self.ssm.conv_width + d_in * d + 2 * nh)
             total = self.n_layers * per
+            if self.has_shared_blocks:
+                d2 = 2 * d
+                block = (d2 * hd * (self.n_heads + 2 * self.n_kv_heads)
+                         + self.n_heads * hd * d + 3 * d * self.d_ff)
+                site = d * d + self.adapter_rank * (d + 2 * self.d_ff)
+                total += (self.num_mem_blocks * block
+                          + len(self.hybrid_layer_ids) * site)
             if self.is_hybrid:
                 attn = (d * hd * (self.n_heads + 2 * self.n_kv_heads)
                         + self.n_heads * hd * d + 3 * d * self.d_ff)

@@ -117,13 +117,22 @@ def ffn_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 _ACTS = {"silu": F.silu,
          # jax.nn.gelu's default is the tanh approximation
-         "gelu": lambda x: F.gelu(x, approximate="tanh")}
+         "gelu": lambda x: F.gelu(x, approximate="tanh"),
+         # the erf form (Zamba2's "gelu")
+         "gelu_exact": F.gelu}
 
 
-def ffn_apply(p: dict, x: torch.Tensor, act_fn: str = "silu") -> torch.Tensor:
-    act = _ACTS[act_fn]
-    h = act(x @ p["wi_gate"]) * (x @ p["wi_up"])
-    return h @ p["wo"]
+def ffn_apply(p: dict, x: torch.Tensor, act_fn: str = "silu",
+              lora: tuple | None = None) -> torch.Tensor:
+    """``act(x @ wi_gate) * (x @ wi_up) @ wo``; with ``lora`` ``(a, b)``,
+    a (D, r) and b (r, 2 d_ff), ``(x @ a) @ b`` is added to the gate and
+    up products, its first half to the gate (Zamba2's adapter on the
+    packed ``gate_up`` projection, split as ``torch.chunk`` splits it)."""
+    gate, up = x @ p["wi_gate"], x @ p["wi_up"]
+    if lora is not None:
+        d_gate, d_up = torch.chunk((x @ lora[0]) @ lora[1], 2, dim=-1)
+        gate, up = gate + d_gate, up + d_up
+    return (_ACTS[act_fn](gate) * up) @ p["wo"]
 
 
 def logicnet_masks(d_model: int, d_ff: int, cfg: LogicNetFFNCfg,

@@ -6,7 +6,10 @@ families (qwen3, gemma3, starcoder2, phi3), the mixture-of-experts
 decoders (qwen3-moe, olmoe: a ``moe`` FFN, ``models.moe``), the SSM stack
 (mamba2: ``ssm_layers``, ``models.ssm``), the hybrid (zamba2: one
 ``shared_attn`` decoder layer whose weights serve every
-``hybrid_attn_every``-th site between the SSM layers), the VLM (qwen2-vl:
+``hybrid_attn_every``-th site between the SSM layers), Zamba2's own
+layout (Zamba2-7B, ``cfg.hybrid_layer_ids``: ``shared_blocks`` and
+per-site ``sites``, :func:`shared_block`; training and prefill only), the
+VLM (qwen2-vl:
 M-RoPE positions and ``vision_embeds`` in the first ``vision_tokens``
 positions) and the encoder-decoder (whisper: ``enc_layers`` over the
 ``frames`` with ``pos_emb_enc``, then ``dec_layers`` with cross-attention
@@ -32,9 +35,12 @@ reference's ``layers.attn.wq[i]``, ``ssm_layers.<i>.ssm.in_proj`` its
   it; attention runs the differentiable chunked form.
 
 Step spans (``obs.trace.span``, one check while off) name each decoder
-layer's ``attn`` and ``ffn`` (each with its norm), the ``head`` (final
-norm and logits) and the ``loss``; a recomputed layer opens its spans
-again.
+layer's (and each shared block's) ``attn`` and ``ffn`` (each with its
+norm), each SSM layer's ``ssm`` (its norm and mixer, with the chunked
+scan's ``ssd`` inside), the ``head`` (final norm and logits) and the
+``loss``; a recomputed layer opens its spans again.  The counter
+``shared_block.calls`` counts the shared blocks' calls by block, ``A``,
+``B``, ...
 
 The MoE layers' load-balancing loss is summed over layers as the
 reference's layer scan carries it (:func:`forward` with ``with_aux``),
@@ -55,6 +61,8 @@ or are carried from the reference with :func:`from_reference`.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -167,8 +175,11 @@ class SSMLayer(nn.Module):
 class LM(nn.Module):
     """An LM's float32 master weights: ``embed.{tok[,head]}``,
     ``final_norm`` and either ``layers`` (decoders), ``ssm_layers`` (SSM
-    stacks) with, in a hybrid, the one ``shared_attn`` layer, or an
-    encoder-decoder's ``pos_emb_enc``, ``enc_layers``, ``dec_layers`` and
+    stacks) with, in a hybrid, the one ``shared_attn`` layer or, in
+    Zamba2's layout, the ``shared_blocks`` (each a :class:`DecoderLayer`'s
+    leaves, ``ln1`` and q, k, v ``2 * d_model`` wide) and the ``sites``
+    (``linear``, ``lora_a``, ``lora_b``), or an encoder-decoder's
+    ``pos_emb_enc``, ``enc_layers``, ``dec_layers`` and
     ``enc_final_norm``."""
 
     def __init__(self, cfg: ModelCfg, params: dict):
@@ -182,6 +193,11 @@ class LM(nn.Module):
                                             for p in params["ssm_layers"])
             if cfg.is_hybrid:
                 self.shared_attn = DecoderLayer(params["shared_attn"])
+            if cfg.has_shared_blocks:
+                self.shared_blocks = nn.ModuleList(
+                    DecoderLayer(p) for p in params["shared_blocks"])
+                self.sites = nn.ModuleList(_frozen(p)
+                                           for p in params["sites"])
         elif cfg.enc_dec:
             self.pos_emb_enc = nn.Parameter(params["pos_emb_enc"],
                                             requires_grad=False)
@@ -209,6 +225,9 @@ class LM(nn.Module):
             tree["ssm_layers"] = [layer.tree() for layer in self.ssm_layers]
             if self.cfg.is_hybrid:
                 tree["shared_attn"] = self.shared_attn.tree()
+            if self.cfg.has_shared_blocks:
+                tree["shared_blocks"] = [b.tree() for b in self.shared_blocks]
+                tree["sites"] = [dict(site) for site in self.sites]
         elif self.cfg.enc_dec:
             tree["pos_emb_enc"] = self.pos_emb_enc
             tree["enc_layers"] = [layer.tree() for layer in self.enc_layers]
@@ -291,6 +310,26 @@ def _attn_every(cfg: ModelCfg) -> int:
     return cfg.hybrid_attn_every
 
 
+def _shared_block_init(gen: torch.Generator, cfg: ModelCfg, dtype) -> dict:
+    """A Zamba2 shared block: ``ln1`` over the ``2 * d_model`` concatenated
+    input, attention reading it, ``ln2`` and the dense MLP."""
+    d = cfg.d_model
+    return {"ln1": init_rms(2 * d, gen.device),
+            "ln2": init_rms(d, gen.device),
+            "attn": ATT.attn_init(gen, cfg, dtype, d_in=2 * d),
+            "ffn": ffn_init(gen, d, cfg.d_ff, dtype)}
+
+
+def _site_init(gen: torch.Generator, cfg: ModelCfg, dtype) -> dict:
+    """A Zamba2 site's own weights: the output ``linear`` (D, D) and the
+    MLP's LoRA, ``lora_a`` (D, r) and ``lora_b`` (r, 2 d_ff), each normal
+    x 1/sqrt(fan-in)."""
+    d, r = cfg.d_model, cfg.adapter_rank
+    return {"linear": normal_init((d, d), d ** -0.5, gen, dtype),
+            "lora_a": normal_init((d, r), d ** -0.5, gen, dtype),
+            "lora_b": normal_init((r, 2 * cfg.d_ff), r ** -0.5, gen, dtype)}
+
+
 def _enc_layer_init(gen: torch.Generator, cfg: ModelCfg, dtype) -> dict:
     return {"ln1": init_rms(cfg.d_model, gen.device),
             "ln2": init_rms(cfg.d_model, gen.device),
@@ -322,6 +361,11 @@ def _init_tree(cfg: ModelCfg, gen: torch.Generator) -> dict:
         if cfg.is_hybrid:
             _n_sites(cfg)
             tree["shared_attn"] = _decoder_layer_init(gen, cfg, dtype, masks)
+        if cfg.has_shared_blocks:
+            tree["shared_blocks"] = [_shared_block_init(gen, cfg, dtype)
+                                     for _ in range(cfg.num_mem_blocks)]
+            tree["sites"] = [_site_init(gen, cfg, dtype)
+                             for _ in cfg.hybrid_layer_ids]
     elif cfg.enc_dec:
         tree["pos_emb_enc"] = normal_init((cfg.enc_frames, cfg.d_model),
                                           0.01, gen, dtype)
@@ -376,12 +420,18 @@ def param_shapes(cfg: ModelCfg) -> dict[str, tuple]:
 
 # the parameter lists stacked over layers in the reference's pytree
 _STACKED = ("layers", "ssm_layers", "enc_layers", "dec_layers")
+# every list of the tree: those and Zamba2's blocks and sites, which no
+# pytree of the reference stacks (their vectors do not decay)
+_LISTS = _STACKED + ("shared_blocks", "sites")
 
 
 def stacked_layers(cfg: ModelCfg, stack: str) -> int:
-    """Layers a stacked list holds: ``n_enc_layers`` for ``enc_layers``,
-    ``n_layers`` for the others."""
-    return cfg.n_enc_layers if stack == "enc_layers" else cfg.n_layers
+    """Entries a list of the tree holds: ``n_enc_layers`` for
+    ``enc_layers``, ``num_mem_blocks`` for ``shared_blocks``, a site each
+    of ``hybrid_layer_ids`` for ``sites``, ``n_layers`` for the others."""
+    return {"enc_layers": cfg.n_enc_layers,
+            "shared_blocks": cfg.num_mem_blocks,
+            "sites": len(cfg.hybrid_layer_ids)}.get(stack, cfg.n_layers)
 
 
 def reference_ndim(name: str, t: torch.Tensor) -> int:
@@ -397,14 +447,15 @@ def param_tree(cfg: ModelCfg, params: dict) -> dict:
     tree the forward reads: ``{"embed": {...}, "final_norm": ...,
     "layers": [{"ln1", "ln2", "attn": {...}, "ffn" or "moe": {...}}, ...]}``
     or, for an SSM stack, ``"ssm_layers": [{"ln", "ssm": {...}}, ...]`` and
-    a hybrid's ``"shared_attn"``, or an encoder-decoder's ``enc_layers``
-    and ``dec_layers`` lists beside ``pos_emb_enc`` and
-    ``enc_final_norm``; the tensors themselves, not copies."""
+    a hybrid's ``"shared_attn"`` or Zamba2's ``"shared_blocks"`` and
+    ``"sites"`` lists, or an encoder-decoder's ``enc_layers`` and
+    ``dec_layers`` lists beside ``pos_emb_enc`` and ``enc_final_norm``;
+    the tensors themselves, not copies."""
     tree: dict = {}
     for name, t in params.items():
         parts = name.split(".")
         node = tree
-        if parts[0] in _STACKED:
+        if parts[0] in _LISTS:
             node = node.setdefault(parts[0], [{} for _ in range(
                 stacked_layers(cfg, parts[0]))])
             node, parts = node[int(parts[1])], parts[2:]
@@ -539,9 +590,43 @@ def _attn_block(p: dict, cfg: ModelCfg, h: torch.Tensor,
     return _add(h, f), aux
 
 
-def _ssm_block(p: dict, cfg: ModelCfg, h: torch.Tensor) -> torch.Tensor:
-    return _add(h, SSM.ssm_apply(p["ssm"], cfg, rms_norm(h, p["ln"],
-                                                         cfg.norm_eps)))
+def _ssm_block(p: dict, cfg: ModelCfg, h: torch.Tensor,
+               t: torch.Tensor | None = None) -> torch.Tensor:
+    """An SSM layer: ``h + mamba(norm(h))``; at a Zamba2 site
+    ``h + mamba(norm(h + t))``, the site's ``t`` in the mixer's input and
+    not in the residual."""
+    x = h if t is None else h + t
+    with span("ssm"):
+        y = SSM.ssm_apply(p["ssm"], cfg, rms_norm(x, p["ln"], cfg.norm_eps))
+    return _add(h, y)
+
+
+def shared_block(p: dict, site: dict, cfg: ModelCfg, h: torch.Tensor,
+                 emb: torch.Tensor, positions: torch.Tensor, block: int,
+                 train: bool = False) -> torch.Tensor:
+    """Zamba2's shared transformer block ``p`` (block ``block`` of
+    ``shared_blocks``) at a site, and that site's own weights ``site``:
+    ``linear(T)`` (B, S, D) with
+
+        x = ln1(concat(h, emb))            (2 x d_model wide)
+        a = attention(x), scale (head_dim / 2)^-0.5, RoPE on every dim
+        T = mlp(ln2(a)), gate_up + lora_b(lora_a(.)), ``cfg.act_fn``
+
+    The block has no residual of its own: its ``linear(T)`` enters only
+    the site's SSM layer (:func:`_ssm_block`).  ``shared_block.calls``
+    counts the calls of each block (``A`` for block 0)."""
+    shared_block.calls[chr(ord("A") + block)] += 1
+    with span("attn"):
+        x = rms_norm(torch.cat([h, emb], dim=-1), p["ln1"], cfg.norm_eps)
+        a = ATT.attn_apply(p["attn"], cfg, x, positions, train=train,
+                           scale=(cfg.resolved_head_dim / 2) ** -0.5)
+    with span("ffn"):
+        f = ffn_apply(p["ffn"], rms_norm(a, p["ln2"], cfg.norm_eps),
+                      cfg.act_fn, lora=(site["lora_a"], site["lora_b"]))
+    return f @ site["linear"]
+
+
+shared_block.calls = collections.Counter()
 
 
 def _forward_decoder(cfg: ModelCfg, w: dict, h: torch.Tensor,
@@ -557,16 +642,27 @@ def _forward_decoder(cfg: ModelCfg, w: dict, h: torch.Tensor,
 
 
 def _forward_ssm(cfg: ModelCfg, w: dict, h: torch.Tensor,
-                 positions: torch.Tensor, attn_layer, ssm_layer
-                 ) -> torch.Tensor:
-    """An SSM stack's layers: ``ssm_layer(p, h)`` for each; a hybrid runs
-    ``attn_layer`` on its shared layer (window 0) before every
-    ``hybrid_attn_every`` of them, the reference's super-layers."""
+                 positions: torch.Tensor, blocks: dict) -> torch.Tensor:
+    """An SSM stack's layers: ``blocks["ssm"](p, h, t)`` for each; a
+    hybrid runs ``blocks["attn"]`` on its shared layer (window 0) before
+    every ``hybrid_attn_every`` of them, the reference's super-layers;
+    Zamba2's layout runs ``blocks["shared"](p, site, h, emb, positions,
+    block)`` at each site of ``hybrid_layer_ids`` (the blocks in turn,
+    ``emb`` the embedding) and hands its output to that site's SSM layer
+    as ``t`` (None elsewhere)."""
     every = _attn_every(cfg)
+    sites = {layer: j for j, layer in enumerate(cfg.hybrid_layer_ids)}
+    emb = h
     for i, p in enumerate(w["ssm_layers"]):
         if every and i % every == 0:
-            h, _ = attn_layer(w["shared_attn"], h, positions, 0)
-        h = ssm_layer(p, h)
+            h, _ = blocks["attn"](w["shared_attn"], h, positions, 0)
+        t = None
+        if i in sites:
+            j = sites[i]
+            b = j % cfg.num_mem_blocks
+            t = blocks["shared"](w["shared_blocks"][b], w["sites"][j], h,
+                                 emb, positions, b)
+        h = blocks["ssm"](p, h, t)
     return h
 
 
@@ -643,8 +739,9 @@ def _decoder(cfg: ModelCfg, w: dict, batch: dict, last_only: bool,
     head (in the compute dtype): ``(logits, aux)``, aux the MoE
     load-balancing losses summed over layers (float32; 0 without MoE).
     ``blocks`` holds the layer functions: ``attn(p, h, positions,
-    window)``, ``ssm(p, h)``, ``enc(p, h, positions)`` and ``cross(p, h,
-    positions, memory)``."""
+    window)``, ``ssm(p, h, t)``, ``shared(p, site, h, emb, positions,
+    block)``, ``enc(p, h, positions)`` and ``cross(p, h, positions,
+    memory)``."""
     cdt = _dtype(cfg.compute_dtype)
     tokens = batch["tokens"]
     h = embed_lookup(w["embed"], tokens, cdt)
@@ -655,8 +752,7 @@ def _decoder(cfg: ModelCfg, w: dict, batch: dict, last_only: bool,
     h = constrain(h, ("act_batch", None, "act_embed"))
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.is_ssm:
-        h = _forward_ssm(cfg, w, h, positions, blocks["attn"],
-                         blocks["ssm"])
+        h = _forward_ssm(cfg, w, h, positions, blocks)
     elif cfg.enc_dec:
         memory = _forward_encoder(cfg, w, batch["frames"].to(cdt),
                                   blocks["enc"])
@@ -677,7 +773,9 @@ def _serve_blocks(cfg: ModelCfg) -> dict:
     """The layer functions of :func:`_decoder` for serving: attention
     through the flash kernel."""
     return {"attn": lambda p, h, pos, win: _attn_block(p, cfg, h, pos, win),
-            "ssm": lambda p, h: _ssm_block(p, cfg, h),
+            "ssm": lambda p, h, t: _ssm_block(p, cfg, h, t),
+            "shared": lambda p, site, h, emb, pos, b: shared_block(
+                p, site, cfg, h, emb, pos, b),
             "enc": lambda p, h, pos: _encoder_block(p, cfg, h, pos),
             "cross": lambda p, h, pos, mem: _cross_block(p, cfg, h, pos,
                                                          mem)}
@@ -725,8 +823,12 @@ def train_forward(params: dict, cfg: ModelCfg, batch: dict,
         return _attn_block(cast_weights(p, cdt), cfg, h, positions, window,
                            train=True)
 
-    def ssm_block(p, h):
-        return _ssm_block(cast_weights(p, cdt), cfg, h)
+    def ssm_block(p, h, t):
+        return _ssm_block(cast_weights(p, cdt), cfg, h, t)
+
+    def shared(p, site, h, emb, positions, b):
+        return shared_block(cast_weights(p, cdt), cast_weights(site, cdt),
+                            cfg, h, emb, positions, b, train=True)
 
     def enc_block(p, h, positions):
         return _encoder_block(cast_weights(p, cdt), cfg, h, positions,
@@ -741,8 +843,8 @@ def train_forward(params: dict, cfg: ModelCfg, batch: dict,
             return block
         return lambda *args: checkpoint(block, *args, use_reentrant=False)
 
-    blocks = {"attn": attn_block, "ssm": ssm_block, "enc": enc_block,
-              "cross": cross_block}
+    blocks = {"attn": attn_block, "ssm": ssm_block, "shared": shared,
+              "enc": enc_block, "cross": cross_block}
     logits, aux = _decoder(cfg, param_tree(cfg, params), batch, False,
                            {k: remat(f) for k, f in blocks.items()})
     return (logits, aux) if with_aux else logits
@@ -773,7 +875,9 @@ def cache_specs(cfg: ModelCfg, batch: int, max_seq: int) -> dict:
     (n_layers, batch, enc_frames, Hkv, hd) bfloat16; for SSM stacks
     ``ssm.{ssd, conv}``, each layer's float32 decode state stacked over
     layers, and in a hybrid ``shared_k``, ``shared_v`` (n_sites, batch,
-    max_seq, Hkv, hd) bfloat16."""
+    max_seq, Hkv, hd) bfloat16.  Zamba2's layout has no decode cache
+    here: it raises."""
+    _no_decode(cfg)
     hd = cfg.resolved_head_dim
     if not cfg.is_ssm:
         kv = ((cfg.n_layers, batch, max_seq, cfg.n_kv_heads, hd),
@@ -791,6 +895,13 @@ def cache_specs(cfg: ModelCfg, batch: int, max_seq: int) -> dict:
               torch.bfloat16)
         out["shared_k"] = out["shared_v"] = kv
     return out
+
+
+def _no_decode(cfg: ModelCfg) -> None:
+    if cfg.has_shared_blocks:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: Zamba2's shared-block layout (hybrid_layer_ids)"
+            f" has no decode cache or decode step; it trains and prefills")
 
 
 def map_specs(specs: dict, fn) -> dict:
@@ -818,8 +929,10 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor,
 
     An SSM layer's state carries each row's history whatever ``pos`` says:
     as in the reference, a row that starts a new sequence at pos 0 keeps
-    the previous one's state (``launch.serve_lm`` recycles slots so)."""
+    the previous one's state (``launch.serve_lm`` recycles slots so).
+    Zamba2's layout raises (no decode cache)."""
     cfg = model.cfg
+    _no_decode(cfg)
     cdt = _dtype(cfg.compute_dtype)
     w = model.compute_params()
     h = constrain(embed_lookup(w["embed"], tokens, cdt),

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.layers import init_rms, normal_init, rms_norm
+from repro_torch.obs.trace import span
 from repro_torch.parallel.local import data_parallel
 
 
@@ -149,13 +150,27 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype), carry
 
 
+def gated_norm(cfg: ModelCfg, y: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """The RMSNorm of the gated output ``y`` (..., d_in): over all of
+    d_in, or with ``cfg.ssm.grouped_norm`` over each of its ``n_groups``
+    groups of d_in / n_groups channels (Zamba2's), ``scale`` read in the
+    same groups."""
+    groups = cfg.ssm.n_groups if cfg.ssm.grouped_norm else 1
+    if groups == 1:
+        return rms_norm(y, scale, cfg.norm_eps)
+    shape = y.shape
+    return rms_norm(y.reshape(*shape[:-1], groups, -1),
+                    scale.reshape(groups, -1), cfg.norm_eps).reshape(shape)
+
+
 def ssm_apply(p: dict, cfg: ModelCfg, u: torch.Tensor) -> torch.Tensor:
     """Full-sequence mamba2 block; u: (B, S, D).  On a mesh (DTensor
     weights) each rank scans its own sequences (``parallel.local.
     data_parallel``) and, where the model axis divides the heads, only
     its own heads (:func:`head_parallel_plan`): its output is then a
     partial sum over that axis.  Elsewhere the block's weights are
-    gathered whole."""
+    gathered whole.  The chunked scan is the step span ``ssd``."""
     plan = head_parallel_plan(cfg, p)
     if plan is None:
         return data_parallel(lambda x, w: _ssm_apply(w, cfg, x), u, p)
@@ -167,7 +182,7 @@ def ssm_apply(p: dict, cfg: ModelCfg, u: torch.Tensor) -> torch.Tensor:
 def _ssm_apply(p: dict, cfg: ModelCfg, u: torch.Tensor) -> torch.Tensor:
     z, x, b, c, dt = _split_proj(cfg, u @ p["in_proj"])
     return _ssm_scan(p, cfg, z, x, b, c, dt, p["conv_w"], p["conv_b"],
-                     lambda y: rms_norm(y, p["norm"], cfg.norm_eps))
+                     lambda y: gated_norm(cfg, y, p["norm"]))
 
 
 def _ssm_scan(p: dict, cfg: ModelCfg, z, x, b, c, dt, conv_w, conv_b,
@@ -186,8 +201,9 @@ def _ssm_scan(p: dict, cfg: ModelCfg, z, x, b, c, dt, conv_w, conv_b,
     a = -torch.exp(p["a_log"])[None, None, :] * dt            # (B,S,H)
     bg = b.reshape(bs, s, groups, ssm.d_state)
     cg = c.reshape(bs, s, groups, ssm.d_state)
-    y, _ = ssd_chunked(xh * dt[..., None].to(xh.dtype), a, bg, cg,
-                       min(ssm.chunk, s))
+    with span("ssd"):
+        y, _ = ssd_chunked(xh * dt[..., None].to(xh.dtype), a, bg, cg,
+                           min(ssm.chunk, s))
     y = y + xh * p["d_skip"][None, None, :, None].to(xh.dtype)
     y = y.reshape(bs, s, d_in) * F.silu(z)
     return norm(y) @ p["out_proj"]
@@ -341,6 +357,9 @@ def head_parallel_plan(cfg: ModelCfg, p: dict) -> HeadPlan | None:
     per, rep = n_heads // tp[1], n_heads // cfg.ssm.n_groups
     if tp[2] is None or n_heads % tp[1] or (per % rep and rep % per):
         return None
+    if cfg.ssm.grouped_norm:
+        raise NotImplementedError("the grouped gated norm runs on one "
+                                  "device only, not head-parallel")
     return HeadPlan(cfg, tp)
 
 
@@ -412,7 +431,7 @@ def _ssm_decode(p: dict, cfg: ModelCfg, u: torch.Tensor, state: dict):
                       torch.cat([x, b, c], dim=-1).float()], dim=1)
     return (*_ssd_step(p, cfg, u, z, dt, hist, p["conv_w"], p["conv_b"],
                        state["ssd"],
-                       lambda y: rms_norm(y, p["norm"], cfg.norm_eps)),
+                       lambda y: gated_norm(cfg, y, p["norm"])),
             hist[:, 1:, :])
 
 

@@ -215,7 +215,21 @@ pass:
     version, SDPA with ``enable_gqa`` on the same float32 tensors (its math
     backend, ``library_math_ms``) and two bounds: the route's, its
     operations three times over at 495 TFLOP/s (dense TF32), and the SIMT
-    route's at 67 TFLOP/s.
+    route's at 67 TFLOP/s.  Training attention at both train cells'
+    shapes ((4, 16, 8, 2048, 128) and (4, 32, 32, 2048, 224) at scale
+    112^-0.5, causal; :func:`flash_train_times`): the training forward's
+    output equal to the prefill kernel's bit for bit, its log-sum-exp and
+    float32 output and the backward's dq, dk, dv against the float64
+    plain versions of the same bfloat16 tensors (one bfloat16 step plus
+    1e-4 of the largest element, and at most 2 % of a gradient's elements
+    off the float64 value rounded to nearest, which rejects P and dS
+    rounded to bfloat16 without their lo halves); then event and device
+    times of both halves beside the backward's bound (its five products'
+    causal flops at 989 TFLOP/s; x 1.6 with the split products, apart),
+    the plain backward and SDPA's backward.  The records
+    ``flash_attention_wgmma_forward_train`` and
+    ``flash_attention_wgmma_backward`` carry these and phase 14b's
+    launches.
 
 11. **the serving front** — (a) HTTP: ``BackgroundIngress`` on port 0
     over model A at level 3 as the port compiled it (mixed, ``smem``),
@@ -334,7 +348,9 @@ pass:
     launcher's run: after step 1 every pruned weight of every layer's
     three FFN matrices is 0 and every mask column sums to 16; exactly 252
     masked-matmul launches a step (28 layers x (3 forward + 3 recomputed
-    + 3 input gradients)), all wgmma; the first 3 losses within
+    + 3 input gradients)), all wgmma; 56 training-attention forwards (28
+    and 28 in remat's recompute), 56 backward launches (28 calls of two)
+    and no prefill flash launch a step; the first 3 losses within
     ``LM_PARITY_RTOL`` of the same 3 steps with every FFN product on the
     plain version (``PlainMaskedMatmul``); host ms a step, and a
     ``torch.profiler`` trace (:func:`step_profile`, through
@@ -391,8 +407,9 @@ pass:
 17. **the families trained** (the wgmma masked matmul on the LogicNet
     paths; the others launch no kernel of the repo: a MoE layer takes
     ``moe`` before the LogicNet-FFN, mamba2 has no FFN, whisper's layers
-    call the dense FFN, and training attention is the chunked form, as
-    the reference's).  (a) Every run of ``lm_smoke_train.npz``
+    call the dense FFN, and training attention takes ``attn_train_route``'s
+    path: the flash kernels for bfloat16 where the chunked form computes
+    the true function, else the chunked form, as the reference's).  (a) Every run of ``lm_smoke_train.npz``
     (:func:`train_runs`: the ten zoo archs at smoke size, and qwen3-1.7b,
     zamba2-2.7b and qwen2-vl-2b with ``LogicNetFFNCfg()``) at float32
     and bfloat16 compute: the reference's init carried in with
@@ -2433,6 +2450,152 @@ def flash_f32_times(torch, dev) -> dict:
             "shape": [b, 16, 8, s, 128]}
 
 
+# the two train cells' attention (B, Hq, Hkv, S, D, scale): qwen3-1.7b's
+# layers and zamba2-7b's shared blocks
+TRAIN_ATTN_SHAPES = (((4, 16, 8, 2048, 128), None),
+                     ((4, 32, 32, 2048, 224), 112 ** -0.5))
+# training attention against the float64 plain versions of the same
+# bfloat16 inputs, as tests/test_torch_cuda.py holds it: each gradient
+# within one bfloat16 step plus TRAIN_GRAD_REL of its largest element, at
+# most TRAIN_ROUNDED_SHARE of its elements other than the float64 value
+# rounded to nearest bfloat16 (a plain emulation of the kernels reads
+# 0.22-0.29 % with P and dS split into hi + lo halves, 41-42 % with them
+# rounded once), the log-sum-exp within TRAIN_LSE_ATOL and the float32
+# output within TRAIN_O32_TOL (atol, rtol)
+TRAIN_GRAD_REL = 1e-4
+TRAIN_ROUNDED_SHARE = 0.02
+TRAIN_LSE_ATOL = 2e-5
+TRAIN_O32_TOL = (1e-5, 1e-5)
+# the hi + lo split runs each of P V (forward), P^T dO, dS K and dS^T Q
+# twice: the backward's five products cost 1.6 times their own work
+BWD_SPLIT_FACTOR = 1.6
+FA_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma_bwd.cu"
+# the reference trains through XLA (its Pallas kernel has no backward)
+FA_TRAIN_REFERENCE = "src/repro/models/attention.py:59"
+
+
+def flash_train_check(torch, q, k, v, do, scale) -> dict:
+    """Training attention on the card against the float64 plain versions
+    on the same bfloat16 card tensors: the training forward's output equal
+    to the prefill kernel's bit for bit, its log-sum-exp and float32
+    output, and dq, dk, dv of the backward (through ``FlashAttentionFn``)
+    within the TRAIN_* gates; the readings, or :func:`fail`."""
+    from repro_torch.kernels import flash_attention as FA
+    out, lse, o32 = FA._train_forward(q, k, v, True, scale)
+    if not torch.equal(out, FA.flash_attention(q, k, v, causal=True,
+                                               scale=scale)):
+        fail("phase 10 the training forward's output is not the prefill "
+             "kernel's bit for bit")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    FA.flash_attention_train(*leaves, causal=True, scale=scale).backward(do)
+    grads = [t.grad for t in leaves]
+    del leaves
+    f64 = [t.double() for t in (q, k, v, do)]
+    _, lse64, o64 = FA.flash_attention_train_plain(*f64[:3], scale=scale)
+    lse_err = float((lse.double() - lse64).abs().max())
+    o32_excess = float(((o32.double() - o64).abs() - TRAIN_O32_TOL[0]
+                        - TRAIN_O32_TOL[1] * o64.abs()).max())
+    want = FA.flash_attention_backward_plain(*f64[:3], o64, lse64, f64[3],
+                                             scale=scale)
+    del f64, lse64, o64, lse, o32
+    rec = {"lse_max_abs_err": lse_err}
+    if not lse_err <= TRAIN_LSE_ATOL or not o32_excess <= 0:
+        fail(f"phase 10 training forward: lse off by {lse_err} (gate "
+             f"{TRAIN_LSE_ATOL}), float32 output {o32_excess} past "
+             f"{TRAIN_O32_TOL}")
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        top = float(w.abs().max())
+        _, e = torch.frexp(w.float())
+        ulp = torch.ldexp(torch.full_like(w, 2.0 ** -8), e)
+        diff = (got.double() - w).abs()
+        excess = float((diff - TRAIN_GRAD_REL * top - ulp).max())
+        share = float((got != w.to(torch.bfloat16)).double().mean())
+        rec[name] = {"max_rel_err": float(diff.max()) / top,
+                     "rounded_share": share}
+        if not (excess <= 0 and share <= TRAIN_ROUNDED_SHARE):
+            fail(f"phase 10 backward {name}: {excess} past one bfloat16 "
+                 f"step plus {TRAIN_GRAD_REL} of {top}, or {share} of its "
+                 f"elements off the float64 value rounded (gate "
+                 f"{TRAIN_ROUNDED_SHARE})")
+    return rec
+
+
+def flash_train_times(torch, dev) -> dict:
+    """Phase 10, training attention: at both train cells' shapes, causal,
+    the checks of :func:`flash_train_check`, then the training forward
+    (``flash_attention_wgmma_forward_train``) and the backward (its two
+    launches, ``flash_attention_wgmma_backward``): event and device times
+    beside the bound of the backward's own work (5 products of
+    2·B·Hq·S²·D/2 causal flops at 989 TFLOP/s, as row 5's forward bound
+    counts P V once; ``bwd_split_bound_ms`` is it × 1.6, the three
+    products split into hi + lo run twice), the plain backward and
+    SDPA's backward (the library yardstick, where a fused backend takes
+    the shape)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as FA
+    rec = {}
+    for (b, hq, hkv, s, d), scale in TRAIN_ATTN_SHAPES:
+        sc = scale or d ** -0.5
+        q, k, v = flash_inputs(torch, dev, b, hq, hkv, s, d, "bfloat16")
+        do = flash_inputs(torch, dev, b, hq, hq, s, d, "bfloat16",
+                          seed=1)[0]
+        key = f"_{d}"
+        rec[f"train_check{key}"] = flash_train_check(torch, q, k, v, do, sc)
+        torch.cuda.empty_cache()
+        _, lse, o32 = FA._train_forward(q, k, v, True, sc)
+
+        def fwd():
+            return FA._train_forward(q, k, v, True, sc)
+
+        def bwd():
+            return FA.flash_attention_backward(q, k, v, o32, lse, do,
+                                               causal=True, scale=sc)
+
+        fwd_ms, bwd_ms = cuda_ms(fwd, 5), cuda_ms(bwd, 5)
+        fwd_dev = device_ms(fwd, 5, device_bound=True)
+        bwd_dev = device_ms(bwd, 5, launches=2, device_bound=True)
+        plain_ms = cuda_ms(lambda: FA.flash_attention_backward_plain(
+            q, k, v, o32, lse, do, causal=True, scale=sc), 1, 3)
+        try:
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                y = F.scaled_dot_product_attention(
+                    *leaves, is_causal=True, scale=sc, enable_gqa=True)
+                library_ms = cuda_ms(lambda: torch.autograd.grad(
+                    y, leaves, do, retain_graph=True), 5)
+            del y, leaves
+        except RuntimeError as err:       # no fused backend for the shape
+            library_ms = None
+            log(f"phase 10 SDPA backward at D {d}: {str(err)[:120]}")
+        ops = 5 * 2 * b * hq * s * s * d // 2
+        bound_ms = ops / FLOPS_PER_S["bfloat16"] * 1e3
+        rec.update({f"train_fwd_ms{key}": fwd_ms,
+                    f"train_fwd_device_ms{key}": fwd_dev,
+                    f"bwd_ms{key}": bwd_ms, f"bwd_device_ms{key}": bwd_dev,
+                    f"bwd_plain_ms{key}": plain_ms,
+                    f"bwd_library_ms{key}": library_ms,
+                    f"bwd_bound_ms{key}": bound_ms,
+                    f"bwd_split_bound_ms{key}": bound_ms * BWD_SPLIT_FACTOR,
+                    f"train_shape{key}": [b, hq, hkv, s, d]})
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"phase 10 flash_attention_wgmma_backward (B, Hq, Hkv, S, D) "
+            f"({b}, {hq}, {hkv}, {s}, {d}) causal: checks "
+            f"{rec[f'train_check{key}']}; {bwd_ms:.4f} ms/call "
+            f"(2 launches), device {bwd_dev} ms, bound {bound_ms:.5f} ms "
+            f"({ops / bwd_ms / 1e9:.1f} TFLOP/s of the function's work; "
+            f"x {BWD_SPLIT_FACTOR} with the split products "
+            f"{bound_ms * BWD_SPLIT_FACTOR:.5f} ms), plain "
+            f"{plain_ms:.4f} ms, SDPA backward {lib}; training forward "
+            f"{fwd_ms:.4f} ms, device {fwd_dev} ms")
+        del q, k, v, do, lse, o32
+        torch.cuda.empty_cache()
+    return rec
+
+
 def http_get(port: int, path: str) -> tuple[int, str]:
     """One ``GET`` against a localhost ingress (30 s timeout)."""
     import http.client
@@ -3470,13 +3633,15 @@ def lm_train_args(ckpt_dir: str, steps: int, ckpt_every: int = 1000,
 
 def all_wrappers():
     """Every kernel wrapper of the port (each has a launch count)."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_train)
     from repro_torch.kernels.lut_lookup import lut_lookup
     from repro_torch.kernels.lut_network import lut_network, lut_network_mixed
     from repro_torch.kernels.masked_matmul import (
         masked_matmul, masked_matmul_swiglu_quant, quant_relu)
     return (lut_network_mixed, lut_network, lut_lookup, masked_matmul,
-            masked_matmul_swiglu_quant, quant_relu, flash_attention)
+            masked_matmul_swiglu_quant, quant_relu, flash_attention,
+            flash_attention_train, flash_attention_backward)
 
 
 def reset_all() -> None:
@@ -3873,6 +4038,7 @@ def lm_train_phase(torch, dev, tmp: str) -> dict:
     """Phase 14b: ``launch.train --full --logicnet-ffn`` on the card."""
     import gc
 
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.masked_matmul import masked_matmul
     from repro_torch.launch import steps, train
     from repro_torch.models import layers as model_layers
@@ -3952,6 +4118,21 @@ def lm_train_phase(torch, dev, tmp: str) -> dict:
     if (launches != per_step * steps_run or by_route["wgmma"] != launches):
         fail(f"phase 14b: {launches} masked_matmul launches in {steps_run} "
              f"steps ({by_route}); expected {per_step} a step, all wgmma")
+    # training attention: a forward a layer, again in remat's recompute
+    # (non-reentrant checkpointing runs the first forward with grad), and
+    # a backward call of two launches a layer; no prefill launch
+    attn = {"forward": (FA.flash_attention_train.launches,
+                        dict(FA.flash_attention_train.launches_by_route)),
+            "backward": (FA.flash_attention_backward.launches,
+                         dict(FA.flash_attention_backward.launches_by_route)),
+            "prefill": FA.flash_attention.launches}
+    remat = 2 if cfg.remat != "none" else 1
+    if (attn["forward"][0] != remat * cfg.n_layers * steps_run
+            or attn["backward"][0] != 2 * cfg.n_layers * steps_run
+            or attn["prefill"]):
+        fail(f"phase 14b: training attention launched {attn} in "
+             f"{steps_run} steps; expected {remat * cfg.n_layers} forwards "
+             f"and {2 * cfg.n_layers} backward launches a step, no prefill")
     if len(losses) != steps_run or not all(
             l == l and abs(l) < float("inf") for l in losses):
         fail(f"phase 14b: losses {losses}")
@@ -3959,6 +4140,7 @@ def lm_train_phase(torch, dev, tmp: str) -> dict:
     print(line, flush=True)
     log(f"phase 14b {steps_run} steps: masked_matmul {launches} launches "
         f"({launches / steps_run:.0f} a step, by route {by_route}); "
+        f"training attention {attn}; "
         f"{host_ms:.3f} ms a step on the host clock (synchronised, steps "
         f"{LM_HOST_STEPS[0] + 1}-{LM_HOST_STEPS[1]}), of which AdamW "
         f"{adamw['host_ms']:.3f} ms to issue its kernels and "
@@ -3969,6 +4151,7 @@ def lm_train_phase(torch, dev, tmp: str) -> dict:
         f"({torch.cuda.get_device_name(0)})")
     model = steps.model_from_state(cfg, loop.state)
     out = {"launches": launches, "launches_by_route": by_route,
+           "attn_launches": attn,
            "steps": steps_run, "losses": losses,
            "plain_losses": plain_losses, "parity_rtol": rel,
            "step_ms": host_ms, "adamw": adamw, "profile": prof,
@@ -6999,6 +7182,7 @@ def main() -> None:
     # the kernels' traces before the prefill's: the profiler loses most
     # records of short traces taken after a large one
     fa_rec.update(flash_times(torch, dev))
+    train_times = flash_train_times(torch, dev)
     tf_rec.update(flash_f32_times(torch, dev))
     fa_rec.update(path_times(torch, dev, path))
     fa_rec.update({k: path[k] for k in ("prefill_first_ms",
@@ -7063,6 +7247,21 @@ def main() -> None:
     # -- phase 14: qwen3-1.7b trained with the LogicNet-FFN, served,
     # checkpointed and restarted; its masked products on the wgmma route
     records.append(lm_train_phases(torch, dev))
+    # training attention's two kernels: phase 10's checks and times, and
+    # their launches on phase 14b's main path
+    attn = records[-1]["lm_training"]["attn_launches"]
+    for name, source, half, keys in (
+            ("flash_attention_wgmma_forward_train", FA_WGMMA_SOURCE,
+             "forward", ("train_",)),
+            ("flash_attention_wgmma_backward", FA_BWD_SOURCE, "backward",
+             ("bwd_", "train_check", "train_shape"))):
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": None, "reference": FA_TRAIN_REFERENCE,
+               "launches": attn[half][0],
+               "launches_by_route": attn[half][1]}
+        rec.update({k: v for k, v in train_times.items()
+                    if k.startswith(keys)})
+        records.append(rec)
 
     # -- phase 15: the MoE and SSM families at full width; flash's launches
     # on their paths (mamba2-370m has no attention) and its times at their

@@ -60,6 +60,11 @@ _SIGNATURES = {
                                 _I, _F, _I, _P),
     "flash_attention_wgmma_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _I, _I, _F, _P),
+    "flash_attention_wgmma_forward_train": (_P, _P, _P, _P, _P, _P, _P, _I,
+                                            _I, _I, _I, _I, _I, _I, _F, _P),
+    "flash_attention_wgmma_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                       _P),
     "flash_attention_tf32_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _I, _I, _F, _P),
 }

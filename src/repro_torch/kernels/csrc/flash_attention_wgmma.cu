@@ -8,6 +8,13 @@
 //                                  GQA (query head h reads KV head
 //                                  h / (Hq / Hkv)), causal, an optional
 //                                  sliding window, a ragged tail.
+//   flash_attention_wgmma_forward_train  the same kernel for training
+//                                  (attn_apply(train=True)): also writes
+//                                  each row's log-sum-exp and the float32
+//                                  output, which the backward
+//                                  (flash_attention_wgmma_bwd.cu) reads;
+//                                  the prefill entry passes no such
+//                                  outputs and runs as before.
 //
 // q has Sq rows and k, v Skv keys; they differ only without a mask
 // (cross-attention: whisper's decode token against its 1500 encoder frames;
@@ -69,17 +76,22 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_wgmma.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using flash_wgmma::score_product;
+using flash_wgmma::split_bf16x2;
+using flash_wgmma::value_product;
 
 constexpr int kBQ = 64;         // query rows of a consumer
 constexpr int kStages = 2;
 constexpr int kMaxDim = 256;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DP, int BK, int NC>
 struct Layout {
@@ -90,73 +102,18 @@ struct Layout {
   static constexpr int kThreads = 128 * (NC + 1);
 };
 
-// S += Q K^T over DP (chunks of 64, k16 steps)
-template <int DP, int BK>
-__device__ __forceinline__ void score_product(float (&s)[BK / 2],
-                                              const bf16* qs, const bf16* ks) {
-#pragma unroll
-  for (int ch = 0; ch < DP / 64; ++ch) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t da = hopper::desc_sw128(qs + ch * kBQ * 64 + kk * 16, 16,
-                                             1024);
-      const uint64_t db = hopper::desc_sw128(ks + ch * BK * 64 + kk * 16, 16,
-                                             1024);
-      const int acc = (ch | kk) != 0;
-      if constexpr (BK == 128) {
-        hopper::wgmma_ss_m64n128<0>(s, da, db, acc);
-      } else {
-        hopper::wgmma_ss_m64n64<0>(s, da, db, acc);
-      }
-    }
-  }
-}
-
-// O += P V for one k16 slice, P as register A fragments
-template <int DP>
-__device__ __forceinline__ void value_step(float (&o)[DP / 2],
-                                           const uint32_t (&p)[4],
-                                           uint64_t db) {
-  if constexpr (DP == 64) {
-    hopper::wgmma_rs_m64n64<1>(o, p, db, 1);
-  } else if constexpr (DP == 128) {
-    hopper::wgmma_rs_m64n128<1>(o, p, db, 1);
-  } else if constexpr (DP == 192) {
-    hopper::wgmma_rs_m64n192<1>(o, p, db, 1);
-  } else {
-    hopper::wgmma_rs_m64n256<1>(o, p, db, 1);
-  }
-}
-
-// O += P_hi V + P_lo V (P_hi V alone without the split)
-template <int DP, int BK, bool kSplitP>
-__device__ __forceinline__ void value_product(
-    float (&o)[DP / 2], const uint32_t (&hi)[BK / 16][4],
-    const uint32_t (&lo)[BK / 16][4], const bf16* vs) {
-#pragma unroll
-  for (int kc = 0; kc < BK / 16; ++kc) {
-    const uint64_t db = hopper::desc_sw128(vs + kc * 16 * 64, BK * 128, 1024);
-    value_step<DP>(o, hi[kc], db);
-    if constexpr (kSplitP) value_step<DP>(o, lo[kc], db);
-  }
-}
-
-// (a, b) = hi + lo, each a bfloat16 pair: hi rounds a and b, lo rounds
-// what hi leaves (exact in float32)
-__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
-                                             uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = hopper::pack_bf16x2(a - hf.x, b - hf.y);
-}
-
 struct Params {
   bf16* out;
   long long os_b, os_h, os_s;   // out strides in elements
   int n_heads, n_kv_heads, group, head_blocks, seq, seq_kv, dim, causal;
   int window;
   float scale_log2;             // scale * log2(e)
+  // the training forward's two more outputs (nullptr in a prefill): the
+  // row log-sum-exp of the scaled scores, natural log, (B, Hq, lse_rows),
+  // and the float32 output before its rounding, contiguous (B, Hq, S, D)
+  float* lse;
+  float* o32;
+  int lse_rows;
 };
 
 template <int DP, int BK, int NC, bool kSplitP>
@@ -367,6 +324,26 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
     }
   }
+  if (prm.lse == nullptr) return;
+  const long long bh = static_cast<long long>(b) * prm.n_heads + h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= prm.seq) continue;
+    if (t4 == 0) {
+      prm.lse[bh * prm.lse_rows + row] =
+          (m[r] + log2f(fmaxf(l[r], 1e-30f))) * kLn2;
+    }
+    float* dst = prm.o32 + (bh * prm.seq + row) * prm.dim;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < prm.dim) {
+        *reinterpret_cast<float2*>(dst + col) = make_float2(
+            o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+      }
+    }
+  }
 }
 
 template <int DP, int BK, int NC, bool kSplitP = true>
@@ -413,23 +390,11 @@ cudaError_t dispatch(int dp, bool split_p, const CUtensorMap& qmap,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// strides: 12 element strides, (batch, head, seq) for q, k, v and out in
-// that order; the last dimension of each is contiguous.  window: 0 = none,
-// else >= 1 keys.  seq: query rows, seq_kv: keys (equal when causal or
-// windowed).  split_p: 1 = P V from P_hi + P_lo (the kernel), 0 = from
-// P rounded to bfloat16 (only 64 < D <= 128 with Hq / Hkv >= 2).  Query
-// tiles go on grid.x, (KV head, head block) on grid.y and the batch on
-// grid.z (up to 65535 each: the wrapper checks).
-int flash_attention_wgmma_forward(const void* q, const void* k, const void* v,
-                                  void* out, const long long* strides,
-                                  int batch, int n_heads, int n_kv_heads,
-                                  int seq, int seq_kv, int dim, int causal,
-                                  int window, int split_p, float scale,
-                                  void* stream) {
+int forward(const void* q, const void* k, const void* v, void* out,
+            const long long* strides, float* lse, float* o32, int lse_rows,
+            int batch, int n_heads, int n_kv_heads, int seq, int seq_kv,
+            int dim, int causal, int window, int split_p, float scale,
+            void* stream) {
   if (dim < 8 || dim > kMaxDim || dim % 8 || n_kv_heads < 1 ||
       n_heads % n_kv_heads != 0 || window < 0 || seq < 1 || seq_kv < 1 ||
       batch < 1 || (seq != seq_kv && (causal || window))) {
@@ -474,12 +439,59 @@ int flash_attention_wgmma_forward(const void* q, const void* k, const void* v,
   prm.causal = causal;
   prm.window = window;
   prm.scale_log2 = scale * kLog2e;
+  prm.lse = lse;
+  prm.o32 = o32;
+  prm.lse_rows = lse_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool split = split_p != 0;
   cudaError_t err = nc == 2
       ? dispatch<2>(dp, split, maps[0], maps[1], maps[2], prm, batch, s)
       : dispatch<1>(dp, split, maps[0], maps[1], maps[2], prm, batch, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+extern "C" {
+
+// strides: 12 element strides, (batch, head, seq) for q, k, v and out in
+// that order; the last dimension of each is contiguous.  window: 0 = none,
+// else >= 1 keys.  seq: query rows, seq_kv: keys (equal when causal or
+// windowed).  split_p: 1 = P V from P_hi + P_lo (the kernel), 0 = from
+// P rounded to bfloat16 (only 64 < D <= 128 with Hq / Hkv >= 2).  Query
+// tiles go on grid.x, (KV head, head block) on grid.y and the batch on
+// grid.z (up to 65535 each: the wrapper checks).
+int flash_attention_wgmma_forward(const void* q, const void* k, const void* v,
+                                  void* out, const long long* strides,
+                                  int batch, int n_heads, int n_kv_heads,
+                                  int seq, int seq_kv, int dim, int causal,
+                                  int window, int split_p, float scale,
+                                  void* stream) {
+  return forward(q, k, v, out, strides, nullptr, nullptr, 0, batch, n_heads,
+                 n_kv_heads, seq, seq_kv, dim, causal, window, split_p,
+                 scale, stream);
+}
+
+// The training forward: the same kernel, P split, no window, Sq == Skv,
+// writing besides `out` the row log-sum-exp `lse` (float32, row r of head
+// (b, h) at (b Hq + h) lse_rows + r, lse_rows >= seq) and the float32
+// output `o32` (contiguous (B, Hq, S, D)), which the backward reads
+// (flash_attention_wgmma_bwd.cu).
+int flash_attention_wgmma_forward_train(const void* q, const void* k,
+                                        const void* v, void* out,
+                                        const long long* strides, void* lse,
+                                        void* o32, int lse_rows, int batch,
+                                        int n_heads, int n_kv_heads, int seq,
+                                        int dim, int causal, float scale,
+                                        void* stream) {
+  if (lse == nullptr || o32 == nullptr || lse_rows < seq) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = hopper::bind_device_of(q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return forward(q, k, v, out, strides, static_cast<float*>(lse),
+                 static_cast<float*>(o32), lse_rows, batch, n_heads,
+                 n_kv_heads, seq, seq, dim, causal, 0, 1, scale, stream);
 }
 
 }  // extern "C"

@@ -2,8 +2,9 @@
 // loads through a CUtensorMap, mbarriers, wgmma shared-memory descriptors
 // for the 128-byte swizzle, the wgmma fences, and the wgmma instructions
 // the kernels issue.  Used by masked_matmul_wgmma.cu,
-// masked_matmul_swiglu_quant_wgmma.cu and flash_attention_wgmma.cu
-// (flash_attention.cu takes only allow_dynamic_smem; lut_fused_smem.cu the
+// masked_matmul_swiglu_quant_wgmma.cu, flash_attention_wgmma.cu and
+// flash_attention_wgmma_bwd.cu (the last two also through flash_wgmma.cuh;
+// flash_attention.cu takes only allow_dynamic_smem; lut_fused_smem.cu the
 // mbarriers, the 1-D bulk copy and allow_dynamic_smem); header only,
 // nothing here allocates.  The wgmma wrappers below are regular and
 // written out in full: inline asm needs every accumulator register named.
@@ -399,6 +400,18 @@ inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Make the primary context of the device that holds `p` current on the
+// calling thread.  cuTensorMapEncodeTiled needs a current context, and a
+// thread whose CUDA work so far went through another runtime has none
+// bound to this one: PyTorch's autograd worker thread, where a backward
+// (and remat's recompute of a forward) runs, encodes its maps here first.
+inline cudaError_t bind_device_of(const void* p) {
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, p);
+  if (err != cudaSuccess) return err;
+  return cudaSetDevice(attr.device);
 }
 
 // Raise a kernel's dynamic shared-memory limit on the current device once

@@ -7,11 +7,16 @@ The port's counterpart of ``repro.models.attention``: ``attn_init``,
 full-sequence attention with its pure-XLA ``_chunked_attention``, the same
 function its Pallas ``flash_attention`` kernel computes.  Here ``attn_apply`` calls the
 port's counterpart of that kernel (``repro_torch.kernels.flash_attention``,
-which launches on the card) for prefill; with ``train=True`` it calls
-``_chunked_attention`` in differentiable torch ops, as the reference
-trains through its XLA version: the flash kernel has no backward, in
-either package.  Decode attends one query per row against the KV cache
-with ``_chunked_attention``, as the reference does in XLA.
+which launches on the card) for prefill.  With ``train=True`` the
+reference trains through its XLA version (its Pallas kernel has no
+backward); the port takes the route ``attn_train_route`` names from what
+the inputs show: ``"flash"`` (bfloat16 on the card, where the chunked
+form computes the true function) runs ``flash_attention_train``, the
+flash kernel with a hand-written backward, and ``"chunked"`` runs
+``_chunked_attention`` in differentiable torch ops.  ``attn_apply.paths``
+counts each call's path (prefill calls are ``"flash"``).  Decode attends
+one query per row against the KV cache with ``_chunked_attention``, as the
+reference does in XLA.
 
 Supports qk-norm (qwen3), sliding windows with gemma3's per-layer
 local/global mix (window 0 = global), M-RoPE (qwen2-vl: positions
@@ -28,7 +33,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (attn_train_route,
+                                                 flash_attention,
+                                                 flash_attention_train)
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.layers import (apply_mrope, apply_rope, init_rms,
                                        normal_init, rms_norm)
@@ -128,16 +135,34 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _train_attention(q, k, v, window: int, causal: bool, chunk: int,
+                     scale: float | None) -> torch.Tensor:
+    """Training attention on (B, S, H, D) q, k, v along the path
+    ``attn_train_route`` names (counted in ``attn_apply.paths``)."""
+    route = attn_train_route(q.dtype, q.shape[-1], q.shape[1], k.shape[1],
+                             chunk, window, q.device.type)
+    attn_apply.paths[route] += 1
+    if route == "flash":
+        return flash_attention_train(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=causal,
+                                     scale=scale).transpose(1, 2)
+    return _chunked_attention(q, k, v, q_offset=0, window=window,
+                              causal=causal, chunk=chunk, scale=scale)
+
+
 def attn_apply(p: dict, cfg: ModelCfg, x: torch.Tensor,
                positions: torch.Tensor, window: int = 0,
                causal: bool = True, train: bool = False,
                scale: float | None = None) -> torch.Tensor:
     """Full-sequence attention: prefill through the flash kernel, or with
-    ``train`` through the differentiable ``_chunked_attention`` in chunks
-    of ``cfg.attn_chunk`` keys (the flash kernel raises on inputs that
-    require grad; the chunked form computes the true function where the
-    chunk divides the sequence or is at least as long, ROADMAP §3).  Both
-    scale the scores by ``scale`` (default 1/sqrt(head_dim)).
+    ``train`` differentiable, along the path ``attn_train_route`` names:
+    the flash kernel with its backward (``flash_attention_train``), or
+    ``_chunked_attention`` in chunks of ``cfg.attn_chunk`` keys (the
+    prefill kernel raises on inputs that require grad; the chunked form
+    computes the true function where the chunk divides the sequence or is
+    at least as long, ROADMAP §3, and only there does the route take the
+    kernel).  Both scale the scores by ``scale`` (default
+    1/sqrt(head_dim)).
 
     The model holds heads as (B, S, H, D); the kernel takes (B, H, S, D)
     views, so q, k and v go in as transposed views, without copies, and the
@@ -148,15 +173,19 @@ def attn_apply(p: dict, cfg: ModelCfg, x: torch.Tensor,
     q, k, v = _project_qkv(p, cfg, x, positions)
     if train:
         out = head_parallel(
-            lambda ql, kl, vl: _chunked_attention(
-                ql, kl, vl, q_offset=0, window=window, causal=causal,
-                chunk=cfg.attn_chunk, scale=scale), q, k, v, head_dim=2)
+            lambda ql, kl, vl: _train_attention(
+                ql, kl, vl, window, causal, cfg.attn_chunk, scale),
+            q, k, v, head_dim=2)
     else:
+        attn_apply.paths["flash"] += 1
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=window if window > 0 else None,
                               scale=scale).transpose(1, 2)
     return contract_heads(out, p["wo"])
+
+
+attn_apply.paths = {"flash": 0, "chunked": 0}
 
 
 def attn_decode(p: dict, cfg: ModelCfg, x: torch.Tensor,

@@ -36,7 +36,17 @@ prefill shape, to the SIMT kernel on the same inputs); each case asserts
 which route ran from the wrappers' ``launches_by_route`` counters, at the
 same tolerances.  The bfloat16 tensor-core flash route is also held to a
 second gate beside that one, 1e-3 plus two bfloat16 steps of the plain
-output, tight enough to reject a stale K/V stage.
+output, tight enough to reject a stale K/V stage.  Training attention's
+kernels (``flash_attention_train``: the training forward and the two
+backward launches) are held to the float64 gradients of the same
+bfloat16 inputs within one bfloat16 step plus ``TRAIN_GRAD_REL`` of each
+gradient's largest element, and at both train cells' shapes to float32
+autograd through ``_chunked_attention`` within two steps plus the same;
+the forward gives the prefill kernel's output bit for bit and the
+backward gives the same bits run to run.  At the cells' shapes at most
+``TRAIN_ROUNDED_SHARE`` of each gradient's elements may differ from the
+float64 gradient rounded to nearest bfloat16, which a backward with P and
+dS rounded to bfloat16 (no lo halves) would miss twenty times over.
 """
 
 import functools
@@ -1385,3 +1395,223 @@ def test_flash_attention_refuses_what_the_kernel_cannot_take(dev):
         flash_attention(*_qkv(dev, 1, 2, 2, 8, 260, torch.float32))
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, k, v, window=0)
+
+
+# ---------------------------------------------------------------------------
+# training attention: the flash kernel's training forward and its backward
+# ---------------------------------------------------------------------------
+
+# The backward kernels against the float64 gradients of the same bfloat16
+# inputs: one bfloat16 step (each gradient is rounded once from its float32
+# sum) plus 1e-4 of the tensor's largest element (P and dS enter their
+# products as hi + lo halves, 2^-17 of each term left out, and the sums
+# run over up to 2048 terms in float32: some 1e-5 of the largest element).
+TRAIN_GRAD_REL = 1e-4
+# ... and against autograd through the chunked form (float32, rounded to
+# bfloat16 the same way): two steps (each side's rounding) plus the same
+# 1e-4 of the largest element.  The log-sum-exp against torch.logsumexp of
+# the float32 scores: 2e-5 absolute (float32 exp and log of a sum of up to
+# 2048 terms, values up to ~15).
+LSE_ATOL = 2e-5
+
+
+def _train_inputs(dev, b, hq, hkv, s, d, seed):
+    q, k, v = _qkv(dev, b, hq, hkv, s, d, torch.bfloat16, seed=seed)
+    do = _qkv(dev, b, hq, hq, s, d, torch.bfloat16, seed=seed + 1)[0]
+    return q, k, v, do
+
+
+def _rel_close(got, want, steps):
+    _close(got, want, TRAIN_GRAD_REL * float(want.abs().max()), 0.0, steps)
+
+
+def _kernel_grads(q, k, v, do, causal, scale):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = FA.flash_attention_train(*leaves, causal=causal, scale=scale)
+    out.backward(do)
+    return out, [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (1, 2, 2, 64, 16), (2, 4, 2, 96, 32), (1, 8, 1, 128, 64),
+    (2, 4, 4, 250, 8), (1, 4, 2, 65, 128), (1, 2, 1, 130, 80),
+    (1, 4, 2, 300, 256), (1, 2, 2, 192, 224), (1, 2, 2, 129, 192)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_train_matches_float64(dev, b, hq, hkv, s, d, causal):
+    """The training forward gives the prefill kernel's output bit for bit
+    and the row log-sum-exp; the backward (two launches) gives dq, dk, dv
+    within TRAIN_GRAD_REL of the float64 gradients."""
+    q, k, v, do = _train_inputs(dev, b, hq, hkv, s, d, seed=s + d)
+    scale = 0.7 / d ** 0.5
+    before = (FA.flash_attention_train.launches,
+              FA.flash_attention_backward.launches, flash_attention.launches)
+    out, grads = _kernel_grads(q, k, v, do, causal, scale)
+    torch.cuda.synchronize()
+    assert (FA.flash_attention_train.launches,
+            FA.flash_attention_backward.launches,
+            flash_attention.launches) == (before[0] + 1, before[1] + 2,
+                                          before[2])
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                            scale=scale))
+    _, lse, o32 = FA._train_forward(q, k, v, causal, scale)
+    f64 = [t.double() for t in (q, k, v, do)]
+    _, lse64, o64 = FA.flash_attention_train_plain(*f64[:3], causal=causal,
+                                                   scale=scale)
+    torch.testing.assert_close(lse.double(), lse64, atol=LSE_ATOL, rtol=0)
+    _close(o32, o64, 1e-5, 1e-5, 0)
+    want = FA.flash_attention_backward_plain(*f64[:3], o64, lse64, f64[3],
+                                             causal=causal, scale=scale)
+    for got, w in zip(grads, want):
+        assert got.dtype == torch.bfloat16 and got.shape == w.shape
+        _rel_close(got, w, 1)
+
+
+def test_flash_backward_is_deterministic(dev):
+    q, k, v, do = _train_inputs(dev, 2, 4, 2, 320, 128, seed=3)
+    first = _kernel_grads(q, k, v, do, True, None)[1]
+    second = _kernel_grads(q, k, v, do, True, None)[1]
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,scale", [
+    ((4, 16, 8, 2048, 128), None),            # qwen3-1.7b's training
+    ((4, 32, 32, 2048, 224), 112 ** -0.5)])   # zamba2-7b's shared blocks
+def test_flash_train_matches_chunked_autograd_at_the_cells(dev, shape,
+                                                           scale):
+    """At both train cells' shapes: dq, dk, dv against float32 autograd
+    through ``_chunked_attention`` at chunk 1024 (two bfloat16 steps plus
+    TRAIN_GRAD_REL of the largest element), the log-sum-exp against the
+    float32 scores' (LSE_ATOL)."""
+    from repro_torch.models.attention import _chunked_attention
+    b, hq, hkv, s, d = shape
+    q, k, v, do = _train_inputs(dev, b, hq, hkv, s, d, seed=d)
+    _, grads = _kernel_grads(q, k, v, do, True, scale)
+    leaves = [t.transpose(1, 2).clone().requires_grad_() for t in (q, k, v)]
+    _chunked_attention(*leaves, q_offset=0, window=0, causal=True,
+                       chunk=1024, scale=scale).backward(do.transpose(1, 2))
+    for got, ref in zip(grads, leaves):
+        _rel_close(got, ref.grad.transpose(1, 2), 2)
+    del leaves
+    _, lse, _ = FA._train_forward(q, k, v, True, scale or d ** -0.5)
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                      k.float().repeat_interleave(hq // hkv, 1))
+    sc = (sc * (scale or d ** -0.5)).masked_fill(
+        torch.ones(s, s, dtype=torch.bool, device=dev).triu(1),
+        float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(sc, -1), atol=LSE_ATOL,
+                               rtol=0)
+
+
+# The share of a gradient's elements that differ from the float64
+# gradient rounded to nearest bfloat16.  A plain emulation of the kernels'
+# arithmetic at the cells' shapes (S 2048, D 128 and 224, standard normal
+# inputs) puts it at 0.22-0.29 % with P and dS entering as hi + lo halves
+# and at 41-42 % with them rounded to bfloat16 once: 2 % lies 7x above the
+# one and 20x below the other.  The tolerances above (a bfloat16 step of
+# each element) would pass a kernel that dropped the lo halves; this
+# does not.
+TRAIN_ROUNDED_SHARE = 0.02
+
+
+@pytest.mark.parametrize("shape,scale", [
+    ((4, 16, 8, 2048, 128), None),
+    ((4, 32, 32, 2048, 224), 112 ** -0.5)])
+def test_flash_backward_rounds_float32_gradients_at_the_cells(dev, shape,
+                                                              scale):
+    """At both train cells' shapes at most TRAIN_ROUNDED_SHARE of dq, dk
+    and dv differ from the float64 gradients of the same bfloat16 inputs
+    rounded to nearest bfloat16: the kernels keep float32 accuracy up to
+    the one rounding of the output."""
+    b, hq, hkv, s, d = shape
+    q, k, v, do = _train_inputs(dev, b, hq, hkv, s, d, seed=d + 1)
+    grads = _kernel_grads(q, k, v, do, True, scale)[1]
+    scale = scale or d ** -0.5
+    f64 = [t.double() for t in (q, k, v, do)]
+    _, lse64, o64 = FA.flash_attention_train_plain(*f64[:3], scale=scale)
+    want = FA.flash_attention_backward_plain(*f64[:3], o64, lse64, f64[3],
+                                             scale=scale)
+    del f64, lse64, o64
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        share = float((got != w.to(torch.bfloat16)).double().mean())
+        assert share <= TRAIN_ROUNDED_SHARE, (name, share)
+
+
+def test_lm_training_step_takes_the_flash_route_at_full_width(dev):
+    """One qwen3-1.7b step (LogicNet-FFN, 28 layers, 1 x 2048 tokens,
+    attn_chunk 1024): 28 training forwards and 28 more in remat's
+    recompute, 28 backward calls of two launches each, every attention on
+    the flash route; no prefill launch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as A
+    from repro_torch.models.config import LogicNetFFNCfg
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              logicnet_ffn=LogicNetFFNCfg())
+    assert cfg.n_layers == 28 and cfg.attn_chunk == 1024
+    state = steps.make_train_state(cfg, seed=0, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenStream(
+        cfg.vocab, 2048, 1).batch(0).items()}
+    before = (FA.flash_attention_train.launches,
+              FA.flash_attention_backward.launches, flash_attention.launches,
+              dict(A.attn_apply.paths))
+    state, loss = steps.make_train_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert FA.flash_attention_train.launches - before[0] == 28 + 28
+    assert FA.flash_attention_backward.launches - before[1] == 2 * 28
+    assert flash_attention.launches == before[2]
+    assert A.attn_apply.paths["flash"] - before[3]["flash"] == 56
+    assert A.attn_apply.paths["chunked"] == before[3]["chunked"]
+
+
+def test_prefill_launches_and_output_are_unchanged(dev):
+    """A prefill launches the prefill kernel alone, as before: one
+    ``wgmma`` launch a layer and no training launch; the training forward
+    on the same layer's heads gives its bits, and a training call that
+    needs no gradient launches the prefill kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+
+    cfg = get_config("qwen3-1.7b")
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = {k: t.to(torch.bfloat16) for k, t in A.attn_init(g, cfg).items()}
+    x = torch.randn((2, 1024, cfg.d_model), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    pos = torch.arange(1024, device=dev).expand(2, 1024)
+    before = (dict(flash_attention.launches_by_route),
+              FA.flash_attention_train.launches)
+    prefill = A.attn_apply(p, cfg, x, pos)
+    torch.cuda.synchronize()
+    after = flash_attention.launches_by_route
+    assert {r: after[r] - before[0][r] for r in after} == \
+        {"simt": 0, "wgmma": 1, "tf32x3": 0}
+    assert FA.flash_attention_train.launches == before[1]
+    heads = [t.transpose(1, 2) for t in A._project_qkv(p, cfg, x, pos)]
+    out = FA._train_forward(*heads, True, cfg.head_dim ** -0.5)[0]
+    assert torch.equal(out, flash_attention(*heads, causal=True))
+    assert FA.flash_attention_train.launches == before[1] + 1
+    with torch.no_grad():
+        trained = A.attn_apply(p, cfg, x, pos, train=True)
+    assert FA.flash_attention_train.launches == before[1] + 1
+    assert flash_attention.launches_by_route["wgmma"] == \
+        before[0]["wgmma"] + 3
+    assert torch.equal(prefill, trained)
+
+
+def test_flash_train_refuses_what_the_kernels_cannot_take(dev):
+    q, k, v, _ = _train_inputs(dev, 1, 4, 2, 64, 16, seed=0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FA.flash_attention_train(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention_train(q[..., :12].contiguous(),
+                                 k[..., :12].contiguous(),
+                                 v[..., :12].contiguous())
+    with pytest.raises(ValueError, match="self-attention"):
+        FA.flash_attention_train(q, k[:, :, :32], v[:, :, :32],
+                                 causal=False)

@@ -40,8 +40,7 @@ pass:
    each route of the per-layer kernel (``smem``: tables staged in shared
    memory; ``direct``: read in place; both ``lut_layer_smem.cu``, as
    programmatic dependent launches) forced on every layer, also with
-   every table 4 bytes past a 16-byte boundary, beside the first design
-   (``lut_layer_forward`` in ``lut_kernels.cu``): bit-exact against the
+   every table 4 bytes past a 16-byte boundary: bit-exact against the
    plain PyTorch version on the card and against the reference's outputs.
 2. **serving** — for each layout (model A: mixed as the port compiled
    it, uniform, per-layer; model D: mixed at level 3, per-layer), every
@@ -73,11 +72,9 @@ pass:
    mixed times stand under ``model_d`` in the mixed record.  The per-layer
    forward (model A's three launches, model D's four, under
    ``model_d``) is also timed device-paced (:func:`paced_ms`: a spin
-   kernel holds the stream while 50 forwards queue) in turns: the first
-   design, the routed launches, the routed launches without programmatic
-   dependent launch, and back; under PDL a waiting kernel's profiler
-   record includes its wait.  No single PyTorch call computes these
-   functions, so ``library_ms`` is null.
+   kernel holds the stream while 50 forwards queue), twice; under PDL a
+   waiting kernel's profiler record includes its wait.  No single PyTorch
+   call computes these functions, so ``library_ms`` is null.
 4. **masked matmul** — the three routes of ``masked_matmul`` against the
    plain version on the card, each case asserting its route from
    ``masked_matmul.launches_by_route``: float32 on the ffma kernel at
@@ -132,38 +129,36 @@ pass:
    the masked matmul's device time and launches, kernels and copy kernels
    a step.
 
-7. **flash attention** — the three routes of ``flash_attention``
-   against the plain version on the card, each case asserting its route
-   from ``flash_attention.launches_by_route`` (D % 8 == 0 up to 256:
-   bfloat16 on wgmma, float32 on tf32x3; any other D: SIMT): the
-   reference tests' cases (MHA, GQA, MQA, ragged 250, causal and not,
-   windows 16 / 64 / 1024, bfloat16), a ragged S = 1000, window 1024 at
-   qwen3-1.7b's head shape, D 12 and 6 on the SIMT route in both dtypes,
-   and the qwen3-1.7b prefill shape (4, 16, 2048, 128) with Hkv 8 (in
-   float32 also against the SIMT kernel on the same inputs, within the
-   same tolerance), and for both tensor-core routes a grid of GQA groups
-   1, 2 and 8, D 16 (bfloat16) or 8 (float32), 64, 128 and 256, S 65, 250
-   and 1000, causal and not, and windows 16, 64 and 1024; in float32
-   (atol 1e-5, rtol 1e-5: another summation order, and on tf32x3 three
-   TF32 products a product) and bfloat16 (the reference's atol 3e-2 plus
-   exactly one bfloat16 step of the plain output); on the wgmma route
-   also a second gate beside it, 1e-3 plus two bfloat16 steps of the
-   plain output, elementwise, and a case at (1, 16, 32768, 128); at the
-   prefill shape and at 32768 the gate's readings (largest difference
-   over its limit, RMS ratio) of the kernel, of the kernel with P rounded
-   to bfloat16 and of a stale-stage control (the plain version with one
-   K/V tile replaced by the one two tiles before it), failing unless the
-   gate rejects that control; and the inputs phase 9 gives the kernels,
-   attn_apply's transposed (B, S, H, D) views at (2, 16, 64, 128) with
-   Hkv 8 in float32 (tf32x3) and bfloat16 and at the prefill shape in
-   bfloat16, each tensor-core output checked to be a view of a
-   (B, S, H, D) buffer; and phase 15's, MHA at zamba2-2.7b's head_dim 80
-   (32 heads) and olmoe-1b-7b's 128 (16 heads) at the 4 x 2048 prefill in
-   bfloat16 and at 2 x 64 in float32, MHA at D 80 on the grid (S 65, 250,
-   1000, causal or not, both dtypes), and both tensor-core kernels at D
-   80 written into the first 80 of 96 columns of a sentinel buffer, the
-   16 past them checked untouched (a write past column 79 would land on
-   the next head).
+7. **flash attention** — the three routes of ``flash_attention`` against
+   the plain version on the card, each case asserting its route from
+   ``flash_attention.launches_by_route`` (D % 8 == 0 up to 256: bfloat16 on
+   wgmma, float32 on tf32x3; any other D: SIMT): the reference tests' cases
+   (MHA, GQA, MQA, ragged 250, causal and not, windows 16 / 64 / 1024,
+   bfloat16), a ragged S = 1000, window 1024 at qwen3-1.7b's head shape, D
+   12 and 6 on the SIMT route in both dtypes, and the qwen3-1.7b prefill
+   shape (4, 16, 2048, 128) with Hkv 8 (in float32 also against the SIMT
+   kernel on the same inputs, within the same tolerance), and for both
+   tensor-core routes a grid of GQA groups 1, 2 and 8, D 16 (bfloat16) or 8
+   (float32), 64, 128 and 256, S 65, 250 and 1000, causal and not, and
+   windows 16, 64 and 1024; in float32 (atol 1e-5, rtol 1e-5: another
+   summation order, and on tf32x3 three TF32 products a product) and
+   bfloat16 (the reference's atol 3e-2 plus exactly one bfloat16 step of
+   the plain output); on the wgmma route also a second gate beside it, 1e-3
+   plus two bfloat16 steps of the plain output, elementwise, and a case at
+   (1, 16, 32768, 128); at the prefill shape and at 32768 the gate's
+   readings (largest difference over its limit, RMS ratio) of the kernel
+   and of a stale-stage control (the plain version with one K/V tile
+   replaced by the one two tiles before it), failing unless the gate
+   rejects that control; and the inputs phase 9 gives the kernels,
+   attn_apply's transposed (B, S, H, D) views at (2, 16, 64, 128) with Hkv
+   8 in float32 (tf32x3) and bfloat16 and at the prefill shape in bfloat16,
+   each tensor-core output checked to be a view of a (B, S, H, D) buffer;
+   and phase 15's, MHA at zamba2-2.7b's head_dim 80 (32 heads) and
+   olmoe-1b-7b's 128 (16 heads) at the 4 x 2048 prefill in bfloat16 and at
+   2 x 64 in float32, MHA at D 80 on the grid (S 65, 250, 1000, causal or
+   not, both dtypes), and both tensor-core kernels at D 80 written into the
+   first 80 of 96 columns of a sentinel buffer, the 16 past them checked
+   untouched (a write past column 79 would land on the next head).
 8. **smoke LMs against the reference** — the qwen3-1.7b and gemma3-27b
    smoke configs with the reference's params (``lm_smoke.npz``): prefill
    logits through the kernel, teacher-forced decode logits and, at float32
@@ -197,9 +192,8 @@ pass:
     (one layer of the prefill_32k cell's sequence), bfloat16, causal,
     Hkv 8: event time and profiled device time back to back (and a
     launch's device time inside the prefill's profile) beside the SIMT
-    kernel called directly on the same inputs (the earlier design) and the
-    wgmma kernel with P rounded to bfloat16 (what the hi + lo split
-    costs), the plain version,
+    kernel called directly on the same inputs (the earlier design), the
+    plain version,
     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
     (``library_ms``, a yardstick the port never calls) and the bound, the
     larger of q, k, v and out moved once over 3.35 TB/s and 4 B Hq D per
@@ -1695,7 +1689,7 @@ def flash_phase(torch, dev) -> dict:
         if route == "tf32x3" and shape == (*PREFILL_SHAPE[:1], 16, 8,
                                            PREFILL_SHAPE[1], 128):
             # the earlier float32 design on the same inputs
-            simt = flash_direct(torch, q, k, v, "simt")
+            simt = flash_simt(torch, q, k, v)
             simt_diff = (got - simt).abs()
             if bool((simt_diff > mm_limit(torch, simt, *FA_TOL[dtype])).any()):
                 fail(f"flash_attention {shape} float32: max |tf32x3 - SIMT| "
@@ -1786,8 +1780,7 @@ def gate_reading(torch, got, want, tol=FA_GATE) -> tuple[float, float]:
 def gate_controls(torch, dev) -> dict:
     """Phase 7, the second gate's readings at (4, 16, 2048, 128) and
     (1, 16, 32768, 128), bfloat16 causal, Hkv 8, each against the plain
-    version: the kernel; the kernel with P rounded to bfloat16 (the design
-    the hi + lo split replaced); and a stale-stage control, the plain
+    version: the kernel; and a stale-stage control, the plain
     version on inputs whose middle 128-key K/V tile is replaced by the one
     two tiles before it, as a kernel would compute that read a 2-stage
     ring's slot before its refill landed.  Fails unless the gate passes
@@ -1804,8 +1797,6 @@ def gate_controls(torch, dev) -> dict:
             x[:, :, t * 128:(t + 1) * 128] = src[:, :, (t - 2) * 128:
                                                  (t - 1) * 128]
         got = {"kernel": flash_attention(q, k, v, causal=True),
-               "p_rounded": flash_direct(torch, q, k, v, "wgmma",
-                                         split_p=False),
                "stale_stage": flash_attention_plain(q, *stale, causal=True)}
         torch.cuda.synchronize()
         read = {name: gate_reading(torch, g, want) for name, g in got.items()}
@@ -2133,7 +2124,7 @@ def lm_main_path(torch, dev, kernels) -> dict:
     model = steps.init_params(cfg, seed=0, device=dev)
     model.compute_params()
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.params.values())
     log(f"phase 9 {FULL_ARCH}: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, Hq {cfg.n_heads}, Hkv {cfg.n_kv_heads}, head_dim "
         f"{cfg.resolved_head_dim}, vocab {cfg.vocab}: {n_params} parameters "
@@ -2182,8 +2173,7 @@ def lm_main_path(torch, dev, kernels) -> dict:
     d_tokens = tokens[:DECODE_CHECK_SHAPE[0],
                       :DECODE_CHECK_SHAPE[1]].contiguous()
     f32 = M.LM(dataclasses.replace(cfg, compute_dtype="float32"),
-               {"embed": dict(model.embed), "final_norm": model.final_norm,
-                "layers": [layer.tree() for layer in model.layers]})
+               model.params)
     diffs = {}
     for name, m in (("float32", f32), ("bfloat16", model)):
         before = dict(flash_attention.launches_by_route)
@@ -2304,22 +2294,13 @@ def path_times(torch, dev, path: dict) -> dict:
     return rec
 
 
-def flash_direct(torch, q, k, v, route: str, split_p: bool = True):
-    """One kernel of ``route`` called directly on bfloat16, causal,
-    bypassing the route rule (and the launch counts): the SIMT kernel is
-    the earlier design; the wgmma kernel with ``split_p=False`` rounds P
-    to bfloat16 (one P V product), the design the hi + lo split replaced.
-    Both are timed beside the kernel in the same run."""
+def flash_simt(torch, q, k, v):
+    """The SIMT kernel (the earlier design) called directly, causal,
+    bypassing the route rule (and the launch counts): timed beside the
+    kernel in the same run."""
     from repro_torch.kernels import flash_attention as FA
-    b, hq, s, d = q.shape
-    if route == "simt":
-        out = torch.empty_like(q)
-        FA._launch_simt(q, k, v, out, True, None, 1.0 / d ** 0.5)
-    else:
-        out = torch.empty((b, s, hq, d), dtype=q.dtype,
-                          device=q.device).transpose(1, 2)
-        FA._launch_wgmma(q, k, v, out, True, None, 1.0 / d ** 0.5,
-                         split_p=split_p)
+    out = torch.empty_like(q)
+    FA._launch_simt(q, k, v, out, True, None, 1.0 / q.shape[-1] ** 0.5)
     return out
 
 
@@ -2335,15 +2316,13 @@ def flash_times(torch, dev) -> dict:
         q, k, v = flash_inputs(torch, dev, b, 16, 8, s, 128, "bfloat16")
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters,
                      reps)
-        rounded_ms = cuda_ms(lambda: flash_direct(torch, q, k, v, "wgmma",
-                                                  split_p=False), iters, reps)
         dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=True),
                            5, device_bound=True)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v,
                                                          causal=True),
                            iters, reps)
         library_ms = cuda_ms(lambda: sdpa(q, k, v), iters, reps)
-        simt_ms = cuda_ms(lambda: flash_direct(torch, q, k, v, "simt"), 1,
+        simt_ms = cuda_ms(lambda: flash_simt(torch, q, k, v), 1,
                           3)
         moved = nbytes(q, k, v) + q.numel() * q.element_size()
         pairs = s * (s + 1) // 2
@@ -2354,7 +2333,6 @@ def flash_times(torch, dev) -> dict:
                     f"plain_ms{suffix}": plain_ms,
                     f"library_ms{suffix}": library_ms,
                     f"simt_ms{suffix}": simt_ms,
-                    f"p_rounded_ms{suffix}": rounded_ms,
                     f"bound_ms{suffix}": max(bytes_ms, ops_ms),
                     f"bound_by{suffix}": ("bytes" if bytes_ms >= ops_ms
                                           else "operations"),
@@ -2364,8 +2342,6 @@ def flash_times(torch, dev) -> dict:
             f"ms/call, device {dev_ms} ms (back to back), plain "
             f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
             f"({ms / library_ms:.2f}x), the SIMT kernel {simt_ms:.4f} ms, "
-            f"P rounded (one P V product) {rounded_ms:.4f} ms (the split "
-            f"costs {(ms / rounded_ms - 1) * 100:.1f} %), "
             f"bound {max(bytes_ms, ops_ms):.5f} ms ({moved} B, {ops} flop: "
             f"{ops / ms / 1e9:.1f} TFLOP/s achieved)")
         del q, k, v
@@ -2416,8 +2392,8 @@ def flash_f32_times(torch, dev) -> dict:
     ms = statistics.mean(runs["kernel"])
     fused_ms = statistics.mean(runs["efficient"])
     dev_ms = device_ms(kernel, 5, device_bound=True)
-    simt_ms = cuda_ms(lambda: flash_direct(torch, q, k, v, "simt"), 3, 5)
-    simt_dev = device_ms(lambda: flash_direct(torch, q, k, v, "simt"), 3,
+    simt_ms = cuda_ms(lambda: flash_simt(torch, q, k, v), 3, 5)
+    simt_dev = device_ms(lambda: flash_simt(torch, q, k, v), 3,
                          device_bound=True)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
                        1, 3)
@@ -4520,7 +4496,7 @@ def family_decode_check(torch, dev, cfg, model, tokens) -> dict:
         c = dataclasses.replace(cfg, compute_dtype=name)
         if c.moe is not None:
             c = no_drop_config(c)
-        m = M.LM(c, model.tree())
+        m = M.LM(c, model.params)
         with record_routing() as pre_routes:
             want = M.forward(m, {"tokens": tokens}).float()
         with record_routing() as dec_routes:
@@ -4644,7 +4620,7 @@ def dispatch_check(torch, dev, cfg, model, tokens) -> dict:
         want = prefill(model, {"tokens": tokens}).float()
     with record_routing() as local_routes:
         got = steps.make_prefill_step(local_cfg)(
-            LM(local_cfg, model.tree()), {"tokens": tokens}).float()
+            LM(local_cfg, model.params), {"tokens": tokens}).float()
     differ = routes_differ(route_sets(dense_routes, (b, s)),
                            route_sets(local_routes, (b, s)))
     e2e = float((got - want).abs().max())
@@ -4690,7 +4666,7 @@ def family_phase(torch, dev, arch: str) -> dict:
     model = steps.init_params(cfg, seed=0, device=dev)
     model.compute_params()
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.params.values())
     log(f"phase 15 {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}"
         + (f", {cfg.moe.n_experts} experts top {cfg.moe.top_k}, d_ff "
            f"{cfg.d_ff}" if cfg.moe else "")
@@ -5010,7 +4986,7 @@ def encdec_decode_check(torch, dev, cfg, model, tokens, frames) -> dict:
 
     from repro_torch.models import model as M
     c = dataclasses.replace(cfg, compute_dtype="float32")
-    m = M.LM(c, model.tree())
+    m = M.LM(c, model.params)
     batch = {"tokens": tokens}
     if c.enc_dec:
         batch["frames"] = frames
@@ -5078,7 +5054,7 @@ def encdec_phase(torch, dev, arch: str) -> dict:
     model = steps.init_params(cfg, seed=0, device=dev)
     model.compute_params()
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.params.values())
     log(f"phase 16 {arch}: {cfg.n_layers} layers"
         + (f" + {cfg.n_enc_layers} encoder layers over {cfg.enc_frames} "
            f"frames" if cfg.enc_dec else "")
@@ -5438,7 +5414,7 @@ def train_five_steps(torch, cfg, arrays: dict, dev) -> dict:
                                    init_opt_state)
     model = M.from_reference(cfg, arrays, device=dev)
     params = {n: p.detach().clone().requires_grad_()
-              for n, p in model.named_parameters()}
+              for n, p in model.params.items()}
     del model
     loss = M.loss_fn(params, cfg, train_batch(torch, cfg, 0, dev))
     grads = torch.autograd.grad(loss, list(params.values()))
@@ -6009,9 +5985,7 @@ def mesh_prefill_phase(torch, dev) -> dict:
     torch.cuda.synchronize()
     mesh = make_host_mesh(1)
     policy = SH.ShardingPolicy()
-    params = SH.distribute({n: p.detach() for n, p in
-                            model.named_parameters()}, mesh, policy)
-    mesh_model = M.LM(cfg, M.param_tree(cfg, params))
+    mesh_model = M.LM(cfg, SH.distribute(model.params, mesh, policy))
     batch = SH.distribute_by_specs(
         {"tokens": tokens}, SH.batch_specs(policy, mesh,
                                            {"tokens": tokens}), mesh)
@@ -6038,7 +6012,7 @@ def mesh_prefill_phase(torch, dev) -> dict:
         f"mesh call) ({torch.cuda.get_device_name(0)})")
     out = {"launches": launches, "launches_by_route": by_route,
            "mesh_first_s": mesh_s}
-    del model, mesh_model, params, want, got
+    del model, mesh_model, want, got
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -6349,9 +6323,7 @@ def one_rank_mesh_model(cfg, model, mesh, policy):
     rank's shard is the tensor itself), as a model."""
     from repro_torch.models import model as M
     from repro_torch.parallel import sharding as SH
-    params = SH.distribute({n: p.detach() for n, p in
-                            model.named_parameters()}, mesh, policy)
-    return M.LM(cfg, M.param_tree(cfg, params))
+    return M.LM(cfg, SH.distribute(model.params, mesh, policy))
 
 
 def on_device(torch, dev, fn):
@@ -6759,11 +6731,10 @@ def main() -> None:
         f"against a {cost_d.vmem_budget_bytes} B budget)")
     sms = lut_lookup_mod._sm_count(dev.index or 0)
 
-    def layer_chain(net, route=None, layers=None, pdl=1):
+    def layer_chain(net, route=None, layers=None):
         """A per-layer forward: through the wrapper (counted) when
         ``route`` is None; else every launch called directly, uncounted, on
-        ``route``: "smem" or "direct" forced, "rule" as the wrapper routes
-        it, or "first" (the first design)."""
+        ``route``: "smem" or "direct" forced."""
         layers = layers or net.layers
 
         def call(c):
@@ -6773,15 +6744,11 @@ def main() -> None:
                     continue
                 out = torch.empty((c.shape[0], idx.shape[0]),
                                   dtype=torch.int32, device=dev)
-                if c.shape[0] and route == "first":
-                    lut_lookup_mod._launch_first(c, idx, tab, bw, out)
-                elif c.shape[0]:
+                if c.shape[0]:
                     geom = lut_lookup_mod.lut_layer_route(
                         c.shape[0], c.shape[1], idx.shape[0], idx.shape[1],
-                        tab.shape[1], sms, tab.element_size(),
-                        route=None if route == "rule" else route)
-                    lut_lookup_mod._launch_layer(c, idx, tab, bw, out, geom,
-                                                 pdl=pdl)
+                        tab.shape[1], sms, tab.element_size(), route=route)
+                    lut_lookup_mod._launch_layer(c, idx, tab, bw, out, geom)
                 c = out
             return c
         return call
@@ -6814,6 +6781,8 @@ def main() -> None:
 
     def per_layer(key, model, r):
         net = nets[key]
+        # the record keeps the per-layer kernel's name of earlier runs; its
+        # entry is lut_layer_smem_forward
         return dict(
             name="lut_layer_forward", model=model, wrapper=lut_lookup,
             net=net, codes=torch.from_numpy(r["codes"]).to(dev),
@@ -6904,7 +6873,6 @@ def main() -> None:
                 calls[f"{route} route"] = layer_chain(k["net"], route)
                 calls[f"{route} route, tables at 4 mod 16 bytes"] = (
                     layer_chain(k["net"], route, shifted))
-            calls["first design"] = layer_chain(k["net"], "first")
         for b in BATCHES:
             codes = k["codes"][:b].contiguous()
             before = k["wrapper"].launches
@@ -6973,32 +6941,20 @@ def main() -> None:
 
     # -- phase 3: times beside the bound
     def layer_times(k) -> dict:
-        """A per-layer forward's times at TIME_BATCHES: event ms (routed
-        and the first design), device-paced ms in turns (the first design,
-        the routed launches, the routed launches without programmatic
-        dependent launch), profiler device ms, the plain version and the
-        bound."""
+        """A per-layer forward's times at TIME_BATCHES: event ms,
+        device-paced ms (twice), profiler device ms, the plain version and
+        the bound."""
         net, n_call = k["net"], k["per_call"]
         rec = {"layers": n_call}
         for b in TIME_BATCHES:
             codes = k["codes"][:b].contiguous()
             iters = 200 if b <= 16 else 50
             sfx = "" if b == TIME_BATCHES[0] else f"_b{b}"
-            fns = {"first": layer_chain(net, "first"),
-                   "routed": k["kernel"],
-                   "no_pdl": layer_chain(net, "rule", pdl=0)}
-            turns = {w: [] for w in fns}
-            for w in ("first", "routed", "no_pdl", "no_pdl", "routed",
-                      "first"):
-                turns[w].append(paced_ms(lambda: fns[w](codes)))
-            paced = {w: (None if None in v else statistics.mean(v))
-                     for w, v in turns.items()}
+            turns = [paced_ms(lambda: k["kernel"](codes)) for _ in range(2)]
+            paced = None if None in turns else statistics.mean(turns)
             ms = cuda_ms(lambda: k["kernel"](codes), iters)
-            earlier_ms = cuda_ms(lambda: fns["first"](codes), iters)
             plain_ms = cuda_ms(lambda: k["plain"](codes), iters)
             dev_ms = device_ms(lambda: k["kernel"](codes), iters, n_call)
-            earlier_dev = device_ms(lambda: fns["first"](codes), iters,
-                                    n_call)
             whole = per_layer_bytes(b, codes.shape[1], k["shapes"])
             moved = per_layer_bytes(b, codes.shape[1], k["shapes"],
                                     addressed_entries(net.layers, codes))
@@ -7015,11 +6971,7 @@ def main() -> None:
                 f"device_ms{sfx}": dev_ms,
                 f"device_ms_per_launch{sfx}": (
                     None if dev_ms is None else dev_ms / n_call),
-                f"paced_ms{sfx}": paced["routed"],
-                f"paced_ms_no_pdl{sfx}": paced["no_pdl"],
-                f"earlier_ms{sfx}": earlier_ms,
-                f"earlier_device_ms{sfx}": earlier_dev,
-                f"earlier_paced_ms{sfx}": paced["first"],
+                f"paced_ms{sfx}": paced,
                 f"turns_paced_ms{sfx}": turns,
                 f"bound_ms{sfx}": bound,
                 f"bound_ms_per_launch{sfx}": bound / n_call,
@@ -7032,11 +6984,9 @@ def main() -> None:
                 f"routes_used{sfx}": used})
             log(f"phase 3 {k['name']} model {k['model']} batch {b} "
                 f"({n_call} launches a forward, routes {used}): "
-                f"device-paced {paced['routed']} ms a forward (without "
-                f"PDL {paced['no_pdl']}, first design {paced['first']}; "
-                f"turns {turns}), event {ms:.5f} ms (first design "
-                f"{earlier_ms:.5f}), device {dev_ms} ms (first design "
-                f"{earlier_dev}), plain {plain_ms:.5f} ms, bound "
+                f"device-paced {paced} ms a forward (turns {turns}), event "
+                f"{ms:.5f} ms, device {dev_ms} ms, plain {plain_ms:.5f} ms, "
+                f"bound "
                 f"{bound:.6f} ms ({moved} B: the table entries this batch "
                 f"addresses; {whole} B with whole tables)")
         return rec
@@ -7109,8 +7059,6 @@ def main() -> None:
                     "launches": 0, "launches_by_route": {},
                     "launches_by_model": {}, "max_abs_err": 0,
                     "routes": k["layer_routes"],
-                    "earlier_design": {"source": LUT_SOURCE,
-                                       "entry": "lut_layer_forward"},
                     **times, "library_ms": None, "batch": TIME_BATCHES[0]}
                 records.append(layer_rec)
             else:

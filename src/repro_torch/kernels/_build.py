@@ -45,9 +45,8 @@ _SIGNATURES = {
                                _I, _I, _P, _P),
     "lut_uniform_smem_forward": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
                                  _I, _P, _P),
-    "lut_layer_forward": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P),
     "lut_layer_smem_forward": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P,
-                               _I, _I, _I, _I, _I, _I, _P),
+                               _I, _I, _I, _I, _I, _P),
     "lut_layer_smem_bytes": (_I, _I, _I, _I, _I, _I, _I, _I),
     "masked_matmul_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "masked_matmul_wgmma_forward": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
@@ -59,7 +58,7 @@ _SIGNATURES = {
     "flash_attention_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _F, _I, _P),
     "flash_attention_wgmma_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _I, _I, _I, _F, _P),
+                                      _I, _I, _I, _F, _P),
     "flash_attention_wgmma_forward_train": (_P, _P, _P, _P, _P, _P, _P, _I,
                                             _I, _I, _I, _I, _I, _I, _F, _P),
     "flash_attention_wgmma_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -37,7 +37,7 @@
 // into one float32 accumulator.  small goes to mma as it is: mma reads a
 // TF32 operand's top 19 bits, so small enters rounded toward zero (as in
 // CUTLASS's 3xTF32 GEMMs; rounding it first costs time and changes no
-// reading: FA_TF32_SMALL_RNA below).  That and the dropped
+// reading).  That and the dropped
 // A_small B_small leave about 2^-21 relative: float32-accurate
 // (tests/test_torch_flash_attention.py emulates the splits on the CPU).
 // Both products are split: S = Q K^T and O += P V, P straight from the S
@@ -70,8 +70,7 @@
 // 8-byte reads of a half-warp hit 32 banks) and 4 mod 32 for V (rows 2t,
 // 2t + 1 of column g hit 32 banks).  Columns past D are zero in shared
 // memory, so every loop runs to DP with no branch in it: a branch on D in
-// the unrolled P V loop keeps the compiler from scheduling it as a whole
-// (FA_TF32_PV_BRANCH below).
+// the unrolled P V loop keeps the compiler from scheduling it as a whole.
 // Tile shapes, per DP = D rounded up to 64, 128 or 256:
 //   DP  64: 8 warps (BQ 128), BK 64, 106 KB, two blocks an SM;
 //   DP 128: 8 warps (BQ 128), BK 64, 202 KB, one block an SM;
@@ -88,43 +87,6 @@
 
 #include "hopper.cuh"
 
-// Design knobs.  The library the wrapper builds takes every default;
-// tools/flash_tf32_variants.py builds the other values (nvcc -D) to time
-// the choice each undoes.
-//   FA_TF32_SMALL_RNA   1: small rounded by the cvt.rna rule before mma
-//   FA_TF32_S_BRANCH    1: S's k8 steps stop at D (a branch in the loop)
-//   FA_TF32_PV_BRANCH   1: P V's column n-tiles past D skipped (a branch)
-//   FA_TF32_EX2_APPROX  1: ex2.approx.ftz for the exponentials
-//   FA_TF32_NW128, FA_TF32_BK128: warps a block, keys a K / V tile at DP 128
-// and two that compute something else, to time what the splits and the
-// second and third products cost:
-//   FA_TF32_SPLIT       0: operands passed unsplit (big = small = x)
-//   FA_TF32_PRODUCTS    1: A_big B_big alone
-#ifndef FA_TF32_SMALL_RNA
-#define FA_TF32_SMALL_RNA 0
-#endif
-#ifndef FA_TF32_S_BRANCH
-#define FA_TF32_S_BRANCH 0
-#endif
-#ifndef FA_TF32_PV_BRANCH
-#define FA_TF32_PV_BRANCH 0
-#endif
-#ifndef FA_TF32_EX2_APPROX
-#define FA_TF32_EX2_APPROX 0
-#endif
-#ifndef FA_TF32_NW128
-#define FA_TF32_NW128 8
-#endif
-#ifndef FA_TF32_BK128
-#define FA_TF32_BK128 64
-#endif
-#ifndef FA_TF32_SPLIT
-#define FA_TF32_SPLIT 1
-#endif
-#ifndef FA_TF32_PRODUCTS
-#define FA_TF32_PRODUCTS 3
-#endif
-
 namespace {
 
 constexpr int kMaxDim = 256;
@@ -140,7 +102,7 @@ struct Cfg<64> {
 };
 template <>
 struct Cfg<128> {
-  static constexpr int NW = FA_TF32_NW128, BK = FA_TF32_BK128, MINB = 1;
+  static constexpr int NW = 8, BK = 64, MINB = 1;
 };
 template <>
 struct Cfg<256> {
@@ -169,15 +131,8 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 // (small rounded toward zero), which leaves about 2^-21 |x| (see the top)
 __device__ __forceinline__ void split(float x, uint32_t& big,
                                       uint32_t& small) {
-#if !FA_TF32_SPLIT
-  big = small = __float_as_uint(x);
-#elif FA_TF32_SMALL_RNA
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-#else
   big = tf32_rna(x);
   small = __float_as_uint(x - __uint_as_float(big));
-#endif
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -193,21 +148,9 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
                                      const uint32_t (&as)[4], uint32_t bb0,
                                      uint32_t bb1, uint32_t bs0,
                                      uint32_t bs1) {
-#if FA_TF32_PRODUCTS == 3
   mma_tf32(d, as, bb0, bb1);
   mma_tf32(d, ab, bs0, bs1);
-#endif
   mma_tf32(d, ab, bb0, bb1);
-}
-
-__device__ __forceinline__ float exp2_(float x) {
-#if FA_TF32_EX2_APPROX
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-#else
-  return exp2f(x);
-#endif
 }
 
 // 16 bytes global -> shared, or 16 zero bytes when !valid
@@ -356,9 +299,6 @@ flash_attention_tf32_kernel(const Params prm) {
     const float* kw = ks + g * L::kQK + 2 * t;
 #pragma unroll
     for (int d0 = 0; d0 < DP; d0 += 8) {
-#if FA_TF32_S_BRANCH
-      if (d0 >= prm.dim) break;
-#endif
       const float2 qa = *reinterpret_cast<const float2*>(qw + d0);
       const float2 qb = *reinterpret_cast<const float2*>(qw + 8 * L::kQK +
                                                          d0);
@@ -408,7 +348,7 @@ flash_attention_tf32_kernel(const Params prm) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = exp2_(m[r] - m_new);
+      corr[r] = exp2f(m[r] - m_new);
       m[r] = m_new;
       l[r] *= corr[r];
     }
@@ -416,7 +356,7 @@ flash_attention_tf32_kernel(const Params prm) {
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2_(s[n][e] - m[e >> 1]);
+        const float p = exp2f(s[n][e] - m[e >> 1]);
         s[n][e] = p;
         l[e >> 1] += p;
       }
@@ -443,9 +383,6 @@ flash_attention_tf32_kernel(const Params prm) {
       const float* vr = vs + (8 * j + 2 * t) * L::kVS + g;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-#if FA_TF32_PV_BRANCH
-        if (8 * n >= prm.dim) continue;
-#endif
         uint32_t bb0, bs0, bb1, bs1;
         split(vr[8 * n], bb0, bs0);
         split(vr[L::kVS + 8 * n], bb1, bs1);

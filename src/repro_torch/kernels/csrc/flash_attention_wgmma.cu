@@ -37,10 +37,7 @@
 // Rounding P to bfloat16 alone moved qwen3-1.7b's bfloat16 prefill logits
 // past the decode-against-prefill gate (91 of 303 872 logits beyond the
 // 0.05 contract against 30 allowed); the split costs half again the
-// products.  The rounded design stays built for DP = 128 with two heads a
-// block (split_p = 0, which the wrapper never passes on its own): the
-// smoke test times it beside the split and holds it to the tolerances
-// as a control.
+// products.
 //
 // What bounds it: at qwen3-1.7b's prefill, (4, 16, 2048, 128) causal with
 // Hkv 8, a call does 69 GFLOP (4 B Hq D per unmasked (q, k) pair: 0.07 ms
@@ -116,7 +113,7 @@ struct Params {
   int lse_rows;
 };
 
-template <int DP, int BK, int NC, bool kSplitP>
+template <int DP, int BK, int NC>
 __global__ void __launch_bounds__(Layout<DP, BK, NC>::kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
@@ -282,20 +279,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int kc = 0; kc < BK / 16; ++kc) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        if constexpr (kSplitP) {
-          split_bf16x2(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1],
-                       p_hi[kc][r], p_lo[kc][r]);
-        } else {
-          p_hi[kc][r] = hopper::pack_bf16x2(sc[8 * kc + 2 * r],
-                                            sc[8 * kc + 2 * r + 1]);
-        }
+        split_bf16x2(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1],
+                     p_hi[kc][r], p_lo[kc][r]);
       }
     }
 
     hopper::mbar_wait(&vfull[s], parity);
     hopper::fence_regs(o);
     hopper::wgmma_fence();
-    value_product<DP, BK, kSplitP>(o, p_hi, p_lo, vs + s * L::kKV);
+    value_product<DP, BK>(o, p_hi, p_lo, vs + s * L::kKV);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(o);
@@ -346,36 +338,26 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int DP, int BK, int NC, bool kSplitP = true>
+template <int DP, int BK, int NC>
 cudaError_t launch(const CUtensorMap& qmap, const CUtensorMap& kmap,
                    const CUtensorMap& vmap, const Params& prm, int batch,
                    cudaStream_t stream) {
   using L = Layout<DP, BK, NC>;
   static int smem_done[hopper::kMaxDevices] = {};
   cudaError_t err = hopper::allow_dynamic_smem(
-      flash_attention_wgmma_kernel<DP, BK, NC, kSplitP>, L::kBytes,
-      smem_done);
+      flash_attention_wgmma_kernel<DP, BK, NC>, L::kBytes, smem_done);
   if (err != cudaSuccess) return err;
   const dim3 grid((prm.seq + kBQ - 1) / kBQ,
                   prm.n_kv_heads * prm.head_blocks, batch);
-  flash_attention_wgmma_kernel<DP, BK, NC, kSplitP>
+  flash_attention_wgmma_kernel<DP, BK, NC>
       <<<grid, L::kThreads, L::kBytes, stream>>>(qmap, kmap, vmap, prm);
   return cudaGetLastError();
 }
 
 template <int NC>
-cudaError_t dispatch(int dp, bool split_p, const CUtensorMap& qmap,
-                     const CUtensorMap& kmap, const CUtensorMap& vmap,
-                     const Params& prm, int batch, cudaStream_t stream) {
-  if (!split_p) {
-    if constexpr (NC == 2) {
-      if (dp == 128) {
-        return launch<128, 128, 2, false>(qmap, kmap, vmap, prm, batch,
-                                          stream);
-      }
-    }
-    return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch(int dp, const CUtensorMap& qmap, const CUtensorMap& kmap,
+                     const CUtensorMap& vmap, const Params& prm, int batch,
+                     cudaStream_t stream) {
   switch (dp) {
     case 64:
       return launch<64, 128, NC>(qmap, kmap, vmap, prm, batch, stream);
@@ -393,8 +375,7 @@ cudaError_t dispatch(int dp, bool split_p, const CUtensorMap& qmap,
 int forward(const void* q, const void* k, const void* v, void* out,
             const long long* strides, float* lse, float* o32, int lse_rows,
             int batch, int n_heads, int n_kv_heads, int seq, int seq_kv,
-            int dim, int causal, int window, int split_p, float scale,
-            void* stream) {
+            int dim, int causal, int window, float scale, void* stream) {
   if (dim < 8 || dim > kMaxDim || dim % 8 || n_kv_heads < 1 ||
       n_heads % n_kv_heads != 0 || window < 0 || seq < 1 || seq_kv < 1 ||
       batch < 1 || (seq != seq_kv && (causal || window))) {
@@ -443,10 +424,9 @@ int forward(const void* q, const void* k, const void* v, void* out,
   prm.o32 = o32;
   prm.lse_rows = lse_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool split = split_p != 0;
   cudaError_t err = nc == 2
-      ? dispatch<2>(dp, split, maps[0], maps[1], maps[2], prm, batch, s)
-      : dispatch<1>(dp, split, maps[0], maps[1], maps[2], prm, batch, s);
+      ? dispatch<2>(dp, maps[0], maps[1], maps[2], prm, batch, s)
+      : dispatch<1>(dp, maps[0], maps[1], maps[2], prm, batch, s);
   return static_cast<int>(err);
 }
 
@@ -457,19 +437,15 @@ extern "C" {
 // strides: 12 element strides, (batch, head, seq) for q, k, v and out in
 // that order; the last dimension of each is contiguous.  window: 0 = none,
 // else >= 1 keys.  seq: query rows, seq_kv: keys (equal when causal or
-// windowed).  split_p: 1 = P V from P_hi + P_lo (the kernel), 0 = from
-// P rounded to bfloat16 (only 64 < D <= 128 with Hq / Hkv >= 2).  Query
-// tiles go on grid.x, (KV head, head block) on grid.y and the batch on
-// grid.z (up to 65535 each: the wrapper checks).
+// windowed).  Query tiles go on grid.x, (KV head, head block) on grid.y
+// and the batch on grid.z (up to 65535 each: the wrapper checks).
 int flash_attention_wgmma_forward(const void* q, const void* k, const void* v,
                                   void* out, const long long* strides,
                                   int batch, int n_heads, int n_kv_heads,
                                   int seq, int seq_kv, int dim, int causal,
-                                  int window, int split_p, float scale,
-                                  void* stream) {
+                                  int window, float scale, void* stream) {
   return forward(q, k, v, out, strides, nullptr, nullptr, 0, batch, n_heads,
-                 n_kv_heads, seq, seq_kv, dim, causal, window, split_p,
-                 scale, stream);
+                 n_kv_heads, seq, seq_kv, dim, causal, window, scale, stream);
 }
 
 // The training forward: the same kernel, P split, no window, Sq == Skv,
@@ -491,7 +467,7 @@ int flash_attention_wgmma_forward_train(const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   return forward(q, k, v, out, strides, static_cast<float*>(lse),
                  static_cast<float*>(o32), lse_rows, batch, n_heads,
-                 n_kv_heads, seq, seq, dim, causal, 0, 1, scale, stream);
+                 n_kv_heads, seq, seq, dim, causal, 0, scale, stream);
 }
 
 }  // extern "C"

@@ -288,7 +288,7 @@ flash_attention_wgmma_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 
     hopper::fence_regs(dq);
     hopper::wgmma_fence();
-    value_product<DP, kT, true>(dq, hi, lo, ks + s * L::kTile);
+    value_product<DP, kT>(dq, hi, lo, ks + s * L::kTile);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dq);
@@ -501,7 +501,7 @@ flash_attention_wgmma_bwd_dkdv_kernel(
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
     // dV += P^T dO, or dK += dS^T Q (dO and Q read MN-major)
-    value_product<DP, kT, true>(acc, hi, lo,
+    value_product<DP, kT>(acc, hi, lo,
                                 (dv_side ? dos : qs) + s * L::kTile);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();

@@ -59,9 +59,8 @@ __device__ __forceinline__ void value_step(float (&o)[DP / 2],
   }
 }
 
-// O += P_hi B + P_lo B (P_hi B alone without the split); B is the BK-row
-// tile read MN-major
-template <int DP, int BK, bool kSplitP>
+// O += P_hi B + P_lo B; B is the BK-row tile read MN-major
+template <int DP, int BK>
 __device__ __forceinline__ void value_product(
     float (&o)[DP / 2], const uint32_t (&hi)[BK / 16][4],
     const uint32_t (&lo)[BK / 16][4], const bf16* bs) {
@@ -69,7 +68,7 @@ __device__ __forceinline__ void value_product(
   for (int kc = 0; kc < BK / 16; ++kc) {
     const uint64_t db = hopper::desc_sw128(bs + kc * 16 * 64, BK * 128, 1024);
     value_step<DP>(o, hi[kc], db);
-    if constexpr (kSplitP) value_step<DP>(o, lo[kc], db);
+    value_step<DP>(o, lo[kc], db);
   }
 }
 

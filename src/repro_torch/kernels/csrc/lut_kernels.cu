@@ -1,10 +1,10 @@
 // LogicNets LUT inference kernels for Hopper (sm_90a), plain C interface.
 //
-// Three kernels, one per layout of a compiled LUT network.  The two fused
-// ones are the first design, now the route "global" of
-// kernels/lut_network.py: they serve only slabs whose shared-memory layout
-// does not fit a block; every other call takes lut_fused_smem.cu (route
-// "smem", the slabs staged in shared memory).
+// Two kernels, one per layout of a compiled LUT network's slabs.  They are
+// the first design, now the route "global" of kernels/lut_network.py: they
+// serve only slabs whose shared-memory layout does not fit a block; every
+// other call takes lut_fused_smem.cu (route "smem", the slabs staged in
+// shared memory).  One LUT layer alone runs lut_layer_smem.cu.
 //
 //   lut_mixed_forward    replaces src/repro/kernels/lut_network.py
 //                        _mixed_kernel / lut_network_mixed_pallas: the fused
@@ -14,8 +14,6 @@
 //   lut_uniform_forward  replaces src/repro/kernels/lut_network.py
 //                        _kernel / lut_network_pallas: the fused whole
 //                        network over row-stacked uniform slabs.
-//   lut_layer_forward    replaces src/repro/kernels/lut_lookup.py
-//                        _kernel / lut_lookup_pallas: one LUT layer.
 //
 // What bounds them: every output code costs a few integer ops and one
 // table read whose address depends on the data.  The least work is the
@@ -44,8 +42,6 @@
 namespace {
 
 constexpr int kFusedThreads = 256;
-constexpr int kLayerTileO = 32;
-constexpr int kLayerTileB = 8;
 
 __device__ __forceinline__ unsigned shl(unsigned x, int s) {
   return static_cast<unsigned>(s) < 32u ? x << s : 0u;
@@ -191,30 +187,6 @@ uniform_kernel(const int* __restrict__ codes, int batch, int n_in,
   store_tile(h, ld, rows, out_perm, n_out, b0, out);
 }
 
-// One thread per output code: x indexes neurons, y batch rows.
-__global__ void __launch_bounds__(kLayerTileO * kLayerTileB)
-layer_kernel(const int* __restrict__ codes, int batch, int n_in,
-             const int* __restrict__ idx, int n_out, int fan_in,
-             const int* __restrict__ table, int n_entries, int bw_in,
-             int* __restrict__ out) {
-  const int o = blockIdx.y * kLayerTileO + threadIdx.x;
-  const int b = blockIdx.x * kLayerTileB + threadIdx.y;
-  if (o >= n_out || b >= batch) return;
-  const int* cr = codes + static_cast<long long>(b) * n_in;
-  unsigned entry = 0;
-  for (int k = 0; k < fan_in; ++k) {
-    const int src = __ldg(idx + o * fan_in + k);
-    const int code =
-        static_cast<unsigned>(src) < static_cast<unsigned>(n_in) ? __ldg(cr + src)
-                                                                 : 0;
-    entry += shl(static_cast<unsigned>(code), bw_in * k);
-  }
-  out[static_cast<long long>(b) * n_out + o] =
-      entry < static_cast<unsigned>(n_entries)
-          ? __ldg(table + static_cast<long long>(o) * n_entries + entry)
-          : 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -254,20 +226,6 @@ int lut_uniform_forward(const void* codes, int batch, int n_in,
       static_cast<const int*>(idx), fi_max, table, e_max, packed,
       static_cast<const int*>(layer_meta), n_layers,
       static_cast<const int*>(out_perm), n_out, tile_b, ld,
-      static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int lut_layer_forward(const void* codes, int batch, int n_in, const void* idx,
-                      int n_out, int fan_in, const void* table, int n_entries,
-                      int bw_in, void* out, void* stream) {
-  const dim3 block(kLayerTileO, kLayerTileB);
-  const dim3 grid((batch + kLayerTileB - 1) / kLayerTileB,
-                  (n_out + kLayerTileO - 1) / kLayerTileO);
-  layer_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(codes), batch, n_in,
-      static_cast<const int*>(idx), n_out, fan_in,
-      static_cast<const int*>(table), n_entries, bw_in,
       static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

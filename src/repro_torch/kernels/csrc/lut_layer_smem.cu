@@ -8,17 +8,16 @@
 //
 // It is the route "smem" (tables staged in shared memory) and the route
 // "direct" (tables read in place) of kernels/lut_lookup.py, chosen there by
-// lut_layer_route.  The first design, lut_kernels.cu's layer_kernel, stays
-// beside it as the order oracle and the earlier design the sweeps time.
+// lut_layer_route.
 //
 // What bounds it: bytes.  A launch must read its layer's (B, I) codes, its
 // indices and its tables once and write its (B, O) codes once; per output
 // it does a few integer operations.  At model A's widths that is 0.00004
 // ms at batch 16 (the 128 KB of tables) and 0.0006 ms at batch 4096 (1.8
-// MB of codes and tables), far below what the first design takes: one
-// thread an output, three dependent round trips to L2 an output (index,
-// code, table entry) and a plain launch that starts only once the
-// previous layer's grid has drained.  So latency bounds the kernel, and
+// MB of codes and tables), far below what one thread an output costs:
+// three dependent round trips to L2 an output (index, code, table entry)
+// and a plain launch that starts only once the previous layer's grid has
+// drained.  So latency bounds the kernel, and
 // the design removes round trips and overlaps what it can with the
 // previous layer:
 //
@@ -158,8 +157,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 layer_smem_kernel(const int* __restrict__ codes, int batch, int n_in,
                   const int* __restrict__ idx, int n_out, int fan_in,
                   const T* __restrict__ table, int n_entries, int bw_in,
-                  int* __restrict__ out, int tile_o, int tile_b,
-                  int trigger_first) {
+                  int* __restrict__ out, int tile_o, int tile_b) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_tiles = (batch + tile_b - 1) / tile_b;
   const int n_buf = n_tiles > static_cast<int>(gridDim.y) ? 2 : 1;
@@ -171,8 +169,6 @@ layer_smem_kernel(const int* __restrict__ codes, int batch, int n_in,
   const int tid = threadIdx.x, threads = blockDim.x;
   const int o0 = blockIdx.x * tile_o;
   const int to = min(tile_o, n_out - o0);
-
-  if (trigger_first) launch_dependents();
 
   // -- before the wait: only the indices and tables, which no kernel of
   // this chain writes
@@ -207,7 +203,7 @@ layer_smem_kernel(const int* __restrict__ codes, int batch, int n_in,
   // Dependents launch from here, so at most this layer and the next are
   // resident: a trigger at the start would let every queued layer launch
   // and stage its tables while this one works.
-  if (!trigger_first) launch_dependents();
+  launch_dependents();
 
   auto tile_src = [&](int t) {
     return reinterpret_cast<const unsigned char*>(
@@ -281,7 +277,7 @@ template <bool kStage, typename T>
 int launch(const void* codes, int batch, int n_in, const void* idx,
            int n_out, int fan_in, const void* table, int n_entries,
            int bw_in, void* out, int tile_o, int tile_b, int grid_b,
-           int threads, int pdl, int smem, cudaStream_t stream) {
+           int threads, int smem, cudaStream_t stream) {
   auto* kernel = layer_smem_kernel<kStage, T>;
   static int allowed[hopper::kMaxDevices] = {};
   cudaError_t err = hopper::allow_dynamic_smem(kernel, smem, allowed);
@@ -293,14 +289,14 @@ int launch(const void* codes, int batch, int n_in, const void* idx,
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = pdl ? 1 : 0;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const int*>(codes), batch, n_in,
       static_cast<const int*>(idx), n_out, fan_in,
       static_cast<const T*>(table), n_entries, bw_in,
-      static_cast<int*>(out), tile_o, tile_b, pdl == 2 ? 1 : 0);
+      static_cast<int*>(out), tile_o, tile_b);
   if (err != cudaSuccess) return err;
   return static_cast<int>(cudaGetLastError());
 }
@@ -323,19 +319,18 @@ int lut_layer_smem_bytes(int n_in, int fan_in, int n_entries, int elem,
 // stage = 1: route "smem", 0: route "direct".  The grid is
 // (ceil(n_out / tile_o), grid_b); block (x, y) serves neurons
 // [x tile_o, (x + 1) tile_o) and batch tiles y, y + grid_b, ... of tile_b
-// rows.  pdl = 1 launches with programmatic stream serialization and lets
-// dependents launch once the wait is over; 0 launches without it and 2
-// lets them launch at the kernel's start (the sweep's controls).
+// rows.  It launches with programmatic stream serialization and lets its
+// dependents launch once its wait is over.
 int lut_layer_smem_forward(const void* codes, int batch, int n_in,
                            const void* idx, int n_out, int fan_in,
                            const void* table, int n_entries, int packed,
                            int bw_in, void* out, int stage, int tile_o,
-                           int tile_b, int grid_b, int threads, int pdl,
+                           int tile_b, int grid_b, int threads,
                            void* stream) {
   if (batch < 1 || n_out < 1 || n_in < 0 || fan_in < 0 || n_entries < 0 ||
       tile_o < 1 || tile_b < 1 || grid_b < 1 || grid_b > 65535 ||
       threads < 32 || threads > kMaxThreads || threads % 32 ||
-      tile_o > threads || pdl < 0 || pdl > 2) {
+      tile_o > threads) {
     return cudaErrorInvalidValue;
   }
   const int n_tiles = (batch + tile_b - 1) / tile_b;
@@ -348,22 +343,22 @@ int lut_layer_smem_forward(const void* codes, int batch, int n_in,
   if (stage && packed) {
     return launch<true, unsigned char>(codes, batch, n_in, idx, n_out, fan_in,
                                        table, n_entries, bw_in, out, tile_o,
-                                       tile_b, grid_b, threads, pdl, smem, s);
+                                       tile_b, grid_b, threads, smem, s);
   }
   if (stage) {
     return launch<true, int>(codes, batch, n_in, idx, n_out, fan_in, table,
                              n_entries, bw_in, out, tile_o, tile_b, grid_b,
-                             threads, pdl, smem, s);
+                             threads, smem, s);
   }
   if (packed) {
     return launch<false, unsigned char>(codes, batch, n_in, idx, n_out,
                                         fan_in, table, n_entries, bw_in, out,
-                                        tile_o, tile_b, grid_b, threads, pdl,
-                                        smem, s);
+                                        tile_o, tile_b, grid_b, threads, smem,
+                                        s);
   }
   return launch<false, int>(codes, batch, n_in, idx, n_out, fan_in, table,
                             n_entries, bw_in, out, tile_o, tile_b, grid_b,
-                            threads, pdl, smem, s);
+                            threads, smem, s);
 }
 
 }  // extern "C"

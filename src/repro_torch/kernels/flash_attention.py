@@ -203,13 +203,10 @@ def _launch_simt(q, k, v, out, causal: bool, window: int | None,
 
 
 def _launch_wgmma(q, k, v, out, causal: bool, window: int | None,
-                  scale: float, split_p: bool = True) -> None:
+                  scale: float) -> None:
     """``flash_attention_wgmma_forward`` on checked bfloat16 operands with
     ``D % 8 == 0``, into ``out`` through its strides (``out`` 16-byte
-    aligned, its last dimension contiguous).  ``split_p=False`` runs the
-    kernel with P rounded to bfloat16 (one P V product; built for
-    64 < D <= 128 with Hq / Hkv >= 2 only): a yardstick for what the
-    hi + lo split costs, never taken by :func:`flash_attention`."""
+    aligned, its last dimension contiguous)."""
     b, hq, s, d = q.shape
     views = [_tma_view(t) for t in (q, k, v)]
     strides = [st for _, sts in views for st in sts] + list(out.stride()[:3])
@@ -218,8 +215,8 @@ def _launch_wgmma(q, k, v, out, causal: bool, window: int | None,
         err = _build.library().flash_attention_wgmma_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             (ctypes.c_longlong * 12)(*strides), b, hq, k.shape[1], s,
-            k.shape[2], d, int(causal), window or 0, int(split_p),
-            float(scale), stream_of(q.device))
+            k.shape[2], d, int(causal), window or 0, float(scale),
+            stream_of(q.device))
     _build.check(err, "flash_attention_wgmma_forward")
 
 

@@ -18,10 +18,8 @@ programmatic dependent launch, on one of two routes that the pure
   saves): tables are read in place.
 
 ``launches`` counts the launches and ``launches_by_route`` each route's.
-The first design (``lut_layer_forward`` in ``csrc/lut_kernels.cu``, one
-thread an output) stays for comparison (:func:`_launch_first`); no route
-takes it.  On a CPU tensor ``lut_lookup`` runs ``lut_lookup_plain``, the
-same arithmetic in plain torch.  All keep the Pallas kernel's one-hot
+On a CPU tensor ``lut_lookup`` runs ``lut_lookup_plain``, the same
+arithmetic in plain torch.  All keep the Pallas kernel's one-hot
 semantics: a fan-in index outside the input bus reads 0, and an entry
 outside the table yields 0.
 
@@ -340,15 +338,13 @@ def _layer_args(codes: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
 
 def _launch_layer(codes: torch.Tensor, idx: torch.Tensor,
                   table: torch.Tensor, bw_in: int, out: torch.Tensor,
-                  geom: LayerRoute, *, pdl: int = 1) -> None:
+                  geom: LayerRoute) -> None:
     """``csrc/lut_layer_smem.cu`` on checked operands at ``geom`` (from
-    :func:`lut_layer_route` at ``table.element_size()``), uncounted.
-    ``pdl``: 1 a programmatic dependent launch whose dependents launch once
-    its wait is over (the wrapper's); 0 a plain launch and 2 dependents
-    launched at its start.  ``table`` may also be a uint8 copy of an int32
-    table whose entries all lie in ``[0, 256)``, widened as unsigned.  The
-    other modes and uint8 tables are the sweep's comparisons
-    (``tools/lut_layer_sweep.py``); no route takes them."""
+    :func:`lut_layer_route` at ``table.element_size()``), uncounted: a
+    programmatic dependent launch whose dependents launch once its wait is
+    over.  ``table`` may also be a uint8 copy of an int32 table whose
+    entries all lie in ``[0, 256)``, widened as unsigned: the sweep's
+    comparison (``tools/lut_layer_sweep.py``); no route takes it."""
     dev = codes.device
     with torch.cuda.device(dev):
         err = _build.library().lut_layer_smem_forward(
@@ -356,21 +352,8 @@ def _launch_layer(codes: torch.Tensor, idx: torch.Tensor,
             idx.data_ptr(), idx.shape[0], idx.shape[1], table.data_ptr(),
             table.shape[1], int(table.dtype == torch.uint8), int(bw_in),
             out.data_ptr(), int(geom.route == "smem"), geom.tile_o,
-            geom.tile_b, geom.grid_b, geom.threads, pdl, stream_of(dev))
+            geom.tile_b, geom.grid_b, geom.threads, stream_of(dev))
     _build.check(err, "lut_layer_smem_forward")
-
-
-def _launch_first(codes: torch.Tensor, idx: torch.Tensor,
-                  table: torch.Tensor, bw_in: int, out: torch.Tensor) -> None:
-    """The first design (``lut_layer_forward``, ``csrc/lut_kernels.cu``) on
-    checked operands (an int32 table), uncounted."""
-    dev = codes.device
-    with torch.cuda.device(dev):
-        err = _build.library().lut_layer_forward(
-            codes.data_ptr(), codes.shape[0], codes.shape[1],
-            idx.data_ptr(), idx.shape[0], idx.shape[1], table.data_ptr(),
-            table.shape[1], int(bw_in), out.data_ptr(), stream_of(dev))
-    _build.check(err, "lut_layer_forward")
 
 
 def lut_lookup(codes: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,

@@ -142,7 +142,7 @@ def mesh_free_record(cfg, arch: str, shape_name: str, mesh_name: str,
 def _serving_model(cfg, mesh, policy) -> M.LM:
     params = {n: p.detach() for n, p in S.abstract_params(cfg).items()}
     params = SH.distribute(params, mesh, policy)
-    return M.LM(cfg, M.param_tree(cfg, params))
+    return M.LM(cfg, params)
 
 
 def trace_step(cfg, cell: ShapeCell, mesh, policy, args) -> tuple:
@@ -170,7 +170,7 @@ def trace_step(cfg, cell: ShapeCell, mesh, policy, args) -> tuple:
             batch = SH.distribute_by_specs(
                 specs["batch"], SH.batch_specs(policy, mesh,
                                                specs["batch"]), mesh)
-            arg_bytes = local_bytes(dict(model.named_parameters()), batch)
+            arg_bytes = local_bytes(model.params, batch)
             with torch.no_grad(), flops, coll:
                 S.make_prefill_step(cfg)(model, batch)
         else:
@@ -182,8 +182,7 @@ def trace_step(cfg, cell: ShapeCell, mesh, policy, args) -> tuple:
             toks = {"tokens": specs["tokens"], "pos": specs["pos"]}
             toks = SH.distribute_by_specs(
                 toks, SH.batch_specs(policy, mesh, toks), mesh)
-            arg_bytes = local_bytes(dict(model.named_parameters()), cache,
-                                    toks)
+            arg_bytes = local_bytes(model.params, cache, toks)
             with torch.no_grad(), flops, coll:
                 S.make_decode_step(cfg)(model, cache, toks["tokens"],
                                         toks["pos"])

@@ -93,10 +93,7 @@ def lm_decode(args: argparse.Namespace, cfg=None, model=None,
     ctx = None
     if mesh is not None:
         policy = SH.ShardingPolicy()
-        params = SH.distribute(
-            {n: p.detach() for n, p in model.named_parameters()}, mesh,
-            policy)
-        model = M.LM(cfg, M.param_tree(cfg, params))
+        model = M.LM(cfg, SH.distribute(model.params, mesh, policy))
         cache = SH.distribute_by_specs(
             cache, SH.cache_specs(policy, mesh, cache), mesh)
         ctx = activation_sharding(mesh, SH.activation_rules(policy))

@@ -60,9 +60,8 @@ def make_train_state(cfg: ModelCfg, seed: int = 0, device=None) -> dict:
     in ``abstract_params``' order (the order AdamW sums the gradient norm
     in, so a state restored onto an abstract one steps bit for bit as the
     one it was saved from)."""
-    named = dict(init_params(cfg, seed, device).named_parameters())
-    params = {n: named[n].detach().requires_grad_()
-              for n in M.param_shapes(cfg)}
+    params = {n: p.detach().requires_grad_()
+              for n, p in init_params(cfg, seed, device).params.items()}
     return {"params": params, "opt": init_opt_state(params)}
 
 
@@ -70,8 +69,7 @@ def model_from_state(cfg: ModelCfg, state: dict) -> M.LM:
     """The serving model over a train state's parameters (the same
     storage, detached): what ``make_prefill_step`` and
     ``make_decode_step`` serve after training."""
-    return M.LM(cfg, M.param_tree(cfg, {n: p.detach() for n, p in
-                                        state["params"].items()}))
+    return M.LM(cfg, {n: p.detach() for n, p in state["params"].items()})
 
 
 def restore_model(cfg: ModelCfg, directory: str, device=None

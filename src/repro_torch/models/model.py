@@ -21,8 +21,8 @@ the reference's parameter pytree (``layers.<i>.attn.wq`` is the
 reference's ``layers.attn.wq[i]``, ``ssm_layers.<i>.ssm.in_proj`` its
 ``ssm_layers.ssm.in_proj[i]``; ``shared_attn.*`` is not stacked).
 
-* Serving: :class:`LM` holds one :class:`DecoderLayer` per layer in an
-  ``nn.ModuleList``, float32 master weights that do not require grad.
+* Serving: :class:`LM` holds the float32 master weights as a flat
+  ``{name: tensor}`` dict, tensors that do not require grad.
   :func:`forward` and :func:`decode_step` read matrices cast to
   ``cfg.compute_dtype`` and 1-D leaves (norm scales) in float32, as the
   reference's ``_cast_weights``; the cast copy is made once and kept until
@@ -66,7 +66,6 @@ import collections
 
 import numpy as np
 import torch
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
@@ -101,147 +100,35 @@ def layer_windows(cfg: ModelCfg) -> list[int]:
     return [cfg.sliding_window] * cfg.n_layers
 
 
-def _frozen(tree: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tree.items()})
-
-
-class DecoderLayer(nn.Module):
-    """One decoder layer: ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo[,q_norm,
-    k_norm]}`` and either ``ffn.{wi_gate,wi_up,wo[,mask_in,mask_out]}`` or,
-    in a mixture-of-experts model, ``moe.{router,wi_gate,wi_up,wo}``."""
-
-    def __init__(self, p: dict):
-        super().__init__()
-        self.ln1 = nn.Parameter(p["ln1"], requires_grad=False)
-        self.ln2 = nn.Parameter(p["ln2"], requires_grad=False)
-        self.attn = _frozen(p["attn"])
-        self.ffn_key = "moe" if "moe" in p else "ffn"
-        setattr(self, self.ffn_key, _frozen(p[self.ffn_key]))
-
-    def tree(self) -> dict:
-        return {"ln1": self.ln1, "ln2": self.ln2, "attn": dict(self.attn),
-                self.ffn_key: dict(getattr(self, self.ffn_key))}
-
-
-class EncoderLayer(nn.Module):
-    """One encoder layer (whisper): ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}``
-    and ``ffn.{wi_gate,wi_up,wo}``."""
-
-    def __init__(self, p: dict):
-        super().__init__()
-        self.ln1 = nn.Parameter(p["ln1"], requires_grad=False)
-        self.ln2 = nn.Parameter(p["ln2"], requires_grad=False)
-        self.attn = _frozen(p["attn"])
-        self.ffn = _frozen(p["ffn"])
-
-    def tree(self) -> dict:
-        return {"ln1": self.ln1, "ln2": self.ln2, "attn": dict(self.attn),
-                "ffn": dict(self.ffn)}
-
-
-class CrossDecoderLayer(nn.Module):
-    """One decoder layer of an encoder-decoder (whisper): ``ln1``-``ln3``,
-    self-attention ``attn``, cross-attention ``xattn`` (both
-    ``{wq,wk,wv,wo}``) and ``ffn.{wi_gate,wi_up,wo}``."""
-
-    def __init__(self, p: dict):
-        super().__init__()
-        for key in ("ln1", "ln2", "ln3"):
-            setattr(self, key, nn.Parameter(p[key], requires_grad=False))
-        self.attn = _frozen(p["attn"])
-        self.xattn = _frozen(p["xattn"])
-        self.ffn = _frozen(p["ffn"])
-
-    def tree(self) -> dict:
-        return {"ln1": self.ln1, "ln2": self.ln2, "ln3": self.ln3,
-                "attn": dict(self.attn), "xattn": dict(self.xattn),
-                "ffn": dict(self.ffn)}
-
-
-class SSMLayer(nn.Module):
-    """One SSM layer: ``ln`` and ``ssm.{in_proj,conv_w,conv_b,a_log,d_skip,
-    dt_bias,norm,out_proj}``."""
-
-    def __init__(self, p: dict):
-        super().__init__()
-        self.ln = nn.Parameter(p["ln"], requires_grad=False)
-        self.ssm = _frozen(p["ssm"])
-
-    def tree(self) -> dict:
-        return {"ln": self.ln, "ssm": dict(self.ssm)}
-
-
-class LM(nn.Module):
-    """An LM's float32 master weights: ``embed.{tok[,head]}``,
-    ``final_norm`` and either ``layers`` (decoders), ``ssm_layers`` (SSM
-    stacks) with, in a hybrid, the one ``shared_attn`` layer or, in
-    Zamba2's layout, the ``shared_blocks`` (each a :class:`DecoderLayer`'s
-    leaves, ``ln1`` and q, k, v ``2 * d_model`` wide) and the ``sites``
-    (``linear``, ``lora_a``, ``lora_b``), or an encoder-decoder's
-    ``pos_emb_enc``, ``enc_layers``, ``dec_layers`` and
-    ``enc_final_norm``."""
+class LM:
+    """An LM's float32 master weights: ``params``, the flat ``{name:
+    tensor}`` dict in :func:`param_shapes` order (``embed.tok``,
+    ``final_norm``, ``layers.3.attn.wq``, ...; the tensors themselves,
+    which do not require grad), and ``cfg``.  :meth:`tree` is the nested
+    tree the forward reads (:func:`param_tree`).  Raises ``ValueError``
+    unless the names are :func:`param_shapes`'s."""
 
     def __init__(self, cfg: ModelCfg, params: dict):
-        super().__init__()
+        names = param_shapes(cfg)
+        if params.keys() != names.keys():
+            diff = sorted(set(params) ^ set(names))[:6]
+            raise ValueError(f"{cfg.arch_id}: the parameter names differ "
+                             f"from param_shapes': {diff}")
         self.cfg = cfg
-        self.embed = _frozen(params["embed"])
-        self.final_norm = nn.Parameter(params["final_norm"],
-                                       requires_grad=False)
-        if cfg.is_ssm:
-            self.ssm_layers = nn.ModuleList(SSMLayer(p)
-                                            for p in params["ssm_layers"])
-            if cfg.is_hybrid:
-                self.shared_attn = DecoderLayer(params["shared_attn"])
-            if cfg.has_shared_blocks:
-                self.shared_blocks = nn.ModuleList(
-                    DecoderLayer(p) for p in params["shared_blocks"])
-                self.sites = nn.ModuleList(_frozen(p)
-                                           for p in params["sites"])
-        elif cfg.enc_dec:
-            self.pos_emb_enc = nn.Parameter(params["pos_emb_enc"],
-                                            requires_grad=False)
-            self.enc_layers = nn.ModuleList(EncoderLayer(p)
-                                            for p in params["enc_layers"])
-            self.dec_layers = nn.ModuleList(CrossDecoderLayer(p)
-                                            for p in params["dec_layers"])
-            self.enc_final_norm = nn.Parameter(params["enc_final_norm"],
-                                               requires_grad=False)
-        else:
-            self.layers = nn.ModuleList(DecoderLayer(p)
-                                        for p in params["layers"])
+        self.params = {n: params[n] for n in names}
+        self.device = self.params["final_norm"].device
         self._cast: tuple | None = None
-
-    @property
-    def device(self) -> torch.device:
-        return self.final_norm.device
 
     def tree(self) -> dict:
         """The master weights as the nested tree the forward reads (the
-        tensors themselves): ``LM(other_cfg, model.tree())`` is another
-        view of the same storage, at another compute dtype say."""
-        tree = {"embed": dict(self.embed), "final_norm": self.final_norm}
-        if self.cfg.is_ssm:
-            tree["ssm_layers"] = [layer.tree() for layer in self.ssm_layers]
-            if self.cfg.is_hybrid:
-                tree["shared_attn"] = self.shared_attn.tree()
-            if self.cfg.has_shared_blocks:
-                tree["shared_blocks"] = [b.tree() for b in self.shared_blocks]
-                tree["sites"] = [dict(site) for site in self.sites]
-        elif self.cfg.enc_dec:
-            tree["pos_emb_enc"] = self.pos_emb_enc
-            tree["enc_layers"] = [layer.tree() for layer in self.enc_layers]
-            tree["dec_layers"] = [layer.tree() for layer in self.dec_layers]
-            tree["enc_final_norm"] = self.enc_final_norm
-        else:
-            tree["layers"] = [layer.tree() for layer in self.layers]
-        return tree
+        tensors themselves, not copies)."""
+        return param_tree(self.cfg, self.params)
 
     def compute_params(self) -> dict:
         """The weights as the compute reads them: matrices in
         ``cfg.compute_dtype``, 1-D leaves and ``pos_emb_enc`` in float32.
         Cached; rebuilt when any parameter has been written since."""
-        versions = tuple(p._version for p in self.parameters())
+        versions = tuple(p._version for p in self.params.values())
         if self._cast is None or self._cast[0] != versions:
             with torch.no_grad():
                 self._cast = (versions, _cast_tree(
@@ -388,7 +275,7 @@ def init_params(cfg: ModelCfg, gen: torch.Generator) -> LM:
     ``pos_emb_enc`` normal x 0.01; with the LogicNet-FFN, every
     layer's masks equal (the reference's init draws them once, at seed
     0)."""
-    return LM(cfg, _init_tree(cfg, gen))
+    return LM(cfg, dict(_named_leaves(_init_tree(cfg, gen))))
 
 
 class _MetaGenerator(torch.Generator):
@@ -411,8 +298,8 @@ def _named_leaves(tree, prefix: str = ""):
 
 
 def param_shapes(cfg: ModelCfg) -> dict[str, tuple]:
-    """Every parameter's name (as ``LM.named_parameters`` and
-    :func:`loss_fn` name it) and shape, in the order the init draws them:
+    """Every parameter's name (as ``LM.params`` and :func:`loss_fn` name
+    it) and shape, in the order the init draws them:
     read off the init itself, run on the ``meta`` device (no storage)."""
     return {name: tuple(t.shape)
             for name, t in _named_leaves(_init_tree(cfg, _MetaGenerator()))}
@@ -465,53 +352,20 @@ def param_tree(cfg: ModelCfg, params: dict) -> dict:
     return tree
 
 
-SSM_LEAVES = ("in_proj", "conv_w", "conv_b", "a_log", "d_skip", "dt_bias",
-              "norm", "out_proj")
-
-
-def _attn_names(cfg: ModelCfg, prefix: str) -> list[str]:
-    attn = ["wq", "wk", "wv", "wo"] + (["q_norm", "k_norm"] if cfg.qk_norm
-                                       else [])
-    return [f"{prefix}.{k}" for k in attn]
-
-
-_FFN = ("wi_gate", "wi_up", "wo")
-
-
-def _decoder_layer_names(cfg: ModelCfg, prefix: str) -> list[str]:
-    names = [f"{prefix}.ln1", f"{prefix}.ln2"]
-    names += _attn_names(cfg, f"{prefix}.attn")
-    if cfg.moe is not None:
-        return names + [f"{prefix}.moe.{k}" for k in
-                        ("router", "wi_gate", "wi_up", "wo")]
-    ffn = ["wi_gate", "wi_up", "wo"] + (["mask_in", "mask_out"]
-                                        if cfg.logicnet_ffn is not None
-                                        else [])
-    return names + [f"{prefix}.ffn.{k}" for k in ffn]
-
-
 def reference_names(cfg: ModelCfg) -> list[str]:
     """The flattened names of the reference's parameter pytree for ``cfg``
-    that :func:`from_reference` takes (``layers.*``, ``ssm_layers.*``,
-    ``enc_layers.*`` and ``dec_layers.*`` stacked over layers, a hybrid's
-    ``shared_attn.*`` not)."""
-    names = ["embed.tok", "final_norm"]
-    if not cfg.tie_embeddings:
-        names.append("embed.head")
-    if cfg.enc_dec:
-        names += ["pos_emb_enc", "enc_final_norm", "enc_layers.ln1",
-                  "enc_layers.ln2"] + _attn_names(cfg, "enc_layers.attn")
-        names += [f"enc_layers.ffn.{k}" for k in _FFN]
-        names += [f"dec_layers.ln{i}" for i in (1, 2, 3)]
-        names += (_attn_names(cfg, "dec_layers.attn")
-                  + _attn_names(cfg, "dec_layers.xattn"))
-        return names + [f"dec_layers.ffn.{k}" for k in _FFN]
-    if not cfg.is_ssm:
-        return names + _decoder_layer_names(cfg, "layers")
-    names += ["ssm_layers.ln"] + [f"ssm_layers.ssm.{k}" for k in SSM_LEAVES]
-    if cfg.is_hybrid:
-        names += _decoder_layer_names(cfg, "shared_attn")
-    return names
+    that :func:`from_reference` takes: :func:`param_shapes`' names with the
+    layer index of a stacked list dropped (``layers.3.attn.wq`` is the
+    reference's ``layers.attn.wq``), each once, in order; a hybrid's
+    ``shared_attn.*`` is not stacked.  Raises for Zamba2's layout
+    (``hybrid_layer_ids``), which the reference has no pytree of."""
+    if cfg.has_shared_blocks:
+        raise ValueError(f"{cfg.arch_id}: the reference has no parameter "
+                         f"pytree for Zamba2's layout (hybrid_layer_ids)")
+    names = (name.split(".", 2) for name in param_shapes(cfg))
+    return list(dict.fromkeys(
+        f"{p[0]}.{p[2]}" if p[0] in _STACKED else ".".join(p)
+        for p in names))
 
 
 def from_reference(cfg: ModelCfg, arrays: dict, device=None) -> LM:
@@ -533,26 +387,18 @@ def from_reference(cfg: ModelCfg, arrays: dict, device=None) -> LM:
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
-    tree: dict = {}
+    flat: dict = {}
     for name, a in arrays.items():
-        parts = name.split(".")
-        if parts[0] not in _STACKED:
-            node = tree
-            for key in parts[:-1]:
-                node = node.setdefault(key, {})
-            node[parts[-1]] = t(a)
+        stack, _, rest = name.partition(".")
+        if stack not in _STACKED:
+            flat[name] = t(a)
             continue
-        n = stacked_layers(cfg, parts[0])
+        n = stacked_layers(cfg, stack)
         if a.shape[0] != n:
             raise ValueError(f"{name} stacks {a.shape[0]} layers; "
                              f"{cfg.arch_id} has {n}")
-        layers = tree.setdefault(parts[0], [{} for _ in range(n)])
-        for i, layer in enumerate(layers):
-            node = layer
-            for key in parts[1:-1]:
-                node = node.setdefault(key, {})
-            node[parts[-1]] = t(a[i])
-    return LM(cfg, tree)
+        flat.update((f"{stack}.{i}.{rest}", t(a[i])) for i in range(n))
+    return LM(cfg, flat)
 
 
 def _ffn(p: dict, cfg: ModelCfg, x: torch.Tensor):

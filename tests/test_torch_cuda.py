@@ -11,10 +11,9 @@ byte offsets, slabs whose layout shrinks its tile and one past every
 layout (``global``), at batches 1, 15, 16, 17 and 4096; and both routes
 of the per-layer kernel (``smem`` and ``direct``, ``csrc/
 lut_layer_smem.cu``), forced at the rule's geometry and at small tiles,
-with and without programmatic dependent launch and with tables 4 bytes
-past a 16-byte boundary, on model A's and model D's layers and edge
-cases, beside the first design (``lut_layer_forward``), and a queued
-chain of 48 dependent launches against the plain chain; and the mixed
+as programmatic dependent launches and with tables 4 bytes past a
+16-byte boundary, on model A's and model D's layers and edge cases, and
+a queued chain of 48 dependent launches against the plain chain; and the mixed
 kernel's two routes on what the port's own compiler makes at level 3
 (models A and D, and three seeded random stacks).  The masked
 matmul is held to its plain
@@ -337,25 +336,24 @@ def _shifted(t):
     return view
 
 
-def _layer_direct(x, idx, tab, bw, route, pdl=1, **kw):
+def _layer_direct(x, idx, tab, bw, route, **kw):
     geom = L.lut_layer_route(x.shape[0], x.shape[1], idx.shape[0],
                              idx.shape[1], tab.shape[1],
                              L._sm_count(x.device.index), tab.element_size(),
                              route=route, **kw)
     out = torch.empty((x.shape[0], idx.shape[0]), dtype=torch.int32,
                       device=x.device)
-    L._launch_layer(x, idx, tab, bw, out, geom, pdl=pdl)
+    L._launch_layer(x, idx, tab, bw, out, geom)
     return out
 
 
 @pytest.mark.parametrize("case", LAYER_CASES)
 def test_layer_routes_match_plain(dev, case):
-    """Both routes (forced, at the rule's geometry and at others), the
-    routed wrapper and the first design, each as a programmatic dependent
-    launch (dependents launched after its wait, or at its start) and as a
-    plain launch, with the table 4 bytes past a 16-byte boundary, and on a
-    uint8 copy of the table (also 1 byte past one; the sweep's comparison)
-    where every entry fits a byte: bit for bit the plain version."""
+    """Both routes (forced, at the rule's geometry and at others) and the
+    routed wrapper, as programmatic dependent launches, with the table 4
+    bytes past a 16-byte boundary, and on a uint8 copy of the table (also 1
+    byte past one; the sweep's comparison) where every entry fits a byte:
+    bit for bit the plain version."""
     x_all, idx, tab, bw = _layer_cases()[case]
     idx_d, tab_d = _on(dev, idx, tab)
     tables = {"": tab_d, " shifted": _shifted(tab_d)}
@@ -366,21 +364,18 @@ def test_layer_routes_match_plain(dev, case):
     for batch in LUT_BATCHES + (1000,):
         x = _on(dev, x_all[:batch])[0]
         want = lut_lookup_plain(x, idx_d, tab_d, bw)
-        got = _check(lut_lookup, lambda c: lut_lookup(c, idx_d, tab_d, bw),
-                     lambda c: lut_lookup_plain(c, idx_d, tab_d, bw), x)
-        first = torch.empty_like(got)
-        L._launch_first(x, idx_d, tab_d, bw, first)
-        outs = {"first": first}
-        outs["wrapper shifted"] = lut_lookup(x, idx_d, tables[" shifted"], bw)
+        _check(lut_lookup, lambda c: lut_lookup(c, idx_d, tab_d, bw),
+               lambda c: lut_lookup_plain(c, idx_d, tab_d, bw), x)
+        outs = {"wrapper shifted": lut_lookup(x, idx_d, tables[" shifted"],
+                                              bw)}
         for route in ("smem", "direct"):
             if route == "smem" and L.layer_smem_bytes(
                     x.shape[1], idx.shape[1], tab.shape[1], 1, 1,
                     True) > L.LAYER_SMEM_BYTES:
                 continue
             for name, t in tables.items():
-                for pdl in (1, 0, 2):
-                    outs[f"{route}{name} pdl={pdl}"] = _layer_direct(
-                        x, idx_d, t, bw, route, pdl)
+                outs[f"{route}{name}"] = _layer_direct(x, idx_d, t, bw,
+                                                       route)
             # small tiles: blocks walk several batch tiles (smem)
             outs[f"{route} small tiles"] = _layer_direct(
                 x, idx_d, tab_d, bw, route, tile_o=3, tile_b=5)
@@ -1276,8 +1271,7 @@ def test_moe_and_hybrid_prefill_on_the_card_match_the_cpu(dev, arch,
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     cpu = steps.init_params(cfg, seed=0, device="cpu")
-    card = M.LM(cfg, M.param_tree(cfg, {n: p.to(dev) for n, p in
-                                        cpu.named_parameters()}))
+    card = M.LM(cfg, {n: p.to(dev) for n, p in cpu.params.items()})
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 64)))
     before = flash_attention.launches

@@ -30,7 +30,7 @@ test calls the reference's ``init_params`` at smoke size.  Tolerances:
 
 Prefill is compared only at lengths the config's ``attn_chunk`` divides
 (or below it): where it does not, the reference's chunked attention
-mislabels its ragged last chunk (ROADMAP §3.2), and the port's flash path
+mislabels its ragged last chunk (ROADMAP §3 item 3), and the port's flash path
 computes the true softmax; ``test_ragged_chunk_fault_is_the_references``
 records that.
 """
@@ -504,7 +504,7 @@ def test_loss_and_gradient_norm_match_reference(fx, tool, arch, dtype):
         lambda p: RM.loss_fn(p, rcfg, rbatch)))(_ref_params(fx, arch, tool))
     model = M.from_reference(cfg, _arrays(fx, arch), device="cpu")
     params = {n: p.detach().clone().requires_grad_()
-              for n, p in model.named_parameters()}
+              for n, p in model.params.items()}
     tbatch = {k: torch.from_numpy(v).bfloat16() if v.dtype == np.float32
               else torch.from_numpy(v) for k, v in batch.items()}
     loss = M.loss_fn(params, cfg, tbatch)
@@ -555,7 +555,7 @@ def test_from_reference_round_trips(fx, arch):
     cfg, model = _model(fx, arch, "float32")
     arrays = _arrays(fx, arch)
     assert sorted(arrays) == sorted(M.reference_names(cfg))
-    got = dict(model.named_parameters())
+    got = model.params
     for name, a in arrays.items():
         stack, _, rest = name.partition(".")
         if stack in M._STACKED:
@@ -580,7 +580,7 @@ def test_stacks_are_sized_by_their_own_counts(fx):
     assert sum(n.startswith("dec_layers.") and n.endswith(".ln1")
                for n in shapes) == 2
     model = steps.init_params(cfg, seed=0, device="cpu")
-    params = dict(model.named_parameters())
+    params = model.params
     tree = M.param_tree(cfg, params)
     assert len(tree["enc_layers"]) == 3 and len(tree["dec_layers"]) == 2
     assert tree["enc_layers"][2]["attn"]["wq"] is params[
@@ -595,8 +595,7 @@ def test_stacks_are_sized_by_their_own_counts(fx):
         else:
             arrays[name] = params[name].detach().numpy()
     again = M.from_reference(cfg, arrays, device="cpu")
-    assert all(torch.equal(p, params[n])
-               for n, p in again.named_parameters())
+    assert all(torch.equal(p, params[n]) for n, p in again.params.items())
     with pytest.raises(ValueError, match="stacks 3 layers"):
         M.from_reference(dataclasses.replace(cfg, n_enc_layers=2), arrays,
                          device="cpu")
@@ -669,15 +668,14 @@ def test_port_init_draws_the_new_families(arch):
     seed equal."""
     cfg = PC.get_smoke_config(arch)
     model = steps.init_params(cfg, seed=0, device="cpu")
-    got = dict(model.named_parameters())
+    got = model.params
     assert {n: tuple(t.shape) for n, t in got.items()} == M.param_shapes(cfg)
     if cfg.enc_dec:
         std = float(got["pos_emb_enc"].std())
         assert 0.008 < std < 0.012
         assert torch.equal(got["enc_final_norm"], torch.zeros(cfg.d_model))
     again = steps.init_params(cfg, seed=0, device="cpu")
-    assert all(torch.equal(p, dict(again.named_parameters())[n])
-               for n, p in got.items())
+    assert all(torch.equal(p, again.params[n]) for n, p in got.items())
 
 
 def test_fixture_is_the_references(fx, tool):

@@ -390,7 +390,7 @@ def test_port_init_has_the_reference_names_shapes_and_scales(arch):
                                                jax.random.PRNGKey(0))))
     assert sorted(M.reference_names(cfg)) == sorted(shapes)
     model = steps.init_params(cfg, seed=0, device="cpu")
-    got = dict(model.named_parameters())
+    got = model.params
     for name, shape in shapes.items():
         if name.startswith("layers."):
             stacked = [got[name.replace("layers.", f"layers.{i}.", 1)].shape
@@ -403,11 +403,11 @@ def test_port_init_has_the_reference_names_shapes_and_scales(arch):
     wq = got["layers.0.attn.wq"]
     assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1) < 0.1
     again = steps.init_params(cfg, seed=0, device="cpu")
-    assert torch.equal(again.embed["tok"], model.embed["tok"])
+    assert torch.equal(again.params["embed.tok"], got["embed.tok"])
     carried = M.from_reference(cfg, {n: np.zeros(s, np.float32)
                                      for n, s in shapes.items()},
                                device="cpu")
-    assert sorted(dict(carried.named_parameters())) == sorted(got)
+    assert list(carried.params) == list(got)
 
 
 def test_from_reference_refuses_other_names(tool, ref_params):
@@ -416,6 +416,22 @@ def test_from_reference_refuses_other_names(tool, ref_params):
     arrays["layers.attn.extra"] = arrays["layers.attn.wq"]
     with pytest.raises(ValueError, match="do not match"):
         M.from_reference(cfg, arrays, device="cpu")
+    del arrays["layers.attn.extra"]
+    params = dict(M.from_reference(cfg, arrays, device="cpu").params)
+    del params["final_norm"]
+    with pytest.raises(ValueError, match="final_norm"):
+        M.LM(cfg, params)
+
+
+def test_zamba2_layout_has_no_reference_names():
+    """The reference has no parameter pytree of Zamba2's layout:
+    ``reference_names`` and ``from_reference`` raise naming
+    ``hybrid_layer_ids``."""
+    cfg = PC.get_smoke_config("zamba2-7b")
+    with pytest.raises(ValueError, match="hybrid_layer_ids"):
+        M.reference_names(cfg)
+    with pytest.raises(ValueError, match="hybrid_layer_ids"):
+        M.from_reference(cfg, {}, device="cpu")
 
 
 def test_compute_copy_follows_parameter_writes(tool, ref_params):
@@ -426,11 +442,12 @@ def test_compute_copy_follows_parameter_writes(tool, ref_params):
     assert first["layers"][0]["attn"]["wq"].dtype == torch.bfloat16
     assert first["layers"][0]["ln1"].dtype == torch.float32
     with torch.no_grad():
-        model.layers[0].attn["wq"].mul_(2)
+        model.tree()["layers"][0]["attn"]["wq"].mul_(2)
     again = model.compute_params()
     assert again is not first
     torch.testing.assert_close(again["layers"][0]["attn"]["wq"],
-                               (model.layers[0].attn["wq"]).bfloat16())
+                               model.tree()["layers"][0]["attn"]["wq"]
+                               .bfloat16())
 
 
 # ---------------------------------------------------------------------------
@@ -577,7 +594,7 @@ def test_from_reference_round_trips(moe_ssm, arch):
     arrays = {k[len(pre):]: v for k, v in moe_ssm.items()
               if k.startswith(pre)}
     assert sorted(arrays) == sorted(M.reference_names(cfg))
-    got = dict(model.named_parameters())
+    got = model.params
     for name, a in arrays.items():
         stack, _, rest = name.partition(".")
         if stack in ("layers", "ssm_layers"):
@@ -655,7 +672,7 @@ def test_port_init_draws_the_new_families(arch):
     the same seed equal."""
     cfg = PC.get_smoke_config(arch)
     model = steps.init_params(cfg, seed=0, device="cpu")
-    got = dict(model.named_parameters())
+    got = model.params
     assert {n: tuple(t.shape) for n, t in got.items()} == M.param_shapes(cfg)
     if cfg.moe is not None:
         r = got["layers.0.moe.router"]
@@ -665,8 +682,7 @@ def test_port_init_draws_the_new_families(arch):
         assert torch.equal(got["ssm_layers.1.ssm.d_skip"],
                            torch.ones_like(got["ssm_layers.1.ssm.d_skip"]))
     again = steps.init_params(cfg, seed=0, device="cpu")
-    assert all(torch.equal(p, dict(again.named_parameters())[n])
-               for n, p in got.items())
+    assert all(torch.equal(p, again.params[n]) for n, p in got.items())
     w = model.compute_params()
     key = "layers" if not cfg.is_ssm else "ssm_layers"
     leaf = w[key][0]["moe"]["router"] if cfg.moe is not None else \

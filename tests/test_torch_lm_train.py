@@ -116,7 +116,7 @@ def test_masks_equal_reference_bit_for_bit(ref_params):
     layer, exactly 16 ones a column."""
     _, cfg = _cfgs()
     model = steps.init_params(cfg, seed=3, device="cpu")
-    got = dict(model.named_parameters())
+    got = model.params
     for name in ("mask_in", "mask_out"):
         want = np.asarray(ref_params["layers"]["ffn"][name])
         assert want.shape[0] == cfg.n_layers
@@ -188,9 +188,8 @@ def test_forward_matches_reference(ref_params, compute_dtype):
     got = M.forward(model, {"tokens": torch.from_numpy(tokens)})
     assert got.dtype == getattr(torch, compute_dtype)
     np.testing.assert_allclose(_f32(got), _f32(want), **tol)
-    params = {n: p.detach() for n, p in model.named_parameters()}
-    trained = M.train_forward(params, cfg, {"tokens": torch.from_numpy(
-        tokens)})
+    trained = M.train_forward(model.params, cfg, {
+        "tokens": torch.from_numpy(tokens)})
     np.testing.assert_allclose(_f32(trained), _f32(want), **tol)
     last = steps.make_prefill_step(cfg)(model, {"tokens": torch.from_numpy(
         tokens)})
@@ -234,9 +233,7 @@ def test_gradient_norm_with_mask_gradients_matches_reference(ref_params):
     batch = _batch(cfg)
     rloss, rgrads = jax.jit(jax.value_and_grad(
         lambda p: RM.loss_fn(p, rcfg, batch)))(ref_params)
-    params = _state({n: p for n, p in
-                     _port_model(cfg, ref_params).named_parameters()})[
-                         "params"]
+    params = _state(_port_model(cfg, ref_params).params)["params"]
     loss = M.loss_fn(params, cfg, _torch_batch(batch))
     grads = dict(zip(params, torch.autograd.grad(loss, list(
         params.values()))))
@@ -262,8 +259,7 @@ def test_remat_changes_no_number(ref_params):
     outs = []
     for remat in ("none", "full"):
         _, cfg = _cfgs("bfloat16", remat=remat)
-        params = _state({n: p for n, p in _port_model(
-            cfg, ref_params).named_parameters()})["params"]
+        params = _state(_port_model(cfg, ref_params).params)["params"]
         loss = M.loss_fn(params, cfg, _torch_batch(_batch(cfg)))
         outs.append([loss, *torch.autograd.grad(loss,
                                                 list(params.values()))])
@@ -282,7 +278,7 @@ def five_steps(request, ref_params):
     step = steps.make_train_step(cfg, AdamWCfg(
         lr=LR, weight_decay=0.01, schedule=cosine_schedule(1, STEPS)))
     rstate = {"params": ref_params, "opt": RA.init_opt_state(ref_params)}
-    state = _state(dict(_port_model(cfg, ref_params).named_parameters()))
+    state = _state(_port_model(cfg, ref_params).params)
     rlosses, losses = [], []
     for i in range(STEPS):
         b = _batch(cfg, i)
@@ -347,7 +343,7 @@ def test_non_finite_step_leaves_the_state_bit_identical(ref_params):
     must write nothing: every parameter, moment and the step count stay
     bit for bit."""
     _, cfg = _cfgs("bfloat16")
-    state = _state(dict(_port_model(cfg, ref_params).named_parameters()))
+    state = _state(_port_model(cfg, ref_params).params)
     step = steps.make_train_step(cfg)
     state, _ = step(state, _torch_batch(_batch(cfg, 0)))
     with torch.no_grad():
@@ -464,14 +460,30 @@ def test_abstract_params_match_the_reference(arch):
     assert state["opt"]["step"].dtype == torch.int32
 
 
-def test_abstract_params_are_the_init_names_and_shapes():
-    _, cfg = _cfgs()
+# the zoo's smoke configs, Zamba2's own layout and this module's
+# LogicNet-FFN qwen3
+ZOO = [*PC.ARCH_IDS, "zamba2-7b", "qwen3-1.7b-logicnet"]
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_abstract_params_are_the_init_names_and_shapes(arch):
+    """The init, the train state and the serving model over it hold one
+    layout: ``param_shapes``' names in its order (so AdamW sums the norm
+    alike in a restored state), and ``model_from_state`` the train state's
+    storage itself, not requiring grad."""
+    cfg = (_cfgs()[1] if arch == "qwen3-1.7b-logicnet"
+           else PC.get_smoke_config(arch))
     got = {n: tuple(t.shape) for n, t in steps.abstract_params(cfg).items()}
     model = steps.init_params(cfg, seed=0, device="cpu")
-    assert got == {n: tuple(p.shape) for n, p in model.named_parameters()}
-    # one order, so AdamW sums the norm alike in a restored state
-    assert list(steps.make_train_state(cfg, device="cpu")["params"]) == \
-        list(got)
+    assert list(model.params) == list(M.param_shapes(cfg))
+    assert got == {n: tuple(p.shape) for n, p in model.params.items()}
+    state = steps.make_train_state(cfg, device="cpu")
+    assert list(state["params"]) == list(got)
+    served = steps.model_from_state(cfg, state)
+    assert list(served.params) == list(got)
+    assert all(served.params[n].data_ptr() == p.data_ptr()
+               and not served.params[n].requires_grad
+               for n, p in state["params"].items())
 
 
 @pytest.mark.parametrize("shape", sorted(RC.SHAPES))
@@ -528,7 +540,7 @@ def test_train_and_serve_clis_on_the_cpu(tmp_path, capsys, monkeypatch):
     _, cfg = _cfgs("bfloat16")
     step, model = steps.restore_model(cfg, str(tmp_path), device="cpu")
     assert step == 4 and not any(p.requires_grad
-                                 for p in model.parameters())
+                                 for p in model.params.values())
     with pytest.raises(FileNotFoundError):
         steps.restore_model(cfg, str(tmp_path / "none"), device="cpu")
 
@@ -555,7 +567,7 @@ def test_moe_ssm_loss_and_gradients_match_reference(arch):
         lambda p: (RM.loss_fn(p, rcfg, batch),
                    RM.forward(p, rcfg, batch)[1]), has_aux=True))(ref)
     model = M.from_reference(cfg, _flat(ref), device="cpu")
-    params = _state(dict(model.named_parameters()))["params"]
+    params = _state(model.params)["params"]
     loss = M.loss_fn(params, cfg, _torch_batch(batch))
     _, aux = M.train_forward(params, cfg, _torch_batch(batch), with_aux=True)
     assert (float(raux) > 0) == (cfg.moe is not None)

@@ -143,7 +143,7 @@ def _port_params(cfg, ref_params):
     for path, leaf in tree_flatten_with_path(ref_params)[0]:
         flat[".".join(k.key for k in path)] = np.asarray(leaf)
     model = M.from_reference(cfg, flat, device="cpu")
-    return {n: p.detach().clone() for n, p in model.named_parameters()}
+    return {n: p.detach().clone() for n, p in model.params.items()}
 
 
 def test_logicnet_mask_fn_resolves_the_reference_leaves(smoke_logicnet):

@@ -79,9 +79,7 @@ with torch.no_grad():
         logits = prefill(model, batch)
     else:
         policy = SH.ShardingPolicy()
-        params = SH.distribute({n: p.detach() for n, p in
-                                model.named_parameters()}, mesh, policy)
-        model = M.LM(cfg, M.param_tree(cfg, params))
+        model = M.LM(cfg, SH.distribute(model.params, mesh, policy))
         batch = SH.distribute_by_specs(
             batch, SH.batch_specs(policy, mesh, batch), mesh)
         with activation_sharding(mesh, SH.activation_rules(policy)):

@@ -291,7 +291,7 @@ def test_whisper_training_through_a_ragged_chunk_matches_the_reference():
     flat = {".".join(k.key for k in path): np.asarray(leaf)
             for path, leaf in tree_flatten_with_path(ref)[0]}
     params = {n: t.detach().clone().requires_grad_() for n, t in
-              M.from_reference(cfg, flat, device="cpu").named_parameters()}
+              M.from_reference(cfg, flat, device="cpu").params.items()}
     loss = M.loss_fn(params, cfg, batch)
     grads = dict(zip(params, torch.autograd.grad(loss, list(
         params.values()))))
@@ -317,8 +317,8 @@ def test_logicnet_masks_equal_the_reference_bit_for_bit(arch):
     cfg = dataclasses.replace(PC.get_smoke_config(arch),
                               logicnet_ffn=LogicNetFFNCfg())
     ref = RM.init_params(rcfg, jax.random.PRNGKey(0))
-    got = {n: p.detach().numpy() for n, p in steps.init_params(
-        cfg, seed=3, device="cpu").named_parameters()}
+    got = {n: p.numpy() for n, p in steps.init_params(
+        cfg, seed=3, device="cpu").params.items()}
     for leaf in ("mask_in", "mask_out"):
         if cfg.is_hybrid:
             want = np.asarray(ref["shared_attn"]["ffn"][leaf])

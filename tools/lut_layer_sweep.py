@@ -13,19 +13,15 @@ directly (uncounted), over: the tables' entry type (int32 as stored, or a
 uint8 copy), the route (``smem``: tables staged in shared memory;
 ``direct``: read in place; both from ``csrc/lut_layer_smem.cu``), neurons
 a tile (``TILE_O``, as a cap: a layer takes fewer where its tables do not
-fit) and rows a batch tile (``TILE_B``), with programmatic dependent
-launch; then, in turns (first design, rule, rule on uint8 tables, rule
-without PDL, rule with the dependents launched at the kernel's start, and
-back), the routes the rule picks (``lut_layer_route``) against the first
-design (``lut_layer_forward`` in ``csrc/lut_kernels.cu``).  Every
-configuration's output is checked bit for bit against the plain chain
-first.  Each reading is device-paced
+fit) and rows a batch tile (``TILE_B``); then, in turns (rule, rule on
+uint8 tables, and back), the routes the rule picks (``lut_layer_route``).
+Every configuration's output is checked bit for bit against the plain
+chain first.  Each reading is device-paced
 (``chip_smoke.paced_ms``: a spin kernel holds the stream while the host
 queues 50 forwards, CUDA events bracket them; ms a forward, gaps between
-kernels included, median of 5).  Last, the host's cost of one wrapper
-call at batch 16 (microseconds of host clock while a spin kernel holds
-the stream), the routed ``lut_lookup`` against the first design behind
-the same checks, in turns.
+kernels included, median of 5).  Last, the host's cost of one
+``lut_lookup`` call at batch 16 (microseconds of host clock while a spin
+kernel holds the stream), twice.
 
 Then the MNIST widths (``--only mnist`` runs this part alone): the
 layers of Table 7.1's widest MLP (784 -> 2048 and 2048 -> 2048 at fan-in
@@ -196,22 +192,19 @@ def main() -> None:
         models[name] = (torch.from_numpy(ref["codes"]).to(dev), layers,
                         layers8)
 
-    def chain(layers, route, pdl=1, tile_o=None, tile_b=None):
+    def chain(layers, route, tile_o=None, tile_b=None):
         """A forward with every launch called directly: ``route`` "smem" or
-        "direct" (forced, at the caps given), "rule" or "first"."""
+        "direct" (forced, at the caps given) or "rule"."""
         def call(c):
             for idx, tab, bw in layers:
                 out = torch.empty((c.shape[0], idx.shape[0]),
                                   dtype=torch.int32, device=dev)
-                if route == "first":
-                    L._launch_first(c, idx, tab, bw, out)
-                else:
-                    geom = L.lut_layer_route(
-                        c.shape[0], c.shape[1], idx.shape[0], idx.shape[1],
-                        tab.shape[1], sms, tab.element_size(),
-                        route=None if route == "rule" else route,
-                        tile_o=tile_o, tile_b=tile_b)
-                    L._launch_layer(c, idx, tab, bw, out, geom, pdl=pdl)
+                geom = L.lut_layer_route(
+                    c.shape[0], c.shape[1], idx.shape[0], idx.shape[1],
+                    tab.shape[1], sms, tab.element_size(),
+                    route=None if route == "rule" else route,
+                    tile_o=tile_o, tile_b=tile_b)
+                L._launch_layer(c, idx, tab, bw, out, geom)
                 c = out
             return c
         return call
@@ -254,15 +247,10 @@ def main() -> None:
                                       tab.shape[1], sms)
                 used.append(g._asdict())
                 n_in = idx.shape[0]
-            fns = {"first": chain(layers, "first"),
-                   "rule": chain(layers, "rule"),
-                   "rule_uint8": chain(layers8, "rule"),
-                   "rule_no_pdl": chain(layers, "rule", pdl=0),
-                   "rule_trigger_first": chain(layers, "rule", pdl=2)}
+            fns = {"rule": chain(layers, "rule"),
+                   "rule_uint8": chain(layers8, "rule")}
             turns = {k: [] for k in fns}
-            for k in ("first", "rule", "rule_uint8", "rule_no_pdl",
-                      "rule_trigger_first", "rule_trigger_first",
-                      "rule_no_pdl", "rule_uint8", "rule", "first"):
+            for k in ("rule", "rule_uint8", "rule_uint8", "rule"):
                 turns[k].append(reading(fns[k], k))
             key = f"{name}_b{b}"
             result["grid"][key] = grid
@@ -282,16 +270,9 @@ def main() -> None:
         codes = codes_all[:16].contiguous()
         idx, tab, bw = layers[1]
         x = plain(layers[:1], codes).contiguous()
-
-        def first_wrapped():
-            out = L._layer_args(x, idx, tab, "lut_lookup")
-            L._launch_first(x, idx, tab, bw, out)
-
-        turns = {"routed": [], "first": []}
-        for k in ("first", "routed", "routed", "first"):
-            turns[k].append(host_us(
-                torch, cs, first_wrapped if k == "first"
-                else (lambda: L.lut_lookup(x, idx, tab, bw))))
+        turns = {"routed": [host_us(torch, cs,
+                                    lambda: L.lut_lookup(x, idx, tab, bw))
+                            for _ in range(2)]}
         result["host_us"][name] = turns
         print(f"model {name} layer 1 batch 16: host us a wrapper call: "
               + " ".join(f"{k} {statistics.mean(v):.2f} ({v})"
